@@ -1,0 +1,157 @@
+"""Weights between the JAX package and the port.
+
+``load_flax_variables`` fills a port module from the flax variable trees of
+its JAX counterpart, given as nested dicts of numpy arrays (what
+``jax.tree.map(np.asarray, variables)`` gives). It is strict: a flax leaf
+that nothing takes, or a port tensor that nothing fills, raises.
+
+``init_weights`` initialises a port module as flax would: lecun-normal
+kernels (a normal truncated at ±2σ, rescaled to unit variance over fan-in),
+zero biases, unit norm scales, and the special initial values of
+``LearnedFusion`` and ``FMRIFusionNet``. The numbers come from an explicit
+CPU ``torch.Generator``, so one seed gives the same weights on every device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from multimodal_eeg_fmri_tpu_torch.models.encoders import MultiScaleConv
+from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet
+from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
+
+# flax's truncated_normal initialisers divide by this: the std of a unit
+# normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def _leaves(tree: Mapping, prefix: str) -> set:
+    out = set()
+    for k, v in tree.items():
+        path = f"{prefix}/{k}"
+        out |= _leaves(v, path) if isinstance(v, Mapping) else {path}
+    return out
+
+
+class _Loader:
+    def __init__(self):
+        self.used: set = set()
+        self.filled: set = set()
+
+    def take(self, tree: Mapping, key: str, path: str) -> np.ndarray:
+        if tree is None or key not in tree:
+            raise ValueError(f"flax variables have no leaf {path}/{key}")
+        self.used.add(f"{path}/{key}")
+        return np.asarray(tree[key])
+
+    def put(self, tensor: torch.Tensor, value: np.ndarray, name: str):
+        if tuple(value.shape) != tuple(tensor.shape):
+            raise ValueError(f"{name}: flax shape {value.shape} != port "
+                             f"shape {tuple(tensor.shape)}")
+        with torch.no_grad():
+            tensor.copy_(torch.from_numpy(np.array(value)))
+        self.filled.add(name)
+
+    def fill(self, module: nn.Module, p: Optional[Mapping],
+             s: Optional[Mapping], ppath: str, spath: str, name: str):
+        def take_p(key):
+            return self.take(p, key, ppath)
+
+        if isinstance(module, nn.Linear):
+            k = take_p("kernel").reshape(module.in_features,
+                                         module.out_features)
+            self.put(module.weight, k.T, f"{name}weight")
+            self.put(module.bias, take_p("bias").reshape(-1), f"{name}bias")
+            return
+        if isinstance(module, nn.Conv1d):
+            # flax (K, Cin, Cout) → torch (Cout, Cin, K)
+            self.put(module.weight, take_p("kernel").transpose(2, 1, 0),
+                     f"{name}weight")
+            self.put(module.bias, take_p("bias"), f"{name}bias")
+            return
+        if isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
+            self.put(module.weight, take_p("scale"), f"{name}weight")
+            self.put(module.bias, take_p("bias"), f"{name}bias")
+            if isinstance(module, nn.BatchNorm1d):
+                self.put(module.running_mean, self.take(s, "mean", spath),
+                         f"{name}running_mean")
+                self.put(module.running_var, self.take(s, "var", spath),
+                         f"{name}running_var")
+            return
+        for key, param in module.named_parameters(recurse=False):
+            self.put(param, take_p(key), f"{name}{key}")
+        for key, child in module.named_children():
+            if not child.state_dict():  # dropout, pooling: nothing to fill
+                continue
+            self.fill(child, None if p is None else p.get(key),
+                      None if s is None else s.get(key),
+                      f"{ppath}/{key}", f"{spath}/{key}", f"{name}{key}.")
+
+
+def load_flax_variables(module: nn.Module, params: Mapping,
+                        batch_stats: Optional[Mapping] = None) -> nn.Module:
+    """Fill ``module``'s parameters and buffers from flax ``params`` and
+    ``batch_stats``; returns the module."""
+    loader = _Loader()
+    loader.fill(module, params, batch_stats, "params", "batch_stats", "")
+    unused = (_leaves(params, "params")
+              | _leaves(batch_stats or {}, "batch_stats")) - loader.used
+    if unused:
+        raise ValueError(f"flax leaves not used by the port: {sorted(unused)}")
+    unfilled = {k for k in module.state_dict()
+                if not k.endswith("num_batches_tracked")} - loader.filled
+    if unfilled:
+        raise ValueError(f"port tensors not filled: {sorted(unfilled)}")
+    return module
+
+
+def _lecun_normal(tensor: torch.Tensor, fan_in: int,
+                  generator: torch.Generator):
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    sample = torch.empty(tensor.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(sample, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+    tensor.copy_(sample)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every parameter and norm buffer of ``module`` as flax
+    does; returns the module."""
+    done = set()
+    for sub in module.modules():
+        own = dict(sub.named_parameters(recurse=False))
+        if isinstance(sub, nn.Linear):
+            _lecun_normal(sub.weight, sub.in_features, generator)
+            sub.bias.zero_()
+        elif isinstance(sub, nn.Conv1d):
+            _lecun_normal(sub.weight, sub.weight[0].numel(), generator)
+            sub.bias.zero_()
+        elif isinstance(sub, (nn.LayerNorm, nn.BatchNorm1d)):
+            sub.weight.fill_(1.0)
+            sub.bias.zero_()
+            if isinstance(sub, nn.BatchNorm1d):
+                sub.reset_running_stats()
+        elif isinstance(sub, MultiScaleConv):
+            _lecun_normal(sub.kernel, sub.kernel.shape[0] * sub.kernel.shape[1],
+                          generator)
+            sub.bias.zero_()
+        elif isinstance(sub, LearnedFusion):
+            sub.fusion_logits.fill_(1.0)
+            if sub.temperature is not None:
+                sub.temperature.fill_(sub.init_temperature)
+        elif isinstance(sub, FMRIFusionNet):
+            sub.activation_weight.fill_(0.5)
+            sub.connectivity_weight.fill_(0.5)
+        elif own:
+            raise TypeError(f"init_weights does not know {type(sub).__name__}")
+        done |= {id(p) for p in own.values()}
+    missed = [n for n, p in module.named_parameters() if id(p) not in done]
+    if missed:
+        raise TypeError(f"parameters left uninitialised: {missed}")
+    return module
