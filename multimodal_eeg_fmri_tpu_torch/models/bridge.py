@@ -12,6 +12,7 @@ from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
 from multimodal_eeg_fmri_tpu_torch.models.layers import (
     MultiHeadAttention,
     gelu,
+    model_device,
 )
 
 
@@ -29,12 +30,14 @@ class _Proj(nn.Module):
 
 
 class BridgeFusionNet(nn.Module):
-    """Cross-modality bridge classifier over the two fused embeddings."""
+    """Cross-modality bridge classifier over the two fused embeddings.
+    Builds on the GPU unless ``device`` says otherwise."""
 
     def __init__(self, eeg_dim: int = 128, fmri_dim: int = 64,
                  bridge_dim: int = 128, num_classes: int = 2,
-                 num_heads: int = 4, dropout: float = 0.3, device=None):
+                 num_heads: int = 4, dropout: float = 0.3, device="cuda"):
         super().__init__()
+        device = model_device(device)
         self.dropout = dropout
         self.eeg_proj = _Proj(eeg_dim, bridge_dim, dropout, device)
         self.fmri_proj = _Proj(fmri_dim, bridge_dim, dropout, device)

@@ -17,6 +17,7 @@ from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
 from multimodal_eeg_fmri_tpu_torch.models.layers import (
     ClassifierHead,
     MultiHeadAttention,
+    model_device,
 )
 
 
@@ -31,14 +32,15 @@ class ModelOutput(NamedTuple):
 
 class TriModalFusionNetV4(nn.Module):
     """ERP + PW + CONN tri-modal net with cross-modal attention and learned
-    fusion."""
+    fusion. Builds on the GPU unless ``device`` says otherwise."""
 
     def __init__(self, hidden_dim: int = 128, num_classes: int = 2,
                  dropout: float = 0.3, num_transformer_layers: int = 2,
                  num_heads: int = 4, erp_channels: int = 18,
                  pw_channels: int = 75, conn_features: int = 459,
-                 device=None):
+                 device="cuda"):
         super().__init__()
+        device = model_device(device)
         self.erp_encoder = ERPEncoder(erp_channels, hidden_dim,
                                       num_transformer_layers, num_heads,
                                       dropout, device)

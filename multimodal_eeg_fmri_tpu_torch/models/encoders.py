@@ -34,7 +34,7 @@ class ConvBNBlock(nn.Module):
         self.bn = batch_norm(features, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # BatchNorm1d on (B, C, T) normalises over batch and time, as flax
+        # BatchNorm on (B, C, T) normalises over batch and time, as flax
         # does over every axis but the last
         x = gelu(self.bn(self.conv(x.transpose(1, 2)))).transpose(1, 2)
         return F.dropout(x, self.dropout, self.training)

@@ -8,7 +8,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_eeg_fmri_tpu_torch.models.eeg import ModelOutput
-from multimodal_eeg_fmri_tpu_torch.models.layers import MLP
+from multimodal_eeg_fmri_tpu_torch.models.layers import MLP, model_device
 
 
 class FMRIEncoder(nn.Module):
@@ -45,13 +45,15 @@ class _Head(nn.Module):
 
 class FMRIFusionNet(nn.Module):
     """Two encoders, a softmaxed pair of learned scalar weights, concat →
-    fuse MLP → head. ``fused`` is the pre-head fusion embedding."""
+    fuse MLP → head. ``fused`` is the pre-head fusion embedding. Builds on
+    the GPU unless ``device`` says otherwise."""
 
     def __init__(self, hidden_dim: int = 64, num_classes: int = 2,
                  dropout: float = 0.4, task: str = "classification",
                  activation_features: int = 90,
-                 connectivity_features: int = 64, device=None):
+                 connectivity_features: int = 64, device="cuda"):
         super().__init__()
+        device = model_device(device)
         self.activation_encoder = FMRIEncoder(activation_features, hidden_dim,
                                               dropout, device)
         self.connectivity_encoder = FMRIEncoder(connectivity_features,

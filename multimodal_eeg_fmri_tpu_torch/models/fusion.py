@@ -15,13 +15,16 @@ from multimodal_eeg_fmri_tpu_torch.models.layers import gelu
 class LearnedFusion(nn.Module):
     """Weighted sum of modality embeddings of width ``hidden_dim``:
     weights = 0.5·softmax(static_logits/T) + 0.5·softmax(gate(x_concat)/T).
-    Returns (fused, combined_weights)."""
+    Returns (fused, combined_weights). The gate's dropout rate in training
+    is the reference's fixed 0.2 whatever the model's ``dropout``;
+    ``gate_dropout`` = 0 makes a train-mode forward deterministic."""
 
     def __init__(self, num_modalities: int, hidden_dim: int,
                  use_temperature: bool = True, init_temperature: float = 1.0,
                  device=None):
         super().__init__()
         self.num_modalities = num_modalities
+        self.gate_dropout = 0.2
         self.fusion_logits = nn.Parameter(torch.ones(num_modalities,
                                                      device=device))
         self.temperature = nn.Parameter(torch.tensor(
@@ -40,7 +43,7 @@ class LearnedFusion(nn.Module):
         temp = self.temperature if self.temperature is not None else 1.0
         static_w = torch.softmax(self.fusion_logits / temp, dim=-1)
         gate = gelu(self.gate1(torch.cat(tuple(feats), dim=-1)))
-        gate = self.gate2(F.dropout(gate, 0.2, self.training))
+        gate = self.gate2(F.dropout(gate, self.gate_dropout, self.training))
         dynamic_w = torch.softmax(gate / temp, dim=-1)  # (B, M)
         combined = 0.5 * static_w[None] + 0.5 * dynamic_w
         fused = (stacked * combined[..., None]).sum(dim=1)

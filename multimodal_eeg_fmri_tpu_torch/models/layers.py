@@ -34,10 +34,52 @@ def sinusoidal_position_encoding(length: int, d_model: int, device=None,
     return pe.to(dtype)
 
 
-def batch_norm(d: int, device=None) -> nn.BatchNorm1d:
-    """BatchNorm with flax's defaults: eps 1e-5, flax momentum 0.99 (torch
-    counts momentum the other way round)."""
-    return nn.BatchNorm1d(d, eps=1e-5, momentum=0.01, device=device)
+def model_device(device) -> torch.device:
+    """The device a public model builds on. The port's models default to
+    the card; without one that default raises instead of building on the
+    CPU, which a caller must ask for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's models build on the GPU by default; "
+            "pass device='cpu' to build on the CPU")
+    return device
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """``flax.linen.BatchNorm`` with its defaults, on (B, C) or (B, C, T).
+
+    Training mode normalises with the batch mean and the biased variance
+    over every axis but the features, computed as flax does
+    (E[x²] − E[x]², clipped at 0), with ε = 1e-5, and updates
+    ``running = 0.99·running + 0.01·batch`` for both mean and variance.
+    (``nn.BatchNorm1d`` would put the unbiased variance into
+    ``running_var``.) Eval mode is ``nn.BatchNorm1d``'s, on the running
+    statistics. The buffer names are torch's, so that
+    ``convert.load_flax_variables`` maps ``batch_stats`` one to one."""
+
+    def __init__(self, num_features: int, device=None):
+        super().__init__(num_features, eps=1e-5, momentum=0.01, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        axes = [0, *range(2, x.dim())]
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        mean = xf.mean(axes)
+        var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(0.99).add_(0.01 * mean)
+            self.running_var.mul_(0.99).add_(0.01 * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+def batch_norm(d: int, device=None) -> BatchNorm:
+    """The port's BatchNorm (flax's defaults and training-mode update)."""
+    return BatchNorm(d, device=device)
 
 
 class PositionalEncoding(nn.Module):

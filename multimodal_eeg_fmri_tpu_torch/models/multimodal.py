@@ -14,10 +14,12 @@ from multimodal_eeg_fmri_tpu_torch.models.eeg import (
     TriModalFusionNetV4,
 )
 from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet
+from multimodal_eeg_fmri_tpu_torch.models.layers import model_device
 
 
 class MultimodalEndToEnd(nn.Module):
-    """EEG tri-modal encoder + fMRI fusion encoder + bridge head."""
+    """EEG tri-modal encoder + fMRI fusion encoder + bridge head. Builds on
+    the GPU unless ``device`` says otherwise."""
 
     def __init__(self, eeg_hidden_dim: int = 128, fmri_hidden_dim: int = 64,
                  bridge_dim: int = 128, num_classes: int = 2,
@@ -25,8 +27,9 @@ class MultimodalEndToEnd(nn.Module):
                  num_heads: int = 4, freeze_encoders: bool = False,
                  erp_channels: int = 18, pw_channels: int = 75,
                  conn_features: int = 459, activation_features: int = 90,
-                 connectivity_features: int = 64, device=None):
+                 connectivity_features: int = 64, device="cuda"):
         super().__init__()
+        device = model_device(device)
         self.freeze_encoders = freeze_encoders
         self.eeg = TriModalFusionNetV4(
             eeg_hidden_dim, num_classes, dropout, num_transformer_layers,

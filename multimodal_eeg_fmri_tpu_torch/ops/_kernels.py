@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` at first use into one
-shared library with a plain C interface, loaded with ``ctypes``. The library
+The sources under ``csrc/`` are compiled by ``nvcc`` at first use, one
+process per source, all started together, and linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The library
 goes to ``build/kernels/`` beside the package and its file name carries a hash
 of the sources and flags, so a changed source builds anew and an unchanged
 one is loaded as it is. Nothing here runs when the module is imported.
@@ -20,8 +21,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 def _sources() -> list[Path]:
@@ -40,11 +42,26 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmmef_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the output of any that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> Path:
@@ -53,17 +70,17 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: concurrent builders never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    # build under a private directory, then rename: concurrent builders
+    # never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = [src for src in _sources() if src.suffix == ".cu"]
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in units]
+        _run([[nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(src)]
+              for obj, src in zip(objs, units)])
+        lib = str(Path(tmp) / out.name)
+        _run([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 
@@ -75,4 +92,11 @@ def library() -> ctypes.CDLL:
     lib.mmef_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                    ctypes.POINTER(ctypes.c_int64), p]
     lib.mmef_flash_fwd.restype = i
+    strides = ctypes.POINTER(ctypes.c_int64)
+    # q, k, v, dO, lse, delta, dK, dV, B, H, Tq, Tk, D, is_bf16, bf16_ops
+    lib.mmef_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [strides, p]
+    lib.mmef_flash_bwd_dkv.restype = i
+    # q, k, v, dO, lse, delta, dQ, B, H, Tq, Tk, D, is_bf16, bf16_ops
+    lib.mmef_flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [strides, p]
+    lib.mmef_flash_bwd_dq.restype = i
     return lib

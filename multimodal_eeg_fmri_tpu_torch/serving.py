@@ -14,9 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-# input keys that are labels or bookkeeping, never model inputs (the same
-# tuple as the JAX package's train/fit.py)
-RESERVED_KEYS = ("label", "reg_label", "weight", "subject")
+from multimodal_eeg_fmri_tpu_torch.train.fit import RESERVED_KEYS
 
 
 class Predictor:

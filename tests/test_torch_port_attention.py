@@ -88,12 +88,12 @@ def test_reference_attention_matches_jax_with_mask():
 @pytest.mark.parametrize("tq,tk", [(16, 40), (16, 256), (300, 8)])
 def test_attention_dispatch_on_cpu(tq, tk):
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, tq, tk, 16, seed=5))
-    before = port_attn.flash_attention.launches
+    before = port_attn.kernel_launches()
     out = port_attn.attention(q, k, v)
     ref = port_attn.reference_attention(q, k, v)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     # the CPU runs the plain math: no kernel launch is counted
-    assert port_attn.flash_attention.launches == before
+    assert port_attn.kernel_launches() == before
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
@@ -103,8 +103,13 @@ def test_cuda_wrapper_rejects_cpu_tensors():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, multimodal_eeg_fmri_tpu_torch, "
-            "multimodal_eeg_fmri_tpu_torch.ops._kernels\n"
+    code = ("import sys, chip_smoke, multimodal_eeg_fmri_tpu_torch, "
+            "multimodal_eeg_fmri_tpu_torch.ops._kernels, "
+            "multimodal_eeg_fmri_tpu_torch.ops.augment, "
+            "multimodal_eeg_fmri_tpu_torch.ops.losses, "
+            "multimodal_eeg_fmri_tpu_torch.core.config, "
+            "multimodal_eeg_fmri_tpu_torch.report.metrics, "
+            "multimodal_eeg_fmri_tpu_torch.train.fit\n"
             "bad = [m for m in ('jax', 'flax', 'optax', "
             "'multimodal_eeg_fmri_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")

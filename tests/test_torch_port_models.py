@@ -42,6 +42,8 @@ port_attn = importlib.import_module(
 
 NARROW = dict(eeg_hidden_dim=32, fmri_hidden_dim=16, bridge_dim=32,
               num_transformer_layers=1, num_heads=2)
+# the port's public models build on the GPU unless asked for the CPU
+CPU = dict(device="cpu")
 
 
 def _perturb(tree, r):
@@ -219,7 +221,7 @@ MODULE_CASES = {
         j_fmri._Head(16, 2, 0.0, "regression"),
         t_fmri._Head(16, 2, 0.0, "regression"), (_x(4, 16),), {}, 1e-5),
     "fmri_fusion_net": lambda: (j_fmri.FMRIFusionNet(16),
-                                t_fmri.FMRIFusionNet(16),
+                                t_fmri.FMRIFusionNet(16, **CPU),
                                 (), {"activation": _x(4, 90),
                                      "connectivity": _x(4, 64, seed=1)},
                                 1e-4),
@@ -227,11 +229,11 @@ MODULE_CASES = {
                             (_x(4, 20),), {}, 1e-5),
     "bridge_fusion_net": lambda: (
         j_bridge.BridgeFusionNet(32, 16, 32, num_heads=2),
-        t_bridge.BridgeFusionNet(32, 16, 32, num_heads=2),
+        t_bridge.BridgeFusionNet(32, 16, 32, num_heads=2, **CPU),
         (), {"eeg": _x(4, 32), "fmri": _x(4, 16, seed=1)}, 1e-4),
     "trimodal_v4": lambda: (
         JTri(32, num_transformer_layers=1, num_heads=2),
-        TTri(32, num_transformer_layers=1, num_heads=2),
+        TTri(32, num_transformer_layers=1, num_heads=2, **CPU),
         (), {k: v for k, v in _e2e_inputs(3, 64).items()
              if k in ("erp", "pw", "conn")}, 1e-4),
 }
@@ -267,7 +269,7 @@ def test_multimodal_end_to_end_matches_jax(flash_calls, T, flash):
     """T=64 stays on the einsum route; at T=512 both temporal encoders'
     self-attention takes the flash route (one layer each here)."""
     inputs = _e2e_inputs(3, T)
-    fmod, tmod = JE2E(**NARROW), TE2E(**NARROW)
+    fmod, tmod = JE2E(**NARROW), TE2E(**NARROW, **CPU)
     # weights do not depend on T: initialise at a short epoch
     variables = _transfer(fmod, tmod, (), _e2e_inputs(3, 32))
     flash_calls.update(jax=0, port=0)
@@ -281,7 +283,8 @@ def test_multimodal_end_to_end_matches_jax(flash_calls, T, flash):
 
 def test_conv_bn_train_mode_matches_jax():
     """Training-mode BatchNorm: batch statistics over (batch, time) and
-    flax's momentum 0.99 on the running mean."""
+    flax's momentum 0.99 on the running mean and on the running variance,
+    which flax updates with the biased batch variance."""
     x = _x(3, 40, 6)
     fmod, tmod = j_enc.ConvBNBlock(16, 5), t_enc.ConvBNBlock(6, 16, 5)
     variables = _transfer(fmod, tmod, (x,), {})
@@ -291,6 +294,9 @@ def test_conv_bn_train_mode_matches_jax():
     _assert_close(out, ref, 1e-5)
     np.testing.assert_allclose(tmod.bn.running_mean.numpy(),
                                np.asarray(upd["batch_stats"]["bn"]["mean"]),
+                               atol=1e-6)
+    np.testing.assert_allclose(tmod.bn.running_var.numpy(),
+                               np.asarray(upd["batch_stats"]["bn"]["var"]),
                                atol=1e-6)
 
 
@@ -341,7 +347,7 @@ def test_load_flax_variables_is_strict():
 
 
 def test_init_weights_follows_flax_initialisers():
-    model = TE2E(**NARROW)
+    model = TE2E(**NARROW, **CPU)
     a = init_weights(model, torch.Generator().manual_seed(3))
     sd = {k: v.clone() for k, v in a.state_dict().items()}
     init_weights(model, torch.Generator().manual_seed(3))
@@ -360,7 +366,7 @@ def test_init_weights_follows_flax_initialisers():
 
 
 def test_freeze_encoders_detaches_embeddings():
-    model = init_weights(TE2E(**NARROW, freeze_encoders=True),
+    model = init_weights(TE2E(**NARROW, freeze_encoders=True, **CPU),
                          torch.Generator().manual_seed(0)).eval()
     out = model(**_to_torch(_e2e_inputs(2, 32)))
     out.logits.sum().backward()

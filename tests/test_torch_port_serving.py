@@ -47,7 +47,7 @@ def models():
                          np.asarray(v) + 0.05 * r.standard_normal(
                              np.shape(v)).astype(np.float32)),
         variables)
-    port = load_flax_variables(MultimodalEndToEnd(**NARROW),
+    port = load_flax_variables(MultimodalEndToEnd(**NARROW, device="cpu"),
                                variables["params"], variables["batch_stats"])
     return jmodel, variables, port
 
@@ -105,7 +105,7 @@ def test_temperature_must_be_positive(models):
 
 
 def test_benchmark_on_cpu_reports_percentiles():
-    model = init_weights(MultimodalEndToEnd(**NARROW),
+    model = init_weights(MultimodalEndToEnd(**NARROW, device="cpu"),
                          torch.Generator().manual_seed(0))
     stats = Predictor(model, batch_size=2).benchmark(_inputs(2, T=16),
                                                      warmup=1, iters=3)
