@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Builds the port's CUDA kernels from the sources in this checkout and holds
-each against its plain PyTorch version on the card: K1, the flash forward,
+Builds the port's CUDA kernels from the sources in this checkout, prints
+each kernel instance's registers and spills (``nvcc -Xptxas -v``) and its
+tensor-core instructions (``HMMA`` in ``cuobjdump -sass``), and holds each
+kernel against its plain PyTorch version on the card: K1, the flash forward,
 and K2 and K3, the flash backward (dK/dV and dQ). Then it drives the port's
 two paths at the full default width of MultimodalEndToEnd with 2-second
 epochs (T=512, where all four temporal self-attention layers take the flash
@@ -10,7 +12,9 @@ kernels): serving through ``Predictor``, and training through
 launch counts set to 0 just before it and read just after. It checks the
 results, compares one train step of the kernel route with the einsum route
 and with the CPU path, checks that bench.py's own step (T=250, dropout 0.3)
-launches no backward kernel, and times the kernels and the steps. Any failed
+launches no backward kernel, and times the kernels (CUDA events around a
+loop of calls, and the device time of their launches from torch.profiler)
+and the steps. Any failed
 phase raises, so the exit code is not 0 and the final line is not printed.
 There is no CPU mode: without a GPU the script fails at once.
 
@@ -20,11 +24,15 @@ Last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -41,9 +49,14 @@ STEP_GRAD_RTOL = 1e-4     # max |dg| over the gradient's max
 T_SERVE, T_SHORT, BATCH = 512, 250, 8
 REQUEST_ROWS = (8, 5, 1)
 COHORT, VAL_ROWS, EPOCHS = 32, 8, 3
-# published H100 SXM peaks (NVIDIA data sheet, 700 W): f32 on the CUDA cores,
-# where these kernels run, and HBM3 bandwidth
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# published H100 SXM peaks (NVIDIA data sheet, 700 W): the fastest route to
+# f32-accurate products, 3xTF32 on the tensor cores (495 TFLOP/s TF32, three
+# products per f32 product), and HBM3 bandwidth
+PEAK_F32_ACCURATE_FLOPS, PEAK_BYTES = 495e12 / 3, 3.35e12
+# (kernel, head dim, storage, operands) of a kernel's mangled symbol
+KERNEL_SYMBOL = re.compile(r"(flash_fwd|flash_bwd_dkv|flash_bwd_dq)_kernel"
+                           r"ILi(\d+)E(f|13__nv_bfloat16)Lb([01])E")
+MMA_KERNELS = ("flash_fwd", "flash_bwd_dkv")   # on the tensor cores
 
 
 def fail(msg: str):
@@ -79,8 +92,102 @@ def zscore(inputs: dict) -> dict:
             for k in ("erp", "pw")}
 
 
+def kernel_instance(symbol: str):
+    """(kernel, D, storage, operands) of a mangled kernel symbol, or None."""
+    m = KERNEL_SYMBOL.search(symbol)
+    if m is None:
+        return None
+    return (m[1], int(m[2]), "f32" if m[3] == "f" else "bf16",
+            "bf16" if m[4] == "1" else "f32")
+
+
+def parse_ptxas(text: str) -> dict:
+    """{instance: (registers, spill store bytes, spill load bytes)} from the
+    output of ``nvcc -Xptxas -v``."""
+    regs, spills = {}, {}
+    entry = props = None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = kernel_instance(m[1])
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = kernel_instance(m[1])
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                             r"loads", line)) and props:
+            spills[props] = (int(m[1]), int(m[2]))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            regs[entry] = int(m[1])
+    return {k: (r, *spills.get(k, (0, 0))) for k, r in regs.items()}
+
+
+def count_hmma(sass: str) -> dict:
+    """{instance: HMMA instructions} from the output of ``cuobjdump -sass``."""
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            current = kernel_instance(m[1])
+            if current:
+                counts[current] = 0
+        elif current and re.search(r"\bHMMA\b", line):
+            counts[current] += 1
+    return counts
+
+
+def find_cuobjdump(nvcc: str) -> str:
+    """``cuobjdump`` beside nvcc, else the one in Triton's package."""
+    beside = Path(nvcc).parent / "cuobjdump"
+    if beside.is_file():
+        return str(beside)
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        bundled = (Path(spec.origin).parent / "backends" / "nvidia" / "bin"
+                   / "cuobjdump")
+        if bundled.is_file():
+            return str(bundled)
+    fail("cuobjdump is neither beside nvcc nor in triton/backends/nvidia/bin")
+
+
+def build_and_inspect(_kernels) -> None:
+    """Build the library, with ``-Xptxas -v`` compiles of the same sources
+    running beside the build; print every instance's registers, spills and
+    HMMA count, and fail where a K1 or K2 instance has no HMMA or spills at
+    D=32."""
+    nvcc = _kernels.find_nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        verbose = [subprocess.Popen(
+            [nvcc, *_kernels.COMPILE_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             str(Path(tmp) / f"{src.stem}.o"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in sorted(_kernels.CSRC.glob("*.cu"))]
+        lib = _kernels.build()
+        outputs = [p.communicate()[0] for p in verbose]
+    if any(p.returncode != 0 for p in verbose):
+        fail("nvcc -Xptxas -v failed:\n" + "\n".join(outputs))
+    _kernels.library()
+    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    resources = parse_ptxas("\n".join(outputs))
+    sass = subprocess.run([find_cuobjdump(nvcc), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = count_hmma(sass)
+    for inst in sorted(resources):
+        regs, st, ld = resources[inst]
+        print(f"{inst[0]} D={inst[1]} {inst[2]} storage, {inst[3]} operands: "
+              f"{regs} registers, spill stores/loads {st}/{ld} bytes, "
+              f"{hmma.get(inst, 0)} HMMA")
+    wanted = {(k, d, s, o) for k in MMA_KERNELS for d in (16, 32, 64, 128)
+              for s in ("f32", "bf16") for o in ("f32", "bf16")}
+    if not wanted <= set(resources) & set(hmma):
+        fail(f"instances missing from ptxas or SASS: "
+             f"{sorted(wanted - (set(resources) & set(hmma)))}")
+    if no_mma := sorted(i for i in wanted if hmma[i] == 0):
+        fail(f"no HMMA instruction in {no_mma}")
+    if spilled := sorted(i for i in wanted
+                         if i[1] == 32 and any(resources[i][1:])):
+        fail(f"spills at D=32 in {spilled}")
+
+
 def cuda_ms(fn, iters: int = 200) -> float:
-    """Mean device time of one call, CUDA events around ``iters`` calls."""
+    """Mean time of one call, CUDA events around ``iters`` calls."""
     for _ in range(10):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -114,10 +221,44 @@ def step_ms(step, batch, cw, iters: int = 20) -> float:
     return (time.perf_counter() - t0) * 1000.0 / iters
 
 
+def _device_us(e) -> float:
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0) or 0)
+
+
+def device_events(prof) -> list:
+    """The kernels of a trace: CPU ops also carry the device time they
+    launched, and annotated ranges (Optimizer.step) span kernels."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
+
+
+def device_ms(fn, n: int = 50) -> float:
+    """Mean device time of one call: the device time of every kernel that
+    ``n`` calls ran, from torch.profiler, over ``n``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in device_events(prof))
+    if us <= 0:
+        fail("the profiler recorded no device time")
+    return us / 1000.0 / n
+
+
 def profile_steps(step, batch, cw, card: str, n: int = 5) -> None:
     """Device busy share and device time by op over n train steps
     (torch.profiler; reports and goes on if the trace has no device time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step(batch, cw)
@@ -130,17 +271,8 @@ def profile_steps(step, batch, cw, card: str, n: int = 5) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000.0 / n
 
-    def device_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) or 0)
-
-    # the kernels themselves: CPU ops also carry the device time they
-    # launched, and annotated ranges (Optimizer.step) span kernels
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and device_us(e) > 0
-              and not getattr(e, "is_user_annotation", False)
-              and not e.key.startswith("Optimizer.")]
-    busy_ms = sum(device_us(e) for e in events) / 1000.0 / n
+    events = device_events(prof)
+    busy_ms = sum(_device_us(e) for e in events) / 1000.0 / n
     if not events:
         print(f"profile: the trace holds no device time {card}")
         return
@@ -149,16 +281,16 @@ def profile_steps(step, batch, cw, card: str, n: int = 5) -> None:
           f"{busy_ms:.3f} ms per step ({100 * busy_ms / wall_ms:.1f}%) {card}")
     print(f"  {sum(e.count for e in events) / n:.0f} kernels per step; the "
           "most device time:")
-    for e in sorted(events, key=device_us, reverse=True)[:12]:
-        print(f"  {e.key[:60]:60s} {device_us(e) / 1000.0 / n:8.4f} ms/step "
+    for e in sorted(events, key=_device_us, reverse=True)[:12]:
+        print(f"  {e.key[:60]:60s} {_device_us(e) / 1000.0 / n:8.4f} ms/step "
               f"{e.count / n:6.1f} calls/step")
 
 
 def bound_ms(kernel: str, B, H, tq, tk, d) -> tuple:
-    """Least time (ms) of the kernel's work at f32 on the card, and what
-    bounds it: operations (2 per multiply-add, exp not counted) over the f32
-    peak, or bytes (each input read once, each output written once) over
-    the memory rate."""
+    """Least time (ms) of the kernel's work, f32-accurate, on the card, and
+    what bounds it: operations (2 per multiply-add, exp not counted) over
+    the 3xTF32 tensor-core rate, whatever route the kernel takes, or bytes
+    (each input read once, each output written once) over the memory rate."""
     bh = B * H
     q_el, k_el = bh * tq * d, bh * tk * d
     flops = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}[kernel] \
@@ -166,7 +298,7 @@ def bound_ms(kernel: str, B, H, tq, tk, d) -> tuple:
     elems = {"flash_fwd": 2 * q_el + 2 * k_el + bh * tq,          # q, k, v; o, lse
              "flash_bwd_dkv": 2 * q_el + 4 * k_el + 2 * bh * tq,  # q, dO, k, v, lse, Δ; dk, dv
              "flash_bwd_dq": 3 * q_el + 2 * k_el + 2 * bh * tq}[kernel]
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, 4 * elems / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_F32_ACCURATE_FLOPS, 4 * elems / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -243,11 +375,8 @@ def main() -> None:
     from multimodal_eeg_fmri_tpu_torch.ops.augment import make_eeg_augment
     from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
 
-    phase("build")
-    t0 = time.perf_counter()
-    lib = _kernels.build()
-    _kernels.library()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    phase("build: registers, spills and tensor-core instructions")
+    build_and_inspect(_kernels)
 
     phase("kernel vs plain version: K1, the forward")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -515,8 +644,9 @@ def main() -> None:
 
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    per_step = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                    "library_ms": 0.0, "ops": 0.0}
+    per_step = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                    "bound_ms": 0.0, "library_ms": 0.0,
+                    "library_device_ms": 0.0, "ops": 0.0}
                 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
     for B, H, T, d in SLICE_SHAPES:
         q, k, v, g = (torch.randn(B, H, T, d, device=dev, generator=gen)
@@ -525,9 +655,16 @@ def main() -> None:
         delta = flash_delta(out, g)
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
         lib_out = sdpa(ql, kl, vl)
-        lib_fwd = cuda_ms(lambda: sdpa(q, k, v))
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), g, retain_graph=True))
+
+        def lib_fwd():
+            return sdpa(q, k, v)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (ql, kl, vl), g,
+                                       retain_graph=True)
+
+        lib_times = {f: (cuda_ms(f), device_ms(f))
+                     for f in (lib_fwd, lib_bwd)}
         pairs = {
             "flash_fwd": (lambda: flash_forward_cuda(q, k, v),
                           lambda: flash_forward_plain(q, k, v), lib_fwd),
@@ -538,19 +675,25 @@ def main() -> None:
                 lambda: flash_bwd_dq_cuda(q, k, v, g, lse, delta),
                 lambda: flash_bwd_dq_plain(q, k, v, g, lse, delta), lib_bwd),
         }
-        for name, (kern, plain, lib_ms) in pairs.items():
+        for name, (kern, plain, lib_fn) in pairs.items():
             ms, plain_ms = in_turns(lambda: cuda_ms(kern),
                                     lambda: cuda_ms(plain))
+            dev_ms = device_ms(kern)
+            lib_ms, lib_dev_ms = lib_times[lib_fn]
             b_ms, by = bound_ms(name, B, H, T, T, d)
             # two layers of each shape per train step
-            for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                             ("bound_ms", b_ms), ("library_ms", lib_ms),
+            for key, val in (("ms", ms), ("device_ms", dev_ms),
+                             ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                             ("library_ms", lib_ms),
+                             ("library_device_ms", lib_dev_ms),
                              ("ops", by == "operations")):
                 per_step[name][key] += 2 * val
-            print(f"{name} (B,H,T,D)=({B},{H},{T},{d}): kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
-                  f"library (SDPA {'forward' if name == 'flash_fwd' else 'backward, dQ+dK+dV'}) "
-                  f"{lib_ms:.4f} ms per call {card}")
+            print(f"{name} (B,H,T,D)=({B},{H},{T},{d}): kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({by}), library (SDPA "
+                  f"{'forward' if name == 'flash_fwd' else 'backward, dQ+dK+dV'}"
+                  f") {lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms) per call "
+                  f"{card}")
 
     replaces = {"flash_fwd": "multimodal_eeg_fmri_tpu/ops/attention.py:63",
                 "flash_bwd_dkv": "multimodal_eeg_fmri_tpu/ops/attention.py:121",
@@ -559,8 +702,8 @@ def main() -> None:
               "flash_bwd_dkv": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd.cu",
               "flash_bwd_dq": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd.cu"}
     print("per train step (2 layers at T=256, 2 at T=512): " + "; ".join(
-        f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f})"
-        for k, v in per_step.items()))
+        f"{k} {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms (bound "
+        f"{v['bound_ms']:.4f})" for k, v in per_step.items()))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -569,10 +712,12 @@ def main() -> None:
         "launches": train_launches[name],
         "max_abs_err": worst[name],
         "ms": t["ms"],
+        "device_ms": t["device_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": "operations" if t["ops"] else "bytes",
         "library_ms": t["library_ms"],
+        "library_device_ms": t["library_device_ms"],
     } for name, t in per_step.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,29 +33,41 @@
 // bfloat16`: q, k, v and dO are rounded to bf16, and so are P before dV and
 // dS before dK and dQ (:136-139, 153, 163); every sum and lse/Delta stay f32.
 //
-// What bounds it on the card: at the training slice's shapes (B*H = 32,
+// K2 runs on the tensor cores (flash_mma.cuh), in FlashAttention-2's
+// backward layout: 4 warps of 16 keys each take the keys as the M side of
+// S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out of the mma
+// accumulators as the rows of dV += P^T dO and dK += dS^T Q and feed those
+// products' A operand from registers; Q, dO, lse and Delta are
+// double-buffered by cp.async. f32 mode is 3xTF32 (a TF32 part and a TF32
+// residual of each operand, three m16n8k8 products, f32 accuracy), the bf16
+// mode m16n8k16 bf16 products with f32 sums. K and V fragments stay in
+// registers for the whole loop at D = 32 (D <= 64 in bf16); wider, they are
+// read from shared memory at each step, where registers would run out. K3
+// still runs on the CUDA cores from shared memory.
+//
+// What bounds them on the card: at the training slice's shapes (B*H = 32,
 // T = 256 or 512, D = 32) K2 does 8*B*H*Tq*Tk*D and K3 6*B*H*Tq*Tk*D flops
-// (0.5 and 0.4 GFLOP at T = 512), a few microseconds of work for an H100:
-// like the forward, they are bound by latency and launch cost, not by bytes.
-// 64-row tiles give 128 (T = 256) or 256 (T = 512) blocks across the 132 SMs.
-// The products run on the CUDA cores from shared memory; mma.sync/wgmma and
-// TMA are left for later work.
+// (2.1 and 1.6 GFLOP at T = 512) against a few MB of inputs and outputs:
+// operations bound them. 3xTF32 on the tensor cores (495/3 = 165 TFLOP/s)
+// is the fastest f32-accurate route for them, 2.5x the CUDA cores' f32 peak
+// (67 TFLOP/s) that K3 is held to. 64-row tiles give 128 (T = 256) or 256
+// (T = 512) blocks across the 132 SMs. wgmma and TMA are left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
 constexpr int BQ = 64;                 // query rows per tile
 constexpr int BK = 64;                 // keys per tile
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;           // K3: 4 threads to a row
 constexpr int TPR = THREADS / BQ;      // threads that share one tile row
 constexpr int KPT = BK / TPR;          // keys of a tile scored by one thread
+constexpr int MMA_THREADS = 128;       // K2: 4 warps of 16 keys
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+using namespace flash_mma;
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ float round_bf16(float x) {
@@ -97,10 +109,11 @@ __device__ __forceinline__ void scores(const float* qrow, const float* dorow,
     for (int c = 0; c < KPT; ++c) s[c] *= scale;
 }
 
-template <int D>
+template <int D, typename T>
 constexpr size_t dkv_smem_bytes() {
-    // K, V, Q and dO tiles, the P and dS tiles, lse and Delta of the Q tile
-    return sizeof(float) * (size_t)(4 * 64 * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ);
+    // lse and Delta, two buffers each; the K and V tiles; two buffers each
+    // of the Q and dO tiles
+    return sizeof(float) * 4 * BQ + sizeof(T) * (size_t)(2 * BK + 4 * BQ) * pitch<D, T>();
 }
 
 template <int D>
@@ -109,9 +122,11 @@ constexpr size_t dq_smem_bytes() {
     return sizeof(float) * (size_t)(4 * 64 * (D + 1) + BQ * (BK + 1));
 }
 
-// K2: one block per (key tile, batch*head); query tiles stream.
+// K2: one block per (64-key tile, batch*head), 16 keys a warp; query tiles
+// stream. At least one block an SM, as K1 (flash_fwd.cu): registers before
+// occupancy.
 template <int D, typename T, bool BF16_OPS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MMA_THREADS, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -119,83 +134,158 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int64_t qsb, int64_t qsh, int64_t qst,
                      int64_t ksb, int64_t ksh, int64_t kst,
                      int64_t vsb, int64_t vsh, int64_t vst,
-                     int64_t gsb, int64_t gsh, int64_t gst, float scale) {
-    constexpr int LD = D + 1;
-    constexpr int LDP = BK + 1;
-    constexpr int DPT = D / TPR;       // output columns owned by one thread
-    extern __shared__ float smem[];
-    float* sK = smem;
-    float* sV = sK + BK * LD;
-    float* sQ = sV + BK * LD;
-    float* sdO = sQ + BQ * LD;
-    float* sP = sdO + BQ * LD;
-    float* sdS = sP + BQ * LDP;
-    float* sLse = sdS + BQ * LDP;
-    float* sDelta = sLse + BQ;
+                     int64_t gsb, int64_t gsh, int64_t gst, float scale, int vec) {
+    constexpr int LD = pitch<D, T>();
+    constexpr int CH = chunk<BF16_OPS>();
+    constexpr int NC = D / CH;         // depth chunks of S^T = K Q^T and dP^T = V dO^T
+    constexpr int NS = BQ / 8;         // 8-query column blocks of S^T
+    constexpr int NO = D / 8;          // 8-column blocks of dK and dV
+    constexpr bool KV_REGS = BF16_OPS ? D <= 64 : D <= 32;
+    extern __shared__ __align__(16) unsigned char flash_smem[];
+    float* sLse = reinterpret_cast<float*>(flash_smem);  // two buffers
+    float* sDelta = sLse + 2 * BQ;                        // two buffers
+    T* sK = reinterpret_cast<T*>(sDelta + 2 * BQ);
+    T* sV = sK + BK * LD;
+    T* sQ = sV + BK * LD;              // two buffers
+    T* sdO = sQ + 2 * BQ * LD;         // two buffers
 
-    const int tid = threadIdx.x;
-    const int r = tid / TPR;           // query row while scoring, key row while summing
-    const int g = tid % TPR;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
     const int bh = blockIdx.y;
     const int b = bh / H, h = bh % H;
     const int k0 = blockIdx.x * BK;
-
-    load_tile<D, T, BF16_OPS>(sK, k + b * ksb + h * ksh, kst, k0, Tk);
-    load_tile<D, T, BF16_OPS>(sV, v + b * vsb + h * vsh, vst, k0, Tk);
     const T* qb = q + b * qsb + h * qsh;
     const T* gb = dout + b * gsb + h * gsh;
     const float* lse_bh = lse + (int64_t)bh * Tq;
     const float* delta_bh = delta + (int64_t)bh * Tq;
+    const T* sKw = sK + warp * 16 * LD;  // the warp's 16 keys
+    const T* sVw = sV + warp * 16 * LD;
 
-    float acc_dk[DPT], acc_dv[DPT];
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc_dk[i] = acc_dv[i] = 0.f;
-
-    for (int q0 = 0; q0 < Tq; q0 += BQ) {
-        __syncthreads();  // the previous Q, dO, P and dS tiles are consumed
-        load_tile<D, T, BF16_OPS>(sQ, qb, qst, q0, Tq);
-        load_tile<D, T, BF16_OPS>(sdO, gb, gst, q0, Tq);
-        if (tid < BQ) {
-            const bool valid = q0 + tid < Tq;
-            // a padded query row: lse = +inf gives P = 0
-            sLse[tid] = valid ? lse_bh[q0 + tid] : INFINITY;
-            sDelta[tid] = valid ? delta_bh[q0 + tid] : 0.f;
-        }
-        __syncthreads();
-
-        float s[KPT], dp[KPT];
-        scores<D>(sQ + r * LD, sdO + r * LD, sK, sV, g, scale, s, dp);
-        const float lse_r = sLse[r], delta_r = sDelta[r];
-#pragma unroll
-        for (int c = 0; c < KPT; ++c) {
-            const int j = g + c * TPR;
-            const float p = k0 + j < Tk ? expf(s[c] - lse_r) : 0.f;
-            const float ds = p * (dp[c] - delta_r);
-            sP[r * LDP + j] = BF16_OPS ? round_bf16(p) : p;
-            sdS[r * LDP + j] = BF16_OPS ? round_bf16(ds) : ds;
-        }
-        __syncthreads();
-
-        // dV[r] += sum_i P[i, r] dO[i];  dK[r] += sum_i dS[i, r] Q[i]
-#pragma unroll 4
-        for (int i = 0; i < BQ; ++i) {
-            const float p = sP[i * LDP + r], ds = sdS[i * LDP + r];
-#pragma unroll
-            for (int c = 0; c < DPT; ++c) {
-                acc_dv[c] = fmaf(p, sdO[i * LD + g + c * TPR], acc_dv[c]);
-                acc_dk[c] = fmaf(ds, sQ[i * LD + g + c * TPR], acc_dk[c]);
+    auto stage_queries = [&](int it) {
+        const int buf = it & 1, r0 = it * BQ;
+        stage_tile<BQ, D, MMA_THREADS>(sQ + buf * BQ * LD, qb, qst, r0, Tq, vec & 1);
+        stage_tile<BQ, D, MMA_THREADS>(sdO + buf * BQ * LD, gb, gst, r0, Tq, vec & 8);
+        const int i = threadIdx.x;
+        if (i < BQ) {
+            if (r0 + i < Tq) {
+                cp_async4(sLse + buf * BQ + i, lse_bh + r0 + i);
+                cp_async4(sDelta + buf * BQ + i, delta_bh + r0 + i);
+            } else {                   // a padded query row: lse = +inf gives P = 0
+                sLse[buf * BQ + i] = INFINITY;
+                sDelta[buf * BQ + i] = 0.f;
             }
         }
+    };
+    stage_tile<BK, D, MMA_THREADS>(sK, k + b * ksb + h * ksh, kst, k0, Tk, vec & 2);
+    stage_tile<BK, D, MMA_THREADS>(sV, v + b * vsb + h * vsh, vst, k0, Tk, vec & 4);
+    stage_queries(0);
+    cp_async_commit();
+
+    auto kv_chunk = [&](const T* tile, int c) {
+        return load_a<BF16_OPS>([&](int r, int kk) {
+            return to_f32(tile[r * LD + c * CH + kk]);
+        });
+    };
+    AFrag<BF16_OPS> kf[KV_REGS ? NC : 1], vf[KV_REGS ? NC : 1];
+    float acc_dk[NO][4], acc_dv[NO][4];
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+    // keys past Tk get P = 0 (their rows are never written)
+    const bool key_ok[2] = {k0 + warp * 16 + g < Tk, k0 + warp * 16 + g + 8 < Tk};
+
+    const int n_tiles = (Tq + BQ - 1) / BQ;
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) stage_queries(it + 1);
+        cp_async_commit();
+        cp_async_wait<1>();            // this tile (and, at first, K and V) has landed
+        __syncthreads();
+        if constexpr (KV_REGS) {
+            if (it == 0) {
+#pragma unroll
+                for (int c = 0; c < NC; ++c) {
+                    kf[c] = kv_chunk(sKw, c);
+                    vf[c] = kv_chunk(sVw, c);
+                }
+            }
+        }
+        const T* cQ = sQ + (it & 1) * BQ * LD;
+        const T* cdO = sdO + (it & 1) * BQ * LD;
+        const float* cLse = sLse + (it & 1) * BQ;
+        const float* cDelta = sDelta + (it & 1) * BQ;
+
+        // S^T and dP^T: keys down the rows, this tile's queries across
+        float s[NS][4], dp[NS][4];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+            AFrag<BF16_OPS> ka, va;
+            if constexpr (KV_REGS) {
+                ka = kf[c];
+                va = vf[c];
+            } else {
+                ka = kv_chunk(sKw, c);
+                va = kv_chunk(sVw, c);
+            }
+#pragma unroll
+            for (int j = 0; j < NS; ++j) {
+                mma<BF16_OPS>(s[j], ka, load_b<BF16_OPS>([&](int kk, int n) {
+                    return to_f32(cQ[(j * 8 + n) * LD + c * CH + kk]);
+                }));
+                mma<BF16_OPS>(dp[j], va, load_b<BF16_OPS>([&](int kk, int n) {
+                    return to_f32(cdO[(j * 8 + n) * LD + c * CH + kk]);
+                }));
+            }
+        }
+
+        // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - Delta), in place
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+            const float2 lse_q = *reinterpret_cast<const float2*>(cLse + j * 8 + 2 * t);
+            const float2 delta_q = *reinterpret_cast<const float2*>(cDelta + j * 8 + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = key_ok[e >> 1]
+                    ? expf(s[j][e] * scale - ((e & 1) ? lse_q.y : lse_q.x)) : 0.f;
+                dp[j][e] = p * (dp[j][e] - ((e & 1) ? delta_q.y : delta_q.x));
+                s[j][e] = p;
+            }
+        }
+
+        // dV += P^T dO and dK += dS^T Q, the A operands from the registers
+        // above; padded query rows have P = dS = 0 and Q = dO = 0
+#pragma unroll
+        for (int c = 0; c < BQ / CH; ++c) {
+            const AFrag<BF16_OPS> pa = a_from_acc<BF16_OPS>(&s[c * (CH / 8)]);
+            const AFrag<BF16_OPS> da = a_from_acc<BF16_OPS>(&dp[c * (CH / 8)]);
+#pragma unroll
+            for (int j = 0; j < NO; ++j) {
+                mma<BF16_OPS>(acc_dv[j], pa, load_b<BF16_OPS>([&](int kk, int n) {
+                    return to_f32(cdO[(c * CH + key_of(kk)) * LD + j * 8 + n]);
+                }));
+                mma<BF16_OPS>(acc_dk[j], da, load_b<BF16_OPS>([&](int kk, int n) {
+                    return to_f32(cQ[(c * CH + key_of(kk)) * LD + j * 8 + n]);
+                }));
+            }
+        }
+        __syncthreads();               // the buffers are free for the tile after next
     }
 
-    const int key = k0 + r;
-    if (key < Tk) {
-        T* dk_row = dk + ((int64_t)bh * Tk + key) * D;
-        T* dv_row = dv + ((int64_t)bh * Tk + key) * D;
 #pragma unroll
-        for (int c = 0; c < DPT; ++c) {
-            store(&dk_row[g + c * TPR], acc_dk[c] * scale);
-            store(&dv_row[g + c * TPR], acc_dv[c]);
+    for (int r = 0; r < 2; ++r) {
+        const int key = k0 + warp * 16 + g + 8 * r;
+        if (key < Tk) {
+            T* dk_row = dk + ((int64_t)bh * Tk + key) * D + 2 * t;
+            T* dv_row = dv + ((int64_t)bh * Tk + key) * D + 2 * t;
+#pragma unroll
+            for (int j = 0; j < NO; ++j) {
+                store2(dk_row + j * 8, acc_dk[j][2 * r] * scale, acc_dk[j][2 * r + 1] * scale);
+                store2(dv_row + j * 8, acc_dv[j][2 * r], acc_dv[j][2 * r + 1]);
+            }
         }
     }
 }
@@ -297,19 +387,21 @@ cudaError_t configure(Kernel kernel, size_t smem, bool& configured) {
 template <int D, typename T, bool BF16_OPS>
 cudaError_t launch_dkv(const Args& a) {
     auto kernel = flash_bwd_dkv_kernel<D, T, BF16_OPS>;
-    constexpr size_t smem = dkv_smem_bytes<D>();
+    constexpr size_t smem = dkv_smem_bytes<D, T>();
     static bool configured = false;    // the attribute is set once per instance
     cudaError_t err = configure(kernel, smem, configured);
     if (err != cudaSuccess) return err;
     const int64_t* st = a.st;
+    const void* inputs[] = {a.q, a.k, a.v, a.dout};
     dim3 grid((a.Tk + BK - 1) / BK, a.B * a.H);
-    kernel<<<grid, THREADS, smem, a.stream>>>(
+    kernel<<<grid, MMA_THREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.H, a.Tq, a.Tk,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        st[9], st[10], st[11], (float)(1.0 / sqrt((double)D)));
+        st[9], st[10], st[11], (float)(1.0 / sqrt((double)D)),
+        aligned_rows_mask(inputs, st, sizeof(T)));
     return cudaGetLastError();
 }
 

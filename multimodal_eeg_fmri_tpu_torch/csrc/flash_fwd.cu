@@ -7,174 +7,211 @@
 // f32, rescaled as each key tile arrives. Keys past Tk are masked to -inf.
 //
 // Design, as opposed to the TPU original:
-// - One thread block per (query tile of BQ rows, batch*head). On the TPU the
-//   key tiles streamed through the innermost, sequential grid axis and the
-//   running state lived in VMEM scratch; here blocks run in no order, so the
-//   key tiles stream through a loop inside the block, staged through shared
-//   memory, and the running state lives in registers.
+// - One block of 4 warps per (64-row query tile, batch*head), 16 query rows
+//   a warp. On the TPU the key tiles streamed through the innermost,
+//   sequential grid axis and the running state lived in VMEM scratch; here
+//   blocks run in no order, so the 64-key tiles stream through a loop inside
+//   the block, double-buffered in shared memory by 16-byte cp.async (the next
+//   tile's copy in flight while this tile's products run), and the running
+//   state lives in registers.
+// - The products run on the tensor cores, warp-level mma.sync
+//   (flash_mma.cuh). f32 mode is 3xTF32: each operand is split into a TF32
+//   part and a TF32 residual and three m16n8k8 products are summed, small
+//   terms first, which keeps f32 accuracy (one TF32 pass would miss the
+//   2e-5 gate by 20x). BF16_OPS mirrors `compute_dtype=bfloat16` exactly:
+//   m16n8k16 products of bf16-rounded q/k and p/v with f32 sums, the scale
+//   applied after the q.k dot (f32 mode scales q before it), m, l and lse f32.
+// - Q stays in registers for the whole key loop, as its values in f32 mode
+//   (split at each use: half the registers of the split fragments) and as
+//   packed fragments in bf16 mode; at D = 128 it is read from the shared
+//   tile at each step. S and the softmax state stay in the mma
+//   accumulators; the row max and sum run over a row's 4 lanes by shuffles.
+//   P passes from the S accumulators into the A operand of P.V in registers,
+//   with V's rows read in the order that mapping implies (key_of).
+// - Shared rows are padded by 16 bytes: in f32 every fragment read hits 32
+//   distinct banks.
 // - The head dim D is a template parameter (16, 32, 64, 128) and is never
-//   padded; T is not padded either: the ragged query and key edges are masked
-//   in the kernel. lse is written directly as (B, H, Tq) f32 instead of the
-//   TPU's 128-lane broadcast.
+//   padded; T is not padded either: rows past Tq or Tk are staged as zeros and
+//   the keys past Tk masked. lse is written directly as (B, H, Tq) f32.
 // - Q, K and V are read through their strides (last dim contiguous), so the
-//   (B, T, H, D) projections of the caller need no transposing copy.
-// - BF16_OPS mirrors `compute_dtype=bfloat16`: the q/k tiles and p/v tiles
-//   are rounded to bf16 (products exact in f32, f32 sums), the scale applies
-//   after the q.k dot, and m, l and lse stay f32.
+//   (B, T, H, D) projections of the caller need no transposing copy; a view
+//   whose base or strides are not 16-byte aligned is staged by element loads.
 //
-// What bounds it on the card: at the serving slice's shapes (B*H = 32,
-// T = 256 or 512, D = 32) the work is ~67 MFLOP per call, which is nothing
-// for an H100; the kernel is bound by latency and launch cost. The design
-// answers that with 64-row query tiles, which give 128 (T = 256) or 256
-// (T = 512) blocks, enough to put work on every one of the 132 SMs, where one
-// block per (batch*head) would occupy 32; and by reading the inputs in place,
-// so one launch is the whole of the attention core. The dot products run on
-// the CUDA cores from shared memory, not on the tensor cores: wgmma, TMA and
-// warp specialisation are left for later work.
+// What bounds it on the card: at the main path's shapes (B*H = 32, T = 256
+// or 512, D = 32) a call does 4*B*H*T^2*D = 1.07 GFLOP (T = 512) against
+// 4.3 MB of inputs and outputs, so it is bound by operations. The fastest
+// f32-accurate route for them is 3xTF32 on the tensor cores (495/3 = 165
+// TFLOP/s at 700 W), 2.5x the f32 peak of the CUDA cores where the previous
+// design ran; this design puts them there, and its 64-row tiles give 128
+// (T = 256) or 256 (T = 512) blocks across the 132 SMs. wgmma, TMA and warp
+// specialisation, the road to the full tensor-core rate, are left for later.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;                 // query rows per block
+using namespace flash_mma;
+
+constexpr int BQ = 64;                 // query rows per block, 16 a warp
 constexpr int BK = 64;                 // keys per shared-memory tile
-constexpr int THREADS = 256;
-constexpr int TPR = THREADS / BQ;      // threads that share one query row
-constexpr int KPT = BK / TPR;          // keys of a tile scored by one thread
+constexpr int THREADS = 128;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-__device__ __forceinline__ float round_bf16(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-}
-
-template <int D>
+template <int D, typename T>
 constexpr size_t smem_bytes() {
-    // Q, K and V tiles with rows padded by one float against bank conflicts,
-    // plus the tile of probabilities
-    return sizeof(float) * (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
+    // the Q tile and two buffers each of the K and V tiles
+    return sizeof(T) * (size_t)(BQ + 4 * BK) * pitch<D, T>();
 }
 
+// At least one block an SM: ptxas may then take up to 255 registers where it
+// would otherwise spill to fit more blocks, which the 128-256 blocks of the
+// main path's grids do not need.
 template <int D, typename T, bool BF16_OPS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int Tq, int Tk,
                  int64_t qsb, int64_t qsh, int64_t qst,
                  int64_t ksb, int64_t ksh, int64_t kst,
-                 int64_t vsb, int64_t vsh, int64_t vst, float scale) {
-    constexpr int LD = D + 1;
-    constexpr int LDP = BK + 1;
-    constexpr int DPT = D / TPR;       // output columns owned by one thread
-    extern __shared__ float smem[];
-    float* sQ = smem;
-    float* sK = sQ + BQ * LD;
-    float* sV = sK + BK * LD;
-    float* sP = sV + BK * LD;
+                 int64_t vsb, int64_t vsh, int64_t vst, float scale, int vec) {
+    constexpr int LD = pitch<D, T>();
+    constexpr int CH = chunk<BF16_OPS>();
+    constexpr int NC = D / CH;         // depth chunks of S = Q K^T
+    constexpr int NS = BK / 8;         // 8-key column blocks of S
+    constexpr int NO = D / 8;          // 8-column blocks of O
+    constexpr bool Q_REGS = D <= 64;
+    extern __shared__ __align__(16) unsigned char flash_smem[];
+    T* sQ = reinterpret_cast<T*>(flash_smem);
+    T* sK = sQ + BQ * LD;              // two buffers
+    T* sV = sK + 2 * BK * LD;          // two buffers
 
-    const int tid = threadIdx.x;
-    const int r = tid / TPR;           // query row within the tile
-    const int g = tid % TPR;           // lane within the row's group
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
     const int bh = blockIdx.y;
     const int b = bh / H, h = bh % H;
     const int q0 = blockIdx.x * BQ;
-
-    const T* qb = q + b * qsb + h * qsh;
     const T* kb = k + b * ksb + h * ksh;
     const T* vb = v + b * vsb + h * vsh;
+    const T* sQw = sQ + warp * 16 * LD;  // the warp's 16 query rows
 
-    for (int i = tid; i < BQ * D; i += THREADS) {
-        const int row = i / D, col = i % D;
-        float x = 0.f;
-        if (q0 + row < Tq) x = to_f32(qb[(int64_t)(q0 + row) * qst + col]);
-        sQ[row * LD + col] = BF16_OPS ? round_bf16(x) : x * scale;
-    }
+    stage_tile<BQ, D, THREADS>(sQ, q + b * qsb + h * qsh, qst, q0, Tq, vec & 1);
+    stage_tile<BK, D, THREADS>(sK, kb, kst, 0, Tk, vec & 2);
+    stage_tile<BK, D, THREADS>(sV, vb, vst, 0, Tk, vec & 4);
+    cp_async_commit();
 
-    float m = -INFINITY, l = 0.f;
-    float acc[DPT];
+    // f32 mode scales q before the dot, the bf16 mode after it
+    auto q_chunk = [&](int c) {
+        return gather_a<BF16_OPS>([&](int r, int kk) {
+            const float x = to_f32(sQw[r * LD + c * CH + kk]);
+            return BF16_OPS ? x : x * scale;
+        });
+    };
+    AKept<BF16_OPS> qk[Q_REGS ? NC : 1];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float acc[NO][4];
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+    for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-    const float* qrow = sQ + r * LD;
-    float* prow = sP + r * LDP;
-
-    for (int k0 = 0; k0 < Tk; k0 += BK) {
-        __syncthreads();  // the previous tile is consumed; Q is in place
-        for (int i = tid; i < BK * D; i += THREADS) {
-            const int row = i / D, col = i % D;
-            float kx = 0.f, vx = 0.f;
-            if (k0 + row < Tk) {
-                kx = to_f32(kb[(int64_t)(k0 + row) * kst + col]);
-                vx = to_f32(vb[(int64_t)(k0 + row) * vst + col]);
-            }
-            sK[row * LD + col] = BF16_OPS ? round_bf16(kx) : kx;
-            sV[row * LD + col] = BF16_OPS ? round_bf16(vx) : vx;
+    const int n_tiles = (Tk + BK - 1) / BK;
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) {
+            const int nb = (it + 1) & 1, k1 = (it + 1) * BK;
+            stage_tile<BK, D, THREADS>(sK + nb * BK * LD, kb, kst, k1, Tk, vec & 2);
+            stage_tile<BK, D, THREADS>(sV + nb * BK * LD, vb, vst, k1, Tk, vec & 4);
         }
+        cp_async_commit();
+        cp_async_wait<1>();            // this tile (and, at first, Q) has landed
         __syncthreads();
+        if constexpr (Q_REGS) {
+            if (it == 0) {
+#pragma unroll
+                for (int c = 0; c < NC; ++c) qk[c] = keep<BF16_OPS>(q_chunk(c));
+            }
+        }
+        const T* cK = sK + (it & 1) * BK * LD;
+        const T* cV = sV + (it & 1) * BK * LD;
 
-        // scores of this thread's keys g, g+TPR, ... against its query row
-        float s[KPT];
+        float s[NS][4];
 #pragma unroll
-        for (int c = 0; c < KPT; ++c) s[c] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < D; ++d) {
-            const float qd = qrow[d];
+        for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-            for (int c = 0; c < KPT; ++c)
-                s[c] = fmaf(qd, sK[(g + c * TPR) * LD + d], s[c]);
+        for (int c = 0; c < NC; ++c) {
+            AFrag<BF16_OPS> a;
+            if constexpr (Q_REGS) a = frag(qk[c]);
+            else a = a_from_vals<BF16_OPS>(q_chunk(c));
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+                mma<BF16_OPS>(s[j], a, load_b<BF16_OPS>([&](int kk, int n) {
+                    return to_f32(cK[(j * 8 + n) * LD + c * CH + kk]);
+                }));
         }
-        float tile_max = -INFINITY;
-#pragma unroll
-        for (int c = 0; c < KPT; ++c) {
-            if (BF16_OPS) s[c] *= scale;
-            if (k0 + g + c * TPR >= Tk) s[c] = -INFINITY;
-            tile_max = fmaxf(tile_max, s[c]);
-        }
-        // the TPR threads of a row are neighbouring lanes of one warp
-#pragma unroll
-        for (int off = 1; off < TPR; off <<= 1)
-            tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-        // finite: every tile holds at least one key below Tk
-        const float m_new = fmaxf(m, tile_max);
-        const float alpha = expf(m - m_new);
-        float psum = 0.f;
-#pragma unroll
-        for (int c = 0; c < KPT; ++c) {
-            const float p = expf(s[c] - m_new);
-            psum += p;
-            prow[g + c * TPR] = BF16_OPS ? round_bf16(p) : p;
-        }
-#pragma unroll
-        for (int off = 1; off < TPR; off <<= 1)
-            psum += __shfl_xor_sync(0xffffffffu, psum, off);
-        l = alpha * l + psum;
-        m = m_new;
-        __syncwarp();  // the row's probabilities are visible to its group
 
+        // online softmax of rows g (s[j][0..1]) and g + 8 (s[j][2..3])
+        const int key0 = it * BK + 2 * t;  // the key of s[0][0]
+        float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-        // masked keys have p = 0 and V = 0
-#pragma unroll 4
-        for (int j = 0; j < BK; ++j) {
-            const float p = prow[j];
+        for (int j = 0; j < NS; ++j) {
 #pragma unroll
-            for (int i = 0; i < DPT; ++i)
-                acc[i] = fmaf(p, sV[j * LD + g + i * TPR], acc[i]);
+            for (int e = 0; e < 4; ++e) {
+                float x = BF16_OPS ? s[j][e] * scale : s[j][e];
+                if (key0 + j * 8 + (e & 1) >= Tk) x = -INFINITY;
+                s[j][e] = x;
+                mx[e >> 1] = fmaxf(mx[e >> 1], x);
+            }
         }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            // finite: every tile holds at least one key below Tk
+            const float m_new = fmaxf(m[r], quad_max(mx[r]));
+            alpha[r] = expf(m[r] - m_new);
+            m[r] = m_new;
+            l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = expf(s[j][e] - m[e >> 1]);
+                l[e >> 1] += p;        // the lane's share; the quad sums at the end
+                s[j][e] = p;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+            acc[j][0] *= alpha[0];
+            acc[j][1] *= alpha[0];
+            acc[j][2] *= alpha[1];
+            acc[j][3] *= alpha[1];
+        }
+
+        // O += P V, P from the S registers; masked keys have p = 0 and V = 0
+#pragma unroll
+        for (int c = 0; c < BK / CH; ++c) {
+            const AFrag<BF16_OPS> a = a_from_acc<BF16_OPS>(&s[c * (CH / 8)]);
+#pragma unroll
+            for (int j = 0; j < NO; ++j)
+                mma<BF16_OPS>(acc[j], a, load_b<BF16_OPS>([&](int kk, int n) {
+                    return to_f32(cV[(c * CH + key_of(kk)) * LD + j * 8 + n]);
+                }));
+        }
+        __syncthreads();               // the buffers are free for the tile after next
     }
 
-    const int row = q0 + r;
-    if (row < Tq) {
-        const float lc = fmaxf(l, 1e-30f);
-        T* orow = o + ((int64_t)bh * Tq + row) * D;
 #pragma unroll
-        for (int i = 0; i < DPT; ++i) store(&orow[g + i * TPR], acc[i] / lc);
-        if (g == 0) lse[(int64_t)bh * Tq + row] = l > 0.f ? m + logf(lc) : INFINITY;
+    for (int r = 0; r < 2; ++r) {
+        l[r] = quad_sum(l[r]);
+        const int row = q0 + warp * 16 + g + 8 * r;
+        if (row < Tq) {
+            const float lc = fmaxf(l[r], 1e-30f);
+            T* orow = o + ((int64_t)bh * Tq + row) * D + 2 * t;
+#pragma unroll
+            for (int j = 0; j < NO; ++j)
+                store2(orow + j * 8, acc[j][2 * r] / lc, acc[j][2 * r + 1] / lc);
+            if (t == 0)
+                lse[(int64_t)bh * Tq + row] = l[r] > 0.f ? m[r] + logf(lc) : INFINITY;
+        }
     }
 }
 
@@ -182,7 +219,7 @@ template <int D, typename T, bool BF16_OPS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
                    int B, int H, int Tq, int Tk, const int64_t* st, cudaStream_t stream) {
     auto kernel = flash_fwd_kernel<D, T, BF16_OPS>;
-    constexpr size_t smem = smem_bytes<D>();
+    constexpr size_t smem = smem_bytes<D, T>();
     static bool configured = false;  // the attribute is set once per instance
     if (!configured) {
         cudaError_t err = cudaFuncSetAttribute(
@@ -190,12 +227,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
         if (err != cudaSuccess) return err;
         configured = true;
     }
+    const void* inputs[] = {q, k, v};
     dim3 grid((Tq + BQ - 1) / BQ, B * H);
     kernel<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), H, Tq, Tk,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        (float)(1.0 / sqrt((double)D)));
+        (float)(1.0 / sqrt((double)D)), aligned_rows_mask(inputs, st, sizeof(T)));
     return cudaGetLastError();
 }
 

@@ -9,7 +9,8 @@ import no JAX, so on a machine with a card and without JAX they run alone:
 Tolerances: f32 out and lse within 2e-5 (sums taken in another order); the
 forward's bf16-operand mode within 1e-2, since the kernel rounds p to bf16
 against a running max tile by tile where the plain version uses the row's
-final max. Gradients: f32 within 2e-4 (longer sums of larger terms); the
+final max; bf16 outputs within 1e-2 (forward) and 5e-2 (gradients), their
+own rounding. Gradients: f32 within 2e-4 (longer sums of larger terms); the
 bf16-operand mode within 5e-2, the JAX package's own gradient tolerance for
 that mode (``tests/test_attention.py``).
 """
@@ -25,7 +26,9 @@ from multimodal_eeg_fmri_tpu_torch.ops.attention import (
     flash_backward_cuda,
     flash_backward_plain,
     flash_bwd_dkv_cuda,
+    flash_bwd_dkv_plain,
     flash_bwd_dq_cuda,
+    flash_delta,
     flash_forward_cuda,
     flash_forward_plain,
     reference_attention,
@@ -207,3 +210,59 @@ def test_backward_wrapper_refuses(cuda_device):
         flash_backward_cuda(q, k, v, out, lse, g[..., :4, :])
     with pytest.raises(ValueError, match="CUDA"):
         flash_backward_cuda(q, k.cpu(), v, out, lse, g)
+
+
+def _misaligned(x, how):
+    """x's values in a (B,H,T,D) view whose base lies one element past a
+    16-byte boundary ("base"), whose rows are D+1 elements apart
+    ("stride"), or both: K1 and K2 then stage it by element loads."""
+    B, H, T, D = x.shape
+    pitch = D + 1 if how in ("stride", "both") else D
+    off = 1 if how in ("base", "both") else 0
+    buf = torch.zeros(off + B * H * T * pitch, dtype=x.dtype, device=x.device)
+    view = buf[off:].as_strided((B, H, T, D),
+                                (H * T * pitch, T * pitch, pitch, 1))
+    view.copy_(x)
+    assert view.data_ptr() % 16 or (pitch * x.element_size()) % 16
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["base", "stride", "both"])
+@pytest.mark.parametrize("dtype,atol,grad_atol",
+                         [(torch.float32, 2e-5, 2e-4),
+                          (torch.bfloat16, 1e-2, 5e-2)])
+def test_kernels_take_misaligned_views(cuda_device, how, dtype, atol,
+                                       grad_atol):
+    q, k, v = (t.to(dtype) for t in _qkv(cuda_device, 2, 2, 130, 200, 32))
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        q.shape, dtype=np.float32)).to(cuda_device, dtype)
+    mq, mk, mv, mg = (_misaligned(t, how) for t in (q, k, v, g))
+    out_k, lse_k = flash_forward_cuda(mq, mk, mv)
+    out_p, lse_p = flash_forward_plain(q, k, v)
+    delta = flash_delta(out_p, g)
+    dk_k, dv_k = flash_bwd_dkv_cuda(mq, mk, mv, mg, lse_p, delta)
+    dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, g, lse_p, delta)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out_k.float(), out_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse_k, lse_p, atol=2e-5, rtol=0)
+    for a, b, name in ((dk_k, dk_p, "dk"), (dv_k, dv_p, "dv")):
+        torch.testing.assert_close(a.float(), b.float(), atol=grad_atol,
+                                   rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_dkv_kernel_bf16_storage_and_operands(cuda_device):
+    """K2 at the main path's widest shape with bf16 storage and bf16
+    operands (m16n8k16 on the tensor cores)."""
+    q, k, v = (t.bfloat16() for t in _qkv(cuda_device, 8, 4, 512, 512, 32))
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        q.shape, dtype=np.float32)).to(cuda_device, torch.bfloat16)
+    out, lse = flash_forward_plain(q, k, v, torch.bfloat16)
+    delta = flash_delta(out, g)
+    got = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, torch.bfloat16)
+    want = flash_bwd_dkv_plain(q, k, v, g, lse, delta, torch.bfloat16)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), atol=5e-2, rtol=0)

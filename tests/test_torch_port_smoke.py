@@ -1,0 +1,78 @@
+"""``chip_smoke.py``'s readers of compiler output, and its bound, on the CPU.
+
+The script itself needs a GPU. These helpers parse text and do arithmetic,
+so they are held here to canned output in the formats of ``nvcc -Xptxas -v``
+and ``cuobjdump -sass``.
+"""
+
+import pytest
+
+import chip_smoke
+
+FWD = ("_ZN12_GLOBAL__N_116flash_fwd_kernelILi32EfLb0EEEvPKT0_S3_S3_PS1_"
+       "Pfiiillllllllllfi")
+DKV = ("_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelILi128E13__nv_bfloat16Lb1EEEv"
+       "PKT0_S3_S3_S3_PKfS5_PS1_S6_iiillllllllllllfi")
+DQ = "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi16EfLb1EEEvPKT0_"
+
+PTXAS = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{FWD}' for 'sm_90a'
+ptxas info    : Function properties for {FWD}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 472 bytes cmem[0]
+ptxas info    : Compiling entry function '{DKV}' for 'sm_90a'
+ptxas info    : Function properties for {DKV}
+    24 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 496 bytes cmem[0]
+"""
+
+SASS = f"""
+\tcode for sm_90a
+\t\tFunction : {FWD}
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*1230*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*1240*/                   HMMA.1688.F32.TF32 R4, R8, R14, R4 ;
+\t\tFunction : {DQ}
+        /*0000*/                   FFMA R1, R2, R3, R4 ;
+"""
+
+
+@pytest.mark.parametrize("symbol,instance", [
+    (FWD, ("flash_fwd", 32, "f32", "f32")),
+    (DKV, ("flash_bwd_dkv", 128, "bf16", "bf16")),
+    (DQ, ("flash_bwd_dq", 16, "f32", "bf16")),
+    ("_Z10other_kernelPf", None),
+])
+def test_kernel_instance_reads_mangled_symbols(symbol, instance):
+    assert chip_smoke.kernel_instance(symbol) == instance
+
+
+def test_parse_ptxas_reads_registers_and_spills():
+    assert chip_smoke.parse_ptxas(PTXAS) == {
+        ("flash_fwd", 32, "f32", "f32"): (128, 0, 0),
+        ("flash_bwd_dkv", 128, "bf16", "bf16"): (255, 12, 16),
+    }
+
+
+def test_count_hmma_counts_per_function():
+    assert chip_smoke.count_hmma(SASS) == {
+        ("flash_fwd", 32, "f32", "f32"): 2,
+        ("flash_bwd_dq", 16, "f32", "bf16"): 0,
+    }
+
+
+@pytest.mark.parametrize("kernel,flops_per_term", [
+    ("flash_fwd", 4), ("flash_bwd_dkv", 8), ("flash_bwd_dq", 6)])
+def test_bound_is_the_3xtf32_rate_at_the_main_path_shape(kernel,
+                                                          flops_per_term):
+    ms, by = chip_smoke.bound_ms(kernel, 8, 4, 512, 512, 32)
+    assert by == "operations"
+    assert ms == pytest.approx(
+        1e3 * flops_per_term * 32 * 512 * 512 * 32 / (495e12 / 3))
+
+
+def test_bound_of_a_tiny_call_is_its_bytes():
+    ms, by = chip_smoke.bound_ms("flash_fwd", 1, 1, 1, 1, 16)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * 4 * (4 * 16 + 1) / 3.35e12)
