@@ -42,7 +42,7 @@ RAGGED_SHAPES = [(2, 2, 300, 333, d) for d in (16, 32, 64, 128)]
 KERNEL_ATOL = 2e-5        # f32 sums in another order
 BF16_ATOL = 1e-2          # p rounded to bf16 against a running max, tile by tile
 GRAD_ATOL = 2e-4          # f32 gradients: longer sums of larger terms
-GRAD_BF16_ATOL = 5e-2     # the JAX package's own tolerance for the bf16 mode
+GRAD_BF16_ATOL = 2e-3     # bf16 operands, rounded alike on both sides
 LOGITS_ATOL = 1e-4
 STEP_LOSS_ATOL = 1e-5     # one train step, kernel route vs einsum route
 STEP_GRAD_RTOL = 1e-4     # max |dg| over the gradient's max
@@ -56,7 +56,7 @@ PEAK_F32_ACCURATE_FLOPS, PEAK_BYTES = 495e12 / 3, 3.35e12
 # (kernel, head dim, storage, operands) of a kernel's mangled symbol
 KERNEL_SYMBOL = re.compile(r"(flash_fwd|flash_bwd_dkv|flash_bwd_dq)_kernel"
                            r"ILi(\d+)E(f|13__nv_bfloat16)Lb([01])E")
-MMA_KERNELS = ("flash_fwd", "flash_bwd_dkv")   # on the tensor cores
+MMA_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")  # tensor cores
 
 
 def fail(msg: str):
@@ -149,8 +149,7 @@ def find_cuobjdump(nvcc: str) -> str:
 def build_and_inspect(_kernels) -> None:
     """Build the library, with ``-Xptxas -v`` compiles of the same sources
     running beside the build; print every instance's registers, spills and
-    HMMA count, and fail where a K1 or K2 instance has no HMMA or spills at
-    D=32."""
+    HMMA count, and fail where ``tensor_core_faults`` finds a fault."""
     nvcc = _kernels.find_nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -174,16 +173,25 @@ def build_and_inspect(_kernels) -> None:
         print(f"{inst[0]} D={inst[1]} {inst[2]} storage, {inst[3]} operands: "
               f"{regs} registers, spill stores/loads {st}/{ld} bytes, "
               f"{hmma.get(inst, 0)} HMMA")
+    if faults := tensor_core_faults(resources, hmma):
+        fail("; ".join(faults))
+
+
+def tensor_core_faults(resources: dict, hmma: dict) -> list:
+    """What keeps the build off the tensor cores, from ``parse_ptxas`` and
+    ``count_hmma``: an instance of a kernel in MMA_KERNELS missing from
+    either, with no HMMA instruction, or with spills at D=32."""
     wanted = {(k, d, s, o) for k in MMA_KERNELS for d in (16, 32, 64, 128)
               for s in ("f32", "bf16") for o in ("f32", "bf16")}
-    if not wanted <= set(resources) & set(hmma):
-        fail(f"instances missing from ptxas or SASS: "
-             f"{sorted(wanted - (set(resources) & set(hmma)))}")
+    if missing := sorted(wanted - (set(resources) & set(hmma))):
+        return [f"instances missing from ptxas or SASS: {missing}"]
+    faults = []
     if no_mma := sorted(i for i in wanted if hmma[i] == 0):
-        fail(f"no HMMA instruction in {no_mma}")
+        faults.append(f"no HMMA instruction in {no_mma}")
     if spilled := sorted(i for i in wanted
                          if i[1] == 32 and any(resources[i][1:])):
-        fail(f"spills at D=32 in {spilled}")
+        faults.append(f"spills at D=32 in {spilled}")
+    return faults
 
 
 def cuda_ms(fn, iters: int = 200) -> float:

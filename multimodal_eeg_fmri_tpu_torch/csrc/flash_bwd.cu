@@ -33,25 +33,34 @@
 // bfloat16`: q, k, v and dO are rounded to bf16, and so are P before dV and
 // dS before dK and dQ (:136-139, 153, 163); every sum and lse/Delta stay f32.
 //
-// K2 runs on the tensor cores (flash_mma.cuh), in FlashAttention-2's
-// backward layout: 4 warps of 16 keys each take the keys as the M side of
-// S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out of the mma
-// accumulators as the rows of dV += P^T dO and dK += dS^T Q and feed those
-// products' A operand from registers; Q, dO, lse and Delta are
-// double-buffered by cp.async. f32 mode is 3xTF32 (a TF32 part and a TF32
-// residual of each operand, three m16n8k8 products, f32 accuracy), the bf16
-// mode m16n8k16 bf16 products with f32 sums. K and V fragments stay in
-// registers for the whole loop at D = 32 (D <= 64 in bf16); wider, they are
-// read from shared memory at each step, where registers would run out. K3
-// still runs on the CUDA cores from shared memory.
+// Both run on the tensor cores (flash_mma.cuh), 4 warps of 16 rows a
+// block. f32 mode is 3xTF32 (a TF32 part and a TF32 residual of each
+// operand, three m16n8k8 products, f32 accuracy), the bf16 mode m16n8k16
+// bf16 products with f32 sums.
+// - K2 takes FlashAttention-2's backward layout: the warps' 16 keys are the
+//   M side of S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out of the
+//   mma accumulators as the rows of dV += P^T dO and dK += dS^T Q and feed
+//   those products' A operand from registers; Q, dO, lse and Delta are
+//   double-buffered by cp.async. K and V stay in registers as split
+//   fragments for the whole loop at D = 32 (D <= 64 in bf16).
+// - K3 is the forward's skeleton (flash_fwd.cu) with one more product and no
+//   online softmax: the warps' 16 queries are the M side of S = Q K^T and
+//   dP = dO V^T, dS = P (dP - Delta) is formed in the accumulators and fed
+//   from there as the A operand of dQ += dS K, with K's rows read in key_of
+//   order. K and V tiles are double-buffered by cp.async; Q and dO stay in
+//   registers as values at D = 32 (D <= 64 in bf16), lse and Delta of the
+//   lane's two rows for the whole loop.
+// Wider than that, Q, dO (K3) or K, V (K2) are read from shared memory at
+// each step, where registers would run out. A view whose base or row stride
+// is not 16-byte aligned is staged by element loads.
 //
 // What bounds them on the card: at the training slice's shapes (B*H = 32,
 // T = 256 or 512, D = 32) K2 does 8*B*H*Tq*Tk*D and K3 6*B*H*Tq*Tk*D flops
 // (2.1 and 1.6 GFLOP at T = 512) against a few MB of inputs and outputs:
 // operations bound them. 3xTF32 on the tensor cores (495/3 = 165 TFLOP/s)
 // is the fastest f32-accurate route for them, 2.5x the CUDA cores' f32 peak
-// (67 TFLOP/s) that K3 is held to. 64-row tiles give 128 (T = 256) or 256
-// (T = 512) blocks across the 132 SMs. wgmma and TMA are left for later work.
+// (67 TFLOP/s). 64-row tiles give 128 (T = 256) or 256 (T = 512) blocks
+// across the 132 SMs. wgmma and TMA are left for later work.
 
 #include <math.h>
 
@@ -61,53 +70,9 @@ namespace {
 
 constexpr int BQ = 64;                 // query rows per tile
 constexpr int BK = 64;                 // keys per tile
-constexpr int THREADS = 256;           // K3: 4 threads to a row
-constexpr int TPR = THREADS / BQ;      // threads that share one tile row
-constexpr int KPT = BK / TPR;          // keys of a tile scored by one thread
-constexpr int MMA_THREADS = 128;       // K2: 4 warps of 16 keys
+constexpr int THREADS = 128;           // 4 warps of 16 rows (keys in K2, queries in K3)
 
 using namespace flash_mma;
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-__device__ __forceinline__ float round_bf16(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-}
-
-// Stage rows [t0, t0 + 64) of one (batch, head) of a (B, H, T, D) tensor into
-// a shared tile of 64 rows padded by one float; rows past T are zero.
-template <int D, typename T, bool BF16_OPS>
-__device__ __forceinline__ void load_tile(float* tile, const T* base, int64_t st,
-                                          int t0, int T_len) {
-    for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
-        const int row = i / D, col = i % D;
-        float x = 0.f;
-        if (t0 + row < T_len) x = to_f32(base[(int64_t)(t0 + row) * st + col]);
-        tile[row * (D + 1) + col] = BF16_OPS ? round_bf16(x) : x;
-    }
-}
-
-// Scores and dP of query row r against keys g, g+TPR, ... of the staged tile:
-// s = q.k * scale and dp = dO.v, both f32.
-template <int D>
-__device__ __forceinline__ void scores(const float* qrow, const float* dorow,
-                                       const float* sK, const float* sV, int g,
-                                       float scale, float (&s)[KPT], float (&dp)[KPT]) {
-    constexpr int LD = D + 1;
-#pragma unroll
-    for (int c = 0; c < KPT; ++c) s[c] = dp[c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-        const float qd = qrow[d], gd = dorow[d];
-#pragma unroll
-        for (int c = 0; c < KPT; ++c) {
-            s[c] = fmaf(qd, sK[(g + c * TPR) * LD + d], s[c]);
-            dp[c] = fmaf(gd, sV[(g + c * TPR) * LD + d], dp[c]);
-        }
-    }
-#pragma unroll
-    for (int c = 0; c < KPT; ++c) s[c] *= scale;
-}
 
 template <int D, typename T>
 constexpr size_t dkv_smem_bytes() {
@@ -116,17 +81,17 @@ constexpr size_t dkv_smem_bytes() {
     return sizeof(float) * 4 * BQ + sizeof(T) * (size_t)(2 * BK + 4 * BQ) * pitch<D, T>();
 }
 
-template <int D>
+template <int D, typename T>
 constexpr size_t dq_smem_bytes() {
-    // Q, dO, K and V tiles and the dS tile
-    return sizeof(float) * (size_t)(4 * 64 * (D + 1) + BQ * (BK + 1));
+    // the Q and dO tiles; two buffers each of the K and V tiles
+    return sizeof(T) * (size_t)(2 * BQ + 4 * BK) * pitch<D, T>();
 }
 
 // K2: one block per (64-key tile, batch*head), 16 keys a warp; query tiles
 // stream. At least one block an SM, as K1 (flash_fwd.cu): registers before
 // occupancy.
 template <int D, typename T, bool BF16_OPS>
-__global__ void __launch_bounds__(MMA_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -163,8 +128,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     auto stage_queries = [&](int it) {
         const int buf = it & 1, r0 = it * BQ;
-        stage_tile<BQ, D, MMA_THREADS>(sQ + buf * BQ * LD, qb, qst, r0, Tq, vec & 1);
-        stage_tile<BQ, D, MMA_THREADS>(sdO + buf * BQ * LD, gb, gst, r0, Tq, vec & 8);
+        stage_tile<BQ, D, THREADS>(sQ + buf * BQ * LD, qb, qst, r0, Tq, vec & 1);
+        stage_tile<BQ, D, THREADS>(sdO + buf * BQ * LD, gb, gst, r0, Tq, vec & 8);
         const int i = threadIdx.x;
         if (i < BQ) {
             if (r0 + i < Tq) {
@@ -176,8 +141,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             }
         }
     };
-    stage_tile<BK, D, MMA_THREADS>(sK, k + b * ksb + h * ksh, kst, k0, Tk, vec & 2);
-    stage_tile<BK, D, MMA_THREADS>(sV, v + b * vsb + h * vsh, vst, k0, Tk, vec & 4);
+    stage_tile<BK, D, THREADS>(sK, k + b * ksb + h * ksh, kst, k0, Tk, vec & 2);
+    stage_tile<BK, D, THREADS>(sV, v + b * vsb + h * vsh, vst, k0, Tk, vec & 4);
     stage_queries(0);
     cp_async_commit();
 
@@ -290,9 +255,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// K3: one block per (query tile, batch*head); key tiles stream.
+// K3: one block per (64-query tile, batch*head), 16 queries a warp; key
+// tiles stream, double-buffered. At least one block an SM, as K1 and K2.
 template <int D, typename T, bool BF16_OPS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -300,70 +266,140 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int64_t qsb, int64_t qsh, int64_t qst,
                     int64_t ksb, int64_t ksh, int64_t kst,
                     int64_t vsb, int64_t vsh, int64_t vst,
-                    int64_t gsb, int64_t gsh, int64_t gst, float scale) {
-    constexpr int LD = D + 1;
-    constexpr int LDP = BK + 1;
-    constexpr int DPT = D / TPR;
-    extern __shared__ float smem[];
-    float* sQ = smem;
-    float* sdO = sQ + BQ * LD;
-    float* sK = sdO + BQ * LD;
-    float* sV = sK + BK * LD;
-    float* sdS = sV + BK * LD;
+                    int64_t gsb, int64_t gsh, int64_t gst, float scale, int vec) {
+    constexpr int LD = pitch<D, T>();
+    constexpr int CH = chunk<BF16_OPS>();
+    constexpr int NC = D / CH;         // depth chunks of S = Q K^T and dP = dO V^T
+    constexpr int NS = BK / 8;         // 8-key column blocks of S
+    constexpr int NO = D / 8;          // 8-column blocks of dQ
+    constexpr bool QG_REGS = BF16_OPS ? D <= 64 : D <= 32;
+    extern __shared__ __align__(16) unsigned char flash_smem[];
+    T* sQ = reinterpret_cast<T*>(flash_smem);
+    T* sdO = sQ + BQ * LD;
+    T* sK = sdO + BQ * LD;             // two buffers
+    T* sV = sK + 2 * BK * LD;          // two buffers
 
-    const int tid = threadIdx.x;
-    const int r = tid / TPR;           // query row within the tile
-    const int g = tid % TPR;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
     const int bh = blockIdx.y;
     const int b = bh / H, h = bh % H;
     const int q0 = blockIdx.x * BQ;
-    const int row = q0 + r;
-
-    load_tile<D, T, BF16_OPS>(sQ, q + b * qsb + h * qsh, qst, q0, Tq);
-    load_tile<D, T, BF16_OPS>(sdO, dout + b * gsb + h * gsh, gst, q0, Tq);
     const T* kb = k + b * ksb + h * ksh;
     const T* vb = v + b * vsb + h * vsh;
-    // a padded query row: lse = +inf gives P = 0
-    const float lse_r = row < Tq ? lse[(int64_t)bh * Tq + row] : INFINITY;
-    const float delta_r = row < Tq ? delta[(int64_t)bh * Tq + row] : 0.f;
+    const T* sQw = sQ + warp * 16 * LD;  // the warp's 16 query rows
+    const T* sdOw = sdO + warp * 16 * LD;
 
-    float acc[DPT];
+    stage_tile<BQ, D, THREADS>(sQ, q + b * qsb + h * qsh, qst, q0, Tq, vec & 1);
+    stage_tile<BQ, D, THREADS>(sdO, dout + b * gsb + h * gsh, gst, q0, Tq, vec & 8);
+    stage_tile<BK, D, THREADS>(sK, kb, kst, 0, Tk, vec & 2);
+    stage_tile<BK, D, THREADS>(sV, vb, vst, 0, Tk, vec & 4);
+    cp_async_commit();
+
+    // lse and Delta of the lane's rows g and g+8; a padded query row gets
+    // lse = +inf, hence P = 0
+    float lse_r[2], delta_r[2];
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-    float* dsrow = sdS + r * LDP;
-
-    for (int k0 = 0; k0 < Tk; k0 += BK) {
-        __syncthreads();  // the previous K and V tiles are consumed; Q, dO in place
-        load_tile<D, T, BF16_OPS>(sK, kb, kst, k0, Tk);
-        load_tile<D, T, BF16_OPS>(sV, vb, vst, k0, Tk);
-        __syncthreads();
-
-        float s[KPT], dp[KPT];
-        scores<D>(sQ + r * LD, sdO + r * LD, sK, sV, g, scale, s, dp);
-#pragma unroll
-        for (int c = 0; c < KPT; ++c) {
-            const int j = g + c * TPR;
-            const float p = k0 + j < Tk ? expf(s[c] - lse_r) : 0.f;
-            const float ds = p * (dp[c] - delta_r);
-            dsrow[j] = BF16_OPS ? round_bf16(ds) : ds;
-        }
-        // the TPR threads of a row are neighbouring lanes of one warp
-        __syncwarp();
-
-        // dQ[r] += sum_j dS[r, j] K[j]; masked keys have dS = 0 and K = 0
-#pragma unroll 4
-        for (int j = 0; j < BK; ++j) {
-            const float ds = dsrow[j];
-#pragma unroll
-            for (int c = 0; c < DPT; ++c)
-                acc[c] = fmaf(ds, sK[j * LD + g + c * TPR], acc[c]);
-        }
+    for (int r = 0; r < 2; ++r) {
+        const int row = q0 + warp * 16 + g + 8 * r;
+        lse_r[r] = row < Tq ? lse[(int64_t)bh * Tq + row] : INFINITY;
+        delta_r[r] = row < Tq ? delta[(int64_t)bh * Tq + row] : 0.f;
     }
 
-    if (row < Tq) {
-        T* dq_row = dq + ((int64_t)bh * Tq + row) * D;
+    auto row_chunk = [&](const T* tile, int c) {
+        return gather_a<BF16_OPS>([&](int r, int kk) {
+            return to_f32(tile[r * LD + c * CH + kk]);
+        });
+    };
+    AKept<BF16_OPS> qk[QG_REGS ? NC : 1], gk[QG_REGS ? NC : 1];
+    float acc[NO][4];
 #pragma unroll
-        for (int c = 0; c < DPT; ++c) store(&dq_row[g + c * TPR], acc[c] * scale);
+    for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+    const int n_tiles = (Tk + BK - 1) / BK;
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) {
+            const int nb = (it + 1) & 1, k1 = (it + 1) * BK;
+            stage_tile<BK, D, THREADS>(sK + nb * BK * LD, kb, kst, k1, Tk, vec & 2);
+            stage_tile<BK, D, THREADS>(sV + nb * BK * LD, vb, vst, k1, Tk, vec & 4);
+        }
+        cp_async_commit();
+        cp_async_wait<1>();            // this tile (and, at first, Q and dO) has landed
+        __syncthreads();
+        if constexpr (QG_REGS) {
+            if (it == 0) {
+#pragma unroll
+                for (int c = 0; c < NC; ++c) {
+                    qk[c] = keep<BF16_OPS>(row_chunk(sQw, c));
+                    gk[c] = keep<BF16_OPS>(row_chunk(sdOw, c));
+                }
+            }
+        }
+        const T* cK = sK + (it & 1) * BK * LD;
+        const T* cV = sV + (it & 1) * BK * LD;
+
+        // S and dP: the warp's queries down the rows, this tile's keys across
+        float s[NS][4], dp[NS][4];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+            AFrag<BF16_OPS> qa, ga;
+            if constexpr (QG_REGS) {
+                qa = frag(qk[c]);
+                ga = frag(gk[c]);
+            } else {
+                qa = a_from_vals<BF16_OPS>(row_chunk(sQw, c));
+                ga = a_from_vals<BF16_OPS>(row_chunk(sdOw, c));
+            }
+#pragma unroll
+            for (int j = 0; j < NS; ++j) {
+                mma<BF16_OPS>(s[j], qa, load_b<BF16_OPS>([&](int kk, int n) {
+                    return to_f32(cK[(j * 8 + n) * LD + c * CH + kk]);
+                }));
+                mma<BF16_OPS>(dp[j], ga, load_b<BF16_OPS>([&](int kk, int n) {
+                    return to_f32(cV[(j * 8 + n) * LD + c * CH + kk]);
+                }));
+            }
+        }
+
+        // P = exp(S scale - lse), zero for keys past Tk, and dS = P (dP - Delta)
+        // in place of dP
+        const int key0 = it * BK + 2 * t;  // the key of s[0][0]
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = key0 + j * 8 + (e & 1) < Tk
+                    ? expf(s[j][e] * scale - lse_r[e >> 1]) : 0.f;
+                dp[j][e] = p * (dp[j][e] - delta_r[e >> 1]);
+            }
+        }
+
+        // dQ += dS K, dS from the registers above; masked keys have dS = 0
+        // and K = 0
+#pragma unroll
+        for (int c = 0; c < BK / CH; ++c) {
+            const AFrag<BF16_OPS> da = a_from_acc<BF16_OPS>(&dp[c * (CH / 8)]);
+#pragma unroll
+            for (int j = 0; j < NO; ++j)
+                mma<BF16_OPS>(acc[j], da, load_b<BF16_OPS>([&](int kk, int n) {
+                    return to_f32(cK[(c * CH + key_of(kk)) * LD + j * 8 + n]);
+                }));
+        }
+        __syncthreads();               // the buffers are free for the tile after next
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = q0 + warp * 16 + g + 8 * r;
+        if (row < Tq) {
+            T* dq_row = dq + ((int64_t)bh * Tq + row) * D + 2 * t;
+#pragma unroll
+            for (int j = 0; j < NO; ++j)
+                store2(dq_row + j * 8, acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+        }
     }
 }
 
@@ -394,7 +430,7 @@ cudaError_t launch_dkv(const Args& a) {
     const int64_t* st = a.st;
     const void* inputs[] = {a.q, a.k, a.v, a.dout};
     dim3 grid((a.Tk + BK - 1) / BK, a.B * a.H);
-    kernel<<<grid, MMA_THREADS, smem, a.stream>>>(
+    kernel<<<grid, THREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -408,11 +444,12 @@ cudaError_t launch_dkv(const Args& a) {
 template <int D, typename T, bool BF16_OPS>
 cudaError_t launch_dq(const Args& a) {
     auto kernel = flash_bwd_dq_kernel<D, T, BF16_OPS>;
-    constexpr size_t smem = dq_smem_bytes<D>();
+    constexpr size_t smem = dq_smem_bytes<D, T>();
     static bool configured = false;
     cudaError_t err = configure(kernel, smem, configured);
     if (err != cudaSuccess) return err;
     const int64_t* st = a.st;
+    const void* inputs[] = {a.q, a.k, a.v, a.dout};
     dim3 grid((a.Tq + BQ - 1) / BQ, a.B * a.H);
     kernel<<<grid, THREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
@@ -420,7 +457,8 @@ cudaError_t launch_dq(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<T*>(a.out0), a.H, a.Tq, a.Tk,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        st[9], st[10], st[11], (float)(1.0 / sqrt((double)D)));
+        st[9], st[10], st[11], (float)(1.0 / sqrt((double)D)),
+        aligned_rows_mask(inputs, st, sizeof(T)));
     return cudaGetLastError();
 }
 

@@ -76,3 +76,54 @@ def test_bound_of_a_tiny_call_is_its_bytes():
     ms, by = chip_smoke.bound_ms("flash_fwd", 1, 1, 1, 1, 16)
     assert by == "bytes"
     assert ms == pytest.approx(1e3 * 4 * (4 * 16 + 1) / 3.35e12)
+
+
+def _full_build(hmma: int = 1, spills: tuple = (0, 0)):
+    """(resources, hmma) of a build with every instance of every kernel on
+    the tensor cores, as parse_ptxas and count_hmma return them."""
+    instances = [(k, d, s, o) for k in chip_smoke.MMA_KERNELS
+                 for d in (16, 32, 64, 128) for s in ("f32", "bf16")
+                 for o in ("f32", "bf16")]
+    return ({i: (200, *spills) for i in instances},
+            {i: hmma for i in instances})
+
+
+def test_tensor_core_gate_passes_a_full_build():
+    assert chip_smoke.tensor_core_faults(*_full_build()) == []
+
+
+def test_tensor_core_gate_fails_a_missing_instance():
+    resources, hmma = _full_build()
+    inst = ("flash_bwd_dq", 64, "bf16", "f32")
+    del hmma[inst]
+    faults = chip_smoke.tensor_core_faults(resources, hmma)
+    assert len(faults) == 1 and "missing" in faults[0]
+    assert str(inst) in faults[0]
+
+
+def test_tensor_core_gate_fails_an_instance_without_hmma():
+    """The old K3 of canned ptxas and SASS text: no HMMA, so the gate
+    fails, naming it."""
+    resources, hmma = _full_build()
+    inst = ("flash_bwd_dq", 16, "f32", "bf16")
+    resources.update(chip_smoke.parse_ptxas(PTXAS))
+    hmma.update(chip_smoke.count_hmma(SASS))
+    faults = chip_smoke.tensor_core_faults(resources, hmma)
+    # the canned K2 spills only at D=128, which the gate allows
+    assert len(faults) == 1 and "no HMMA" in faults[0]
+    assert str(inst) in faults[0]
+
+
+def test_tensor_core_gate_fails_spills_at_d32():
+    resources, hmma = _full_build()
+    inst = ("flash_bwd_dq", 32, "f32", "f32")
+    resources[inst] = (255, 8, 0)
+    faults = chip_smoke.tensor_core_faults(resources, hmma)
+    assert len(faults) == 1 and "spills at D=32" in faults[0]
+    assert str(inst) in faults[0]
+
+
+def test_tensor_core_gate_allows_spills_away_from_d32():
+    resources, hmma = _full_build()
+    resources[("flash_bwd_dq", 128, "f32", "f32")] = (255, 96, 96)
+    assert chip_smoke.tensor_core_faults(resources, hmma) == []
