@@ -14,7 +14,18 @@ results, compares one train step of the kernel route with the einsum route
 and with the CPU path, checks that bench.py's own step (T=250, dropout 0.3)
 launches no backward kernel, and times the kernels (CUDA events around a
 loop of calls, and the device time of their launches from torch.profiler)
-and the steps. Any failed
+and the steps.
+
+The training stack past the basic ``fit`` runs too, at the same width and
+T: K1, K2 and K3 in bf16 storage with f32 operands against their plain
+versions; a mixed-precision fit (``compute_dtype="bfloat16"``: 48 bf16
+launches of each kernel in the train steps, 12 f32 K1 launches in the
+evaluations); one bf16 train step on the three routes; a fit with
+``grad_accum=2`` and ``ema_decay=0.99``; ``fit_resumable`` crashed in its
+third chunk and resumed, bit-identical to an uninterrupted run under
+``torch.use_deterministic_algorithms(True)``; and ``Trainer`` for two epochs
+with a checkpoint round trip. The timing phase adds the bf16 step and the
+kernels' bf16-storage times. Any failed
 phase raises, so the exit code is not 0 and the final line is not printed.
 There is no CPU mode: without a GPU the script fails at once.
 
@@ -23,10 +34,13 @@ Last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -43,16 +57,29 @@ KERNEL_ATOL = 2e-5        # f32 sums in another order
 BF16_ATOL = 1e-2          # p rounded to bf16 against a running max, tile by tile
 GRAD_ATOL = 2e-4          # f32 gradients: longer sums of larger terms
 GRAD_BF16_ATOL = 2e-3     # bf16 operands, rounded alike on both sides
+LSE_ATOL = 2e-5           # lse is f32 whatever the storage
 LOGITS_ATOL = 1e-4
 STEP_LOSS_ATOL = 1e-5     # one train step, kernel route vs einsum route
 STEP_GRAD_RTOL = 1e-4     # max |dg| over the gradient's max
+# one bf16 train step, route against route: bf16 rounds in other places on
+# each (the kernel's bf16 output against the einsum's bf16 logits and
+# probabilities; the CPU's bf16 kernels), so the limits are measured
+BF16_STEP_LOSS_ATOL = 2e-2
+BF16_STEP_GRAD_RTOL = 5e-2   # max |dg| over the largest gradient
 T_SERVE, T_SHORT, BATCH = 512, 250, 8
 REQUEST_ROWS = (8, 5, 1)
 COHORT, VAL_ROWS, EPOCHS = 32, 8, 3
+ACCUM, EMA_DECAY = 2, 0.99
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): the fastest route to
 # f32-accurate products, 3xTF32 on the tensor cores (495 TFLOP/s TF32, three
-# products per f32 product), and HBM3 bandwidth
-PEAK_F32_ACCURATE_FLOPS, PEAK_BYTES = 495e12 / 3, 3.35e12
+# products per f32 product); bf16 products (exact in f32 accumulators); the
+# fastest f32-accurate route for a product of an f32 operand with a
+# bf16-stored one, which is exact in TF32 and in bf16: the f32 operand split
+# in two TF32 pieces (two products) or in three bf16 pieces (three
+# products), whichever is faster; and HBM3 bandwidth
+PEAK_F32_ACCURATE_FLOPS, PEAK_BF16_FLOPS = 495e12 / 3, 989e12
+PEAK_MIXED_FLOPS = max(495e12 / 2, PEAK_BF16_FLOPS / 3)
+PEAK_BYTES = 3.35e12
 # (kernel, head dim, storage, operands) of a kernel's mangled symbol
 KERNEL_SYMBOL = re.compile(r"(flash_fwd|flash_bwd_dkv|flash_bwd_dq)_kernel"
                            r"ILi(\d+)E(f|13__nv_bfloat16)Lb([01])E")
@@ -63,8 +90,11 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def request(n: int, T: int, seed: int) -> dict:
@@ -294,21 +324,87 @@ def profile_steps(step, batch, cw, card: str, n: int = 5) -> None:
               f"{e.count / n:6.1f} calls/step")
 
 
-def bound_ms(kernel: str, B, H, tq, tk, d) -> tuple:
+def bound_ms(kernel: str, B, H, tq, tk, d, storage: str = "f32") -> tuple:
     """Least time (ms) of the kernel's work, f32-accurate, on the card, and
     what bounds it: operations (2 per multiply-add, exp not counted) over
-    the 3xTF32 tensor-core rate, whatever route the kernel takes, or bytes
-    (each input read once, each output written once) over the memory rate."""
+    the peak rate for their operands' type, whatever route the kernel takes,
+    or bytes (each input read once, each output written once) over the
+    memory rate. With f32 storage every product runs at the 3xTF32 rate;
+    with bf16 storage the products of two stored tensors (S = QKᵀ, dP =
+    dO·Vᵀ) are exact at the bf16 rate and those of an f32 operand (P, dS)
+    with a stored one at ``PEAK_MIXED_FLOPS``; the stored tensors take 2
+    bytes, lse and Δ 4."""
     bh = B * H
     q_el, k_el = bh * tq * d, bh * tk * d
-    flops = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}[kernel] \
-        * bh * tq * tk * d
-    elems = {"flash_fwd": 2 * q_el + 2 * k_el + bh * tq,          # q, k, v; o, lse
-             "flash_bwd_dkv": 2 * q_el + 4 * k_el + 2 * bh * tq,  # q, dO, k, v, lse, Δ; dk, dv
-             "flash_bwd_dq": 3 * q_el + 2 * k_el + 2 * bh * tq}[kernel]
-    t_ops, t_bytes = flops / PEAK_F32_ACCURATE_FLOPS, 4 * elems / PEAK_BYTES
+    products = bh * tq * tk * d * 2          # flops of one product
+    stored, mixed = {"flash_fwd": (1, 1), "flash_bwd_dkv": (2, 2),
+                     "flash_bwd_dq": (2, 1)}[kernel]
+    if storage == "f32":
+        stored, mixed = 0, stored + mixed
+    t_ops = products * (stored / PEAK_BF16_FLOPS + mixed / (
+        PEAK_F32_ACCURATE_FLOPS if storage == "f32" else PEAK_MIXED_FLOPS))
+    size = 4 if storage == "f32" else 2
+    elems, stats = {
+        "flash_fwd": (2 * q_el + 2 * k_el, bh * tq),          # q, k, v, o; lse
+        "flash_bwd_dkv": (2 * q_el + 4 * k_el, 2 * bh * tq),  # q, dO, k, v, dk, dv; lse, Δ
+        "flash_bwd_dq": (3 * q_el + 2 * k_el, 2 * bh * tq)}[kernel]
+    t_bytes = (size * elems + 4 * stats) / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def total_launches() -> dict:
+    """Each flash kernel's launches since the last reset, both storage
+    dtypes summed."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import kernel_launches
+
+    return {k: sum(n.values()) for k, n in kernel_launches().items()}
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers (8 significant bits) at |x|."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def grad_limit_bf16(largest: float) -> float:
+    """A bf16-storage gradient's limit against its plain version: the f32
+    limit plus one bf16 ulp of the largest gradient, since both round their
+    f32 sums to bf16 once."""
+    return GRAD_ATOL + bf16_ulp(largest)
+
+
+class InjectedCrash(Exception):
+    pass
+
+
+def crashing(augment, calls: int):
+    """``augment`` that raises ``InjectedCrash`` at its call ``calls + 1``."""
+    count = [0]
+
+    def wrapper(generator, batch):
+        count[0] += 1
+        if count[0] > calls:
+            raise InjectedCrash(f"injected crash at augment call {count[0]}")
+        return augment(generator, batch)
+
+    return wrapper
+
+
+@contextlib.contextmanager
+def deterministic():
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def max_diff(a: dict, b: dict) -> float:
+    """The largest |a − b| over the tensors of two dicts with equal keys."""
+    if set(a) != set(b):
+        fail(f"state keys differ: {sorted(set(a) ^ set(b))}")
+    return max(((a[k].double().cpu() - b[k].double().cpu()).abs().max().item()
+                for k in a), default=0.0)
 
 
 def cancelled_biases(model) -> set:
@@ -340,6 +436,8 @@ def cancelled_biases(model) -> set:
 
 
 def main() -> None:
+    # deterministic cuBLAS for the resume phase; read when cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a GPU")
@@ -351,12 +449,16 @@ def main() -> None:
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs sum in f32, as XLA's bf16 dots do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
 
     from multimodal_eeg_fmri_tpu_torch import (
         MultimodalEndToEnd,
         Predictor,
         TrainConfig,
+        Trainer,
+        fit_resumable,
         init_weights,
         make_fit_fn,
     )
@@ -382,6 +484,7 @@ def main() -> None:
     )
     from multimodal_eeg_fmri_tpu_torch.ops.augment import make_eeg_augment
     from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
+    from multimodal_eeg_fmri_tpu_torch.train.resilient import latest_chunk
 
     phase("build: registers, spills and tensor-core instructions")
     build_and_inspect(_kernels)
@@ -440,6 +543,43 @@ def main() -> None:
             worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e_dkv)
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e_dq)
 
+    phase("kernel vs plain version in bf16 storage, f32 operands: K1, K2 "
+          "and K3 at the main path's shapes")
+    worst_bf16 = dict.fromkeys(worst, 0.0)
+    for B, H, T, d in SLICE_SHAPES:
+        q, k, v, g = (torch.randn(B, H, T, d, device=dev,
+                                  generator=gen).bfloat16() for _ in range(4))
+        out_k, lse_k = flash_forward_cuda(q, k, v)
+        out_p, lse_p = flash_forward_plain(q, k, v)
+        delta = flash_delta(out_k, g)
+        dk_k, dv_k = flash_bwd_dkv_cuda(q, k, v, g, lse_k, delta)
+        dq_k = flash_bwd_dq_cuda(q, k, v, g, lse_k, delta)
+        dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, g, lse_k, delta)
+        dq_p = flash_bwd_dq_plain(q, k, v, g, lse_k, delta)
+        torch.cuda.synchronize()
+        if not all(t.dtype == torch.bfloat16
+                   for t in (out_k, dk_k, dv_k, dq_k)):
+            fail("a bf16-storage kernel did not write bf16")
+        d_out = (out_k.float() - out_p.float()).abs().max().item()
+        d_lse = (lse_k - lse_p).abs().max().item()
+        e_dkv = max((dk_k.float() - dk_p.float()).abs().max().item(),
+                    (dv_k.float() - dv_p.float()).abs().max().item())
+        e_dq = (dq_k.float() - dq_p.float()).abs().max().item()
+        lim_dkv = grad_limit_bf16(max(dk_p.float().abs().max().item(),
+                                      dv_p.float().abs().max().item()))
+        lim_dq = grad_limit_bf16(dq_p.float().abs().max().item())
+        print(f"(B,H,T,D)=({B},{H},{T},{d}) bf16 storage: max|dO|={d_out:.3e} "
+              f"(limit {BF16_ATOL:g}), max|dlse|={d_lse:.3e} (limit "
+              f"{LSE_ATOL:g}); max|d(dK,dV)|={e_dkv:.3e} (limit "
+              f"{lim_dkv:.3e}), max|d(dQ)|={e_dq:.3e} (limit {lim_dq:.3e})")
+        if not (d_out <= BF16_ATOL and d_lse <= LSE_ATOL and e_dkv <= lim_dkv
+                and e_dq <= lim_dq):
+            fail(f"a bf16-storage kernel disagrees with its plain version at "
+                 f"{(B, H, T, d)}")
+        for name, err in (("flash_fwd", max(d_out, d_lse)),
+                          ("flash_bwd_dkv", e_dkv), ("flash_bwd_dq", e_dq)):
+            worst_bf16[name] = max(worst_bf16[name], err)
+
     phase("autograd through K1+K2+K3 vs through the einsum reference")
     B, H, T, d = SLICE_SHAPES[1]
     x = torch.randn(3, B, T, H, d, device=dev, generator=gen,
@@ -448,7 +588,7 @@ def main() -> None:
     g = torch.randn(B, H, T, d, device=dev, generator=gen)
     g_lse = torch.randn(B, H, T, device=dev, generator=gen)
     scale = 1.0 / math.sqrt(d)
-    before = kernel_launches()
+    before = total_launches()
     for name, loss, ref in (
             ("flash_attention", lambda: (flash_attention(q, k, v) * g).sum(),
              lambda: (reference_attention(q, k, v) * g).sum()),
@@ -466,7 +606,7 @@ def main() -> None:
               f"(limit {GRAD_ATOL:g})")
         if not err <= GRAD_ATOL:
             fail(f"{name} gradient disagrees with the einsum reference")
-    after = kernel_launches()
+    after = total_launches()
     if any(after[k] - before[k] != 2 for k in after):
         fail(f"autograd did not go through the kernels: {before} -> {after}")
 
@@ -481,7 +621,7 @@ def main() -> None:
     reset_kernel_launches()
     probs = [predictor(**req) for req in requests]
     torch.cuda.synchronize()
-    serve_launches = kernel_launches()
+    serve_launches = total_launches()
     padded_batches = sum(-(-n // BATCH) for n in REQUEST_ROWS)
     print(f"{n_params} parameters; served rows {REQUEST_ROWS}; launches "
           f"{serve_launches} for {padded_batches} padded batches")
@@ -515,10 +655,10 @@ def main() -> None:
     if not (d_plain <= LOGITS_ATOL and d_cpu <= LOGITS_ATOL):
         fail("logits with the kernel disagree with the plain versions")
 
-    before = kernel_launches()
+    before = total_launches()
     short = predictor(**request(BATCH, T_SHORT, seed=20))
     torch.cuda.synchronize()
-    if kernel_launches() != before or not np.all(np.isfinite(short)):
+    if total_launches() != before or not np.all(np.isfinite(short)):
         fail(f"T={T_SHORT} launched a kernel or gave non-finite output")
     print(f"T={T_SHORT}: no kernel launch (the einsum route), as the auto "
           "rule says")
@@ -543,7 +683,7 @@ def main() -> None:
     result = fit(0, cohort, {"val": val}, class_weights)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    train_launches = kernel_launches()
+    train_launches = total_launches()
     steps = EPOCHS * (COHORT // BATCH)
     # 4 flash layers: forward per train step and per eval, backward per step
     expected = {"flash_fwd": 4 * (steps + EPOCHS), "flash_bwd_dkv": 4 * steps,
@@ -610,6 +750,209 @@ def main() -> None:
             fail(f"the kernel route's train step disagrees with the {other} "
                  "route")
 
+    phase(f"mixed-precision training path: compute_dtype='bfloat16', "
+          f"MultimodalEndToEnd(dropout=0.0) defaults, {COHORT} subjects, "
+          f"T={T_SERVE}, {EPOCHS} epochs")
+    bf16_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    mp_model = init_weights(MultimodalEndToEnd(dropout=0.0, device=dev),
+                            torch.Generator().manual_seed(1))
+    mp_initial = {k: p.detach().clone()
+                  for k, p in mp_model.named_parameters()}
+    mp_fit = make_fit_fn(mp_model, bf16_cfg, eval_names=("val",),
+                         augment=make_eeg_augment(), preprocess=zscore)
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    mp_result = mp_fit(0, cohort, {"val": val}, class_weights)
+    torch.cuda.synchronize()
+    mp_s = time.perf_counter() - t0
+    mp_launches = kernel_launches()
+    # bf16 q/k/v in every train step, f32 in every evaluation
+    mp_expected = {
+        "flash_fwd": {"f32": 4 * EPOCHS, "bf16": 4 * steps},
+        "flash_bwd_dkv": {"f32": 0, "bf16": 4 * steps},
+        "flash_bwd_dq": {"f32": 0, "bf16": 4 * steps}}
+    mp_history = {k: v.cpu().numpy() for k, v in mp_result.history.items()}
+    print(f"bf16 fit: {steps} steps and {EPOCHS} evals in {mp_s:.2f} s; "
+          f"launches by storage {mp_launches} (expected {mp_expected})")
+    print("history: " + ", ".join(f"{k}={np.array2string(v, precision=5)}"
+                                  for k, v in mp_history.items()))
+    if mp_launches != mp_expected:
+        fail(f"the bf16 fit launched {mp_launches}, expected {mp_expected}")
+    if not all(np.all(np.isfinite(v)) and v.shape == (EPOCHS,)
+               for v in mp_history.values()):
+        fail("non-finite or short history in the bf16 fit")
+    mp_moved = max((p.detach() - mp_initial[k]).abs().max().item()
+                   for k, p in mp_model.named_parameters())
+    master = [p.dtype for p in mp_model.parameters()] + [
+        t.dtype for t in (*mp_result.params.values(),
+                          *mp_result.carry.opt_state["exp_avg"].values())]
+    stats = [b.dtype for m in mp_model.modules() if isinstance(m, BatchNorm)
+             for b in (m.running_mean, m.running_var)]
+    print(f"params moved by up to {mp_moved:.3e}; master params, AdamW state "
+          f"and BatchNorm statistics {sorted({str(t) for t in master + stats})}")
+    if not (mp_moved > 0 and set(master + stats) == {torch.float32}):
+        fail("the bf16 fit did not move the params or left f32")
+
+    phase("one bf16 train step: kernel route vs einsum route on the card, "
+          "and vs the CPU path")
+    bf_grads, bf_losses = {}, {}
+    for name, m in (("kernel", copy.deepcopy(base)),
+                    ("einsum", einsum_route(copy.deepcopy(base))),
+                    ("cpu", copy.deepcopy(base).cpu())):
+        step = TrainStep(m, bf16_cfg, preprocess=zscore)
+        mdev = next(m.parameters()).device
+        loss = step.loss({k: v.to(mdev) for k, v in batch.items()},
+                         class_weights.to(mdev))
+        loss.backward()
+        bf_losses[name] = loss.item()
+        bf_grads[name] = {k: p.grad.to(dev) for k, p in m.named_parameters()}
+
+    def grad_gap(a, b) -> tuple:
+        """(max|a − b| over every gradient, over the largest |b|; the
+        tensor where it is largest). bf16 rounds each gradient to about 3
+        significant digits, so a tensor's own scale is no yardstick: a
+        scalar's near-zero gradient is all rounding."""
+        g_max = max(g.abs().max().item() for g in b.values())
+        return max(((a[k] - g).abs().max().item() / g_max, k)
+                   for k, g in b.items())
+
+    f32_gap = grad_gap(bf_grads["kernel"], grads["kernel"])
+    print(f"bf16 kernel route vs the f32 kernel route: loss |d|="
+          f"{abs(bf_losses['kernel'] - losses['kernel']):.3e}, gradients "
+          f"max|d| / the largest gradient {f32_gap[0]:.3e} at {f32_gap[1]} "
+          f"(the size of bf16 rounding)")
+    for other in ("einsum", "cpu"):
+        d_loss = abs(bf_losses["kernel"] - bf_losses[other])
+        rel, worst_name = grad_gap(bf_grads["kernel"], bf_grads[other])
+        print(f"bf16 kernel vs {other}: loss {bf_losses['kernel']:.7f} vs "
+              f"{bf_losses[other]:.7f} (|d|={d_loss:.3e}, limit "
+              f"{BF16_STEP_LOSS_ATOL:g}); gradients max|d| / the largest "
+              f"gradient {rel:.3e} at {worst_name} (limit "
+              f"{BF16_STEP_GRAD_RTOL:g})")
+        if not (d_loss <= BF16_STEP_LOSS_ATOL and rel <= BF16_STEP_GRAD_RTOL):
+            fail(f"the bf16 step on the kernel route disagrees with the "
+                 f"{other} route")
+
+    phase(f"gradient accumulation and EMA: grad_accum={ACCUM}, ema_decay="
+          f"{EMA_DECAY}, T={T_SERVE}, {EPOCHS} epochs")
+    ae_cfg = dataclasses.replace(cfg, grad_accum=ACCUM, ema_decay=EMA_DECAY)
+    ae_model = init_weights(MultimodalEndToEnd(dropout=0.0, device=dev),
+                            torch.Generator().manual_seed(1))
+    ae_fit = make_fit_fn(ae_model, ae_cfg, eval_names=("val",),
+                         augment=make_eeg_augment(), preprocess=zscore)
+    reset_kernel_launches()
+    ae_result = ae_fit(0, cohort, {"val": val}, class_weights)
+    torch.cuda.synchronize()
+    ae_launches = total_launches()
+    ae_expected = {"flash_fwd": 4 * (ACCUM * steps + EPOCHS),
+                   "flash_bwd_dkv": 4 * ACCUM * steps,
+                   "flash_bwd_dq": 4 * ACCUM * steps}
+    ae_history = {k: v.cpu().numpy() for k, v in ae_result.history.items()}
+    ema_lag = max_diff(ae_result.carry.ema_params, ae_result.carry.params)
+    print(f"launches {ae_launches} (expected {ae_expected}); train loss "
+          f"{np.array2string(ae_history['train_loss'], precision=5)}; EMA "
+          f"lags the params by up to {ema_lag:.3e}")
+    if ae_launches != ae_expected:
+        fail(f"grad_accum + EMA launched {ae_launches}, expected "
+             f"{ae_expected}")
+    if not (all(np.all(np.isfinite(v)) for v in ae_history.values())
+            and ema_lag > 0):
+        fail("non-finite history, or an EMA equal to the params")
+
+    def fresh(seed):
+        return init_weights(MultimodalEndToEnd(dropout=0.0, device=dev),
+                            torch.Generator().manual_seed(seed))
+
+    evals = {"val": val}
+    with deterministic(), tempfile.TemporaryDirectory() as tmp:
+        phase("resumable training: fit_resumable, chunk_epochs=1, a crash in "
+              "the third chunk, resume; torch.use_deterministic_algorithms"
+              "(True)")
+        torch.manual_seed(5)
+        one = make_fit_fn(fresh(4), cfg, eval_names=("val",),
+                          augment=make_eeg_augment(), preprocess=zscore)(
+            0, cohort, evals, class_weights)
+        ck = Path(tmp) / "chunks"
+        torch.manual_seed(5)
+        try:
+            fit_resumable(fresh(4), cfg, 0, cohort, evals, ck, class_weights,
+                          chunk_epochs=1, preprocess=zscore,
+                          augment=crashing(make_eeg_augment(),
+                                           2 * (COHORT // BATCH)))
+        except InjectedCrash as e:
+            print(f"chunks 0 and 1 written, then: {e}")
+        else:
+            fail("the injected crash did not happen")
+        if latest_chunk(ck) != 1:
+            fail(f"the last complete chunk is {latest_chunk(ck)}, not 1")
+        torch.manual_seed(6)
+        resumed = fit_resumable(fresh(6), cfg, 0, cohort, evals, ck,
+                                class_weights, chunk_epochs=1,
+                                preprocess=zscore, augment=make_eeg_augment())
+        torch.cuda.synchronize()
+        gaps = {
+            "history": max_diff(resumed.history, one.history),
+            "final params": max_diff(resumed.final_params, one.final_params),
+            "best params": max_diff(resumed.params, one.params),
+            "statistics": max_diff(resumed.final_batch_stats,
+                                   one.final_batch_stats),
+            "AdamW moments": max(max_diff(resumed.carry.opt_state[k],
+                                          one.carry.opt_state[k])
+                                 for k in ("exp_avg", "exp_avg_sq"))}
+        print(f"resumed from chunk 1 vs one uninterrupted run, max|d|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+              + " (limit 0)")
+        if any(gaps.values()):
+            fail("the resumed run is not bit-identical to the uninterrupted "
+                 "one")
+
+        phase("Trainer: two epochs with evaluate, then a save_checkpoint / "
+              "load_checkpoint round trip")
+        t_cfg = dataclasses.replace(cfg, num_epochs=2, ema_decay=EMA_DECAY)
+        torch.manual_seed(7)
+        trainer = Trainer(fresh(7), t_cfg, augment=make_eeg_augment(),
+                          generator=7)
+        reset_kernel_launches()
+        t_hist = trainer.fit(cohort, val, class_weights)
+        torch.cuda.synchronize()
+        t_launches = total_launches()
+        t_steps = 2 * (COHORT // BATCH)
+        t_expected = {"flash_fwd": 4 * (t_steps + 2),
+                      "flash_bwd_dkv": 4 * t_steps,
+                      "flash_bwd_dq": 4 * t_steps}
+        t_metrics = trainer.evaluate(val)
+        path = trainer.save_checkpoint(Path(tmp) / "trainer")
+        restored = Trainer(fresh(8), t_cfg, augment=make_eeg_augment(),
+                           generator=8)
+        restored.load_checkpoint(path)
+        c0, c1 = trainer._carry, restored._carry
+        state_gap = max(
+            max_diff(c1.params, c0.params),
+            max_diff(c1.batch_stats, c0.batch_stats),
+            max_diff(c1.ema_params, c0.ema_params),
+            max_diff(restored.best_state[0], trainer.best_state[0]),
+            *(max_diff(c1.opt_state[k], c0.opt_state[k])
+              for k in ("exp_avg", "exp_avg_sq")))
+        same = (torch.equal(c1.rng, c0.rng)
+                and torch.equal(c1.torch_rng, c0.torch_rng)
+                and restored.epoch == trainer.epoch
+                and restored.history == trainer.history
+                and restored.best_metric == trainer.best_metric)
+        next_losses = (trainer.train_one_epoch(cohort, class_weights),
+                       restored.train_one_epoch(cohort, class_weights))
+        print(f"Trainer: train loss {t_hist['train_loss']}, val f1 "
+              f"{t_hist['f1']}; launches {t_launches} (expected "
+              f"{t_expected}); evaluate {t_metrics}; restored state max|d| "
+              f"{state_gap:.3e}, counters and generators equal: {same}; "
+              f"the next epoch's loss {next_losses[0]!r} vs "
+              f"{next_losses[1]!r}")
+        if t_launches != t_expected:
+            fail(f"Trainer launched {t_launches}, expected {t_expected}")
+        if not (np.all(np.isfinite(t_hist["train_loss"])) and same
+                and state_gap == 0 and next_losses[0] == next_losses[1]):
+            fail("the Trainer's checkpoint round trip did not restore its "
+                 "state")
+
     phase(f"bench.py's own step: T={T_SHORT}, dropout 0.3")
     bench_model = init_weights(MultimodalEndToEnd(device=dev),
                                torch.Generator().manual_seed(3))
@@ -620,11 +963,11 @@ def main() -> None:
     reset_kernel_launches()
     loss = bench_step(bench_batch, None, gen).item()
     torch.cuda.synchronize()
-    if any(kernel_launches().values()) or not math.isfinite(loss):
-        fail(f"T={T_SHORT} step launched {kernel_launches()} or gave loss "
+    if any(total_launches().values()) or not math.isfinite(loss):
+        fail(f"T={T_SHORT} step launched {total_launches()} or gave loss "
              f"{loss}")
     print(f"T={T_SHORT}, dropout 0.3: loss {loss:.6f}, launches "
-          f"{kernel_launches()} (the einsum route, as the auto rule says)")
+          f"{total_launches()} (the einsum route, as the auto rule says)")
 
     phase(f"timing {card}")
     stats = predictor.benchmark(requests[0], warmup=5, iters=50)
@@ -645,6 +988,12 @@ def main() -> None:
         lambda: step_ms(timed["einsum"], batch, class_weights))
     print(f"train step B={BATCH} T={T_SERVE} dropout 0: kernel route "
           f"{kernel_ms:.3f} ms, einsum route {einsum_ms:.3f} ms {card}")
+    timed["bf16"] = TrainStep(copy.deepcopy(base), bf16_cfg, preprocess=zscore)
+    f32_ms, bf16_ms = in_turns(
+        lambda: step_ms(timed["kernel"], batch, class_weights),
+        lambda: step_ms(timed["bf16"], batch, class_weights))
+    print(f"train step B={BATCH} T={T_SERVE} dropout 0, kernel route: f32 "
+          f"{f32_ms:.3f} ms, bf16 mixed precision {bf16_ms:.3f} ms {card}")
     bench_ms = step_ms(lambda b, cw: bench_step(b, cw, gen), bench_batch, None)
     print(f"train step B={BATCH} T={T_SHORT} dropout 0.3 (bench.py's step): "
           f"{bench_ms:.3f} ms {card}")
@@ -652,13 +1001,16 @@ def main() -> None:
 
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    per_step = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-                    "bound_ms": 0.0, "library_ms": 0.0,
-                    "library_device_ms": 0.0, "ops": 0.0}
-                for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
-    for B, H, T, d in SLICE_SHAPES:
-        q, k, v, g = (torch.randn(B, H, T, d, device=dev, generator=gen)
-                      for _ in range(4))
+    per_step = {(k, storage): {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                               "bound_ms": 0.0, "library_ms": 0.0,
+                               "library_device_ms": 0.0, "ops": 0.0}
+                for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+                for storage in ("f32", "bf16")}
+    for (B, H, T, d), storage in [(s, st) for st in ("f32", "bf16")
+                                  for s in SLICE_SHAPES]:
+        q, k, v, g = (torch.randn(B, H, T, d, device=dev, generator=gen).to(
+            torch.float32 if storage == "f32" else torch.bfloat16)
+            for _ in range(4))
         out, lse = flash_forward_cuda(q, k, v)
         delta = flash_delta(out, g)
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
@@ -688,15 +1040,16 @@ def main() -> None:
                                     lambda: cuda_ms(plain))
             dev_ms = device_ms(kern)
             lib_ms, lib_dev_ms = lib_times[lib_fn]
-            b_ms, by = bound_ms(name, B, H, T, T, d)
+            b_ms, by = bound_ms(name, B, H, T, T, d, storage)
             # two layers of each shape per train step
             for key, val in (("ms", ms), ("device_ms", dev_ms),
                              ("plain_ms", plain_ms), ("bound_ms", b_ms),
                              ("library_ms", lib_ms),
                              ("library_device_ms", lib_dev_ms),
                              ("ops", by == "operations")):
-                per_step[name][key] += 2 * val
-            print(f"{name} (B,H,T,D)=({B},{H},{T},{d}): kernel {ms:.4f} ms "
+                per_step[name, storage][key] += 2 * val
+            print(f"{name} (B,H,T,D)=({B},{H},{T},{d}) {storage} storage: "
+                  f"kernel {ms:.4f} ms "
                   f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
                   f"{b_ms:.4f} ms ({by}), library (SDPA "
                   f"{'forward' if name == 'flash_fwd' else 'backward, dQ+dK+dV'}"
@@ -709,9 +1062,21 @@ def main() -> None:
     source = {"flash_fwd": "multimodal_eeg_fmri_tpu_torch/csrc/flash_fwd.cu",
               "flash_bwd_dkv": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd.cu",
               "flash_bwd_dq": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd.cu"}
-    print("per train step (2 layers at T=256, 2 at T=512): " + "; ".join(
-        f"{k} {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms (bound "
-        f"{v['bound_ms']:.4f})" for k, v in per_step.items()))
+    for storage in ("f32", "bf16"):
+        print(f"per train step, {storage} storage (2 layers at T=256, 2 at "
+              f"T=512): " + "; ".join(
+                  f"{k} {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms "
+                  f"(bound {v['bound_ms']:.4f})"
+                  for (k, st), v in per_step.items() if st == storage))
+
+    def timings(t: dict) -> dict:
+        return {"ms": t["ms"], "device_ms": t["device_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "operations" if t["ops"] else "bytes",
+                "library_ms": t["library_ms"],
+                "library_device_ms": t["library_device_ms"]}
+
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -719,14 +1084,13 @@ def main() -> None:
         "replaces": replaces[name],
         "launches": train_launches[name],
         "max_abs_err": worst[name],
-        "ms": t["ms"],
-        "device_ms": t["device_ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": "operations" if t["ops"] else "bytes",
-        "library_ms": t["library_ms"],
-        "library_device_ms": t["library_device_ms"],
-    } for name, t in per_step.items()]}))
+        **timings(per_step[name, "f32"]),
+        # the mixed-precision fit's launches by storage, and the
+        # bf16-storage instance's error and times
+        "launches_bf16_fit": mp_launches[name],
+        "bf16_storage": {"max_abs_err": worst_bf16[name],
+                         **timings(per_step[name, "bf16"])},
+    } for name in names]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

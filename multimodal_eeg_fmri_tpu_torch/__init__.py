@@ -8,6 +8,7 @@ neither jax nor the JAX package.
 
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
 from multimodal_eeg_fmri_tpu_torch.convert import (
+    carry_from_jax,
     init_weights,
     load_flax_variables,
 )
@@ -16,15 +17,28 @@ from multimodal_eeg_fmri_tpu_torch.models import (
     MultimodalEndToEnd,
 )
 from multimodal_eeg_fmri_tpu_torch.serving import Predictor
-from multimodal_eeg_fmri_tpu_torch.train.fit import FitResult, fit, make_fit_fn
+from multimodal_eeg_fmri_tpu_torch.train import (
+    FitCarry,
+    FitResult,
+    Trainer,
+    evaluate_dataset,
+    fit,
+    fit_resumable,
+    make_fit_fn,
+)
 
 __all__ = [
+    "FitCarry",
     "FitResult",
     "ModelOutput",
     "MultimodalEndToEnd",
     "Predictor",
     "TrainConfig",
+    "Trainer",
+    "carry_from_jax",
+    "evaluate_dataset",
     "fit",
+    "fit_resumable",
     "init_weights",
     "load_flax_variables",
     "make_fit_fn",

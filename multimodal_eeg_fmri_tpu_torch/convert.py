@@ -5,6 +5,10 @@ its JAX counterpart, given as nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, variables)`` gives). It is strict: a flax leaf
 that nothing takes, or a port tensor that nothing fills, raises.
 
+``carry_from_jax`` turns the training state of a JAX ``fit``
+(``FitResult.carry`` with numpy leaves) into the port's ``FitCarry``, so
+that the port's ``fit`` can resume a run the JAX package began.
+
 ``init_weights`` initialises a port module as flax would: lecun-normal
 kernels (a normal truncated at ±2σ, rescaled to unit variance over fan-in),
 zero biases, unit norm scales, and the special initial values of
@@ -14,8 +18,9 @@ CPU ``torch.Generator``, so one seed gives the same weights on every device.
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Mapping, Optional
+from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +29,7 @@ from torch import nn
 from multimodal_eeg_fmri_tpu_torch.models.encoders import MultiScaleConv
 from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet
 from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
+from multimodal_eeg_fmri_tpu_torch.train.fit import FitCarry
 
 # flax's truncated_normal initialisers divide by this: the std of a unit
 # normal truncated to [-2, 2]
@@ -108,6 +114,71 @@ def load_flax_variables(module: nn.Module, params: Mapping,
     if unfilled:
         raise ValueError(f"port tensors not filled: {sorted(unfilled)}")
     return module
+
+
+def _port_tensors(module: nn.Module, params: Mapping,
+                  batch_stats: Optional[Mapping]) -> Tuple[dict, dict]:
+    """(params, other state-dict tensors) of ``module``'s layout, by name,
+    filled from flax trees; ``module`` itself is left as it is."""
+    scratch = load_flax_variables(copy.deepcopy(module), params, batch_stats)
+    out = {k: p.detach().clone() for k, p in scratch.named_parameters()}
+    stats = {k: v.clone() for k, v in scratch.state_dict().items()
+             if k not in out}
+    return out, stats
+
+
+def _adam_state(opt_state: Any):
+    """optax's ``ScaleByAdamState`` (count, mu, nu) inside a chain's state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def carry_from_jax(module: nn.Module, carry: Any) -> FitCarry:
+    """The port's ``FitCarry`` from a JAX ``FitResult.carry`` with numpy
+    leaves, for ``module``'s layout and device. optax's Adam state maps onto
+    AdamW's (count → step, mu → exp_avg, nu → exp_avg_sq); the scalars are
+    copied. The JAX PRNG key has no torch counterpart: ``rng`` and
+    ``torch_rng`` are None, so the resumed ``fit`` keeps the generators the
+    caller gives it."""
+    dev = next(module.parameters()).device
+    adam = _adam_state(carry.opt_state)
+    if adam is None:
+        raise ValueError("the carry's opt_state holds no Adam state")
+
+    def port(params, stats=carry.batch_stats):
+        p, s = _port_tensors(module, params, stats)
+        return ({k: v.to(dev) for k, v in p.items()},
+                {k: v.to(dev) for k, v in s.items()})
+
+    def scalar(x, dtype):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=dev)
+
+    params, batch_stats = port(carry.params)
+    best_params, best_stats = port(carry.best_params, carry.best_batch_stats)
+    ema = carry.ema_params
+    return FitCarry(
+        params=params, batch_stats=batch_stats,
+        opt_state={"step": torch.tensor(float(np.asarray(adam.count))),
+                   "exp_avg": port(adam.mu)[0],
+                   "exp_avg_sq": port(adam.nu)[0]},
+        rng=None, torch_rng=None,
+        best_params=best_params, best_batch_stats=best_stats,
+        best_metric=scalar(carry.best_metric, torch.float32),
+        best_epoch=scalar(carry.best_epoch, torch.int32),
+        bad_epochs=int(np.asarray(carry.bad_epochs)),
+        stopped=bool(np.asarray(carry.stopped)),
+        plateau_best=scalar(carry.plateau_best, torch.float32),
+        plateau_bad=scalar(carry.plateau_bad, torch.int64),
+        lr_scale=scalar(carry.lr_scale, torch.float32),
+        epoch=int(np.asarray(carry.epoch)),
+        ema_params=port(ema)[0] if isinstance(ema, Mapping) and ema
+        else None)
 
 
 def _lecun_normal(tensor: torch.Tensor, fan_in: int,

@@ -38,10 +38,12 @@ class TrainConfig:
     selection: str = "val"
     val_ratio: float = 0.15
     seed: int = 42
-    # microbatches per optimizer step; the port's fit takes only 1 so far
+    # microbatches per optimizer step (must divide the batch); the summed
+    # f32 gradients equal the full batch's
     grad_accum: int = 1
-    # Polyak average of the params; the port's fit takes only 0 so far
+    # Polyak average of the params (not of the BatchNorm statistics); 0 = off
     ema_decay: float = 0.0
-    # compute dtype of the matmul-heavy paths; the port's fit takes only
-    # "float32" so far
+    # "float32" or "bfloat16": the train step's forward and backward run on
+    # bf16 copies of the params and inputs, the master params, gradients,
+    # AdamW state and running statistics stay f32, evaluation runs in f32
     compute_dtype: str = "float32"

@@ -10,6 +10,7 @@ from torch import nn
 from multimodal_eeg_fmri_tpu_torch.models.eeg import ModelOutput
 from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
 from multimodal_eeg_fmri_tpu_torch.models.layers import (
+    Dense,
     MultiHeadAttention,
     gelu,
     model_device,
@@ -21,7 +22,7 @@ class _Proj(nn.Module):
                  device=None):
         super().__init__()
         self.dropout = dropout
-        self.dense = nn.Linear(in_features, bridge_dim, device=device)
+        self.dense = Dense(in_features, bridge_dim, device=device)
         self.ln = nn.LayerNorm(bridge_dim, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -44,9 +45,9 @@ class BridgeFusionNet(nn.Module):
         self.cross_attn = MultiHeadAttention(bridge_dim, num_heads, dropout,
                                              device=device)
         self.fusion = LearnedFusion(2, bridge_dim, device=device)
-        self.cls_dense = nn.Linear(bridge_dim, bridge_dim // 2, device=device)
+        self.cls_dense = Dense(bridge_dim, bridge_dim // 2, device=device)
         self.cls_ln = nn.LayerNorm(bridge_dim // 2, eps=1e-5, device=device)
-        self.cls_out = nn.Linear(bridge_dim // 2, num_classes, device=device)
+        self.cls_out = Dense(bridge_dim // 2, num_classes, device=device)
 
     def forward(self, *, eeg: torch.Tensor, fmri: torch.Tensor
                 ) -> ModelOutput:

@@ -13,6 +13,8 @@ from torch import nn
 
 from multimodal_eeg_fmri_tpu_torch.models.layers import (
     MLP,
+    Conv1d,
+    Dense,
     PositionalEncoding,
     TransformerBlock,
     batch_norm,
@@ -29,8 +31,8 @@ class ConvBNBlock(nn.Module):
         if kernel_size % 2 == 0:
             raise ValueError("'SAME' padding is ported for odd kernels only")
         self.dropout = dropout
-        self.conv = nn.Conv1d(in_channels, features, kernel_size,
-                              padding=kernel_size // 2, device=device)
+        self.conv = Conv1d(in_channels, features, kernel_size,
+                           padding=kernel_size // 2, device=device)
         self.bn = batch_norm(features, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -61,7 +63,7 @@ class ERPEncoder(nn.Module):
         for i in range(num_transformer_layers):
             self.add_module(f"transformer_{i}", TransformerBlock(
                 hidden_dim, num_heads, dropout=dropout, device=device))
-        self.proj = nn.Linear(hidden_dim, hidden_dim, device=device)
+        self.proj = Dense(hidden_dim, hidden_dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv2(self.conv1(x))
@@ -96,7 +98,7 @@ class MultiScaleConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = (self.kernel * self.mask.to(self.kernel.dtype)).permute(2, 1, 0)
-        y = F.conv1d(x.transpose(1, 2), w, self.bias, padding=3)
+        y = F.conv1d(x.transpose(1, 2), w, padding=3) + self.bias[:, None]
         return gelu(self.bn(y)).transpose(1, 2)
 
 
@@ -115,7 +117,7 @@ class PowerEncoder(nn.Module):
         for i in range(num_transformer_layers):
             self.add_module(f"transformer_{i}", TransformerBlock(
                 hidden_dim, num_heads, dropout=dropout, device=device))
-        self.proj = nn.Linear(hidden_dim, hidden_dim, device=device)
+        self.proj = Dense(hidden_dim, hidden_dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.pos(self.fuse(self.multiscale(x)))

@@ -8,7 +8,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_eeg_fmri_tpu_torch.models.eeg import ModelOutput
-from multimodal_eeg_fmri_tpu_torch.models.layers import MLP, model_device
+from multimodal_eeg_fmri_tpu_torch.models.layers import (
+    MLP,
+    Dense,
+    model_device,
+    softmax,
+)
 
 
 class FMRIEncoder(nn.Module):
@@ -32,10 +37,10 @@ class _Head(nn.Module):
             raise ValueError(f"unknown task {task!r}")
         self.dropout = dropout
         self.task = task
-        self.dense = nn.Linear(hidden_dim, hidden_dim // 2, device=device)
-        self.out = nn.Linear(hidden_dim // 2,
-                             num_classes if task == "classification" else 1,
-                             device=device)
+        self.dense = Dense(hidden_dim, hidden_dim // 2, device=device)
+        self.out = Dense(hidden_dim // 2,
+                         num_classes if task == "classification" else 1,
+                         device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.dropout(F.relu(self.dense(x)), self.dropout, self.training)
@@ -70,8 +75,8 @@ class FMRIFusionNet(nn.Module):
                 connectivity: torch.Tensor) -> ModelOutput:
         act_feat = self.activation_encoder(activation)
         conn_feat = self.connectivity_encoder(connectivity)
-        w = torch.softmax(torch.cat([self.activation_weight,
-                                     self.connectivity_weight]), dim=0)
+        w = softmax(torch.cat([self.activation_weight,
+                               self.connectivity_weight]), dim=0)
         fused = self.fusion(torch.cat([act_feat * w[0], conn_feat * w[1]],
                                       dim=-1))
         weights = w[None].expand(activation.shape[0], 2)

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_eeg_fmri_tpu_torch.models.layers import gelu
+from multimodal_eeg_fmri_tpu_torch.models.layers import Dense, gelu, softmax
 
 
 class LearnedFusion(nn.Module):
@@ -30,9 +30,9 @@ class LearnedFusion(nn.Module):
         self.temperature = nn.Parameter(torch.tensor(
             float(init_temperature), device=device)) if use_temperature else None
         self.init_temperature = init_temperature
-        self.gate1 = nn.Linear(num_modalities * hidden_dim, hidden_dim,
-                               device=device)
-        self.gate2 = nn.Linear(hidden_dim, num_modalities, device=device)
+        self.gate1 = Dense(num_modalities * hidden_dim, hidden_dim,
+                           device=device)
+        self.gate2 = Dense(hidden_dim, num_modalities, device=device)
 
     def forward(self, feats: Sequence[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -41,10 +41,10 @@ class LearnedFusion(nn.Module):
                              f"got {len(feats)}")
         stacked = torch.stack(tuple(feats), dim=1)  # (B, M, D)
         temp = self.temperature if self.temperature is not None else 1.0
-        static_w = torch.softmax(self.fusion_logits / temp, dim=-1)
+        static_w = softmax(self.fusion_logits / temp, dim=-1)
         gate = gelu(self.gate1(torch.cat(tuple(feats), dim=-1)))
         gate = self.gate2(F.dropout(gate, self.gate_dropout, self.training))
-        dynamic_w = torch.softmax(gate / temp, dim=-1)  # (B, M)
+        dynamic_w = softmax(gate / temp, dim=-1)  # (B, M)
         combined = 0.5 * static_w[None] + 0.5 * dynamic_w
         fused = (stacked * combined[..., None]).sum(dim=1)
         return fused, combined

@@ -5,6 +5,11 @@ tensors are channels-last ``(batch, time, features)`` at every public
 boundary, as in the JAX package. Submodule and parameter names follow the
 flax names so that ``convert.load_flax_variables`` maps them one to one.
 Training mode is the module's ``self.training`` flag (the JAX ``train=``).
+
+The layers compute in their inputs' dtype with the ops flax uses, so that a
+bf16 forward rounds where the JAX package's does: ``Dense`` and ``Conv1d``
+add the bias after the product, and ``gelu`` and ``softmax`` are jax.nn's
+formulas, one rounding per op (torch's fused kernels round once).
 """
 
 from __future__ import annotations
@@ -16,8 +21,36 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# exact (erf) GELU, as the JAX package uses
-gelu = F.gelu
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU as ``jax.nn.gelu(approximate=False)`` computes it:
+    0.5·x·erfc(−x·√½), with √½ rounded to x's dtype."""
+    sqrt_half = torch.tensor(math.sqrt(0.5)).to(x.dtype).item()
+    return 0.5 * x * torch.special.erfc(-x * sqrt_half)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax``: exp(x − max) / Σ exp(x − max), in x's dtype."""
+    e = torch.exp(x - x.amax(dim, keepdim=True).detach())
+    return e / e.sum(dim, keepdim=True)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` as flax's ``Dense`` computes it: the product, then the
+    bias as an op of its own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight)
+        return y if self.bias is None else y + self.bias
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` on (B, C, T) with the bias added after the
+    convolution, as flax's ``Conv`` adds it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._conv_forward(x, self.weight, None)
+        return y if self.bias is None else y + self.bias[:, None]
 
 
 def sinusoidal_position_encoding(length: int, d_model: int, device=None,
@@ -121,7 +154,7 @@ class MultiHeadAttention(nn.Module):
         self.attn_impl = attn_impl
         self.flash_compute_dtype = flash_compute_dtype
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            self.add_module(name, nn.Linear(d_model, d_model, device=device))
+            self.add_module(name, Dense(d_model, d_model, device=device))
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor, mask: Optional[torch.Tensor] = None
@@ -169,7 +202,7 @@ class MultiHeadAttention(nn.Module):
             if mask is not None:
                 logits = torch.where(mask, logits,
                                      torch.finfo(logits.dtype).min)
-            probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+            probs = softmax(logits.float()).to(q.dtype)
             probs = F.dropout(probs, self.dropout, self.training)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
             # torch returns attention averaged over heads
@@ -195,8 +228,8 @@ class TransformerBlock(nn.Module):
         self.attn = MultiHeadAttention(d_model, num_heads, dropout,
                                        device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.ffn1 = nn.Linear(d_model, ff, device=device)
-        self.ffn2 = nn.Linear(ff, d_model, device=device)
+        self.ffn1 = Dense(d_model, ff, device=device)
+        self.ffn2 = Dense(ff, d_model, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.norm1(x)
@@ -242,7 +275,7 @@ class MLP(nn.Module):
         self.norm = norm
         d = in_features
         for i, feat in enumerate(features):
-            self.add_module(f"dense_{i}", nn.Linear(d, feat, device=device))
+            self.add_module(f"dense_{i}", Dense(d, feat, device=device))
             if i < self.n - 1 or final_activation:
                 if norm == "batch":
                     self.add_module(f"bn_{i}", batch_norm(feat, device))
@@ -265,7 +298,7 @@ class MLP(nn.Module):
 
 
 class ClassifierHead(nn.Module):
-    """Hidden layers with norm/GELU/dropout, then a final Linear."""
+    """Hidden layers with norm/GELU/dropout, then a final Dense."""
 
     def __init__(self, in_features: int, hidden: Sequence[int],
                  num_classes: int, dropout: float = 0.3, norm: str = "batch",
@@ -273,8 +306,8 @@ class ClassifierHead(nn.Module):
         super().__init__()
         self.hidden = MLP(in_features, tuple(hidden), dropout, norm,
                           activation, device=device)
-        self.out = nn.Linear(hidden[-1] if hidden else in_features,
-                             num_classes, device=device)
+        self.out = Dense(hidden[-1] if hidden else in_features,
+                         num_classes, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(self.hidden(x))

@@ -1,6 +1,7 @@
 """Operators of the port: ``attention`` holds the flash-attention kernels'
 wrappers and their plain versions; ``losses`` and ``augment`` the train
-step's losses and augmentation."""
+step's losses and augmentation; ``schedules`` the host-side LR and
+early-stopping controllers."""
 
 from multimodal_eeg_fmri_tpu_torch.ops.attention import (
     attention,
@@ -22,8 +23,15 @@ from multimodal_eeg_fmri_tpu_torch.ops.losses import (
     mse_loss,
     weighted_cross_entropy,
 )
+from multimodal_eeg_fmri_tpu_torch.ops.schedules import (
+    EarlyStopping,
+    ReduceLROnPlateau,
+    warmup_cosine_schedule,
+)
 
 __all__ = [
+    "EarlyStopping",
+    "ReduceLROnPlateau",
     "attention",
     "augment_temporal",
     "cross_entropy",
@@ -37,5 +45,6 @@ __all__ = [
     "mse_loss",
     "reference_attention",
     "reset_kernel_launches",
+    "warmup_cosine_schedule",
     "weighted_cross_entropy",
 ]

@@ -6,8 +6,8 @@ tensor the forward launches K1 (``csrc/flash_fwd.cu``) and the backward K2
 and K3 (``csrc/flash_bwd.cu``), all built by ``ops/_kernels.py``, or raise;
 on a CPU tensor they run the plain PyTorch math of the same kernels, so the
 CPU tests check the formulas the kernels implement. Each kernel wrapper
-counts its launches in a plain int attribute, ``launches``;
-``kernel_launches()`` reads the three counts.
+counts its launches by storage dtype in a dict attribute, ``launches``
+({"f32": n, "bf16": m}); ``kernel_launches()`` reads the three.
 """
 
 from __future__ import annotations
@@ -55,10 +55,12 @@ def flash_forward_plain(q, k, v, compute_dtype=torch.float32):
 
 
 def flash_delta(o, g, g_lse=None) -> torch.Tensor:
-    """Δ = rowsum(dO ⊙ O) − g_lse in f32, (B, H, Tq). Folding the lse
-    cotangent into Δ is all that ``flash_attention_lse``'s backward adds:
-    ∂lse_r/∂s_rc = p_rc, so it contributes + p ⊙ g_lse to dS."""
-    delta = (g.float() * o.float()).sum(dim=-1)
+    """Δ = rowsum(dO ⊙ O) − g_lse as f32, (B, H, Tq). The product and the
+    row sum are in the storage dtype, as the JAX package's ``jnp.sum`` of
+    dO ⊙ O (bf16 storage rounds both, the sum accumulated in f32). Folding
+    the lse cotangent into Δ is all that ``flash_attention_lse``'s backward
+    adds: ∂lse_r/∂s_rc = p_rc, so it contributes + p ⊙ g_lse to dS."""
+    delta = (g * o).sum(dim=-1).float()
     if g_lse is not None:
         delta = delta - g_lse.float()
     return delta
@@ -149,6 +151,11 @@ def _strides(*tensors):
     return (ctypes.c_int64 * len(flat))(*flat)
 
 
+def _storage(t) -> str:
+    """The launch counts' key: the storage dtype of a kernel's inputs."""
+    return "bf16" if t.dtype == torch.bfloat16 else "f32"
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -168,7 +175,7 @@ def flash_forward_cuda(q, k, v, compute_dtype=torch.float32):
         int(compute_dtype == torch.bfloat16), _strides(q, k, v), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
-    flash_forward_cuda.launches += 1
+    flash_forward_cuda.launches[_storage(q)] += 1
     return out, lse
 
 
@@ -200,7 +207,7 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: "
                            f"cudaError {err}")
-    flash_bwd_dkv_cuda.launches += 1
+    flash_bwd_dkv_cuda.launches[_storage(q)] += 1
     return dk, dv
 
 
@@ -221,26 +228,27 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: "
                            f"cudaError {err}")
-    flash_bwd_dq_cuda.launches += 1
+    flash_bwd_dq_cuda.launches[_storage(q)] += 1
     return dq
 
 
-flash_forward_cuda.launches = 0
-flash_bwd_dkv_cuda.launches = 0
-flash_bwd_dq_cuda.launches = 0
+_KERNELS = {"flash_fwd": flash_forward_cuda,
+            "flash_bwd_dkv": flash_bwd_dkv_cuda,
+            "flash_bwd_dq": flash_bwd_dq_cuda}
 
 
 def kernel_launches() -> dict:
-    """Launches of each flash kernel since the counts were last reset."""
-    return {"flash_fwd": flash_forward_cuda.launches,
-            "flash_bwd_dkv": flash_bwd_dkv_cuda.launches,
-            "flash_bwd_dq": flash_bwd_dq_cuda.launches}
+    """Launches of each flash kernel since the counts were last reset, by
+    storage dtype: {kernel: {"f32": n, "bf16": m}}."""
+    return {k: dict(fn.launches) for k, fn in _KERNELS.items()}
 
 
 def reset_kernel_launches() -> None:
-    flash_forward_cuda.launches = 0
-    flash_bwd_dkv_cuda.launches = 0
-    flash_bwd_dq_cuda.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = {"f32": 0, "bf16": 0}
+
+
+reset_kernel_launches()
 
 
 def flash_backward_cuda(q, k, v, o, lse, g, g_lse=None,

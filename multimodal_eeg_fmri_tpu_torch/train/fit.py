@@ -2,33 +2,55 @@
 ``multimodal_eeg_fmri_tpu/train/fit.py``.
 
 ``make_fit_fn(model, cfg, ...)`` returns ``fit(generator, train_data,
-eval_sets, class_weights)``, which keeps the JAX contract: a per-epoch
-shuffle from an explicit generator; ``preprocess`` merged into the batch in
-train and eval; the forward in train mode, the loss, the backward; clipping
-by global norm as optax does; Adam (0.9, 0.999, 1e-8) with the update
-−(lr·lr_scale)·(adam + wd·p) on every parameter; per-epoch metrics on each
-eval set in eval mode; best-state selection; plateau or warmup-cosine LR; and
-early stopping that keeps the epoch count, so that ``history`` has
-``num_epochs`` entries, and freezes params, BatchNorm statistics and
-optimizer state once stopped.
+eval_sets, class_weights, hyper=None, resume_carry=None)``, which keeps the
+JAX contract: a per-epoch shuffle from an explicit generator; ``augment``
+in f32, then ``preprocess`` merged into the batch in train and eval; the
+forward in train mode, the loss, the backward; clipping by global norm as
+optax does; Adam (0.9, 0.999, 1e-8) with the update −(lr·lr_scale)·(adam +
+wd·p) on every parameter; per-epoch metrics on each eval set in eval mode;
+best-state selection; plateau or warmup-cosine LR; and early stopping that
+keeps the epoch count, so that ``history`` has ``num_epochs`` entries, and
+freezes params, BatchNorm statistics, optimizer state and the EMA once
+stopped.
+
+The other options of the config, as in the JAX package:
+
+- ``grad_accum = k`` splits each batch into k microbatches whose losses are
+  scaled by their share of the batch's effective weight, so that the summed
+  f32 gradients are the full batch's; BatchNorm's running statistics thread
+  through the microbatches in order.
+- ``ema_decay = d`` keeps a Polyak average of the params (not of the
+  BatchNorm statistics), started at the initial params. Evaluation and
+  selection use it with the raw statistics of the same epoch, so
+  ``FitResult.params`` is the best EMA snapshot.
+- ``compute_dtype = "bfloat16"`` runs the train-mode forward and backward on
+  bf16 copies of the params and inputs (the inputs cast after
+  ``preprocess``); master params, gradients, AdamW state and the running
+  statistics stay f32, the losses reduce in f32, and evaluation runs in f32.
+- ``resume_carry`` takes a result's ``carry`` (``FitCarry``), the whole
+  training state, and continues from it: two runs of E₁ and E₂ epochs equal
+  one of E₁+E₂.
 
 Where the JAX package initialises params inside ``fit``, the module passed
 in here carries its weights, the torch idiom: ``fit`` trains them in place
 and leaves the module in eval mode at its final weights; ``FitResult.params``
 and ``.batch_stats`` hold the best epoch's. The data moves to the model's
 device once and stays there; the host reads a few scalars once per epoch
-(selection and the learning rate), never per step. Dropout draws from
-torch's global generator, augmentation and shuffling from the one given.
+(selection and the learning rate), never per step. Dropout draws from the
+default generator of the model's device, augmentation and shuffling from the
+one given; the carry holds both states.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
 from multimodal_eeg_fmri_tpu_torch.ops.losses import make_loss_fn
@@ -40,21 +62,49 @@ from multimodal_eeg_fmri_tpu_torch.report.metrics import (
 # batch keys that are not model inputs
 RESERVED_KEYS = ("label", "reg_label", "weight", "subject")
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue A item 2)"
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+Tensors = Dict[str, torch.Tensor]
 
 
-def split_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def split_batch(batch: Tensors) -> Tensors:
     return {k: v for k, v in batch.items() if k not in RESERVED_KEYS}
 
 
+class FitCarry(NamedTuple):
+    """The whole training state at the end of a ``fit``; pass it back as
+    ``resume_carry`` to continue. Tensors are on the model's device but for
+    AdamW's step count (on the CPU, as AdamW keeps it) and the two generator
+    states (CPU uint8). ``rng`` or ``torch_rng`` None leaves that generator
+    as the caller has it (a carry converted from the JAX package)."""
+
+    params: Tensors
+    batch_stats: Tensors              # buffers: the BatchNorm statistics
+    opt_state: Dict[str, Any]         # {"step", "exp_avg", "exp_avg_sq"}
+    rng: Optional[torch.Tensor]       # shuffling / augmentation generator
+    torch_rng: Optional[torch.Tensor]  # the device's default generator
+    best_params: Tensors
+    best_batch_stats: Tensors
+    best_metric: torch.Tensor         # f32
+    best_epoch: torch.Tensor          # int32
+    bad_epochs: int                   # early-stopping counter
+    stopped: bool
+    plateau_best: torch.Tensor        # plateau-LR controller
+    plateau_bad: torch.Tensor
+    lr_scale: torch.Tensor
+    epoch: int                        # epochs run so far
+    ema_params: Optional[Tensors] = None  # Polyak average, if ema_decay > 0
+
+
 class FitResult(NamedTuple):
-    params: Dict[str, torch.Tensor]        # best params, by parameter name
-    batch_stats: Dict[str, torch.Tensor]   # best buffers (BatchNorm stats)
-    final_params: Dict[str, torch.Tensor]  # last-epoch params
-    final_batch_stats: Dict[str, torch.Tensor]
+    params: Tensors                        # best params, by parameter name
+    batch_stats: Tensors                   # best buffers (BatchNorm stats)
+    final_params: Tensors                  # last-epoch params
+    final_batch_stats: Tensors
     best_metric: torch.Tensor
     best_epoch: torch.Tensor
-    history: Dict[str, torch.Tensor]       # per-epoch series, (num_epochs,)
+    history: Tensors                       # per-epoch series, (num_epochs,)
+    carry: Optional[FitCarry] = None       # the state to resume from
 
 
 def _cosine_scale(cfg: TrainConfig, epoch: int, device=None) -> torch.Tensor:
@@ -93,19 +143,29 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def _check_supported(cfg: TrainConfig):
-    if cfg.grad_accum > 1:
-        raise NotImplementedError(f"grad_accum={cfg.grad_accum} {_NOT_PORTED}")
-    if cfg.ema_decay > 0:
-        raise NotImplementedError(f"ema_decay={cfg.ema_decay} {_NOT_PORTED}")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} {_NOT_PORTED}")
+def compute_dtype(cfg: TrainConfig) -> torch.dtype:
+    """The train step's compute dtype; raises on a name it does not know."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r} is not one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[cfg.compute_dtype]
+
+
+def _apply_eval(model: nn.Module, inputs: Tensors,
+               params: Optional[Tensors] = None):
+    """The eval-mode forward without autograd, in f32; ``params`` (by
+    parameter name) stand in for the module's own without touching them."""
+    model.eval()
+    with torch.no_grad():
+        if params is None:
+            return model(**inputs)
+        return functional_call(model, params, (), inputs)
 
 
 class TrainStep:
     """One optimizer step of ``make_fit_fn``: augment, preprocess, the
-    forward in train mode, the loss, the backward, global-norm clipping and
+    forward in train mode (in ``cfg.compute_dtype``), the loss (over
+    ``cfg.grad_accum`` microbatches), the backward, global-norm clipping and
     AdamW. Owns the optimizer. ``step(batch)`` returns the loss, a device
     scalar, without reading it back."""
 
@@ -114,9 +174,10 @@ class TrainStep:
                  loss_kwargs: Optional[dict] = None,
                  augment: Optional[Callable] = None,
                  preprocess: Optional[Callable] = None):
-        _check_supported(cfg)
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg, self.task = model, cfg, task
         self.augment, self.preprocess = augment, preprocess
+        self.compute_dtype = compute_dtype(cfg)
+        self.accum = max(int(cfg.grad_accum or 1), 1)
         lk = dict(loss_kwargs or {})
         if task == "regression":
             self.loss_fn = make_loss_fn("mse")
@@ -127,7 +188,8 @@ class TrainStep:
             if cfg.loss == "label_smoothing":
                 lk.setdefault("smoothing", cfg.label_smoothing)
             self.loss_fn = make_loss_fn(cfg.loss, **lk)
-        self.params = list(model.parameters())
+        self.named_params = dict(model.named_parameters())
+        self.params = list(self.named_params.values())
         # every parameter gets a gradient, zero where none flows (a frozen
         # encoder), so that Adam and the weight decay update it as optax does
         for p in self.params:
@@ -137,19 +199,69 @@ class TrainStep:
             self.params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=cfg.weight_decay)
 
-    def inputs(self, batch: Dict[str, torch.Tensor]):
+    def inputs(self, batch: Tensors) -> Tensors:
         """The model inputs of a batch, with ``preprocess`` merged in."""
         if self.preprocess is not None:
             batch = {**batch, **self.preprocess(split_batch(batch))}
         return split_batch(batch)
 
-    def loss(self, batch, class_weights=None) -> torch.Tensor:
-        """The forward in train mode and the loss; updates the BatchNorm
-        running statistics."""
+    def forward(self, inputs: Tensors):
+        """The train-mode forward; updates the BatchNorm running statistics.
+        In bf16 it runs on bf16 copies of the params and floating inputs,
+        cast inside the graph so that the gradients reach the f32 params."""
         self.model.train()
-        out = self.model(**self.inputs(batch))
+        if self.compute_dtype == torch.float32:
+            return self.model(**inputs)
+        dt = self.compute_dtype
+        params = {k: p.to(dt) for k, p in self.named_params.items()}
+        inputs = {k: v.to(dt) if v.is_floating_point() else v
+                  for k, v in inputs.items()}
+        return functional_call(self.model, params, (), inputs)
+
+    def loss(self, batch: Tensors, class_weights=None) -> torch.Tensor:
+        """The forward in train mode and the loss, reduced in f32."""
+        out = self.forward(self.inputs(batch))
         return self.loss_fn(out.logits, batch["label"], class_weights,
                             batch.get("weight"))
+
+    def _eff_weight(self, batch: Tensors, class_weights) -> torch.Tensor:
+        """Per-row weight of the loss's own denominator (every loss reduces
+        as Σ w·l / max(Σ w, 1e-8)), which makes accumulation exact."""
+        label = batch["label"]
+        sw = batch.get("weight")
+        w = (torch.ones(label.shape[0], dtype=torch.float32,
+                        device=label.device) if sw is None else sw.float())
+        if (self.task != "regression" and self.cfg.loss == "weighted_ce"
+                and class_weights is not None):
+            w = w * class_weights.float()[label.long()]
+        return w
+
+    def objective(self, batch: Tensors, class_weights=None,
+                  backward: bool = True) -> torch.Tensor:
+        """The batch's loss, backpropagated into the params' ``.grad`` if
+        ``backward``. Over k microbatches it is Σ_k (ŵ_k/W)·L_k with ŵ_k the
+        microbatch's clamped weight sum and W the batch's: each microbatch's
+        gradient is scaled by its share and the f32 gradients sum. Rows
+        beyond micro·k are dropped."""
+        if self.accum == 1:
+            loss = self.loss(batch, class_weights)
+            if backward:
+                loss.backward()
+            return loss.detach()
+        k = self.accum
+        micro = batch["label"].shape[0] // k
+        w = self._eff_weight(batch, class_weights)[:micro * k]
+        w_k = w.view(k, micro).sum(dim=1)
+        scales = w_k.clamp_min(1e-8) / w_k.sum().clamp_min(1e-8)
+        total = 0.0
+        for i in range(k):
+            mb = {key: v[i * micro:(i + 1) * micro]
+                  for key, v in batch.items()}
+            loss = scales[i] * self.loss(mb, class_weights)
+            if backward:
+                loss.backward()
+            total = total + loss.detach()
+        return total
 
     def __call__(self, batch, class_weights=None,
                  generator: Optional[torch.Generator] = None,
@@ -157,9 +269,8 @@ class TrainStep:
                  wd: Optional[float] = None) -> torch.Tensor:
         if self.augment is not None:
             batch = self.augment(generator, batch)
-        loss = self.loss(batch, class_weights)
         self.optimizer.zero_grad(set_to_none=False)
-        loss.backward()
+        loss = self.objective(batch, class_weights)
         if self.cfg.grad_clip and self.cfg.grad_clip > 0:
             clip_by_global_norm_([p.grad for p in self.params],
                                  self.cfg.grad_clip)
@@ -167,7 +278,7 @@ class TrainStep:
         group["lr"] = self.cfg.learning_rate if lr is None else lr
         group["weight_decay"] = self.cfg.weight_decay if wd is None else wd
         self.optimizer.step()
-        return loss.detach()
+        return loss
 
     @torch.no_grad()
     def frozen(self, batch, class_weights=None,
@@ -177,13 +288,37 @@ class TrainStep:
         if self.augment is not None:
             batch = self.augment(generator, batch)
         buffers = [b.clone() for b in self.model.buffers()]
-        loss = self.loss(batch, class_weights)
+        loss = self.objective(batch, class_weights, backward=False)
         for b, saved in zip(self.model.buffers(), buffers):
             b.copy_(saved)
         return loss
 
+    def opt_state(self) -> Dict[str, Any]:
+        """AdamW's state by parameter name (zeros before the first step)."""
+        state = self.optimizer.state
+        steps = [s["step"] for s in state.values() if "step" in s]
+        step = steps[0].clone() if steps else torch.tensor(0.0)
 
-def _snapshot(model: nn.Module):
+        def moment(key):
+            return {n: (state[p][key].clone() if key in state.get(p, {})
+                        else torch.zeros_like(p).detach())
+                    for n, p in self.named_params.items()}
+
+        return {"step": step, "exp_avg": moment("exp_avg"),
+                "exp_avg_sq": moment("exp_avg_sq")}
+
+    def load_opt_state(self, opt_state: Dict[str, Any]) -> None:
+        step = torch.as_tensor(opt_state["step"], dtype=torch.float32).cpu()
+        for n, p in self.named_params.items():
+            self.optimizer.state[p] = {
+                "step": step.clone(),
+                "exp_avg": opt_state["exp_avg"][n].to(p.device, p.dtype,
+                                                      copy=True),
+                "exp_avg_sq": opt_state["exp_avg_sq"][n].to(
+                    p.device, p.dtype, copy=True)}
+
+
+def _snapshot(model: nn.Module) -> Tuple[Tensors, Tensors]:
     """(params, the other state-dict tensors), cloned."""
     params = {k: p.detach().clone() for k, p in model.named_parameters()}
     stats = {k: v.clone() for k, v in model.state_dict().items()
@@ -191,14 +326,72 @@ def _snapshot(model: nn.Module):
     return params, stats
 
 
+def _cloned(tensors: Optional[Tensors], device) -> Optional[Tensors]:
+    if tensors is None:
+        return None
+    return {k: v.to(device, copy=True) for k, v in tensors.items()}
+
+
+@torch.no_grad()
+def _ema_update(ema: Tensors, params: Tensors, decay: float) -> None:
+    """ema ← d·ema + (1−d)·params, rounded as the JAX package rounds it."""
+    e = list(ema.values())
+    torch._foreach_mul_(e, decay)
+    torch._foreach_add_(e, torch._foreach_mul([params[k] for k in ema],
+                                              1.0 - decay))
+
+
+def _device_rng_state(device: torch.device) -> torch.Tensor:
+    """State of the default generator of ``device`` (dropout draws there)."""
+    if device.type == "cuda":
+        return torch.cuda.get_rng_state(device)
+    return torch.get_rng_state()
+
+
+def _set_device_rng_state(device: torch.device, state: torch.Tensor) -> None:
+    state = state.cpu()
+    if device.type == "cuda":
+        torch.cuda.set_rng_state(state, device)
+    else:
+        torch.set_rng_state(state)
+
+
+def initial_carry(model: nn.Module, ema: bool = False) -> FitCarry:
+    """The carry of a run that has not begun: the module's weights and
+    statistics, zero AdamW state, no best epoch yet, and the generators
+    left as the caller has them."""
+    dev = next(model.parameters()).device
+    params, stats = _snapshot(model)
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    return FitCarry(
+        params=params, batch_stats=stats,
+        opt_state={"step": torch.tensor(0.0),
+                   "exp_avg": {k: torch.zeros_like(v)
+                               for k, v in params.items()},
+                   "exp_avg_sq": {k: torch.zeros_like(v)
+                                  for k, v in params.items()}},
+        rng=None, torch_rng=None,
+        best_params=_cloned(params, dev), best_batch_stats=_cloned(stats, dev),
+        best_metric=f32(-math.inf),
+        best_epoch=torch.tensor(-1, dtype=torch.int32, device=dev),
+        bad_epochs=0, stopped=False, plateau_best=f32(math.inf),
+        plateau_bad=torch.tensor(0, device=dev), lr_scale=f32(1.0), epoch=0,
+        ema_params=_cloned(params, dev) if ema else None)
+
+
 def _as_tensor(x, device, dtype=None) -> torch.Tensor:
-    """An array or a tensor of any device, on ``device``."""
-    if torch.is_tensor(x):
-        return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)
+    """An array or a tensor of any device, on ``device``; float64 becomes
+    float32, as the JAX package (x64 off) makes it."""
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    if dtype is None and t.dtype == torch.float64:
+        dtype = torch.float32
+    return t.to(device=device, dtype=dtype)
 
 
-def _to_device(data, device) -> Dict[str, torch.Tensor]:
+def _to_device(data, device) -> Tensors:
     return {k: _as_tensor(v, device) for k, v in data.items()}
 
 
@@ -212,28 +405,33 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
                 param_sharding: Optional[Callable] = None
                 ) -> Callable[..., FitResult]:
     """Build ``fit(generator, train_data, eval_sets, class_weights=None,
-    hyper=None)`` that trains ``model`` in place.
+    hyper=None, resume_carry=None)`` that trains ``model`` in place.
 
     ``train_data`` and each of ``eval_sets[name]`` map keys to arrays or
     tensors of equal length, with a ``label`` and an optional ``weight``
     mask column (0 = padding row). ``generator`` is a ``torch.Generator`` on
-    the model's device, or an int seed for one. ``hyper`` ({'lr', 'wd'})
-    overrides the config's optimizer hyperparameters."""
+    the model's device, or an int seed for one; with ``resume_carry`` it
+    takes the carry's state. ``hyper`` ({'lr', 'wd'}) overrides the config's
+    optimizer hyperparameters. ``num_epochs`` (default ``cfg.num_epochs``)
+    is the epochs of this call; the cosine schedule reads the global epoch
+    against ``cfg.num_epochs``."""
     E = num_epochs or cfg.num_epochs
     if cfg.selection != "train_loss" and cfg.selection not in eval_names:
         raise ValueError(
             f"cfg.selection={cfg.selection!r} but eval_names={eval_names}; "
             "pass the selection set or use selection='train_loss'")
     if param_sharding is not None:
-        raise NotImplementedError(f"param_sharding {_NOT_PORTED}")
-    _check_supported(cfg)
+        raise NotImplementedError(
+            "param_sharding is not ported yet (ROADMAP.md, queue A item 8: "
+            "parallel axes on torch.distributed)")
+    compute_dtype(cfg)
     metric_mode_max = cfg.selection != "train_loss"
+    accum = max(int(cfg.grad_accum or 1), 1)
+    ema_d = float(cfg.ema_decay or 0.0)
 
     def fit(generator: Union[torch.Generator, int], train_data, eval_sets,
             class_weights=None, hyper: Optional[dict] = None,
-            resume_carry=None) -> FitResult:
-        if resume_carry is not None:
-            raise NotImplementedError(f"resume_carry {_NOT_PORTED}")
+            resume_carry: Optional[FitCarry] = None) -> FitResult:
         dev = next(model.parameters()).device
         if isinstance(generator, int):
             generator = torch.Generator(device=dev).manual_seed(generator)
@@ -248,20 +446,37 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
         bsz = min(cfg.batch_size, n)
         steps = n // bsz
         used = steps * bsz
+        if accum > 1 and bsz % accum:
+            raise ValueError(f"grad_accum={accum} must divide the "
+                             f"(effective) batch size {bsz}")
         step = TrainStep(model, cfg, task=task, loss_kwargs=loss_kwargs,
                          augment=augment, preprocess=preprocess)
 
-        def f32(x):
-            return torch.tensor(x, dtype=torch.float32, device=dev)
+        c = resume_carry
+        if c is None:
+            c = initial_carry(model, ema=ema_d > 0)
+        model.load_state_dict({**c.params, **c.batch_stats})
+        step.load_opt_state(c.opt_state)
+        if c.rng is not None:
+            generator.set_state(c.rng.cpu())
+        if c.torch_rng is not None:
+            _set_device_rng_state(dev, c.torch_rng)
+        best_params = _cloned(c.best_params, dev)
+        best_stats = _cloned(c.best_batch_stats, dev)
+        best_metric = c.best_metric.to(dev, torch.float32, copy=True)
+        best_epoch = c.best_epoch.to(dev, torch.int32, copy=True)
+        bad_epochs, stopped, epoch0 = (int(c.bad_epochs), bool(c.stopped),
+                                       int(c.epoch))
+        plateau_best = c.plateau_best.to(dev, torch.float32, copy=True)
+        plateau_bad = c.plateau_bad.to(dev, copy=True)
+        lr_scale = c.lr_scale.to(dev, torch.float32, copy=True)
+        # a carry without an average (EMA off when it was made) seeds it
+        # from its params, as a fresh run seeds it from the initial ones
+        ema = (_cloned(c.ema_params if c.ema_params is not None
+                       else c.params, dev) if ema_d > 0 else None)
 
-        best_params, best_stats = _snapshot(model)
-        best_metric, best_epoch = f32(-math.inf), torch.tensor(
-            -1, dtype=torch.int32, device=dev)
-        bad_epochs, stopped = 0, False
-        plateau_best, plateau_bad = f32(math.inf), torch.tensor(0, device=dev)
-        lr_scale = f32(1.0)
         history = []
-        for epoch in range(E):
+        for epoch in range(epoch0, epoch0 + E):
             perm = torch.randperm(n, generator=generator, device=dev)[:used]
             shuffled = {k: v[perm] for k, v in train_data.items()}
             if cfg.schedule == "warmup_cosine":
@@ -271,18 +486,21 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
             for s in range(steps):
                 batch = {k: v[s * bsz:(s + 1) * bsz]
                          for k, v in shuffled.items()}
-                losses.append(
-                    step.frozen(batch, class_weights, generator) if stopped
-                    else step(batch, class_weights, generator, step_lr, wd))
+                if stopped:
+                    losses.append(step.frozen(batch, class_weights,
+                                              generator))
+                    continue
+                losses.append(step(batch, class_weights, generator, step_lr,
+                                   wd))
+                if ema is not None:
+                    _ema_update(ema, step.named_params, ema_d)
             train_loss = torch.stack(losses).mean()
 
             metrics_out = {"train_loss": train_loss, "lr_scale": lr_scale}
             sel_metric = -train_loss
-            model.eval()
             for name in eval_names:
                 data = eval_sets[name]
-                with torch.no_grad():
-                    out = model(**step.inputs(data))
+                out = _apply_eval(model, step.inputs(data), ema)
                 m = (regression_metrics if task == "regression"
                      else binary_classification_metrics)(
                     out.logits, data["label"], data.get("weight"))
@@ -295,7 +513,8 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
             # the one read of the epoch
             improved = bool(sel_metric > best_metric + delta) and not stopped
             if improved:
-                best_params, best_stats = _snapshot(model)
+                params, best_stats = _snapshot(model)
+                best_params = _cloned(ema, dev) if ema is not None else params
                 best_metric = sel_metric.float().clone()
                 best_epoch = torch.tensor(epoch, dtype=torch.int32, device=dev)
             bad_epochs = 0 if improved else bad_epochs + 1
@@ -306,12 +525,22 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
 
         model.eval()
         final_params, final_stats = _snapshot(model)
+        carry = FitCarry(
+            params=final_params, batch_stats=final_stats,
+            opt_state=step.opt_state(), rng=generator.get_state(),
+            torch_rng=_device_rng_state(dev), best_params=best_params,
+            best_batch_stats=best_stats, best_metric=best_metric,
+            best_epoch=best_epoch, bad_epochs=bad_epochs, stopped=stopped,
+            plateau_best=plateau_best, plateau_bad=plateau_bad,
+            lr_scale=lr_scale, epoch=epoch0 + E,
+            ema_params=_cloned(ema, dev))
         return FitResult(
             params=best_params, batch_stats=best_stats,
             final_params=final_params, final_batch_stats=final_stats,
             best_metric=best_metric, best_epoch=best_epoch,
             history={k: torch.stack([h[k] for h in history])
-                     for k in history[0]})
+                     for k in history[0]} if history else {},
+            carry=carry)
 
     return fit
 

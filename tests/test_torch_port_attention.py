@@ -109,7 +109,13 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.ops.losses, "
             "multimodal_eeg_fmri_tpu_torch.core.config, "
             "multimodal_eeg_fmri_tpu_torch.report.metrics, "
-            "multimodal_eeg_fmri_tpu_torch.train.fit\n"
+            "multimodal_eeg_fmri_tpu_torch.train.fit, "
+            "multimodal_eeg_fmri_tpu_torch.train.evaluate, "
+            "multimodal_eeg_fmri_tpu_torch.train.trainer, "
+            "multimodal_eeg_fmri_tpu_torch.train.resilient, "
+            "multimodal_eeg_fmri_tpu_torch.core.checkpoint, "
+            "multimodal_eeg_fmri_tpu_torch.data.arrays, "
+            "multimodal_eeg_fmri_tpu_torch.ops.schedules\n"
             "bad = [m for m in ('jax', 'flax', 'optax', "
             "'multimodal_eeg_fmri_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")

@@ -101,7 +101,9 @@ def test_kernel_matches_plain(cuda_device, case, compute_dtype, atol):
 @pytest.mark.cuda
 def test_kernel_takes_bf16_storage(cuda_device):
     q, k, v = (t.bfloat16() for t in _qkv(cuda_device, 2, 2, 130, 200, 64))
+    before = flash_forward_cuda.launches["bf16"]
     out_k, lse_k = flash_forward_cuda(q, k, v)
+    assert flash_forward_cuda.launches["bf16"] == before + 1
     out_p, lse_p = flash_forward_plain(q, k, v)
     torch.cuda.synchronize()
     assert out_k.dtype == torch.bfloat16
@@ -114,9 +116,10 @@ def test_kernel_reads_strided_inputs_and_counts(cuda_device):
     B, T, H, D = 2, 300, 4, 32
     x = torch.randn(3, B, T, H, D, device=cuda_device)
     q, k, v = (t.transpose(1, 2) for t in x)  # (B, H, T, D), not contiguous
-    before = flash_forward_cuda.launches
+    before = dict(flash_forward_cuda.launches)
     out = flash_attention(q, k, v)
-    assert flash_forward_cuda.launches == before + 1
+    assert flash_forward_cuda.launches == {"f32": before["f32"] + 1,
+                                           "bf16": before["bf16"]}
     ref, _ = flash_forward_plain(q, k, v)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
 
@@ -155,11 +158,13 @@ def _backward_inputs(device, case, compute_dtype, seed=1):
 def test_backward_kernels_match_plain(cuda_device, case, compute_dtype, atol):
     q, k, v, out, lse, g = _backward_inputs(cuda_device, case, compute_dtype)
     g_lse = torch.randn(lse.shape, device=cuda_device)
-    before = (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches)
+    before = (flash_bwd_dkv_cuda.launches["f32"],
+              flash_bwd_dq_cuda.launches["f32"])
     got = flash_backward_cuda(q, k, v, out, lse, g, g_lse, compute_dtype)
     want = flash_backward_plain(q, k, v, out, lse, g, g_lse, compute_dtype)
     torch.cuda.synchronize()
-    assert (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches) == (
+    assert (flash_bwd_dkv_cuda.launches["f32"],
+            flash_bwd_dq_cuda.launches["f32"]) == (
         before[0] + 1, before[1] + 1)
     for a, b, name in zip(got, want, ("dq", "dk", "dv")):
         torch.testing.assert_close(a, b, atol=atol, rtol=0, msg=name)
@@ -199,11 +204,13 @@ def test_autograd_through_kernels_matches_reference(cuda_device, with_lse):
     else:
         loss = (flash_attention(q, k, v) * g).sum()
         ref = (reference_attention(q, k, v) * g).sum()
-    before = (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches)
+    before = (flash_bwd_dkv_cuda.launches["f32"],
+              flash_bwd_dq_cuda.launches["f32"])
     (got,) = torch.autograd.grad(loss, x)
     (want,) = torch.autograd.grad(ref, x)
     torch.cuda.synchronize()
-    assert (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches) == (
+    assert (flash_bwd_dkv_cuda.launches["f32"],
+            flash_bwd_dq_cuda.launches["f32"]) == (
         before[0] + 1, before[1] + 1)
     torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
 

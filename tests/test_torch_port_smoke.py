@@ -72,6 +72,41 @@ def test_bound_is_the_3xtf32_rate_at_the_main_path_shape(kernel,
         1e3 * flops_per_term * 32 * 512 * 512 * 32 / (495e12 / 3))
 
 
+@pytest.mark.parametrize("kernel,stored,mixed", [
+    ("flash_fwd", 1, 1), ("flash_bwd_dkv", 2, 2), ("flash_bwd_dq", 2, 1)])
+def test_bf16_storage_bound_splits_the_products(kernel, stored, mixed):
+    """With bf16 storage the products of two stored tensors run at the bf16
+    rate, and those of an f32 operand (P, dS) with a stored one, exact in
+    bf16, at a third of it: the f32 operand in three bf16 pieces, faster
+    than two TF32 pieces (495/2 TFLOP/s)."""
+    ms, by = chip_smoke.bound_ms(kernel, 8, 4, 512, 512, 32, "bf16")
+    flops = 2 * 32 * 512 * 512 * 32
+    assert by == "operations"
+    assert chip_smoke.PEAK_MIXED_FLOPS == pytest.approx(989e12 / 3)
+    assert ms == pytest.approx(1e3 * flops * (stored / 989e12
+                                              + mixed / (989e12 / 3)))
+
+
+def test_bf16_storage_bytes_are_two_per_element():
+    ms, by = chip_smoke.bound_ms("flash_bwd_dq", 1, 1, 1, 1, 16, "bf16")
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (2 * 5 * 16 + 4 * 2) / 3.35e12)
+
+
+@pytest.mark.parametrize("largest,limit", [
+    (1.0, 2e-4 + 2 ** -7), (0.75, 2e-4 + 2 ** -8), (3.9, 2e-4 + 2 ** -6),
+    (0.0, 2e-4)])
+def test_bf16_gradient_limit_adds_one_ulp(largest, limit):
+    assert chip_smoke.grad_limit_bf16(largest) == pytest.approx(limit)
+
+
+def test_crash_injection_raises_after_its_calls():
+    aug = chip_smoke.crashing(lambda g, b: b, 2)
+    assert aug(None, 1) == 1 and aug(None, 2) == 2
+    with pytest.raises(chip_smoke.InjectedCrash, match="call 3"):
+        aug(None, 3)
+
+
 def test_bound_of_a_tiny_call_is_its_bytes():
     ms, by = chip_smoke.bound_ms("flash_fwd", 1, 1, 1, 1, 16)
     assert by == "bytes"

@@ -494,17 +494,8 @@ def test_early_stopping_freezes_the_run(no_gate_dropout):
                                four.history["val_f1"][1].expand(2))
 
 
-@pytest.mark.parametrize("what", ["grad_accum", "ema_decay", "compute_dtype",
-                                  "param_sharding", "resume_carry"])
+@pytest.mark.parametrize("what", ["param_sharding"])
 def test_unported_fit_options_raise(what):
-    cfg = TrainConfig(**{"grad_accum": {"grad_accum": 2},
-                         "ema_decay": {"ema_decay": 0.9},
-                         "compute_dtype": {"compute_dtype": "bfloat16"}}.get(
-        what, {}))
-    model = t_layers.MLP(4, (2,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit = t_fit.make_fit_fn(
-            model, cfg, eval_names=("val",),
-            param_sharding=(lambda p: p) if what == "param_sharding"
-            else None)
-        fit(0, {}, {}, resume_carry=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 8"):
+        t_fit.make_fit_fn(t_layers.MLP(4, (2,)), TrainConfig(),
+                          eval_names=("val",), param_sharding=lambda p: p)
