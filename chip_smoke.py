@@ -25,8 +25,26 @@ evaluations); one bf16 train step on the three routes; a fit with
 third chunk and resumed, bit-identical to an uninterrupted run under
 ``torch.use_deterministic_algorithms(True)``; and ``Trainer`` for two epochs
 with a checkpoint round trip. The timing phase adds the bf16 step and the
-kernels' bf16-storage times. Any failed
-phase raises, so the exit code is not 0 and the final line is not printed.
+kernels' bf16-storage times.
+
+The raw-signal slice runs too. S1, the biquad cascade behind ``sosfilt``
+(``csrc/sosfilt.cu``), is built with the flash kernels, its registers,
+spills and stack frame printed, and held against its plain version at the
+featurizer's shape (2554, 288) and a stream chunk's (50, 90, five bands in
+one launch), then timed beside its bound and its dependency-chain floor.
+Then bench.py's three extras: raw-featurize (its featurizer input, card
+against CPU, two S1 launches, epochs/s), fmri-roi (its 315 MB BOLD run,
+card against CPU, volumes/s from host memory and device-resident), and
+raw-in-step-T250 (its raw-EEG train step, timed in turns with the
+featurized step); raw-e2e, raw EEG and BOLD runs of a 40-subject cohort
+through ``raw_recordings_to_dataset`` and ``volumes_to_roi_features`` into a
+3-epoch ``make_fit_fn`` of the full-width model and ``Predictor``; and the
+streaming featurizer over a 60-s session (one S1 launch per step, the
+carried filter state against one causal pass, the features against the
+offline oracle, chunks/s). The line before the kernels line holds those
+values (``bench_extras``), and the kernels line lists S1 beside K1-K3. Any
+failed phase raises, so the exit code is not 0 and the final line is not
+printed.
 There is no CPU mode: without a GPU the script fails at once.
 
 Last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -70,6 +88,7 @@ T_SERVE, T_SHORT, BATCH = 512, 250, 8
 REQUEST_ROWS = (8, 5, 1)
 COHORT, VAL_ROWS, EPOCHS = 32, 8, 3
 ACCUM, EMA_DECAY = 2, 0.99
+PROFILE_TOP = 12          # ops listed by device time in a profile
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): the fastest route to
 # f32-accurate products, 3xTF32 on the tensor cores (495 TFLOP/s TF32, three
 # products per f32 product); bf16 products (exact in f32 accumulators); the
@@ -84,6 +103,7 @@ PEAK_BYTES = 3.35e12
 KERNEL_SYMBOL = re.compile(r"(flash_fwd|flash_bwd_dkv|flash_bwd_dq)_kernel"
                            r"ILi(\d+)E(f|13__nv_bfloat16)Lb([01])E")
 MMA_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")  # tensor cores
+S1_SYMBOL = re.compile(r"sosfilt_kernelILi(\d+)E")   # S1, by its sections
 
 
 def fail(msg: str):
@@ -131,22 +151,28 @@ def kernel_instance(symbol: str):
             "bf16" if m[4] == "1" else "f32")
 
 
-def parse_ptxas(text: str) -> dict:
-    """{instance: (registers, spill store bytes, spill load bytes)} from the
-    output of ``nvcc -Xptxas -v``."""
-    regs, spills = {}, {}
+def s1_instance(symbol: str):
+    """("sosfilt", sections) of S1's mangled kernel symbol, or None."""
+    m = S1_SYMBOL.search(symbol)
+    return None if m is None else ("sosfilt", int(m[1]))
+
+
+def parse_ptxas(text: str, instance=kernel_instance) -> dict:
+    """{instance: (registers, spill store bytes, spill load bytes, stack
+    frame bytes)} from the output of ``nvcc -Xptxas -v``."""
+    regs, frames = {}, {}
     entry = props = None
     for line in text.splitlines():
         if m := re.search(r"Compiling entry function '([^']+)'", line):
-            entry = kernel_instance(m[1])
+            entry = instance(m[1])
         elif m := re.search(r"Function properties for (\S+)", line):
-            props = kernel_instance(m[1])
-        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                             r"loads", line)) and props:
-            spills[props] = (int(m[1]), int(m[2]))
+            props = instance(m[1])
+        elif (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                             r"stores, (\d+) bytes spill loads", line)) and props:
+            frames[props] = (int(m[2]), int(m[3]), int(m[1]))
         elif (m := re.search(r"Used (\d+) registers", line)) and entry:
             regs[entry] = int(m[1])
-    return {k: (r, *spills.get(k, (0, 0))) for k, r in regs.items()}
+    return {k: (r, *frames.get(k, (0, 0, 0))) for k, r in regs.items()}
 
 
 def count_hmma(sass: str) -> dict:
@@ -199,12 +225,20 @@ def build_and_inspect(_kernels) -> None:
                           capture_output=True, text=True, check=True).stdout
     hmma = count_hmma(sass)
     for inst in sorted(resources):
-        regs, st, ld = resources[inst]
+        regs, st, ld, _ = resources[inst]
         print(f"{inst[0]} D={inst[1]} {inst[2]} storage, {inst[3]} operands: "
               f"{regs} registers, spill stores/loads {st}/{ld} bytes, "
               f"{hmma.get(inst, 0)} HMMA")
     if faults := tensor_core_faults(resources, hmma):
         fail("; ".join(faults))
+    s1 = parse_ptxas("\n".join(outputs), s1_instance)
+    if sorted(s1) != [("sosfilt", n) for n in range(1, 9)]:
+        fail(f"S1 instances in the ptxas output: {sorted(s1)}, expected "
+             "S = 1..8")
+    for inst in sorted(s1):
+        regs, st, ld, frame = s1[inst]
+        print(f"sosfilt S={inst[1]}: {regs} registers, spill stores/loads "
+              f"{st}/{ld} bytes, stack frame {frame} bytes")
 
 
 def tensor_core_faults(resources: dict, hmma: dict) -> list:
@@ -219,14 +253,14 @@ def tensor_core_faults(resources: dict, hmma: dict) -> list:
     if no_mma := sorted(i for i in wanted if hmma[i] == 0):
         faults.append(f"no HMMA instruction in {no_mma}")
     if spilled := sorted(i for i in wanted
-                         if i[1] == 32 and any(resources[i][1:])):
+                         if i[1] == 32 and any(resources[i][1:3])):
         faults.append(f"spills at D=32 in {spilled}")
     return faults
 
 
-def cuda_ms(fn, iters: int = 200) -> float:
+def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     """Mean time of one call, CUDA events around ``iters`` calls."""
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -294,18 +328,18 @@ def device_ms(fn, n: int = 50) -> float:
     return us / 1000.0 / n
 
 
-def profile_steps(step, batch, cw, card: str, n: int = 5) -> None:
-    """Device busy share and device time by op over n train steps
+def profile_calls(fn, label: str, card: str, n: int = 5) -> None:
+    """Device busy share and device time by op over n calls of ``fn``
     (torch.profiler; reports and goes on if the trace has no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    step(batch, cw)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step(batch, cw)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000.0 / n
 
@@ -314,14 +348,14 @@ def profile_steps(step, batch, cw, card: str, n: int = 5) -> None:
     if not events:
         print(f"profile: the trace holds no device time {card}")
         return
-    print(f"profile, {n} train steps B={BATCH} T={T_SERVE} kernel route: wall "
-          f"{wall_ms:.3f} ms per step under the profiler, device busy "
-          f"{busy_ms:.3f} ms per step ({100 * busy_ms / wall_ms:.1f}%) {card}")
-    print(f"  {sum(e.count for e in events) / n:.0f} kernels per step; the "
+    print(f"profile, {label}: wall {wall_ms:.3f} ms per call under the "
+          f"profiler, device busy {busy_ms:.3f} ms per call "
+          f"({100 * busy_ms / wall_ms:.1f}%) {card}")
+    print(f"  {sum(e.count for e in events) / n:.0f} kernels per call; the "
           "most device time:")
-    for e in sorted(events, key=_device_us, reverse=True)[:12]:
-        print(f"  {e.key[:60]:60s} {_device_us(e) / 1000.0 / n:8.4f} ms/step "
-              f"{e.count / n:6.1f} calls/step")
+    for e in sorted(events, key=_device_us, reverse=True)[:PROFILE_TOP]:
+        print(f"  {e.key[:60]:60s} {_device_us(e) / 1000.0 / n:8.4f} ms/call "
+              f"{e.count / n:6.1f} calls/call")
 
 
 def bound_ms(kernel: str, B, H, tq, tk, d, storage: str = "f32") -> tuple:
@@ -433,6 +467,451 @@ def cancelled_biases(model) -> set:
             names |= {f"{prefix}.dense_{i}.bias" for i in range(m.n)
                       if hasattr(m, f"bn_{i}")}
     return names
+
+
+# --- the raw-signal slice: S1 and the phases of bench.py's extras ----------
+
+S1_REPLACES = "multimodal_eeg_fmri_tpu/ops/signal.py:137 sosfilt (lax.scan)"
+S1_SOURCE = "multimodal_eeg_fmri_tpu_torch/csrc/sosfilt.cu"
+S1_RTOL = 2e-5              # of the plain version's largest |value|
+PEAK_F32_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
+OP_CYCLES = 4               # latency of one dependent f32 operation
+FS, EPOCH = 250.0, 250
+RAW_N, RAW_T, CHANNELS = 16, 2500, 18          # bench.py's featurizer input
+BOLD_SHAPE, N_ROIS = (64, 64, 40, 120), 90     # bench.py's BOLD run, atlas
+STREAM_CHUNK, STREAM_SECONDS = 50, 60
+FEATURE_GATES = {"erp": 1e-5, "pw": 1e-4, "conn": 1e-4}   # card vs CPU
+ROI_RTOL = 1e-5
+
+
+def s1_launches() -> int:
+    from multimodal_eeg_fmri_tpu_torch.ops.signal import kernel_launches
+
+    return kernel_launches()["sosfilt"]
+
+
+def reset_all_launches() -> None:
+    """Every kernel's launch count to 0: K1-K3 and S1."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        reset_kernel_launches as reset_flash,
+    )
+    from multimodal_eeg_fmri_tpu_torch.ops.signal import (
+        reset_kernel_launches as reset_s1,
+    )
+
+    reset_flash()
+    reset_s1()
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def s1_bound_ms(T: int, M: int, S: int, state_in: bool, state_out: bool
+                ) -> tuple:
+    """Least time (ms) of S1's work and what bounds it: the bytes (x read
+    and y written once, the (S, 2, M) state read and written if present)
+    over the memory rate, or the 9 operations of each biquad step (5
+    multiplies, 4 adds) over the f32 peak of the CUDA cores."""
+    n_bytes = 4 * (2 * T * M + (int(state_in) + int(state_out)) * 2 * S * M)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, 9 * S * T * M / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def s1_cases(dev) -> list:
+    """S1's shapes on the main path, as (name, coeffs, x, zi, zf, timed).
+    The featurizer's passes through the alpha cascade, each from the steady
+    state scaled by the first sample, as ``sosfiltfilt`` starts it, over
+    T + 2·27 samples of odd padding and N recordings × 18 channels:
+    raw-featurize's (2554, 288), N=16 at T=2500; raw-in-step's (304, 144),
+    N=8 at T=250, where T is a multiple of the kernel's tile of 16 steps;
+    raw-e2e's (2554, 720), N=40. And one stream chunk (50, 90), 5 bands ×
+    18 channels in one launch, from the state a previous chunk left,
+    returning the final state. The first and the last are timed."""
+    from multimodal_eeg_fmri_tpu_torch.data.raw import DEFAULT_BANDS
+    from multimodal_eeg_fmri_tpu_torch.ops import signal as S
+
+    r = np.random.default_rng(50)
+    sos, zi = S.butter_bandpass_sos(8.0, 13.0, FS, 4)
+    alpha = S.sos_coefficients(sos)[None]
+
+    def featurizer_pass(n: int, t: int) -> tuple:
+        x = torch.from_numpy(r.standard_normal(
+            (t + 54, n * CHANNELS), dtype=np.float32)).to(dev)
+        z = (torch.as_tensor(zi, dtype=torch.float32, device=dev)
+             [None, :, :, None] * x[0]).contiguous()
+        return alpha, x, z, False
+
+    coeffs = S.sos_coefficients(np.stack(
+        [S.butter_bandpass_sos(lo, hi, FS, 4)[0]
+         for lo, hi in DEFAULT_BANDS.values()]))
+    chunks = torch.from_numpy(r.standard_normal(
+        (2, STREAM_CHUNK, CHANNELS), dtype=np.float32)).to(dev)
+    _, z_prev = S.sosfilt_plain(coeffs, chunks[0].repeat(1, len(coeffs)))
+    return [("featurizer pass", *featurizer_pass(RAW_N, RAW_T), True),
+            ("raw-in-step pass", *featurizer_pass(BATCH, T_SHORT), False),
+            ("raw-e2e pass", *featurizer_pass(COHORT + VAL_ROWS, RAW_T),
+             False),
+            ("stream chunk", coeffs, chunks[1].repeat(1, len(coeffs)),
+             z_prev.contiguous(), True, True)]
+
+
+def s1_phase(dev, card: str) -> dict:
+    """S1 against its plain version at the main path's shapes, and the
+    times of the featurizer's pass and the stream chunk: CUDA events, the
+    profiler's device time, the plain version, the bound, and the
+    dependency chain's floor, which is worked out, not measured: each time
+    step of a section waits on about 4 dependent f32 operations of the
+    step before (out → z0 → out), and the S sections run in a pipeline
+    beside it, 2 operations apart, so about 4·T + 2·S operations of
+    ``OP_CYCLES`` each at the card's highest SM clock."""
+    from multimodal_eeg_fmri_tpu_torch.ops import signal as S
+
+    clock = max_sm_clock_hz()
+    report, worst = {}, 0.0
+    for name, coeffs, x, zi, zf, timed in s1_cases(dev):
+        y_k, zf_k = S.sosfilt_cuda(coeffs, x, zi, return_zf=True)
+        y_p, zf_p = S.sosfilt_plain(coeffs, x, zi)
+        torch.cuda.synchronize()
+        errs = [((a - b).abs().max().item(), b.abs().max().item())
+                for a, b in ((y_k, y_p), (zf_k, zf_p))]
+        worst = max(worst, *(e for e, _ in errs))
+        T, M = x.shape
+        G, n_sections = coeffs.shape[:2]
+        print(f"S1 {name} (T, M)=({T}, {M}), G={G}, S={n_sections}: "
+              f"max|dy|={errs[0][0]:.3e} at max|y|={errs[0][1]:.3e}, "
+              f"max|dzf|={errs[1][0]:.3e} at max|zf|={errs[1][1]:.3e} "
+              f"(limit {S1_RTOL:g} of the largest)")
+        if not all(e <= S1_RTOL * peak for e, peak in errs):
+            fail(f"S1 disagrees with its plain version at {(T, M)}")
+        if not timed:
+            continue
+
+        def kern():
+            return S.sosfilt_cuda(coeffs, x, zi, return_zf=zf)
+
+        def plain():
+            return S.sosfilt_plain(coeffs, x, zi)
+
+        plain_iters = max(2, 20000 // T)     # the plain loop takes ~T·S·9 ops
+        ms, plain_ms = in_turns(
+            lambda: cuda_ms(kern),
+            lambda: cuda_ms(plain, iters=plain_iters, warmup=1))
+        dev_ms = device_ms(kern)
+        b_ms, by = s1_bound_ms(T, M, n_sections, True, zf)
+        chain_ms = 1e3 * (4 * T + 2 * n_sections) * OP_CYCLES / clock
+        print(f"S1 {name}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({by}), chain floor "
+              f"{chain_ms:.4f} ms (4·{T} + 2·{n_sections} dependent operations "
+              f"at {OP_CYCLES} cycles, {clock / 1e9:.2f} GHz; worked out, not "
+              f"measured), library none, per call {card}")
+        report[name] = {"shape": [T, M], "groups": G, "sections": n_sections,
+                        "max_abs_err": max(e for e, _ in errs), "ms": ms,
+                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": by}
+    report["max_abs_err"] = worst
+    return report
+
+
+def raw_featurize_phase(dev, card: str) -> dict:
+    """bench.py's bench_eeg_featurizer on the port: N=16, T=2500, C=18 at
+    250 Hz, 1-s epochs, the 5 default bands, nperseg 128; the card's output
+    against the CPU path's, S1's launches, epochs/s."""
+    from multimodal_eeg_fmri_tpu_torch.data.raw import make_raw_eeg_featurizer
+
+    raw_np = np.random.default_rng(1).standard_normal(
+        (RAW_N, RAW_T, CHANNELS), dtype=np.float32)
+    featurize = make_raw_eeg_featurizer(fs=FS, epoch_len=EPOCH, device=dev)
+    raw = torch.from_numpy(raw_np).to(dev)
+    reset_all_launches()
+    got = featurize(raw)
+    torch.cuda.synchronize()
+    launches = s1_launches()
+    print(f"featurize {tuple(raw.shape)}: S1 launches {launches} (expected "
+          f"2), flash launches {total_launches()}; shapes "
+          f"{ {k: tuple(v.shape) for k, v in got.items()} }")
+    if launches != 2 or any(total_launches().values()):
+        fail("the featurizer did not launch S1 twice (and nothing else)")
+    want = make_raw_eeg_featurizer(fs=FS, epoch_len=EPOCH, device="cpu")(raw_np)
+    errs = {k: (got[k].cpu() - want[k]).abs().max().item() for k in want}
+    errs["pw"] /= want["pw"].abs().max().item()
+    print("card vs CPU: " + ", ".join(
+        f"{k} {v:.3e} (limit {FEATURE_GATES[k]:g}"
+        f"{', of the largest' if k == 'pw' else ''})" for k, v in errs.items()))
+    if any(v > FEATURE_GATES[k] for k, v in errs.items()):
+        fail("the card's features disagree with the CPU path's")
+
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        featurize(raw)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    epochs_per_s = RAW_N * (RAW_T // EPOCH) / best
+    print(f"eeg_epochs_per_sec {epochs_per_s:.1f} (best of 3: {best * 1e3:.3f}"
+          f" ms per call of {RAW_N * (RAW_T // EPOCH)} epochs) {card}")
+    profile_calls(lambda: featurize(raw), f"featurize {tuple(raw.shape)}",
+                  card, n=3)
+    return {"eeg_epochs_per_sec": epochs_per_s, "launches": launches}
+
+
+def fmri_roi_phase(dev, card: str) -> dict:
+    """bench.py's bench_fmri_volumes on the port: a 64×64×40 BOLD run of 120
+    volumes (315 MB f32) and a 90-ROI atlas through volumes_to_roi_features,
+    against the CPU path; volumes/s from host memory and device-resident."""
+    from multimodal_eeg_fmri_tpu_torch.data.nifti import (
+        _roi_pipeline,
+        volumes_to_roi_features,
+    )
+
+    r = np.random.default_rng(2)
+    bold = r.standard_normal(BOLD_SHAPE, dtype=np.float32)
+    atlas = r.integers(0, N_ROIS + 1, BOLD_SHAPE[:3]).astype(np.int32)
+    T_vol = BOLD_SHAPE[-1]
+    reset_all_launches()
+    got = volumes_to_roi_features(bold, atlas, n_rois=N_ROIS, device=dev)
+    want = volumes_to_roi_features(bold, atlas, n_rois=N_ROIS, device="cpu")
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"ROI features {got.shape}: card vs CPU max|d| / max|CPU| "
+          f"{rel:.3e} (limit {ROI_RTOL:g}); launches S1 {s1_launches()}, "
+          f"flash {total_launches()} (none expected)")
+    if not (rel <= ROI_RTOL and np.all(np.isfinite(got))):
+        fail("the card's ROI features disagree with the CPU path's")
+
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        volumes_to_roi_features(bold, atlas, n_rois=N_ROIS, device=dev)
+        best = min(best, time.perf_counter() - t0)
+    # device-resident: the input perturbed in each repetition and the
+    # result read back, as bench.py times it
+    flat = torch.from_numpy(np.moveaxis(bold, -1, 0).reshape(T_vol, -1)).to(dev)
+    labels = torch.from_numpy(atlas.reshape(-1)).to(dev)
+    _roi_pipeline(flat, labels, N_ROIS)
+    torch.cuda.synchronize()
+    best_dev = float("inf")
+    for i in range(1, 4):
+        t0 = time.perf_counter()
+        float(_roi_pipeline(flat + 1e-3 * i, labels, N_ROIS).ravel()[0])
+        best_dev = min(best_dev, time.perf_counter() - t0)
+    rates = {"host": T_vol / best, "device": T_vol / best_dev}
+    print(f"fmri_volumes_per_sec host {rates['host']:.1f} ({best * 1e3:.3f} ms "
+          f"per run), device-resident {rates['device']:.1f} "
+          f"({best_dev * 1e3:.3f} ms per run) {card}")
+    profile_calls(lambda: _roi_pipeline(flat, labels, N_ROIS),
+                  "ROI pipeline, device-resident", card, n=3)
+    return rates
+
+
+def raw_e2e_phase(dev, cfg, zscore_fn) -> dict:
+    """The slice through its entry points: raw EEG of a 32-subject cohort
+    and 8 validation subjects → raw_recordings_to_dataset; each subject's
+    BOLD run → volumes_to_roi_features (one 315 MB run on the host at a
+    time); make_fit_fn trains MultimodalEndToEnd(pw_channels=90,
+    activation_features=180) for 3 epochs; Predictor serves 8 rows."""
+    from multimodal_eeg_fmri_tpu_torch import (
+        MultimodalEndToEnd,
+        Predictor,
+        init_weights,
+        make_fit_fn,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.nifti import volumes_to_roi_features
+    from multimodal_eeg_fmri_tpu_torch.data.raw import raw_recordings_to_dataset
+    from multimodal_eeg_fmri_tpu_torch.ops.augment import make_eeg_augment
+
+    n = COHORT + VAL_ROWS
+    r = np.random.default_rng(60)
+    labels = np.arange(n) % 2
+    alpha = np.sin(2 * np.pi * 10.0 * np.arange(RAW_T) / FS).astype(np.float32)
+    raw = r.standard_normal((n, RAW_T, CHANNELS), dtype=np.float32)
+    raw += (2.0 * labels)[:, None, None].astype(np.float32) * alpha[None, :, None]
+    atlas = r.integers(0, N_ROIS + 1, BOLD_SHAPE[:3]).astype(np.int32)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    data = raw_recordings_to_dataset(raw, labels, device=dev)
+    data["activation"] = np.stack([
+        volumes_to_roi_features(r.standard_normal(BOLD_SHAPE, dtype=np.float32),
+                                atlas, n_rois=N_ROIS, device=dev)
+        for _ in range(n)])
+    features_s = time.perf_counter() - t0
+    data["connectivity"] = r.standard_normal((n, 64), dtype=np.float32)
+    data["weight"] = np.ones(n, np.float32)
+    train = {k: v[:COHORT] for k, v in data.items()}
+    val = {k: v[COHORT:] for k, v in data.items()}
+    print(f"features of {n} subjects in {features_s:.2f} s: "
+          + ", ".join(f"{k} {v.shape}" for k, v in data.items()))
+
+    model = init_weights(MultimodalEndToEnd(dropout=0.0, pw_channels=90,
+                                            activation_features=2 * N_ROIS,
+                                            device=dev),
+                         torch.Generator().manual_seed(9))
+    fit = make_fit_fn(model, cfg, eval_names=("val",),
+                      augment=make_eeg_augment(), preprocess=zscore_fn)
+    result = fit(0, train, {"val": val}, torch.ones(2, device=dev))
+    torch.cuda.synchronize()
+    history = {k: v.cpu().numpy() for k, v in result.history.items()}
+    rows = {k: val[k] for k in ("erp", "pw", "conn", "activation",
+                                "connectivity")}
+    served = Predictor(model, BATCH, preprocess=zscore_fn,
+                       return_probs=False)(**rows)
+    torch.cuda.synchronize()
+    launches = {"sosfilt": s1_launches(), **total_launches()}
+    model.eval()
+    with torch.no_grad():
+        inputs = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+        eager = model(**{**inputs, **zscore_fn(inputs)}).logits.cpu().numpy()
+    d = float(np.abs(served - eager).max())
+    print("history: " + ", ".join(f"{k}={np.array2string(v, precision=5)}"
+                                  for k, v in history.items()))
+    print(f"launches over the path {launches} (S1 2, flash 0 at T={EPOCH}); "
+          f"served logits {served.shape} vs an eager forward max|d|={d:.3e} "
+          f"(limit {LOGITS_ATOL:g})")
+    if launches != {"sosfilt": 2, "flash_fwd": 0, "flash_bwd_dkv": 0,
+                    "flash_bwd_dq": 0}:
+        fail(f"the raw path launched {launches}")
+    if not (all(np.all(np.isfinite(v)) and v.shape == (EPOCHS,)
+                for v in history.values()) and d <= LOGITS_ATOL):
+        fail("non-finite history, or served logits unlike the forward")
+    return launches
+
+
+def raw_in_step_phase(dev, card: str, zscore_fn, bench_step, bench_batch,
+                      gen) -> dict:
+    """bench.py's build_step(raw_eeg=True) on the port: featurize → z-score
+    → augment_temporal → MultimodalEndToEnd(dropout=0.3) → CE → backward →
+    clip 1.0 → AdamW 5e-5 / 1e-5 at B=8, T=250, C=18; timed in turns with
+    the featurized step (bench.py's headline step)."""
+    from multimodal_eeg_fmri_tpu_torch import (
+        MultimodalEndToEnd,
+        TrainConfig,
+        init_weights,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.raw import make_raw_eeg_featurizer
+    from multimodal_eeg_fmri_tpu_torch.ops.augment import make_eeg_augment
+    from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
+
+    featurize = make_raw_eeg_featurizer(fs=FS, epoch_len=T_SHORT, device=dev)
+    model = init_weights(MultimodalEndToEnd(pw_channels=90, device=dev),
+                         torch.Generator().manual_seed(3))
+    step = TrainStep(model, TrainConfig(loss="ce"), augment=make_eeg_augment())
+    r = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in {
+        "raw": r.standard_normal((BATCH, T_SHORT, CHANNELS), dtype=np.float32),
+        "activation": r.standard_normal((BATCH, 90), dtype=np.float32),
+        "connectivity": r.standard_normal((BATCH, 64), dtype=np.float32),
+        "label": r.integers(0, 2, BATCH)}.items()}
+
+    def raw_step(b, cw):
+        feats = featurize(b["raw"])
+        derived = {**{k: v for k, v in b.items() if k != "raw"}, **feats,
+                   **zscore_fn(feats)}
+        return step(derived, cw, gen)
+
+    reset_all_launches()
+    loss = raw_step(batch, None).item()
+    launches = {"sosfilt": s1_launches(), **total_launches()}
+    print(f"raw-in-step B={BATCH} T={T_SHORT}: loss {loss:.6f}, launches "
+          f"{launches} (S1 2, flash 0: the einsum route at T={T_SHORT})")
+    if launches != {"sosfilt": 2, "flash_fwd": 0, "flash_bwd_dkv": 0,
+                    "flash_bwd_dq": 0} or not math.isfinite(loss):
+        fail("the raw-in-step train step misbehaved")
+    raw_ms, feat_ms = in_turns(
+        lambda: step_ms(raw_step, batch, None),
+        lambda: step_ms(lambda b, cw: bench_step(b, cw, gen), bench_batch,
+                        None))
+    print(f"raw_in_step_train_ms {raw_ms:.3f}; the featurized step (bench.py's"
+          f" headline) {feat_ms:.3f} ms, in turns {card}")
+    profile_calls(lambda: raw_step(batch, None),
+                  f"raw-in-step train step B={BATCH} T={T_SHORT}", card)
+    return {"ms": raw_ms, "launches": launches["sosfilt"]}
+
+
+def stream_phase(dev, card: str) -> dict:
+    """The streaming featurizer with examples/stream_monitor.py's settings
+    (250 Hz, 1-s epochs, 200-ms chunks, 18 channels) over a 60-s session
+    with an alpha burst in its second half: stream_session once, then the
+    same steps by hand, timed. Gate 1: the carried band signals equal one
+    causal sosfilt over the whole session; gate 2: the emitted features equal
+    the offline causal oracle within tests/test_streaming.py's tolerances."""
+    from multimodal_eeg_fmri_tpu_torch.data.raw import DEFAULT_BANDS
+    from multimodal_eeg_fmri_tpu_torch.data.streaming import (
+        make_streaming_featurizer,
+        stream_session,
+    )
+    from multimodal_eeg_fmri_tpu_torch.ops import signal as S
+
+    r = np.random.default_rng(70)
+    t = np.arange(STREAM_SECONDS * int(FS)) / FS
+    raw_np = r.standard_normal((len(t), CHANNELS)).astype(np.float32)
+    burst = (t > STREAM_SECONDS / 2).astype(np.float32)
+    raw_np += (2.0 * burst * np.sin(2 * np.pi * 10.0 * t))[:, None].astype(
+        np.float32)
+    raw = torch.from_numpy(raw_np).to(dev)
+    init, step = make_streaming_featurizer(fs=FS, epoch_len=EPOCH,
+                                           chunk_len=STREAM_CHUNK, device=dev)
+    n_chunks = len(t) // STREAM_CHUNK
+    reset_all_launches()
+    outs = stream_session(raw, STREAM_CHUNK, init, step)
+    torch.cuda.synchronize()
+    launches = s1_launches()
+    print(f"stream_session {len(t)} samples in {n_chunks} chunks: S1 "
+          f"launches {launches} (1 per step, all 5 bands), flash "
+          f"{total_launches()}; {int(outs['ready'].sum())} epochs")
+    if launches != n_chunks or any(total_launches().values()):
+        fail("the stream did not launch S1 once per step")
+
+    state, bands = init(CHANNELS), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(0, len(t), STREAM_CHUNK):
+        state, _ = step(state, raw[k:k + STREAM_CHUNK])
+        bands.append(state.buf_band[:, -STREAM_CHUNK:])
+    torch.cuda.synchronize()
+    chunks_per_s = n_chunks / (time.perf_counter() - t0)
+    sos = [S.butter_bandpass_sos(lo, hi, FS, 4)[0]
+           for lo, hi in DEFAULT_BANDS.values()]
+    one_shot = torch.stack([S.sosfilt(s, raw) for s in sos])
+    carried = torch.cat(bands, dim=1)
+    d1 = (carried - one_shot).abs().max().item()
+    peak = one_shot.abs().max().item()
+    print(f"gate 1: carried band signals vs one causal sosfilt per band: "
+          f"max|d|={d1:.3e} (limit 1e-5 · {peak:.3e})")
+    if d1 > 1e-5 * peak:
+        fail("the stream's carried filter state is not invisible")
+
+    freqs = S.rfft_freqs(128, FS)
+    alpha = one_shot[list(DEFAULT_BANDS).index("alpha")]
+    tols = {"erp": (1e-6, 0.0), "pw": (2e-4, 1e-5), "conn": (2e-3, 2e-4)}
+    worst, within = dict.fromkeys(tols, 0.0), True
+    for e, k in enumerate(torch.nonzero(outs["ready"])[:, 0].tolist()):
+        epoch = raw[e * EPOCH:(e + 1) * EPOCH]
+        bp = S.band_power(S.spectrogram_power(epoch.T[None], 128, 64), freqs,
+                          DEFAULT_BANDS)
+        oracle = {"erp": epoch, "pw": bp[0].reshape(-1, bp.shape[-1]).T,
+                  "conn": S.connectivity_features(
+                      alpha[e * EPOCH:(e + 1) * EPOCH][None])}
+        for key, want in oracle.items():
+            rtol, atol = tols[key]
+            diff = (outs[key][k] - want).abs()
+            worst[key] = max(worst[key], diff.max().item())
+            within &= bool((diff <= atol + rtol * want.abs()).all())
+    print("gate 2: emitted features vs the offline causal oracle, max|d|: "
+          + ", ".join(f"{k} {v:.3e} (rtol, atol {tols[k]})"
+                      for k, v in worst.items())
+          + f"; every element within: {within}")
+    if not within:
+        fail("the stream's features disagree with the offline oracle")
+    print(f"stream: {chunks_per_s:.1f} chunks/s ({n_chunks} steps by hand, "
+          f"{STREAM_CHUNK / FS * 1e3:.0f} ms of signal each) {card}")
+    chunk = raw[:STREAM_CHUNK]
+    profile_calls(lambda: step(state, chunk), "one stream step", card, n=20)
+    return {"launches_per_step": launches // n_chunks,
+            "chunks_per_sec": chunks_per_s}
 
 
 def main() -> None:
@@ -579,6 +1058,10 @@ def main() -> None:
         for name, err in (("flash_fwd", max(d_out, d_lse)),
                           ("flash_bwd_dkv", e_dkv), ("flash_bwd_dq", e_dq)):
             worst_bf16[name] = max(worst_bf16[name], err)
+
+    phase("kernel vs plain version: S1, the biquad cascade (sosfilt), at "
+          "the shapes of raw-featurize, raw-in-step, raw-e2e and stream")
+    s1 = s1_phase(dev, card)
 
     phase("autograd through K1+K2+K3 vs through the einsum reference")
     B, H, T, d = SLICE_SHAPES[1]
@@ -969,6 +1452,28 @@ def main() -> None:
     print(f"T={T_SHORT}, dropout 0.3: loss {loss:.6f}, launches "
           f"{total_launches()} (the einsum route, as the auto rule says)")
 
+    phase(f"raw-featurize: bench.py's featurizer, N={RAW_N}, T={RAW_T}, "
+          f"C={CHANNELS}")
+    featurized = raw_featurize_phase(dev, card)
+    phase(f"fmri-roi: bench.py's BOLD run {BOLD_SHAPE}, {N_ROIS} ROIs")
+    fmri_rates = fmri_roi_phase(dev, card)
+    phase(f"raw-e2e: raw EEG and BOLD of {COHORT} + {VAL_ROWS} subjects → "
+          f"features → make_fit_fn, {EPOCHS} epochs → Predictor")
+    raw_path_launches = raw_e2e_phase(dev, cfg, zscore)
+    phase(f"raw-in-step-T{T_SHORT}: bench.py's build_step(raw_eeg=True)")
+    raw_step = raw_in_step_phase(dev, card, zscore, bench_step, bench_batch,
+                                 gen)
+    phase(f"stream: {STREAM_SECONDS} s at {FS:g} Hz in {STREAM_CHUNK}-sample "
+          f"chunks, {CHANNELS} channels")
+    stream = stream_phase(dev, card)
+    print(json.dumps({"bench_extras": {
+        "eeg_epochs_per_sec": featurized["eeg_epochs_per_sec"],
+        "fmri_volumes_per_sec": fmri_rates["host"],
+        "fmri_volumes_per_sec_device": fmri_rates["device"],
+        "raw_in_step_train_ms": raw_step["ms"],
+        "stream_chunks_per_sec": stream["chunks_per_sec"],
+        "device": smi}}))
+
     phase(f"timing {card}")
     stats = predictor.benchmark(requests[0], warmup=5, iters=50)
     stats_plain = Predictor(plain_model, BATCH).benchmark(
@@ -997,7 +1502,8 @@ def main() -> None:
     bench_ms = step_ms(lambda b, cw: bench_step(b, cw, gen), bench_batch, None)
     print(f"train step B={BATCH} T={T_SHORT} dropout 0.3 (bench.py's step): "
           f"{bench_ms:.3f} ms {card}")
-    profile_steps(timed["kernel"], batch, class_weights, card)
+    profile_calls(lambda: timed["kernel"](batch, class_weights),
+                  f"5 train steps B={BATCH} T={T_SERVE} kernel route", card)
 
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -1090,7 +1596,23 @@ def main() -> None:
         "launches_bf16_fit": mp_launches[name],
         "bf16_storage": {"max_abs_err": worst_bf16[name],
                          **timings(per_step[name, "bf16"])},
-    } for name in names]}))
+    } for name in names] + [{
+        "name": "sosfilt",
+        "route": "cuda",
+        "source": S1_SOURCE,
+        "replaces": S1_REPLACES,
+        # the raw-e2e path's launches; then each path's
+        "launches": raw_path_launches["sosfilt"],
+        "launches_by_path": {"raw-featurize": featurized["launches"],
+                             "raw-e2e": raw_path_launches["sosfilt"],
+                             "raw-in-step, per step": raw_step["launches"],
+                             "stream, per step": stream["launches_per_step"]},
+        "max_abs_err": s1["max_abs_err"],
+        **{k: s1["featurizer pass"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "library_ms": None,
+        "stream_chunk": s1["stream chunk"],
+    }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

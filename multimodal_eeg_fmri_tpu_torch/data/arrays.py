@@ -1,5 +1,8 @@
 """Array-dataset helpers (numpy). The port's copy of the part of
-``multimodal_eeg_fmri_tpu/data/arrays.py`` that its training uses.
+``multimodal_eeg_fmri_tpu/data/arrays.py`` that its training uses, and
+``as_tensor``, which moves an array to the device as the JAX package's
+``jnp.asarray`` would convert it, and ``model_device``, which resolves the
+device an entry point runs on.
 
 Datasets are dicts of arrays with a leading sample axis and a ``weight``
 mask (1 = real row, 0 = padding), so that folds of other sizes pad to one
@@ -12,10 +15,32 @@ import logging
 from typing import Dict, Sequence
 
 import numpy as np
+import torch
 
 Dataset = Dict[str, np.ndarray]
 
 log = logging.getLogger("multimodal_eeg_fmri_tpu_torch.data")
+
+
+def as_tensor(x, device, dtype=None) -> torch.Tensor:
+    """An array or a tensor of any device, on ``device``; float64 becomes
+    float32, as the JAX package (x64 off) makes it."""
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    if dtype is None and t.dtype == torch.float64:
+        dtype = torch.float32
+    return t.to(device=device, dtype=dtype)
+
+
+def model_device(device) -> torch.device:
+    """The device a public model or featurizer works on. The port's entry
+    points default to the card; without one that default raises instead of
+    running on the CPU, which a caller must ask for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's models build on the GPU by default; "
+            "pass device='cpu' to build on the CPU")
+    return device
 
 
 def subset(data: Dataset, idx: Sequence[int]) -> Dataset:

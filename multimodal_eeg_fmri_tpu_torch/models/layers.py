@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_eeg_fmri_tpu_torch.data.arrays import model_device
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact GELU as ``jax.nn.gelu(approximate=False)`` computes it:
@@ -65,18 +67,6 @@ def sinusoidal_position_encoding(length: int, d_model: int, device=None,
     pe[:, 0::2] = torch.sin(angles)[:, : (d_model + 1) // 2]
     pe[:, 1::2] = torch.cos(angles)[:, : d_model // 2]
     return pe.to(dtype)
-
-
-def model_device(device) -> torch.device:
-    """The device a public model builds on. The port's models default to
-    the card; without one that default raises instead of building on the
-    CPU, which a caller must ask for."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port's models build on the GPU by default; "
-            "pass device='cpu' to build on the CPU")
-    return device
 
 
 class BatchNorm(nn.BatchNorm1d):

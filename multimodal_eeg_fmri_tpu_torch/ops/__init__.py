@@ -1,7 +1,8 @@
 """Operators of the port: ``attention`` holds the flash-attention kernels'
-wrappers and their plain versions; ``losses`` and ``augment`` the train
-step's losses and augmentation; ``schedules`` the host-side LR and
-early-stopping controllers."""
+wrappers and their plain versions; ``signal`` the signal processing, with
+the biquad-cascade kernel's wrapper (``sosfilt``) and its plain version;
+``losses`` and ``augment`` the train step's losses and augmentation;
+``schedules`` the host-side LR and early-stopping controllers."""
 
 from multimodal_eeg_fmri_tpu_torch.ops.attention import (
     attention,

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from multimodal_eeg_fmri_tpu_torch.data.arrays import as_tensor
 from multimodal_eeg_fmri_tpu_torch.train.fit import RESERVED_KEYS
 
 
@@ -62,8 +63,9 @@ class Predictor:
         return chunks
 
     def _to_device(self, chunk: Dict[str, np.ndarray]):
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in chunk.items()}
+        """The chunk on the model's device; float64 becomes float32, as
+        the JAX ``Predictor``'s ``jnp.asarray`` makes it."""
+        return {k: as_tensor(v, self.device) for k, v in chunk.items()}
 
     def __call__(self, **inputs) -> np.ndarray:
         """Predict for any number of rows, in batches of ``batch_size``."""

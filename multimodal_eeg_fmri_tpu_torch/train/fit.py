@@ -47,12 +47,12 @@ import math
 from typing import (Any, Callable, Dict, NamedTuple, Optional, Tuple,
                     Union)
 
-import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
 
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
+from multimodal_eeg_fmri_tpu_torch.data.arrays import as_tensor
 from multimodal_eeg_fmri_tpu_torch.ops.losses import make_loss_fn
 from multimodal_eeg_fmri_tpu_torch.report.metrics import (
     binary_classification_metrics,
@@ -382,17 +382,8 @@ def initial_carry(model: nn.Module, ema: bool = False) -> FitCarry:
         ema_params=_cloned(params, dev) if ema else None)
 
 
-def _as_tensor(x, device, dtype=None) -> torch.Tensor:
-    """An array or a tensor of any device, on ``device``; float64 becomes
-    float32, as the JAX package (x64 off) makes it."""
-    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
-    if dtype is None and t.dtype == torch.float64:
-        dtype = torch.float32
-    return t.to(device=device, dtype=dtype)
-
-
 def _to_device(data, device) -> Tensors:
-    return {k: _as_tensor(v, device) for k, v in data.items()}
+    return {k: as_tensor(v, device) for k, v in data.items()}
 
 
 def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
@@ -441,7 +432,7 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
         eval_sets = {name: _to_device(eval_sets[name], dev)
                      for name in eval_names}
         if class_weights is not None:
-            class_weights = _as_tensor(class_weights, dev, torch.float32)
+            class_weights = as_tensor(class_weights, dev, torch.float32)
         n = next(iter(train_data.values())).shape[0]
         bsz = min(cfg.batch_size, n)
         steps = n // bsz

@@ -115,6 +115,10 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.train.resilient, "
             "multimodal_eeg_fmri_tpu_torch.core.checkpoint, "
             "multimodal_eeg_fmri_tpu_torch.data.arrays, "
+            "multimodal_eeg_fmri_tpu_torch.data.raw, "
+            "multimodal_eeg_fmri_tpu_torch.data.nifti, "
+            "multimodal_eeg_fmri_tpu_torch.data.streaming, "
+            "multimodal_eeg_fmri_tpu_torch.ops.signal, "
             "multimodal_eeg_fmri_tpu_torch.ops.schedules\n"
             "bad = [m for m in ('jax', 'flax', 'optax', "
             "'multimodal_eeg_fmri_tpu') if m in sys.modules]\n"

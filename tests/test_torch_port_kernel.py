@@ -1,8 +1,10 @@
-"""The hand-written flash-attention kernels against their plain versions.
+"""The hand-written kernels against their plain versions: the flash
+attention (K1 forward, K2 dK/dV, K3 dQ) and the biquad cascade (S1,
+``sosfilt``).
 
-These tests run the CUDA kernels (K1 forward, K2 dK/dV, K3 dQ), which have
-no CPU mode: they are marked ``cuda`` and skip where there is no GPU. They
-import no JAX, so on a machine with a card and without JAX they run alone:
+These tests run the CUDA kernels, which have no CPU mode: they are marked
+``cuda`` and skip where there is no GPU. They import no JAX, so on a machine
+with a card and without JAX they run alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernel.py
 
@@ -16,6 +18,8 @@ same operands at the same places and differ only in the order of their f32
 sums (a rounding left out, such as dS unrounded before dS·K, moves dq by
 1e-3 or more); with bf16 storage as well, plus one bf16 ulp of the largest
 gradient, as both sides round their f32 result to bf16 on their own.
+S1 within 2e-5 of its plain version's largest |value| (it rounds each
+operation as the plain version does, so the two should agree exactly).
 """
 
 import math
@@ -24,7 +28,12 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_eeg_fmri_tpu_torch.data.raw import make_raw_eeg_featurizer
+from multimodal_eeg_fmri_tpu_torch.data.streaming import (
+    make_streaming_featurizer,
+)
 from multimodal_eeg_fmri_tpu_torch.ops import _kernels
+from multimodal_eeg_fmri_tpu_torch.ops import signal as S
 from multimodal_eeg_fmri_tpu_torch.ops.attention import (
     flash_attention,
     flash_attention_lse,
@@ -293,3 +302,107 @@ def test_backward_kernel_bf16_storage_and_operands(cuda_device, kernel,
         ulp = 2.0 ** (math.floor(math.log2(largest)) - 7)
         torch.testing.assert_close(a.float(), b.float(),
                                    atol=GRAD_BF16_ATOL + ulp, rtol=0)
+
+
+# --- S1: the biquad cascade ------------------------------------------------
+
+SOS_CASES = [  # (T, series per group, bands as (lo, hi, order), with zi)
+    (2554, 288, [(8.0, 13.0, 4)], True),           # the featurizer's pass
+    (304, 144, [(8.0, 13.0, 4)], True),   # raw-in-step's pass: T % 16 == 0
+    (50, 18, [(1.0, 4.0, 4), (4.0, 8.0, 4), (8.0, 13.0, 4), (13.0, 30.0, 4),
+              (30.0, 45.0, 4)], True),             # one stream chunk
+    (37, 65, [(8.0, 13.0, 1), (20.0, 40.0, 1)], False),   # S=1, 2 groups
+    (1, 1, [(8.0, 13.0, 4)], True),                # one sample, one series
+    (300, 100, [(2.0, 40.0, 3)] * 3, False),
+]
+
+
+def _sos_inputs(device, T, Mg, bands, with_zi, seed=0):
+    coeffs = S.sos_coefficients(np.stack(
+        [S.butter_bandpass_sos(lo, hi, 250.0, order)[0]
+         for lo, hi, order in bands]))
+    G, n_sections = coeffs.shape[:2]
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy(r.standard_normal((T, G * Mg), dtype=np.float32))
+    zi = (torch.from_numpy(r.standard_normal((G, n_sections, 2, Mg),
+                                             dtype=np.float32)).to(device)
+          if with_zi else None)
+    return coeffs, x.to(device), zi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SOS_CASES)
+def test_sosfilt_kernel_matches_plain(cuda_device, case):
+    coeffs, x, zi = _sos_inputs(cuda_device, *case)
+    before = S.sosfilt_cuda.launches
+    y_k, zf_k = S.sosfilt_cuda(coeffs, x, zi, return_zf=True)
+    assert S.sosfilt_cuda.launches == before + 1
+    y_p, zf_p = S.sosfilt_plain(coeffs, x, zi)
+    torch.cuda.synchronize()
+    for got, want in ((y_k, y_p), (zf_k, zf_p)):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=2e-5 * want.abs().max().item())
+    torch.testing.assert_close(S.sosfilt_cuda(coeffs, x, zi), y_k, rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_sosfilt_carries_state_across_chunks(cuda_device):
+    coeffs, x, _ = _sos_inputs(cuda_device, 500, 18, [(8.0, 13.0, 4)], False)
+    whole, zf = S.sosfilt_cuda(coeffs, x, None, return_zf=True)
+    z, pieces = None, []
+    for k in range(0, 500, 50):
+        y, z = S.sosfilt_cuda(coeffs, x[k:k + 50], z, return_zf=True)
+        pieces.append(y)
+    torch.testing.assert_close(torch.cat(pieces), whole, rtol=0, atol=0)
+    torch.testing.assert_close(z, zf, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["dtype", "rank", "strided", "sections",
+                                 "groups", "zi_shape", "grad"])
+def test_sosfilt_wrapper_refuses(cuda_device, bad):
+    coeffs, x, zi = _sos_inputs(cuda_device, 40, 8, [(8.0, 13.0, 4)] * 2,
+                                True)
+    if bad == "dtype":
+        x = x.double()
+    elif bad == "rank":
+        x = x[None]
+    elif bad == "strided":
+        x = x[:, ::2]
+    elif bad == "sections":
+        coeffs = np.concatenate([coeffs] * 3, axis=1)      # S = 12
+        zi = None
+    elif bad == "groups":
+        x = x[:, :15].contiguous()
+        zi = None
+    elif bad == "zi_shape":
+        zi = zi[:, :, :, :4].contiguous()
+    if bad == "grad":
+        with pytest.raises(ValueError, match="not differentiable"):
+            S.sosfilt_series(coeffs, x.requires_grad_(), zi)
+        return
+    with pytest.raises(ValueError):
+        S.sosfilt_series(coeffs, x, zi)
+
+
+@pytest.mark.cuda
+def test_featurizer_and_stream_launch_s1(cuda_device):
+    """The featurizer's zero-phase band-pass launches S1 twice per call, a
+    stream step once for all its bands; both agree with the CPU path."""
+    raw = np.random.default_rng(7).standard_normal((2, 1000, 6),
+                                                   dtype=np.float32)
+    S.reset_kernel_launches()
+    got = make_raw_eeg_featurizer(device=cuda_device)(raw)
+    assert S.kernel_launches() == {"sosfilt": 2}
+    want = make_raw_eeg_featurizer(device="cpu")(raw)
+    for k, atol in (("erp", 1e-5), ("pw", 1e-5), ("conn", 1e-4)):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
+                                   atol=atol, msg=k)
+    init, step = make_streaming_featurizer(device=cuda_device)
+    state = init(6)
+    S.reset_kernel_launches()
+    for k in range(0, 250, 50):
+        state, out = step(state, raw[0, k:k + 50])
+    assert S.kernel_launches() == {"sosfilt": 5} and out["ready"]

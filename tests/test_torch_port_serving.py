@@ -84,6 +84,22 @@ def test_preprocess_is_merged_into_inputs(models):
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
 
 
+def test_float64_inputs_serve_as_float32(models):
+    """numpy float64 inputs go through ``__call__`` and ``benchmark`` as
+    float32, as the JAX ``Predictor``'s ``jnp.asarray`` (x64 off) makes
+    them."""
+    jmodel, variables, port = models
+    inputs = {k: v.astype(np.float64) for k, v in _inputs(6, seed=6).items()}
+    ref = JPredictor(jmodel, variables["params"], variables["batch_stats"],
+                     batch_size=4)(**inputs)
+    pred = Predictor(port, batch_size=4)
+    out = pred(**inputs)
+    assert out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+    stats = pred.benchmark(inputs, warmup=1, iters=2)
+    assert 0 < stats["p50_ms"] <= stats["p95_ms"]
+
+
 def test_pad_repeats_row_zero(models):
     pred = Predictor(models[2], batch_size=4)
     chunks = pred._pad({"a": np.arange(6)[:, None]})

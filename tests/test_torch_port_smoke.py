@@ -49,10 +49,27 @@ def test_kernel_instance_reads_mangled_symbols(symbol, instance):
 
 
 def test_parse_ptxas_reads_registers_and_spills():
+    """(registers, spill stores, spill loads, stack frame) per instance."""
     assert chip_smoke.parse_ptxas(PTXAS) == {
-        ("flash_fwd", 32, "f32", "f32"): (128, 0, 0),
-        ("flash_bwd_dkv", 128, "bf16", "bf16"): (255, 12, 16),
+        ("flash_fwd", 32, "f32", "f32"): (128, 0, 0, 0),
+        ("flash_bwd_dkv", 128, "bf16", "bf16"): (255, 12, 16, 24),
     }
+
+
+S1 = "_ZN12_GLOBAL__N_114sosfilt_kernelILi4EEEvPKfPfS2_S3_NS_6CoeffsEiii"
+
+
+def test_parse_ptxas_reads_s1_instances_by_sections():
+    text = PTXAS + f"""ptxas info    : Compiling entry function '{S1}' for 'sm_90a'
+ptxas info    : Function properties for {S1}
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 0 barriers, 3488 bytes cmem[0]
+"""
+    assert chip_smoke.s1_instance(S1) == ("sosfilt", 4)
+    assert chip_smoke.s1_instance(FWD) is None
+    assert chip_smoke.parse_ptxas(text, chip_smoke.s1_instance) == {
+        ("sosfilt", 4): (80, 0, 0, 8)}
+    assert ("sosfilt", 4) not in chip_smoke.parse_ptxas(text)
 
 
 def test_count_hmma_counts_per_function():
@@ -162,3 +179,14 @@ def test_tensor_core_gate_allows_spills_away_from_d32():
     resources, hmma = _full_build()
     resources[("flash_bwd_dq", 128, "f32", "f32")] = (255, 96, 96)
     assert chip_smoke.tensor_core_faults(resources, hmma) == []
+
+
+def test_s1_bound_is_its_bytes_at_the_featurizer_shape():
+    """x read and y written once, the (S, 2, M) state read: 5.9 MB over
+    3.35 TB/s; the 9·S·T·M operations take less at 67 TFLOP/s."""
+    ms, by = chip_smoke.s1_bound_ms(2554, 288, 4, True, False)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * 4 * (2 * 2554 * 288 + 2 * 4 * 288)
+                               / 3.35e12)
+    assert chip_smoke.s1_bound_ms(50, 90, 4, True, True)[0] == pytest.approx(
+        1e3 * 4 * (2 * 50 * 90 + 2 * 2 * 4 * 90) / 3.35e12)
