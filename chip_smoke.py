@@ -27,11 +27,22 @@ third chunk and resumed, bit-identical to an uninterrupted run under
 with a checkpoint round trip. The timing phase adds the bf16 step and the
 kernels' bf16-storage times.
 
+Fault C5's card-test case (K2 and K3 with bf16 operands at
+(8, 4, 512, 512, 32)) runs over 16 seeds of g_lse, its worst errors printed
+against the 2e-3 gate.
+
 The raw-signal slice runs too. S1, the biquad cascade behind ``sosfilt``
-(``csrc/sosfilt.cu``), is built with the flash kernels, its registers,
-spills and stack frame printed, and held against its plain version at the
-featurizer's shape (2554, 288) and a stream chunk's (50, 90, five bands in
-one launch), then timed beside its bound and its dependency-chain floor.
+(``csrc/sosfilt.cu``, a chunked time-parallel scan in three kernels), is
+built with the flash kernels, each instance's registers, spills and stack
+frame printed (none may spill or keep a stack frame). At each shape the raw
+phases give it, (2554, 288), (304, 144), (2554, 720) and a stream chunk's
+(50, 90, five bands in one launch), the kernel on the rule's chunk length
+equals ``sosfilt_chunked_plain`` bit for bit (gate a) and lies within 2e-5
+of the sequential ``sosfilt_plain`` (gate b); the sequential schedule and
+the rule's are timed in turns beside the bound and each one's
+dependency-chain floor, with the device time at other chunk lengths; and
+the five default bands at (2554, 288) hold the chunked schedule's error
+against the float64 recurrence to 1.5× the sequential one's (gate c).
 Then bench.py's three extras: raw-featurize (its featurizer input, card
 against CPU, two S1 launches, epochs/s), fmri-roi (its 315 MB BOLD run,
 card against CPU, volumes/s from host memory and device-resident), and
@@ -40,11 +51,11 @@ featurized step); raw-e2e, raw EEG and BOLD runs of a 40-subject cohort
 through ``raw_recordings_to_dataset`` and ``volumes_to_roi_features`` into a
 3-epoch ``make_fit_fn`` of the full-width model and ``Predictor``; and the
 streaming featurizer over a 60-s session (one S1 launch per step, the
-carried filter state against one causal pass, the features against the
-offline oracle, chunks/s). The line before the kernels line holds those
-values (``bench_extras``), and the kernels line lists S1 beside K1-K3. Any
-failed phase raises, so the exit code is not 0 and the final line is not
-printed.
+carried filter state against one causal pass on the sequential schedule, the
+features against the offline oracle, chunks/s). The line before the kernels
+line holds those values (``bench_extras``), and the kernels line lists S1
+beside K1-K3. Any failed phase raises, so the exit code is not 0 and the
+final line is not printed.
 There is no CPU mode: without a GPU the script fails at once.
 
 Last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -89,6 +100,7 @@ REQUEST_ROWS = (8, 5, 1)
 COHORT, VAL_ROWS, EPOCHS = 32, 8, 3
 ACCUM, EMA_DECAY = 2, 0.99
 PROFILE_TOP = 12          # ops listed by device time in a profile
+C5_CASE, C5_SEEDS = (8, 4, 512, 512, 32), 16    # fault C5's card-test case
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): the fastest route to
 # f32-accurate products, 3xTF32 on the tensor cores (495 TFLOP/s TF32, three
 # products per f32 product); bf16 products (exact in f32 accumulators); the
@@ -103,7 +115,9 @@ PEAK_BYTES = 3.35e12
 KERNEL_SYMBOL = re.compile(r"(flash_fwd|flash_bwd_dkv|flash_bwd_dq)_kernel"
                            r"ILi(\d+)E(f|13__nv_bfloat16)Lb([01])E")
 MMA_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")  # tensor cores
-S1_SYMBOL = re.compile(r"sosfilt_kernelILi(\d+)E")   # S1, by its sections
+# S1's three kernels (csrc/sosfilt.cu), by phase and sections
+S1_SYMBOL = re.compile(r"sosfilt_(local|carry|rerun)_kernelILi(\d+)E")
+S1_KERNELS = ("sosfilt_local", "sosfilt_carry", "sosfilt_rerun")
 
 
 def fail(msg: str):
@@ -152,9 +166,24 @@ def kernel_instance(symbol: str):
 
 
 def s1_instance(symbol: str):
-    """("sosfilt", sections) of S1's mangled kernel symbol, or None."""
+    """(kernel, sections) of one of S1's mangled kernel symbols, or None."""
     m = S1_SYMBOL.search(symbol)
-    return None if m is None else ("sosfilt", int(m[1]))
+    return None if m is None else (f"sosfilt_{m[1]}", int(m[2]))
+
+
+def s1_faults(resources: dict) -> list:
+    """What is wrong with S1's build, from ``parse_ptxas(text, s1_instance)``:
+    an instance of its three kernels for S = 1..8 missing, or one that
+    spills or has a stack frame (its coefficients, state and tiles are meant
+    to live in registers)."""
+    wanted = {(k, n) for k in S1_KERNELS for n in range(1, 9)}
+    faults = []
+    if missing := sorted(wanted - set(resources)):
+        faults.append(f"S1 instances missing from ptxas: {missing}")
+    if local := sorted(i for i in wanted & set(resources)
+                       if any(resources[i][1:4])):
+        faults.append(f"S1 instances with spills or a stack frame: {local}")
+    return faults
 
 
 def parse_ptxas(text: str, instance=kernel_instance) -> dict:
@@ -232,13 +261,51 @@ def build_and_inspect(_kernels) -> None:
     if faults := tensor_core_faults(resources, hmma):
         fail("; ".join(faults))
     s1 = parse_ptxas("\n".join(outputs), s1_instance)
-    if sorted(s1) != [("sosfilt", n) for n in range(1, 9)]:
-        fail(f"S1 instances in the ptxas output: {sorted(s1)}, expected "
-             "S = 1..8")
     for inst in sorted(s1):
         regs, st, ld, frame = s1[inst]
-        print(f"sosfilt S={inst[1]}: {regs} registers, spill stores/loads "
+        print(f"{inst[0]} S={inst[1]}: {regs} registers, spill stores/loads "
               f"{st}/{ld} bytes, stack frame {frame} bytes")
+    if faults := s1_faults(s1):
+        fail("; ".join(faults))
+
+
+def c5_sweep(dev) -> None:
+    """The card test ``test_backward_kernels_match_plain`` at its case of
+    fault C5 (bf16 operands, f32 storage, (B,H,Tq,Tk,D) = (8,4,512,512,32)):
+    the test's inputs from numpy seeds, with g_lse drawn from each of
+    ``C5_SEEDS`` seeds; the worst dQ, dK and dV errors against the plain
+    version, held to the test's 2e-3."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        flash_backward_cuda,
+        flash_backward_plain,
+        flash_forward_plain,
+    )
+
+    B, H, tq, tk, d = C5_CASE
+    r = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(r.standard_normal(shape, dtype=np.float32))
+               .to(dev) for shape in ((B, H, tq, d), (B, H, tk, d),
+                                      (B, H, tk, d)))
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        q.shape, dtype=np.float32)).to(dev)
+    out, lse = flash_forward_plain(q, k, v, torch.bfloat16)
+    worst = dict.fromkeys(("dq", "dk", "dv"), (-1.0, -1))
+    for seed in range(C5_SEEDS):
+        g_lse = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            lse.shape, dtype=np.float32)).to(dev)
+        got = flash_backward_cuda(q, k, v, out, lse, g, g_lse, torch.bfloat16)
+        want = flash_backward_plain(q, k, v, out, lse, g, g_lse,
+                                    torch.bfloat16)
+        torch.cuda.synchronize()
+        for name, a, b in zip(worst, got, want):
+            err = (a - b).abs().max().item()
+            if err > worst[name][0]:
+                worst[name] = (err, seed)
+    print("C5 sweep, worst over the seeds: " + ", ".join(
+        f"{n} {e:.3e} (seed {s})" for n, (e, s) in worst.items())
+        + f" (limit {GRAD_BF16_ATOL:g})")
+    if any(e > GRAD_BF16_ATOL for e, _ in worst.values()):
+        fail("fault C5: a backward kernel exceeds its bf16-operand gate")
 
 
 def tensor_core_faults(resources: dict, hmma: dict) -> list:
@@ -309,23 +376,44 @@ def device_events(prof) -> list:
             and not e.key.startswith("Optimizer.")]
 
 
-def device_ms(fn, n: int = 50) -> float:
-    """Mean device time of one call: the device time of every kernel that
-    ``n`` calls ran, from torch.profiler, over ``n``."""
+def device_profile(fn, n: int = 50, attempts: int = 3) -> tuple:
+    """(mean device time of one call in ms, device kernels per call), from
+    torch.profiler over ``n`` calls: each kernel's mean time times the
+    number of times one call launches it, its count over ``n`` rounded. A
+    trace of a short window can lose a launch or two at its start (48 of 50
+    recorded, on the H100), which a plain sum over ``n`` would count as a
+    shorter call, and now and then comes back with no device event at all:
+    it is then taken again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in device_events(prof))
-    if us <= 0:
-        fail("the profiler recorded no device time")
-    return us / 1000.0 / n
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ms, kernels = per_call_device_ms(
+            [(e.count, _device_us(e)) for e in device_events(prof)], n)
+        if ms > 0:
+            return ms, kernels
+    fail("the profiler recorded no device time")
+
+
+def per_call_device_ms(kernels: list, n: int) -> tuple:
+    """(ms, kernels) of one of ``n`` calls from (count, device us) per
+    kernel in a trace: each kernel's mean time times round(count / n)."""
+    per_call = [(round(count / n), us / count) for count, us in kernels
+                if count]
+    return (sum(k * t for k, t in per_call) / 1000.0,
+            sum(k for k, _ in per_call))
+
+
+def device_ms(fn, n: int = 50) -> float:
+    """Mean device time of one call (``device_profile``)."""
+    return device_profile(fn, n)[0]
 
 
 def profile_calls(fn, label: str, card: str, n: int = 5) -> None:
@@ -476,6 +564,9 @@ S1_SOURCE = "multimodal_eeg_fmri_tpu_torch/csrc/sosfilt.cu"
 S1_RTOL = 2e-5              # of the plain version's largest |value|
 PEAK_F32_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
 OP_CYCLES = 4               # latency of one dependent f32 operation
+F64_OP_CYCLES = 8           # of one dependent f64 operation (assumed)
+S1_F64_RATIO = 1.5          # chunked vs sequential error, against f64
+S1_SWEEP = (16, 32, 48, 64, 96, 128, 256)   # chunk lengths timed beside L
 FS, EPOCH = 250.0, 250
 RAW_N, RAW_T, CHANNELS = 16, 2500, 18          # bench.py's featurizer input
 BOLD_SHAPE, N_ROIS = (64, 64, 40, 120), 90     # bench.py's BOLD run, atlas
@@ -532,7 +623,8 @@ def s1_cases(dev) -> list:
     N=8 at T=250, where T is a multiple of the kernel's tile of 16 steps;
     raw-e2e's (2554, 720), N=40. And one stream chunk (50, 90), 5 bands ×
     18 channels in one launch, from the state a previous chunk left,
-    returning the final state. The first and the last are timed."""
+    returning the final state. The plain version is timed at the first and
+    the last."""
     from multimodal_eeg_fmri_tpu_torch.data.raw import DEFAULT_BANDS
     from multimodal_eeg_fmri_tpu_torch.ops import signal as S
 
@@ -561,61 +653,138 @@ def s1_cases(dev) -> list:
              z_prev.contiguous(), True, True)]
 
 
-def s1_phase(dev, card: str) -> dict:
-    """S1 against its plain version at the main path's shapes, and the
-    times of the featurizer's pass and the stream chunk: CUDA events, the
-    profiler's device time, the plain version, the bound, and the
-    dependency chain's floor, which is worked out, not measured: each time
-    step of a section waits on about 4 dependent f32 operations of the
+def s1_chain_ms(T: int, L: int, S: int, clock: float) -> float:
+    """S1's dependency-chain floor in ms, worked out, not measured: each
+    time step of a section waits on about 4 dependent f32 operations of the
     step before (out → z0 → out), and the S sections run in a pipeline
-    beside it, 2 operations apart, so about 4·T + 2·S operations of
-    ``OP_CYCLES`` each at the card's highest SM clock."""
+    beside it, 2 operations apart, at ``OP_CYCLES`` each. The sequential
+    schedule (L >= T) walks 4·T + 2·S of them; the chunked one 4·2·L + 2·S
+    (a chunk's local pass and its rerun) plus the carry's C − 1 steps of
+    2·S + 1 dependent f64 operations (a multiply, then the adds of a row)
+    at ``F64_OP_CYCLES``."""
+    if L >= T:
+        return 1e3 * (4 * T + 2 * S) * OP_CYCLES / clock
+    carry = (-(-T // L) - 1) * (2 * S + 1) * F64_OP_CYCLES
+    return 1e3 * ((4 * 2 * L + 2 * S) * OP_CYCLES + carry) / clock
+
+
+def s1_phase(dev, card: str) -> dict:
+    """S1 at the main path's shapes. Gate a: the kernel on the rule's
+    schedule equals ``sosfilt_chunked_plain`` bit for bit; gate b: it lies
+    within ``S1_RTOL`` of the sequential plain version's largest |value|.
+    Then the sequential schedule (chunk = T, one thread per series) and the
+    rule's, in turns: CUDA events, the profiler's device time and kernels
+    per call, beside the bound and each schedule's chain floor; the plain
+    version's time where the case is marked for it; and the device and
+    events time at other chunk lengths, against which the rule was fitted,
+    where it chose the chunked schedule and at raw-in-step's shape, where
+    it did not."""
     from multimodal_eeg_fmri_tpu_torch.ops import signal as S
 
     clock = max_sm_clock_hz()
     report, worst = {}, 0.0
-    for name, coeffs, x, zi, zf, timed in s1_cases(dev):
+    for name, coeffs, x, zi, zf, plain_timed in s1_cases(dev):
+        T, M = x.shape
+        G, n_sections = coeffs.shape[:2]
+        L = min(S.sosfilt_schedule(T, M, G, n_sections), T)
         y_k, zf_k = S.sosfilt_cuda(coeffs, x, zi, return_zf=True)
+        y_c, zf_c = S.sosfilt_chunked_plain(coeffs, x, zi)
         y_p, zf_p = S.sosfilt_plain(coeffs, x, zi)
         torch.cuda.synchronize()
+        same = torch.equal(y_k, y_c) and torch.equal(zf_k, zf_c)
         errs = [((a - b).abs().max().item(), b.abs().max().item())
                 for a, b in ((y_k, y_p), (zf_k, zf_p))]
         worst = max(worst, *(e for e, _ in errs))
-        T, M = x.shape
-        G, n_sections = coeffs.shape[:2]
-        print(f"S1 {name} (T, M)=({T}, {M}), G={G}, S={n_sections}: "
-              f"max|dy|={errs[0][0]:.3e} at max|y|={errs[0][1]:.3e}, "
+        print(f"S1 {name} (T, M)=({T}, {M}), G={G}, S={n_sections}, rule's "
+              f"L={L} ({-(-T // L)} chunks): gate a, equal to "
+              f"sosfilt_chunked_plain: {same}; gate b, against sosfilt_plain:"
+              f" max|dy|={errs[0][0]:.3e} at max|y|={errs[0][1]:.3e}, "
               f"max|dzf|={errs[1][0]:.3e} at max|zf|={errs[1][1]:.3e} "
               f"(limit {S1_RTOL:g} of the largest)")
+        if not same:
+            fail(f"S1 differs from sosfilt_chunked_plain at {(T, M)}")
         if not all(e <= S1_RTOL * peak for e, peak in errs):
             fail(f"S1 disagrees with its plain version at {(T, M)}")
-        if not timed:
-            continue
 
-        def kern():
-            return S.sosfilt_cuda(coeffs, x, zi, return_zf=zf)
+        def kern(chunk):
+            return lambda: S.sosfilt_cuda(coeffs, x, zi, return_zf=zf,
+                                          chunk=chunk)
 
-        def plain():
-            return S.sosfilt_plain(coeffs, x, zi)
-
-        plain_iters = max(2, 20000 // T)     # the plain loop takes ~T·S·9 ops
-        ms, plain_ms = in_turns(
-            lambda: cuda_ms(kern),
-            lambda: cuda_ms(plain, iters=plain_iters, warmup=1))
-        dev_ms = device_ms(kern)
+        seq_ms, rule_ms = in_turns(lambda: cuda_ms(kern(T)),
+                                   lambda: cuda_ms(kern(None)))
+        seq_dev, seq_kernels = device_profile(kern(T))
+        rule_dev, rule_kernels = device_profile(kern(None))
         b_ms, by = s1_bound_ms(T, M, n_sections, True, zf)
-        chain_ms = 1e3 * (4 * T + 2 * n_sections) * OP_CYCLES / clock
-        print(f"S1 {name}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({by}), chain floor "
-              f"{chain_ms:.4f} ms (4·{T} + 2·{n_sections} dependent operations "
-              f"at {OP_CYCLES} cycles, {clock / 1e9:.2f} GHz; worked out, not "
-              f"measured), library none, per call {card}")
+        print(f"S1 {name}: sequential {seq_ms:.4f} ms (device {seq_dev:.4f} "
+              f"ms, {seq_kernels:g} kernels), rule's L={L} {rule_ms:.4f} ms "
+              f"(device {rule_dev:.4f} ms, {rule_kernels:g} kernels): "
+              f"{seq_dev / rule_dev:.2f}x by device time; bound "
+              f"{b_ms:.5f} ms ({by}); chain floor sequential "
+              f"{s1_chain_ms(T, T, n_sections, clock):.4f} ms, rule's "
+              f"{s1_chain_ms(T, L, n_sections, clock):.4f} ms ({OP_CYCLES} "
+              f"cycles an f32 and {F64_OP_CYCLES} an f64 operation at "
+              f"{clock / 1e9:.2f} GHz; worked out, not measured); library "
+              f"none; per call {card}")
         report[name] = {"shape": [T, M], "groups": G, "sections": n_sections,
-                        "max_abs_err": max(e for e, _ in errs), "ms": ms,
-                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "chunk": L, "max_abs_err": max(e for e, _ in errs),
+                        "ms": rule_ms, "device_ms": rule_dev,
+                        "device_kernels": rule_kernels,
+                        "sequential_ms": seq_ms,
+                        "sequential_device_ms": seq_dev,
                         "bound_ms": b_ms, "bound_by": by}
+        if L < T or name == "raw-in-step pass":   # where the rule chose
+            sweep = {c: (device_ms(kern(c), n=20), cuda_ms(kern(c), iters=50))
+                     for c in S1_SWEEP if c < T}
+            print(f"S1 {name}: by chunk length, device ms / events ms "
+                  + ", ".join(f"{c}: {d:.4f} / {e:.4f}"
+                              for c, (d, e) in sweep.items())
+                  + f" (rule's {L}) {card}")
+        if plain_timed:
+            report[name]["plain_ms"] = in_turns(
+                lambda: cuda_ms(kern(None)),
+                lambda: cuda_ms(lambda: S.sosfilt_plain(coeffs, x, zi),
+                                iters=max(2, 20000 // T), warmup=1))[1]
+            print(f"S1 {name}: plain {report[name]['plain_ms']:.4f} ms per "
+                  f"call {card}")
     report["max_abs_err"] = worst
+    report["bands"] = s1_band_gate(dev)
     return report
+
+
+def s1_band_gate(dev) -> dict:
+    """Gate c: the five default bands at the featurizer's (2554, 288), each
+    from the steady state scaled by its first sample: the kernel's error on
+    the rule's schedule against the float64 recurrence (``sosfilt_plain`` on
+    float64 tensors, on the card) at most ``S1_F64_RATIO`` × the sequential
+    schedule's."""
+    from multimodal_eeg_fmri_tpu_torch.data.raw import DEFAULT_BANDS
+    from multimodal_eeg_fmri_tpu_torch.ops import signal as S
+
+    T, M = RAW_T + 54, RAW_N * CHANNELS
+    x = torch.from_numpy(np.random.default_rng(51).standard_normal(
+        (T, M), dtype=np.float32)).to(dev)
+    designs = [S.butter_bandpass_sos(lo, hi, FS, 4)
+               for lo, hi in DEFAULT_BANDS.values()]
+    coeffs = S.sos_coefficients(np.stack([sos for sos, _ in designs]))
+    zi = torch.stack([torch.as_tensor(z, dtype=torch.float32, device=dev)
+                      [:, :, None] * x[0] for _, z in designs]).contiguous()
+    y64, _ = S.sosfilt_plain(coeffs, x.repeat(1, len(designs)).double(),
+                             zi.double())
+    L = S.sosfilt_schedule(T, M, 1, coeffs.shape[1])
+    out = {}
+    for g, band in enumerate(DEFAULT_BANDS):
+        want = y64[:, g * M:(g + 1) * M]
+        errs = [(S.sosfilt_cuda(coeffs[g:g + 1], x, zi[g:g + 1], chunk=c)
+                 - want).abs().max().item() for c in (None, T)]
+        peak = want.abs().max().item()
+        out[band] = {"rule": errs[0], "sequential": errs[1], "peak": peak}
+        print(f"gate c, {band} at ({T}, {M}), L={L}: against the f64 "
+              f"recurrence, rule's schedule {errs[0]:.3e}, sequential "
+              f"{errs[1]:.3e} ({errs[0] / errs[1]:.2f}x, limit "
+              f"{S1_F64_RATIO:g}x) at max|y|={peak:.3e}")
+        if errs[0] > S1_F64_RATIO * errs[1]:
+            fail(f"S1's chunked schedule loses accuracy in the {band} band")
+    return out
 
 
 def raw_featurize_phase(dev, card: str) -> dict:
@@ -873,16 +1042,30 @@ def stream_phase(dev, card: str) -> dict:
         bands.append(state.buf_band[:, -STREAM_CHUNK:])
     torch.cuda.synchronize()
     chunks_per_s = n_chunks / (time.perf_counter() - t0)
-    sos = [S.butter_bandpass_sos(lo, hi, FS, 4)[0]
-           for lo, hi in DEFAULT_BANDS.values()]
-    one_shot = torch.stack([S.sosfilt(s, raw) for s in sos])
+    coeffs = S.sos_coefficients(np.stack(
+        [S.butter_bandpass_sos(lo, hi, FS, 4)[0]
+         for lo, hi in DEFAULT_BANDS.values()]))
+
+    def one_pass(chunk):     # each band over the whole session, one S1 call
+        return torch.stack([S.sosfilt_cuda(coeffs[g:g + 1], raw, chunk=chunk)
+                            for g in range(len(coeffs))])
+
+    # the stream runs the sequential schedule, so its oracle does too
+    one_shot = one_pass(len(t))
     carried = torch.cat(bands, dim=1)
     d1 = (carried - one_shot).abs().max().item()
     peak = one_shot.abs().max().item()
-    print(f"gate 1: carried band signals vs one causal sosfilt per band: "
-          f"max|d|={d1:.3e} (limit 1e-5 · {peak:.3e})")
+    print(f"gate 1: carried band signals vs one causal sosfilt per band "
+          f"(sequential schedule): max|d|={d1:.3e} (limit 1e-5 · {peak:.3e})")
     if d1 > 1e-5 * peak:
         fail("the stream's carried filter state is not invisible")
+    y64 = S.sosfilt_plain(coeffs, raw.repeat(1, len(coeffs)).double())[0]
+    y64 = y64.view(len(t), len(coeffs), CHANNELS).transpose(0, 1)
+    L = S.sosfilt_schedule(len(t), CHANNELS, 1, coeffs.shape[1])
+    print(f"one pass per band against the f64 recurrence, max|d|: sequential "
+          f"{(one_shot - y64).abs().max().item():.3e}, rule's schedule "
+          f"(L={L}) {(one_pass(None) - y64).abs().max().item():.3e}, at "
+          f"max|y|={y64.abs().max().item():.3e}")
 
     freqs = S.rfft_freqs(128, FS)
     alpha = one_shot[list(DEFAULT_BANDS).index("alpha")]
@@ -1021,6 +1204,10 @@ def main() -> None:
         if cdt == torch.float32:
             worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e_dkv)
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e_dq)
+
+    phase(f"fault C5: K2 and K3 in the bf16-operand mode at "
+          f"{C5_CASE}, over {C5_SEEDS} seeds of g_lse")
+    c5_sweep(dev)
 
     phase("kernel vs plain version in bf16 storage, f32 operands: K1, K2 "
           "and K3 at the main path's shapes")
@@ -1608,10 +1795,17 @@ def main() -> None:
                              "raw-in-step, per step": raw_step["launches"],
                              "stream, per step": stream["launches_per_step"]},
         "max_abs_err": s1["max_abs_err"],
+        # the featurizer's pass on the rule's schedule (chunk L), beside
+        # the sequential schedule's times; then every main-path shape
         **{k: s1["featurizer pass"][k] for k in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape",
+            "chunk", "device_kernels", "sequential_ms",
+            "sequential_device_ms")},
         "library_ms": None,
         "stream_chunk": s1["stream chunk"],
+        "by_shape": {k: v for k, v in s1.items()
+                     if k not in ("max_abs_err", "bands")},
+        "f64_errors_by_band": s1["bands"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -99,7 +99,7 @@ def library() -> ctypes.CDLL:
     # q, k, v, dO, lse, delta, dQ, B, H, Tq, Tk, D, is_bf16, bf16_ops
     lib.mmef_flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [strides, p]
     lib.mmef_flash_bwd_dq.restype = i
-    # x, y, zi, zf, coeffs (host), G, S, T, M, stream
-    lib.mmef_sosfilt.argtypes = [p] * 5 + [i] * 4 + [p]
+    # x, y, zi, zf, coeffs (host), carry, scratch, G, S, T, M, L, stream
+    lib.mmef_sosfilt.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.mmef_sosfilt.restype = i
     return lib

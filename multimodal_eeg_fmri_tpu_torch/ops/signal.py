@@ -7,7 +7,10 @@ dimensions.
 The biquad cascade ``sosfilt`` is the one recurrence on the path. On a CUDA
 tensor it launches S1 (``csrc/sosfilt.cu``, built by ``ops/_kernels.py``) or
 raises; on a CPU tensor it runs ``sosfilt_plain``, the same recurrence as a
-loop over time, operation for operation. S1 counts its launches in
+loop over time, operation for operation. S1 runs as a chunked time-parallel
+scan on the chunk length ``sosfilt_schedule`` picks (sequential for short
+signals); ``sosfilt_chunked_plain`` is that schedule in plain PyTorch, the
+version the card holds the kernel to bit for bit. S1 counts its launches in
 ``sosfilt_cuda.launches``; ``kernel_launches()`` reads it. Nothing
 differentiates through the filter (raw signals carry no gradient), and
 ``sosfilt`` raises on an input that requires one.
@@ -24,6 +27,7 @@ card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -161,6 +165,156 @@ def sosfilt_plain(coeffs: np.ndarray, x: torch.Tensor,
     return y, zf
 
 
+def sosfilt_carry_matrix(coeffs: np.ndarray, L: int) -> np.ndarray:
+    """A^L (G, 2S, 2S) float64: L zero-input steps of each group's cascade,
+    acting on the state (z0, z1 of section 0, z0, z1 of section 1, ...), the
+    float32 coefficients taken exactly. A is the step applied to the unit
+    vectors with x = 0, raised to the L-th power by repeated squaring. It is
+    block lower triangular: a section's state never reaches an earlier
+    section."""
+    G, S, _ = coeffs.shape
+    eye = np.broadcast_to(np.eye(2 * S), (G, 2 * S, 2 * S))
+    base = _zero_input_steps(coeffs, eye, 1)
+    power = None
+    while L:
+        if L & 1:
+            power = base if power is None else power @ base
+        base = base @ base
+        L >>= 1
+    return power
+
+
+def _zero_input_steps(coeffs: np.ndarray, z: np.ndarray, n: int
+                      ) -> np.ndarray:
+    """``n`` steps of each group's cascade with x = 0, in float64, on the
+    states z (G, 2S, K) (K states per group, one per column)."""
+    c = np.asarray(coeffs, np.float64)[..., None]               # (G, S, 6, 1)
+    for _ in range(n):
+        z, y = z.copy(), 0.0
+        for s in range(c.shape[1]):
+            b0, b1, b2, _, a1, a2 = (c[:, s, i] for i in range(6))
+            out = b0 * y + z[:, 2 * s]
+            z0 = b1 * y - a1 * out + z[:, 2 * s + 1]
+            z[:, 2 * s + 1] = b2 * y - a2 * out
+            z[:, 2 * s] = z0
+            y = out
+    return z
+
+
+@functools.lru_cache(maxsize=32)
+def _carry_matrix_on(table: bytes, shape: tuple, L: int,
+                     device: torch.device) -> torch.Tensor:
+    """``sosfilt_carry_matrix`` on ``device``, kept per coefficient set, L and
+    device: the host-to-card copy synchronises, so it is made once."""
+    coeffs = np.frombuffer(table, np.float32).reshape(shape)
+    return torch.as_tensor(sosfilt_carry_matrix(coeffs, L), device=device)
+
+
+def _carry_matrix(coeffs: np.ndarray, L: int, device) -> torch.Tensor:
+    """A^L of ``coeffs`` on ``device``, from the cache."""
+    return _carry_matrix_on(coeffs.tobytes(), coeffs.shape, L,
+                            torch.device(device))
+
+
+# sosfilt_schedule's cost model, in SM clock cycles of the H100 (1.98 GHz),
+# fitted to S1's device time at chunk lengths 16-256 and its host time per
+# call by CUDA events (chip_smoke.py prints both beside the rule's choice)
+SOS_TILE = 16               # time steps per register tile of S1
+SOS_STEP_CYCLES = 100       # one step of one series' cascade, its chain
+SOS_CARRY_CYCLES = 370      # one chunk of the f64 carry
+SOS_LAUNCH_CYCLES = 30000   # the chunked call's extra host time (~15 us)
+SOS_SCHEDULERS = 132 * 4    # warp schedulers of the card's 132 SMs
+
+
+@functools.lru_cache(maxsize=256)
+def sosfilt_schedule(T: int, M: int, G: int, S: int) -> int:
+    """S1's chunk length L for T steps of M series in G groups of S
+    sections: L >= T is the sequential schedule (one thread per series),
+    else a multiple of the 16-step tile. It takes the L of least modelled
+    time: a pass over L steps costs L chain steps, or more once its threads
+    outnumber what the card's schedulers overlap (a step issues 9·S + 2
+    instructions a warp, so each scheduler hides a chain step behind
+    STEP/(9·S + 2) warps); the chunked schedule adds its two passes, C − 1
+    carry steps and the host time of two more launches and a scratch
+    allocation. Short signals, whose chain is shorter than that host time,
+    and series that fill the card on their own stay sequential. G does not
+    enter the model: groups share the kernels."""
+    overlap = SOS_SCHEDULERS * 32 * SOS_STEP_CYCLES / (9 * S + 2)
+
+    def passes(steps: int, threads: int) -> float:
+        return steps * SOS_STEP_CYCLES * max(1.0, threads / overlap)
+
+    best, best_cost = T, passes(T, M)
+    for L in range(SOS_TILE, T, SOS_TILE):
+        C = -(-T // L)
+        cost = (passes(L, M * (C - 1)) + passes(L, M * C)
+                + (C - 1) * SOS_CARRY_CYCLES + SOS_LAUNCH_CYCLES)
+        if cost < best_cost:
+            best, best_cost = L, cost
+    return best
+
+
+def _chunk_length(chunk, T: int, M: int, G: int, S: int) -> int:
+    """The chunk length to run: the rule's if ``chunk`` is None, else
+    ``chunk``, which must be a positive int and a multiple of the 16-step
+    tile unless it is >= T (the sequential schedule)."""
+    if chunk is None:
+        return sosfilt_schedule(T, M, G, S)
+    if (not isinstance(chunk, int) or isinstance(chunk, bool) or chunk < 1
+            or (chunk < T and chunk % SOS_TILE)):
+        raise ValueError(f"chunk must be a positive multiple of {SOS_TILE} "
+                         f"or >= T={T}, got {chunk!r}")
+    return chunk
+
+
+def sosfilt_chunked_plain(coeffs: np.ndarray, x: torch.Tensor,
+                          zi: Optional[torch.Tensor] = None, chunk=None):
+    """S1's chunked schedule in plain PyTorch: (y (T, M), zf (G, S, 2,
+    M/G)), the arguments of ``sosfilt_plain`` and the chunk length (None:
+    ``sosfilt_schedule``'s). The three phases of ``csrc/sosfilt.cu``,
+    vectorised over series × chunks: the whole chunks from zero states,
+    keeping their end states e_c; the carry s_{c+1} = A^L·s_c + e_c in
+    float64, written out elementwise in the kernel's order (row i adds the
+    two products of each section's columns, sums those pairs over the
+    sections up to its own in order, then adds e_c), each start state
+    rounded to float32; each chunk again from its start state.
+    With chunk >= T it is ``sosfilt_plain``. Tests and ``chip_smoke.py``
+    hold the kernel to it; the CPU route is ``sosfilt_plain``."""
+    G, S, _ = coeffs.shape
+    T, M = x.shape
+    Mg, N = M // G, 2 * S
+    L = _chunk_length(chunk, T, M, G, S)
+    C = -(-T // L)
+    if zi is None:
+        zi = torch.zeros((G, S, 2, Mg), dtype=x.dtype, device=x.device)
+    if C == 1:
+        return sosfilt_plain(coeffs, x, zi)
+    full = (C - 1) * L
+
+    def by_chunk(t):   # (full, M) -> (L, G·(C−1)·Mg): groups stay whole
+        return t.reshape(C - 1, L, G, Mg).permute(1, 2, 0, 3).reshape(L, -1)
+
+    _, e = sosfilt_plain(coeffs, by_chunk(x[:full]))
+    e = e.reshape(G, N, C - 1, Mg).double()
+    p = _carry_matrix(coeffs, L, x.device)
+    s = zi.reshape(G, N, Mg).double()
+    starts = [zi]
+    for c in range(C - 1):
+        # (G, 2S rows, S sections, Mg): each section's two products, added
+        pair = (p[:, :, 0::2, None] * s[:, None, 0::2]
+                + p[:, :, 1::2, None] * s[:, None, 1::2])
+        acc = pair[:, :, 0]
+        for q in range(1, S):    # rows of sections q and later
+            acc[:, 2 * q:] = acc[:, 2 * q:] + pair[:, 2 * q:, q]
+        s = acc + e[:, :, c]
+        starts.append(s.float().reshape(G, S, 2, Mg))
+    z = torch.stack(starts[:-1], dim=3).reshape(G, S, 2, -1)
+    y, _ = sosfilt_plain(coeffs, by_chunk(x[:full]), z)
+    y = y.reshape(L, G, C - 1, Mg).permute(2, 0, 1, 3).reshape(full, M)
+    y_last, zf = sosfilt_plain(coeffs, x[full:], starts[-1])
+    return torch.cat([y, y_last]), zf
+
+
 def _check_sosfilt_inputs(coeffs: np.ndarray, x: torch.Tensor,
                           zi: Optional[torch.Tensor]) -> Tuple[int, int, int]:
     if x.device.type != "cuda":
@@ -188,25 +342,38 @@ def _check_sosfilt_inputs(coeffs: np.ndarray, x: torch.Tensor,
 
 
 def sosfilt_cuda(coeffs: np.ndarray, x: torch.Tensor,
-                 zi: Optional[torch.Tensor] = None, return_zf: bool = False):
+                 zi: Optional[torch.Tensor] = None, return_zf: bool = False,
+                 chunk=None):
     """Launch S1: y (T, M), and zf (G, S, 2, M/G) if ``return_zf``; the
-    arguments are those of ``sosfilt_plain``. Raises on anything the kernel
-    does not take; does not synchronise."""
+    arguments are those of ``sosfilt_plain``, and ``chunk`` the chunk length
+    (None: ``sosfilt_schedule``'s; >= T: the sequential schedule). One call
+    dispatches three kernels on the chunked schedule, one on the sequential
+    one, and counts one launch. Raises on anything the kernel does not take;
+    does not synchronise."""
     G, S, M = _check_sosfilt_inputs(coeffs, x, zi)
+    T = x.shape[0]
+    L = min(_chunk_length(chunk, T, M, G, S), T)
     from multimodal_eeg_fmri_tpu_torch.ops._kernels import library
 
     y = torch.empty_like(x)
     zf = (torch.empty((G, S, 2, M // G), dtype=x.dtype, device=x.device)
           if return_zf else None)
+    carry = scratch = None
+    if L < T:
+        carry = _carry_matrix(coeffs, L, x.device)
+        scratch = torch.empty((-(-T // L) - 1, 2 * S, M), dtype=x.dtype,
+                              device=x.device)
     err = library().mmef_sosfilt(
         x.data_ptr(), y.data_ptr(), None if zi is None else zi.data_ptr(),
         None if zf is None else zf.data_ptr(),
-        coeffs.ctypes.data_as(ctypes.c_void_p), G, S, x.shape[0], M,
+        coeffs.ctypes.data_as(ctypes.c_void_p),
+        None if carry is None else carry.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), G, S, T, M, L,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err == CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"S1 refused G={G} groups of S={S} sections over "
-                         f"{tuple(x.shape)}: its limits are those that "
-                         "mmef_sosfilt (csrc/sosfilt.cu) checks")
+                         f"{tuple(x.shape)} in chunks of {L}: its limits are "
+                         "those that mmef_sosfilt (csrc/sosfilt.cu) checks")
     if err != 0:
         raise RuntimeError(f"sosfilt kernel launch failed: cudaError {err}")
     sosfilt_cuda.launches += 1

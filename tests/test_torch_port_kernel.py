@@ -18,8 +18,13 @@ same operands at the same places and differ only in the order of their f32
 sums (a rounding left out, such as dS unrounded before dS·K, moves dq by
 1e-3 or more); with bf16 storage as well, plus one bf16 ulp of the largest
 gradient, as both sides round their f32 result to bf16 on their own.
-S1 within 2e-5 of its plain version's largest |value| (it rounds each
-operation as the plain version does, so the two should agree exactly).
+S1 on either schedule within 2e-5 of its sequential plain version's largest
+|value| (on the sequential schedule it rounds each operation as the plain
+version does, so the two should agree exactly), and equal to
+``sosfilt_chunked_plain`` on the chunked one (the same roundings in the
+same order); on the rule's schedule its error against the float64
+recurrence at most 1.5× the sequential schedule's (the chunks carry their
+start states in float64 and round them once).
 """
 
 import math
@@ -28,7 +33,10 @@ import numpy as np
 import pytest
 import torch
 
-from multimodal_eeg_fmri_tpu_torch.data.raw import make_raw_eeg_featurizer
+from multimodal_eeg_fmri_tpu_torch.data.raw import (
+    DEFAULT_BANDS,
+    make_raw_eeg_featurizer,
+)
 from multimodal_eeg_fmri_tpu_torch.data.streaming import (
     make_streaming_featurizer,
 )
@@ -66,6 +74,8 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the plain versions' bf16 GEMMs sum in f32, whatever cuBLAS picks
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -166,7 +176,8 @@ def _backward_inputs(device, case, compute_dtype, seed=1):
                           (torch.bfloat16, GRAD_BF16_ATOL)])
 def test_backward_kernels_match_plain(cuda_device, case, compute_dtype, atol):
     q, k, v, out, lse, g = _backward_inputs(cuda_device, case, compute_dtype)
-    g_lse = torch.randn(lse.shape, device=cuda_device)
+    g_lse = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        lse.shape, dtype=np.float32)).to(cuda_device)
     before = (flash_bwd_dkv_cuda.launches["f32"],
               flash_bwd_dq_cuda.launches["f32"])
     got = flash_backward_cuda(q, k, v, out, lse, g, g_lse, compute_dtype)
@@ -176,7 +187,10 @@ def test_backward_kernels_match_plain(cuda_device, case, compute_dtype, atol):
             flash_bwd_dq_cuda.launches["f32"]) == (
         before[0] + 1, before[1] + 1)
     for a, b, name in zip(got, want, ("dq", "dk", "dv")):
-        torch.testing.assert_close(a, b, atol=atol, rtol=0, msg=name)
+        torch.testing.assert_close(
+            a, b, atol=atol, rtol=0,
+            msg=lambda m, name=name: f"{name} at (B,H,Tq,Tk,D)={case}, "
+                                     f"{compute_dtype} operands: {m}")
 
 
 @pytest.mark.cuda
@@ -306,11 +320,11 @@ def test_backward_kernel_bf16_storage_and_operands(cuda_device, kernel,
 
 # --- S1: the biquad cascade ------------------------------------------------
 
+FIVE_BANDS = [(lo, hi, 4) for lo, hi in DEFAULT_BANDS.values()]
 SOS_CASES = [  # (T, series per group, bands as (lo, hi, order), with zi)
     (2554, 288, [(8.0, 13.0, 4)], True),           # the featurizer's pass
     (304, 144, [(8.0, 13.0, 4)], True),   # raw-in-step's pass: T % 16 == 0
-    (50, 18, [(1.0, 4.0, 4), (4.0, 8.0, 4), (8.0, 13.0, 4), (13.0, 30.0, 4),
-              (30.0, 45.0, 4)], True),             # one stream chunk
+    (50, 18, FIVE_BANDS, True),                    # one stream chunk
     (37, 65, [(8.0, 13.0, 1), (20.0, 40.0, 1)], False),   # S=1, 2 groups
     (1, 1, [(8.0, 13.0, 4)], True),                # one sample, one series
     (300, 100, [(2.0, 40.0, 3)] * 3, False),
@@ -332,10 +346,12 @@ def _sos_inputs(device, T, Mg, bands, with_zi, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SOS_CASES)
-def test_sosfilt_kernel_matches_plain(cuda_device, case):
+@pytest.mark.parametrize("schedule", ["rule", "sequential"])
+def test_sosfilt_kernel_matches_plain(cuda_device, case, schedule):
     coeffs, x, zi = _sos_inputs(cuda_device, *case)
+    chunk = None if schedule == "rule" else x.shape[0]
     before = S.sosfilt_cuda.launches
-    y_k, zf_k = S.sosfilt_cuda(coeffs, x, zi, return_zf=True)
+    y_k, zf_k = S.sosfilt_cuda(coeffs, x, zi, return_zf=True, chunk=chunk)
     assert S.sosfilt_cuda.launches == before + 1
     y_p, zf_p = S.sosfilt_plain(coeffs, x, zi)
     torch.cuda.synchronize()
@@ -343,25 +359,70 @@ def test_sosfilt_kernel_matches_plain(cuda_device, case):
         assert got.shape == want.shape
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=2e-5 * want.abs().max().item())
-    torch.testing.assert_close(S.sosfilt_cuda(coeffs, x, zi), y_k, rtol=0,
-                               atol=0)
+    torch.testing.assert_close(S.sosfilt_cuda(coeffs, x, zi, chunk=chunk),
+                               y_k, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,chunk", [
+    (500, 16),      # a partial last chunk of 4 steps
+    (500, 48),      # of 20
+    (480, 48),      # a whole last chunk
+    (2554, 160),
+])
+@pytest.mark.parametrize("with_zi", [True, False])
+def test_sosfilt_kernel_equals_chunked_plain(cuda_device, T, chunk, with_zi):
+    """The chunked schedule's three kernels against the same phases in plain
+    PyTorch on the card: the same roundings in the same order, so equal."""
+    coeffs, x, zi = _sos_inputs(cuda_device, T, 40, FIVE_BANDS, with_zi)
+    y_k, zf_k = S.sosfilt_cuda(coeffs, x, zi, return_zf=True, chunk=chunk)
+    y_p, zf_p = S.sosfilt_chunked_plain(coeffs, x, zi, chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y_k, y_p, rtol=0, atol=0)
+    torch.testing.assert_close(zf_k, zf_p, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
 def test_sosfilt_carries_state_across_chunks(cuda_device):
     coeffs, x, _ = _sos_inputs(cuda_device, 500, 18, [(8.0, 13.0, 4)], False)
-    whole, zf = S.sosfilt_cuda(coeffs, x, None, return_zf=True)
+    whole, zf = S.sosfilt_cuda(coeffs, x, None, return_zf=True, chunk=500)
     z, pieces = None, []
     for k in range(0, 500, 50):
-        y, z = S.sosfilt_cuda(coeffs, x[k:k + 50], z, return_zf=True)
+        y, z = S.sosfilt_cuda(coeffs, x[k:k + 50], z, return_zf=True,
+                              chunk=50)
         pieces.append(y)
     torch.testing.assert_close(torch.cat(pieces), whole, rtol=0, atol=0)
     torch.testing.assert_close(z, zf, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
+def test_sosfilt_rule_schedule_against_f64_oracle(cuda_device):
+    """The five default bands at the featurizer's (2554, 288), each alone on
+    the rule's (chunked) schedule: its error against the float64 recurrence
+    at most 1.5× the sequential schedule's, and its final state within 2e-5
+    of the largest |y|."""
+    T, M = 2554, 288
+    coeffs, x, zi = _sos_inputs(cuda_device, T, M, FIVE_BANDS, True)
+    assert S.sosfilt_schedule(T, M, 1, 4) < T
+    y64, zf64 = S.sosfilt_plain(coeffs, x.double(), zi.double())
+    for g in range(len(FIVE_BANDS)):
+        cols = slice(g * M, (g + 1) * M)
+        xg = x[:, cols].contiguous()
+        zg = zi[g:g + 1].contiguous()
+        y_rule, zf_rule = S.sosfilt_cuda(coeffs[g:g + 1], xg, zg,
+                                         return_zf=True)
+        y_seq = S.sosfilt_cuda(coeffs[g:g + 1], xg, zg, chunk=T)
+        err = (y_rule - y64[:, cols]).abs().max().item()
+        err_seq = (y_seq - y64[:, cols]).abs().max().item()
+        peak = y64[:, cols].abs().max().item()
+        assert err <= 1.5 * err_seq, (g, err, err_seq)
+        assert (zf_rule[0] - zf64[g]).abs().max().item() <= 2e-5 * peak
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["dtype", "rank", "strided", "sections",
-                                 "groups", "zi_shape", "grad"])
+                                 "groups", "zi_shape", "grad", "chunk_zero",
+                                 "chunk_negative", "chunk_unaligned"])
 def test_sosfilt_wrapper_refuses(cuda_device, bad):
     coeffs, x, zi = _sos_inputs(cuda_device, 40, 8, [(8.0, 13.0, 4)] * 2,
                                 True)
@@ -382,6 +443,12 @@ def test_sosfilt_wrapper_refuses(cuda_device, bad):
     if bad == "grad":
         with pytest.raises(ValueError, match="not differentiable"):
             S.sosfilt_series(coeffs, x.requires_grad_(), zi)
+        return
+    if bad.startswith("chunk"):       # T = 40
+        chunk = {"chunk_zero": 0, "chunk_negative": -16,
+                 "chunk_unaligned": 24}[bad]
+        with pytest.raises(ValueError, match="chunk"):
+            S.sosfilt_cuda(coeffs, x, zi, chunk=chunk)
         return
     with pytest.raises(ValueError):
         S.sosfilt_series(coeffs, x, zi)

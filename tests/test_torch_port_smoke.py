@@ -56,20 +56,62 @@ def test_parse_ptxas_reads_registers_and_spills():
     }
 
 
-S1 = "_ZN12_GLOBAL__N_114sosfilt_kernelILi4EEEvPKfPfS2_S3_NS_6CoeffsEiii"
+S1 = {kernel: f"_ZN12_GLOBAL__N_120sosfilt_{kernel}_kernelILi4EEEv{args}"
+      for kernel, args in (("local", "PKfPfNS_6CoeffsEiii"),
+                           ("carry", "PKfPfPKdiii"),
+                           ("rerun", "PKfPfS1_S1_S2_NS_6CoeffsEiiii"))}
 
 
 def test_parse_ptxas_reads_s1_instances_by_sections():
-    text = PTXAS + f"""ptxas info    : Compiling entry function '{S1}' for 'sm_90a'
-ptxas info    : Function properties for {S1}
-    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 80 registers, used 0 barriers, 3488 bytes cmem[0]
-"""
-    assert chip_smoke.s1_instance(S1) == ("sosfilt", 4)
+    """S1's three kernels, each by its section count."""
+    text = PTXAS + "".join(
+        f"""ptxas info    : Compiling entry function '{sym}' for 'sm_90a'
+ptxas info    : Function properties for {sym}
+    {frame} bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {regs} registers, used 0 barriers, 3488 bytes cmem[0]
+""" for sym, regs, frame in ((S1["local"], 72, 0), (S1["carry"], 40, 8),
+                             (S1["rerun"], 80, 0)))
+    assert chip_smoke.s1_instance(S1["carry"]) == ("sosfilt_carry", 4)
     assert chip_smoke.s1_instance(FWD) is None
     assert chip_smoke.parse_ptxas(text, chip_smoke.s1_instance) == {
-        ("sosfilt", 4): (80, 0, 0, 8)}
-    assert ("sosfilt", 4) not in chip_smoke.parse_ptxas(text)
+        ("sosfilt_local", 4): (72, 0, 0, 0),
+        ("sosfilt_carry", 4): (40, 0, 0, 8),
+        ("sosfilt_rerun", 4): (80, 0, 0, 0)}
+    assert ("sosfilt_local", 4) not in chip_smoke.parse_ptxas(text)
+
+
+def _s1_build():
+    return {(k, n): (64, 0, 0, 0) for k in chip_smoke.S1_KERNELS
+            for n in range(1, 9)}
+
+
+def test_s1_gate_passes_a_full_build():
+    assert chip_smoke.s1_faults(_s1_build()) == []
+
+
+@pytest.mark.parametrize("inst,fault", [
+    (("sosfilt_carry", 8), (64, 0, 0, 16)),     # a stack frame
+    (("sosfilt_rerun", 5), (255, 8, 8, 0)),     # spills
+    (("sosfilt_local", 1), None),               # missing
+])
+def test_s1_gate_names_the_faulty_instance(inst, fault):
+    resources = _s1_build()
+    if fault is None:
+        del resources[inst]
+    else:
+        resources[inst] = fault
+    faults = chip_smoke.s1_faults(resources)
+    assert len(faults) == 1 and str(inst) in faults[0]
+
+
+def test_s1_chain_floor_of_both_schedules():
+    """Sequential: 4·T + 2·S f32 operations; chunked: 4·2·L + 2·S plus
+    C − 1 carry steps of 2·S + 1 f64 operations."""
+    clock = 2e9
+    assert chip_smoke.s1_chain_ms(2554, 2554, 4, clock) == pytest.approx(
+        1e3 * (4 * 2554 + 8) * 4 / clock)
+    assert chip_smoke.s1_chain_ms(2554, 48, 4, clock) == pytest.approx(
+        1e3 * ((4 * 96 + 8) * 4 + 53 * 9 * 8) / clock)
 
 
 def test_count_hmma_counts_per_function():
@@ -190,3 +232,14 @@ def test_s1_bound_is_its_bytes_at_the_featurizer_shape():
                                / 3.35e12)
     assert chip_smoke.s1_bound_ms(50, 90, 4, True, True)[0] == pytest.approx(
         1e3 * 4 * (2 * 50 * 90 + 2 * 2 * 4 * 90) / 3.35e12)
+
+
+@pytest.mark.parametrize("kernels,n,ms,count", [
+    ([(50, 500.0)], 50, 0.010, 1),                 # a whole trace
+    ([(48, 480.0)], 50, 0.010, 1),                 # two launches lost
+    ([(50, 500.0), (49, 147.0), (50, 400.0)], 50, 0.021, 3),   # S1's three
+    ([(100, 300.0), (1, 9.0)], 50, 0.006, 2),      # twice a call; a stray
+])
+def test_device_time_per_call_survives_lost_launches(kernels, n, ms, count):
+    got_ms, got_count = chip_smoke.per_call_device_ms(kernels, n)
+    assert got_ms == pytest.approx(ms) and got_count == count
