@@ -54,8 +54,30 @@ streaming featurizer over a 60-s session (one S1 launch per step, the
 carried filter state against one causal pass on the sequential schedule, the
 features against the offline oracle, chunks/s). The line before the kernels
 line holds those values (``bench_extras``), and the kernels line lists S1
-beside K1-K3. Any failed phase raises, so the exit code is not 0 and the
-final line is not printed.
+beside K1-K3.
+
+Last, the cross-validation slice (the cv phase, ``train/cv.py``): gate c
+holds the SHA-256 of the splits of the three split front-ends on its
+cohorts to the constant the JAX package's sklearn splits give
+(``tests/test_torch_port_splits.py`` recomputes it). cv-eeg-kfold-T512
+runs ``run_cv`` on TriModalFusionNetV4 at EEGConfig's widths with dropout
+0 over 66 subjects in 5 stratified-group folds, 3 epochs: the K1-K3
+launches must equal the counts derived from the padded fold length, the
+steps and the evaluations; gate a holds ``run_cv`` to a hand loop of
+``make_fit_fn`` over the same fold arrays, generators and initial weights,
+bit for bit under ``torch.use_deterministic_algorithms(True)``; gate b
+reruns fold 0 with the whole padded fold in one batch on the kernel route,
+the einsum route and the CPU (test probabilities and best metric within
+1e-4); the clinical report, the seconds per fold and per run, the steps
+and fold 0's device busy share are printed. cv-eeg-pipeline-T250 runs the
+JAX pipeline's own settings (T=250, dropout 0.3, augmentation) and must
+launch no kernel; cv-fmri runs FMRIFusionNet over 32 subjects in 5 folds,
+LOSO with subject votes and the pooled clinical report, and a 4-seed sweep.
+Gate d wants finite histories, metrics and clinical values, coverage in
+[0, 1] and each sweep's interval around its mean. A ``cv`` JSON line holds
+the timings, and the kernels line gives K1-K3 each path's launches.
+Any failed phase raises, so the exit code is not 0 and the final line is
+not printed.
 There is no CPU mode: without a GPU the script fails at once.
 
 Last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -66,6 +88,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import math
@@ -416,9 +439,10 @@ def device_ms(fn, n: int = 50) -> float:
     return device_profile(fn, n)[0]
 
 
-def profile_calls(fn, label: str, card: str, n: int = 5) -> None:
+def profile_calls(fn, label: str, card: str, n: int = 5):
     """Device busy share and device time by op over n calls of ``fn``
-    (torch.profiler; reports and goes on if the trace has no device time)."""
+    (torch.profiler); returns the busy share, or None (and goes on) if the
+    trace has no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -435,7 +459,7 @@ def profile_calls(fn, label: str, card: str, n: int = 5) -> None:
     busy_ms = sum(_device_us(e) for e in events) / 1000.0 / n
     if not events:
         print(f"profile: the trace holds no device time {card}")
-        return
+        return None
     print(f"profile, {label}: wall {wall_ms:.3f} ms per call under the "
           f"profiler, device busy {busy_ms:.3f} ms per call "
           f"({100 * busy_ms / wall_ms:.1f}%) {card}")
@@ -444,6 +468,7 @@ def profile_calls(fn, label: str, card: str, n: int = 5) -> None:
     for e in sorted(events, key=_device_us, reverse=True)[:PROFILE_TOP]:
         print(f"  {e.key[:60]:60s} {_device_us(e) / 1000.0 / n:8.4f} ms/call "
               f"{e.count / n:6.1f} calls/call")
+    return busy_ms / wall_ms
 
 
 def bound_ms(kernel: str, B, H, tq, tk, d, storage: str = "f32") -> tuple:
@@ -527,6 +552,16 @@ def max_diff(a: dict, b: dict) -> float:
         fail(f"state keys differ: {sorted(set(a) ^ set(b))}")
     return max(((a[k].double().cpu() - b[k].double().cpu()).abs().max().item()
                 for k in a), default=0.0)
+
+
+def einsum_route(m):
+    """``m`` with every attention layer on the einsum route (no kernel)."""
+    from multimodal_eeg_fmri_tpu_torch.models.layers import MultiHeadAttention
+
+    for mod in m.modules():
+        if isinstance(mod, MultiHeadAttention):
+            mod.attn_impl = "einsum"
+    return m
 
 
 def cancelled_biases(model) -> set:
@@ -1097,6 +1132,445 @@ def stream_phase(dev, card: str) -> dict:
             "chunks_per_sec": chunks_per_s}
 
 
+# --- the cross-validation slice: train/cv.py on the card ---------------------
+
+CV_EEG_N, CV_FMRI_N = 66, 32      # the cohorts of the JAX package's defaults
+CV_EPOCHS, CV_FMRI_EPOCHS, CV_LOSO_EPOCHS, CV_SEEDS = 3, 5, 2, 4
+CV_ATOL = 1e-4                    # a whole fit, route against route
+REPORT_ATOL = 1e-5                # the clinical report, card against CPU
+EEG_KEYS, FMRI_KEYS = ("erp", "pw", "conn"), ("activation", "connectivity")
+# SHA-256 of the splits of cv_protocols (splits_sha256), as the JAX
+# package's sklearn splits give them (tests/test_torch_port_splits.py)
+CV_SPLITS_SHA256 = ("9549025f0f1da44501e003c62bb897373a3e9b8d76f923c509705"
+                    "0f301cd086d")
+
+
+def splits_sha256(protocols: list) -> str:
+    """SHA-256 over every split of every protocol in order: each split's
+    fold number and its train, val and test indices as little-endian int64,
+    each array preceded by its length. Any object with ``train``, ``val``,
+    ``test`` and ``fold`` (the JAX package's ``Split`` too) hashes alike."""
+    h = hashlib.sha256()
+    for splits in protocols:
+        h.update(len(splits).to_bytes(8, "little"))
+        for sp in splits:
+            h.update(int(sp.fold).to_bytes(8, "little"))
+            for idx in (sp.train, sp.val, sp.test):
+                a = np.asarray(idx, dtype="<i8")
+                h.update(len(a).to_bytes(8, "little"))
+                h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def cv_protocols(cfg) -> list:
+    """The splits of the three front-ends on the cv phase's cohorts:
+    eeg_kfold_splits (66 subjects), fmri_kfold_splits and loso_splits (32)."""
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+        synthetic_fmri,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.cv import (
+        eeg_kfold_splits,
+        fmri_kfold_splits,
+        loso_splits,
+    )
+
+    eeg = synthetic_eeg_trimodal(n_subjects=CV_EEG_N)
+    fmri = synthetic_fmri(n_subjects=CV_FMRI_N)
+    return [eeg_kfold_splits(eeg, cfg), fmri_kfold_splits(fmri, cfg),
+            loso_splits(fmri, cfg)]
+
+
+def eeg_model(e, dropout: float, device):
+    """TriModalFusionNetV4 at the widths of the EEGConfig ``e``."""
+    from multimodal_eeg_fmri_tpu_torch.models.eeg import TriModalFusionNetV4
+
+    return TriModalFusionNetV4(
+        hidden_dim=e.hidden_dim, num_classes=e.num_classes, dropout=dropout,
+        num_transformer_layers=e.num_transformer_layers,
+        num_heads=e.num_heads, erp_channels=e.erp_channels,
+        pw_channels=e.pw_channels, conn_features=e.conn_features,
+        device=device)
+
+
+def cv_fold(model, fit_fn, stacks, i: int, seed: int, task="classification"):
+    """Fold ``i`` of a run by hand, as ``run_cv`` trains it: fresh weights
+    from the fold's streams, ``fit_fn`` on the fold's slices of
+    ``build_fold_arrays``'s ``stacks``, the best state evaluated on the
+    fold's test set. Returns (FitResult, test metrics, test probs)."""
+    from multimodal_eeg_fmri_tpu_torch.train.cv import fold_rngs, start_fold
+    from multimodal_eeg_fmri_tpu_torch.train.evaluate import evaluate_dataset
+
+    train, evals, cw = stacks
+    rngs = fold_rngs(seed, next(model.parameters()).device)
+    start_fold(model, rngs)
+
+    def fold(stack):
+        return {k: v[i] for k, v in stack.items()}
+
+    res = fit_fn(rngs.shuffle, fold(train),
+                 {name: fold(s) for name, s in evals.items()}, cw[i])
+    metrics, out = evaluate_dataset(model, res.params, res.batch_stats,
+                                    fold(evals["test"]), task)
+    return res, metrics, torch.softmax(out.logits.float(), dim=-1)
+
+
+def flash_layers(model, data: dict) -> int:
+    """K1 launches of one eval forward of ``model`` on two rows of ``data``:
+    the attention layers that take the kernels at this length."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        reset_kernel_launches,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.evaluate import apply_model
+
+    reset_kernel_launches()
+    apply_model(model, None, None, {k: v[:2] for k, v in data.items()})
+    return total_launches()["flash_fwd"]
+
+
+def cv_expected_launches(layers: int, train_rows: int, batch: int,
+                         epochs: int, folds: int, eval_sets: int = 2) -> dict:
+    """K1-K3 launches of a ``run_cv`` whose folds pad to ``train_rows``:
+    per fold, each of ``layers`` flash layers runs K1 in every train step
+    and every per-epoch evaluation, plus the final test evaluation, and K2
+    and K3 in every train step."""
+    steps = train_rows // min(batch, train_rows)
+    return {"flash_fwd": folds * layers * ((steps + eval_sets) * epochs + 1),
+            "flash_bwd_dkv": folds * layers * steps * epochs,
+            "flash_bwd_dq": folds * layers * steps * epochs}
+
+
+def cv_finite(result, what: str) -> None:
+    """Gate d for one run: finite histories, fold metrics and outputs."""
+    arrays = {**{f"history {k}": v for k, v in result.history.items()},
+              **{f"metric {k}": v for k, v in result.fold_metrics.items()},
+              "test probs": result.test_probs}
+    bad = [k for k, v in arrays.items() if not np.all(np.isfinite(v))]
+    if bad:
+        fail(f"{what}: non-finite {bad}")
+
+
+def cv_clinical(result, what: str) -> dict:
+    """clinical_report of a run on the card, held against the same report
+    on the CPU within REPORT_ATOL, gate d on it, and its summary printed."""
+    from multimodal_eeg_fmri_tpu_torch.report.clinical import clinical_report
+
+    report = clinical_report(result)
+    per = report["per_fold"]
+    on_cpu = clinical_report(result, device="cpu")["per_fold"]
+    gap = max(float(np.max(np.abs(per[k] - on_cpu[k]))) for k in per)
+    print(f"{what}: clinical_report card vs CPU max|d|={gap:.3e} "
+          f"(limit {REPORT_ATOL:g})")
+    if not gap <= REPORT_ATOL:
+        fail(f"{what}: clinical report on the card disagrees with the CPU")
+    cov = per["conformal_coverage"]
+    if not all(np.all(np.isfinite(v)) for v in per.values()):
+        fail(f"{what}: non-finite clinical values")
+    if not np.all((cov >= 0) & (cov <= 1)):
+        fail(f"{what}: conformal coverage outside [0, 1]: {cov}")
+    print(f"{what}: clinical_report (alpha {report['alpha']}): "
+          + ", ".join(f"{k} {m:.4f} ± {sd:.4f}"
+                      for k, (m, sd) in report["summary"].items()))
+    return report
+
+
+def print_cv(result, seconds: float, what: str, card: str) -> None:
+    print(f"{what}: {result.n_folds} folds in {seconds:.2f} s, "
+          f"{seconds / result.n_folds:.3f} s per fold {card}; "
+          + ", ".join(f"{k} {m:.4f} ± {sd:.4f}"
+                      for k, (m, sd) in result.summary.items())
+          + f"; best epochs {result.best_epochs.tolist()}")
+
+
+def timed(fn):
+    """(fn(), seconds), the clock stopped after a synchronize."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def cv_eeg_kfold_phase(dev, card: str) -> dict:
+    """cv-eeg-kfold-T512: TriModalFusionNetV4 at EEGConfig's widths with
+    dropout 0 through ``run_cv`` over eeg_kfold_splits, T=512 (all four
+    temporal self-attention layers on K1-K3); launch counts, gate a (run_cv
+    against a hand loop, bit for bit), gate b (fold 0 on the three routes),
+    the clinical report and fold 0's busy share."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import (
+        EEGConfig,
+        TrainConfig,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+    )
+    from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
+    from multimodal_eeg_fmri_tpu_torch.train.cv import (
+        build_fold_arrays,
+        eeg_kfold_splits,
+        fold_seeds,
+        run_cv,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.fit import make_fit_fn
+
+    data = synthetic_eeg_trimodal(n_subjects=CV_EEG_N, time_steps=T_SERVE)
+    cfg = TrainConfig(batch_size=BATCH, num_epochs=CV_EPOCHS,
+                      loss="weighted_ce", selection="val")
+    splits = eeg_kfold_splits(data, cfg)
+    stacks = build_fold_arrays(data, splits, "scalar", EEG_KEYS)
+    rows = stacks[0]["label"].shape[1]
+    real = stacks[0]["weight"].sum(axis=1).astype(int).tolist()
+    model = eeg_model(EEGConfig(), 0.0, dev)
+    layers = flash_layers(model, {k: v[0] for k, v in stacks[0].items()})
+    expected = cv_expected_launches(layers, rows, BATCH, CV_EPOCHS,
+                                    len(splits))
+    steps = rows // BATCH
+    print(f"{len(splits)} folds of {rows} padded train rows (real "
+          f"{real}), batch {BATCH}: {steps} steps an epoch, "
+          f"{steps * CV_EPOCHS} a fold; {layers} flash layers a forward")
+
+    what = f"cv-eeg-kfold-T{T_SERVE}"
+    reset_all_launches()
+    result, seconds = timed(lambda: run_cv(model, cfg, data, splits,
+                                           normalize_keys=EEG_KEYS))
+    launches = total_launches()
+    print_cv(result, seconds, what, card)
+    print(f"launches {launches} (expected {expected}, from the fold "
+          "length, the steps and the evaluations)")
+    if launches != expected:
+        fail(f"{what} launched {launches}, expected {expected}")
+    cv_finite(result, what)
+    cv_clinical(result, what)
+
+    seeds = fold_seeds(cfg.seed, len(splits))
+    fit_fn = make_fit_fn(model, cfg, eval_names=("val", "test"))
+    with deterministic():
+        det, det_s = timed(lambda: run_cv(model, cfg, data, splits,
+                                          normalize_keys=EEG_KEYS))
+        gaps, fold_s = [], []
+        for i, seed in enumerate(seeds):
+            (res, metrics, probs), s = timed(
+                lambda: cv_fold(model, fit_fn, stacks, i, seed))
+            fold_s.append(s)
+            pick = lambda d: {k: v[i] for k, v in d.items()}
+            gaps.append(max(
+                max_diff(pick(det.params), res.params),
+                max_diff(pick(det.batch_stats), res.batch_stats),
+                max_diff({k: torch.as_tensor(v) for k, v in
+                          pick(det.history).items()}, res.history),
+                max_diff({k: torch.as_tensor(v) for k, v in
+                          pick(det.fold_metrics).items()}, metrics),
+                max_diff({"p": torch.as_tensor(det.test_probs[i])},
+                         {"p": probs})))
+    print(f"gate a: run_cv vs a hand loop of make_fit_fn over the same "
+          f"fold arrays, generators and initial weights, under "
+          f"torch.use_deterministic_algorithms(True): max|d| per fold "
+          f"(params, statistics, history, metrics, test probs) {gaps} "
+          f"(limit 0); {det_s:.2f} s for run_cv, "
+          f"{[round(s, 3) for s in fold_s]} s per fold by hand {card}")
+    if any(gaps):
+        fail("gate a: run_cv is not bit-identical to the hand loop")
+
+    busy = profile_calls(lambda: cv_fold(model, fit_fn, stacks, 0, seeds[0]),
+                         f"fold 0's fit ({steps * CV_EPOCHS} steps, "
+                         f"{2 * CV_EPOCHS + 1} evaluations)", card, n=1)
+
+    # gate b: fold 0, the whole padded fold in one batch, three routes
+    whole = dataclasses.replace(cfg, batch_size=rows)
+    routes = {}
+    base = eeg_model(EEGConfig(), 0.0, "cpu")
+    for m in base.modules():
+        if isinstance(m, LearnedFusion):
+            m.gate_dropout = 0.0
+    for name, m in (("kernel", copy.deepcopy(base).to(dev)),
+                    ("einsum", einsum_route(copy.deepcopy(base).to(dev))),
+                    ("cpu", copy.deepcopy(base))):
+        reset_all_launches()
+        (res, _, probs), s = timed(lambda: cv_fold(
+            m, make_fit_fn(m, whole, eval_names=("val", "test")), stacks, 0,
+            seeds[0]))
+        routes[name] = (res.best_metric.item(), probs.cpu(),
+                        total_launches(), s)
+    kernel_metric, kernel_probs, kernel_launches, _ = routes["kernel"]
+    whole_expected = cv_expected_launches(layers, rows, rows, CV_EPOCHS, 1)
+    if (kernel_launches != whole_expected
+            or any(routes["einsum"][2].values())):
+        fail(f"gate b: the kernel route launched {kernel_launches} "
+             f"(expected {whole_expected}), the einsum route "
+             f"{routes['einsum'][2]} (expected none)")
+    for other in ("einsum", "cpu"):
+        metric, probs, _, s = routes[other]
+        d_probs = (kernel_probs - probs).abs().max().item()
+        d_metric = abs(kernel_metric - metric)
+        print(f"gate b: fold 0, batch {rows} (one step an epoch), kernel "
+              f"route vs {other}: test probs max|d| {d_probs:.3e}, best "
+              f"metric {kernel_metric:.6f} vs {metric:.6f} (limit "
+              f"{CV_ATOL:g}); {routes['kernel'][3]:.2f} s vs {s:.2f} s")
+        if not (d_probs <= CV_ATOL and d_metric <= CV_ATOL):
+            fail(f"gate b: the kernel route's fold 0 disagrees with the "
+                 f"{other} route")
+    return {"launches": launches, "seconds": seconds,
+            "seconds_per_fold": seconds / len(splits),
+            "steps_per_fold": steps * CV_EPOCHS, "busy": busy}
+
+
+def cv_eeg_pipeline_phase(dev, card: str) -> dict:
+    """cv-eeg-pipeline-T250: the JAX pipeline's own settings, EEGConfig()
+    (T=250, dropout 0.3) with its augmentation, 1 epoch, 5 folds: the
+    einsum route, no kernel launch."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import (
+        EEGConfig,
+        TrainConfig,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+    )
+    from multimodal_eeg_fmri_tpu_torch.ops.augment import make_eeg_augment
+    from multimodal_eeg_fmri_tpu_torch.train.cv import (
+        eeg_kfold_splits,
+        run_cv,
+    )
+
+    e = EEGConfig()
+    model = eeg_model(e, e.dropout, dev)
+    data = synthetic_eeg_trimodal(n_subjects=CV_EEG_N,
+                                  time_steps=e.time_steps)
+    cfg = TrainConfig(batch_size=BATCH, num_epochs=1, selection="val")
+    augment = make_eeg_augment(noise_std=e.augment_noise_std,
+                               channel_dropout=e.augment_channel_dropout,
+                               prob=e.augment_prob)
+    splits = eeg_kfold_splits(data, cfg, n_splits=e.n_splits)
+    reset_all_launches()
+    result, seconds = timed(lambda: run_cv(
+        model, cfg, data, splits, augment=augment, normalize_keys=EEG_KEYS))
+    launches = total_launches()
+    what = f"cv-eeg-pipeline-T{e.time_steps}"
+    print_cv(result, seconds, what, card)
+    if any(launches.values()):
+        fail(f"{what} launched {launches}; it takes the einsum route")
+    print(f"launches {launches}: the einsum route, as the auto rule says")
+    cv_finite(result, what)
+    return {"seconds": seconds, "seconds_per_fold": seconds / len(splits)}
+
+
+def cv_fmri_phase(dev, card: str) -> dict:
+    """cv-fmri: FMRIFusionNet at FMRIConfig's widths over 32 subjects:
+    5-fold with per-feature normalization, LOSO with subject votes and the
+    pooled clinical report, and a seed sweep."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import (
+        FMRIConfig,
+        TrainConfig,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.normalize import (
+        feature_standardize,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import synthetic_fmri
+    from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet
+    from multimodal_eeg_fmri_tpu_torch.report.clinical import (
+        pooled_clinical_report,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.cv import (
+        fmri_kfold_splits,
+        loso_splits,
+        run_cv,
+        run_seed_sweep,
+        subject_level_votes,
+    )
+
+    f = FMRIConfig()
+    data = synthetic_fmri(n_subjects=CV_FMRI_N)
+    data.pop("reg_label")
+    model = FMRIFusionNet(hidden_dim=f.hidden_dim, num_classes=f.num_classes,
+                          dropout=f.dropout,
+                          activation_features=data["activation"].shape[1],
+                          connectivity_features=data["connectivity"].shape[1],
+                          device=dev)
+    cfg = TrainConfig(batch_size=BATCH, num_epochs=CV_FMRI_EPOCHS,
+                      selection="val")
+    out = {}
+    kfold, seconds = timed(lambda: run_cv(
+        model, cfg, data, fmri_kfold_splits(data, cfg, n_splits=f.n_splits),
+        normalize="feature", normalize_keys=FMRI_KEYS))
+    print_cv(kfold, seconds, f"fmri k-fold, {CV_FMRI_EPOCHS} epochs", card)
+    cv_finite(kfold, "cv-fmri k-fold")
+    cv_clinical(kfold, "cv-fmri k-fold")
+    out["kfold_seconds"] = seconds
+
+    loso, seconds = timed(lambda: run_cv(
+        model, dataclasses.replace(cfg, num_epochs=CV_LOSO_EPOCHS), data,
+        loso_splits(data, cfg), normalize="feature",
+        normalize_keys=FMRI_KEYS))
+    votes = subject_level_votes(loso)
+    print_cv(loso, seconds, f"fmri LOSO, {CV_LOSO_EPOCHS} epochs", card)
+    cv_finite(loso, "cv-fmri LOSO")
+    truth = dict(zip(data["subject"].tolist(), data["label"].tolist()))
+    if sorted(votes) != sorted(truth):
+        fail(f"LOSO voted for subjects {sorted(votes)}")
+    real = loso.test_weight > 0
+    pooled = pooled_clinical_report(loso.test_probs[real],
+                                    loso.test_labels[real])
+    pooled_cpu = pooled_clinical_report(loso.test_probs[real],
+                                        loso.test_labels[real], device="cpu")
+    gap = max(abs(pooled[k] - pooled_cpu[k]) for k in pooled)
+    print(f"LOSO pooled clinical report card vs CPU max|d|={gap:.3e} "
+          f"(limit {REPORT_ATOL:g})")
+    if not gap <= REPORT_ATOL:
+        fail("cv-fmri LOSO: pooled clinical report on the card disagrees "
+             "with the CPU")
+    print(f"LOSO subject votes: {sum(votes[s] == truth[s] for s in votes)} "
+          f"of {len(votes)} right; pooled clinical report "
+          + ", ".join(f"{k} {v:.4f}" for k, v in pooled.items()))
+    if not (all(math.isfinite(v) for v in pooled.values())
+            and 0 <= pooled["conformal_coverage"] <= 1):
+        fail(f"cv-fmri LOSO: pooled clinical report {pooled}")
+    out["loso_seconds"] = seconds
+
+    n_train = CV_FMRI_N * 3 // 4
+    normed = feature_standardize(
+        {**data, "weight": np.ones(CV_FMRI_N, np.float32)},
+        np.arange(n_train), FMRI_KEYS)
+    train = {k: v[:n_train] for k, v in normed.items()}
+    val = {k: v[n_train:] for k, v in normed.items()}
+    sweep, seconds = timed(lambda: run_seed_sweep(
+        model, cfg, train, {"val": val}, CV_SEEDS))
+    lo, hi = sweep["ci95"]
+    print(f"seed sweep, {CV_SEEDS} seeds: best val f1 "
+          f"{np.array2string(sweep['best_metric'], precision=4)}, mean "
+          f"{sweep['mean']:.4f}, std {sweep['std']:.4f}, 95% CI "
+          f"[{lo:.4f}, {hi:.4f}] in {seconds:.2f} s {card}")
+    if not (np.all(np.isfinite(sweep["best_metric"])) and lo <= sweep["mean"]
+            <= hi and all(np.all(np.isfinite(v))
+                          for v in sweep["history"].values())):
+        fail("seed sweep: non-finite values, or a CI that misses its mean")
+    out["sweep_seconds"] = seconds
+    return out
+
+
+def cv_phase(dev, card: str) -> dict:
+    """The cv phase: gate c, then the three CV configurations."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
+
+    digest = splits_sha256(cv_protocols(TrainConfig()))
+    print(f"gate c: SHA-256 of the splits of eeg_kfold_splits "
+          f"({CV_EEG_N} subjects), fmri_kfold_splits and loso_splits "
+          f"({CV_FMRI_N}): {digest} (pinned: {CV_SPLITS_SHA256})")
+    if digest != CV_SPLITS_SHA256:
+        fail("gate c: the splits differ from the JAX package's")
+    phase(f"cv-eeg-kfold-T{T_SERVE}: TriModalFusionNetV4 at EEGConfig's "
+          f"widths, dropout 0, {CV_EEG_N} subjects, 5 folds, {CV_EPOCHS} "
+          "epochs")
+    eeg = cv_eeg_kfold_phase(dev, card)
+    phase(f"cv-eeg-pipeline-T{T_SHORT}: EEGConfig() with its augmentation, "
+          "1 epoch, 5 folds")
+    pipeline = cv_eeg_pipeline_phase(dev, card)
+    phase(f"cv-fmri: FMRIFusionNet at FMRIConfig's widths, {CV_FMRI_N} "
+          f"subjects: 5-fold, LOSO, {CV_SEEDS}-seed sweep")
+    fmri = cv_fmri_phase(dev, card)
+    print(json.dumps({"cv": {"eeg_kfold_T512": {
+        k: v for k, v in eeg.items() if k != "launches"},
+        "eeg_pipeline_T250": pipeline, "fmri": fmri, "device": card}}))
+    return eeg
+
+
 def main() -> None:
     # deterministic cuBLAS for the resume phase; read when cuBLAS starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1125,10 +1599,7 @@ def main() -> None:
         make_fit_fn,
     )
     from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
-    from multimodal_eeg_fmri_tpu_torch.models.layers import (
-        BatchNorm,
-        MultiHeadAttention,
-    )
+    from multimodal_eeg_fmri_tpu_torch.models.layers import BatchNorm
     from multimodal_eeg_fmri_tpu_torch.ops import _kernels
     from multimodal_eeg_fmri_tpu_torch.ops.attention import (
         flash_attention,
@@ -1305,12 +1776,6 @@ def main() -> None:
                  f"{np.all(np.isfinite(p))}")
         if np.abs(p.sum(-1) - 1.0).max() > 1e-5:
             fail("probabilities do not sum to 1")
-
-    def einsum_route(m):
-        for mod in m.modules():
-            if isinstance(mod, MultiHeadAttention):
-                mod.attn_impl = "einsum"
-        return m
 
     logits_kernel = Predictor(model, BATCH, return_probs=False)(**requests[0])
     plain_model = einsum_route(copy.deepcopy(model))
@@ -1769,6 +2234,9 @@ def main() -> None:
                 "library_ms": t["library_ms"],
                 "library_device_ms": t["library_device_ms"]}
 
+    phase(f"cv: train/cv.py on the card {card}")
+    cv = cv_phase(dev, card)
+
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     print(json.dumps({"kernels": [{
         "name": name,
@@ -1776,6 +2244,9 @@ def main() -> None:
         "source": source[name],
         "replaces": replaces[name],
         "launches": train_launches[name],
+        # each path's launches: the training path's, and run_cv's
+        "launches_by_path": {"train-e2e-T512": train_launches[name],
+                             "cv-eeg-kfold-T512": cv["launches"][name]},
         "max_abs_err": worst[name],
         **timings(per_step[name, "f32"]),
         # the mixed-precision fit's launches by storage, and the

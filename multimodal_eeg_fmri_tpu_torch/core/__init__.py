@@ -1,4 +1,4 @@
-"""Configuration and checkpoints of the port."""
+"""Configuration, seeds and checkpoints of the port."""
 
 from multimodal_eeg_fmri_tpu_torch.core.checkpoint import (
     export_frozen_encoder,
@@ -6,7 +6,21 @@ from multimodal_eeg_fmri_tpu_torch.core.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
+from multimodal_eeg_fmri_tpu_torch.core.config import (
+    BridgeConfig,
+    EEGConfig,
+    ExperimentConfig,
+    FMRIConfig,
+    MeshConfig,
+    TrainConfig,
+)
+from multimodal_eeg_fmri_tpu_torch.core.rng import (
+    RngStream,
+    fold_in,
+    seed_everything,
+)
 
-__all__ = ["TrainConfig", "export_frozen_encoder", "find_best_checkpoint",
-           "load_checkpoint", "save_checkpoint"]
+__all__ = ["BridgeConfig", "EEGConfig", "ExperimentConfig", "FMRIConfig",
+           "MeshConfig", "RngStream", "TrainConfig", "export_frozen_encoder",
+           "find_best_checkpoint", "fold_in", "load_checkpoint",
+           "save_checkpoint", "seed_everything"]

@@ -1,5 +1,6 @@
-"""Array-dataset helpers (numpy). The port's copy of the part of
-``multimodal_eeg_fmri_tpu/data/arrays.py`` that its training uses, and
+"""Array-dataset helpers (numpy). The port's copy of
+``multimodal_eeg_fmri_tpu/data/arrays.py``: subsetting, padding, fold
+stacking, validation, class weights and the train/val split; and
 ``as_tensor``, which moves an array to the device as the JAX package's
 ``jnp.asarray`` would convert it, and ``model_device``, which resolves the
 device an entry point runs on.
@@ -12,7 +13,7 @@ shape and the mask removes the padding from losses and metrics.
 from __future__ import annotations
 
 import logging
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -66,6 +67,22 @@ def pad_rows(data: Dataset, target: int) -> Dataset:
         pad = np.zeros_like(v[idx]) if k == "weight" else v[idx]
         out[k] = np.concatenate([v, pad], axis=0)
     return out
+
+
+def stack_trees(trees: List[Dataset]) -> Dataset:
+    """Stack a list of same-shape datasets along a new leading (fold) axis."""
+    keys = trees[0].keys()
+    return {k: np.stack([t[k] for t in trees], axis=0) for k in keys}
+
+
+def pad_and_stack(folds: List[Dataset], multiple_of: int = 1) -> Dataset:
+    """Pad each fold dataset to the common max size (rounded up to
+    ``multiple_of`` for clean batching) and stack on a fold axis."""
+    sizes = [len(next(iter(f.values()))) for f in folds]
+    target = max(sizes)
+    if multiple_of > 1:
+        target = ((target + multiple_of - 1) // multiple_of) * multiple_of
+    return stack_trees([pad_rows(f, target) for f in folds])
 
 
 def validate_dataset(data: Dataset, *, require_label: bool = True,
@@ -166,3 +183,25 @@ def balanced_class_weights(labels: np.ndarray, num_classes: int = 2,
     counts = np.maximum(np.bincount(labels, minlength=num_classes), 1)
     return (len(labels) / (num_classes * counts.astype(np.float64))).astype(
         np.float32)
+
+
+def train_val_split(
+    n: int, val_ratio: float, rng: np.random.Generator,
+    labels: np.ndarray = None,
+):
+    """Stratified train/val index split (reference
+    ``run_fmri_v11.py:769-784`` uses sklearn ``train_test_split`` with
+    stratify; this reproduces the stratified assignment)."""
+    idx = np.arange(n)
+    if labels is None or val_ratio <= 0:
+        perm = rng.permutation(idx)
+        n_val = max(1, int(round(n * val_ratio))) if val_ratio > 0 else 0
+        return perm[n_val:], perm[:n_val]
+    val_idx = []
+    for c in np.unique(labels):
+        c_idx = rng.permutation(idx[labels == c])
+        n_val = max(1, int(round(len(c_idx) * val_ratio)))
+        val_idx.extend(c_idx[:n_val])
+    val_idx = np.asarray(sorted(val_idx))
+    train_idx = np.asarray(sorted(set(idx) - set(val_idx)))
+    return train_idx, val_idx

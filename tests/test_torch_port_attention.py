@@ -119,9 +119,18 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.data.nifti, "
             "multimodal_eeg_fmri_tpu_torch.data.streaming, "
             "multimodal_eeg_fmri_tpu_torch.ops.signal, "
-            "multimodal_eeg_fmri_tpu_torch.ops.schedules\n"
+            "multimodal_eeg_fmri_tpu_torch.ops.schedules, "
+            "multimodal_eeg_fmri_tpu_torch.core.rng, "
+            "multimodal_eeg_fmri_tpu_torch.data.splits, "
+            "multimodal_eeg_fmri_tpu_torch.data.normalize, "
+            "multimodal_eeg_fmri_tpu_torch.data.synthetic, "
+            "multimodal_eeg_fmri_tpu_torch.report.stats, "
+            "multimodal_eeg_fmri_tpu_torch.report.calibration, "
+            "multimodal_eeg_fmri_tpu_torch.report.conformal, "
+            "multimodal_eeg_fmri_tpu_torch.report.clinical, "
+            "multimodal_eeg_fmri_tpu_torch.train.cv\n"
             "bad = [m for m in ('jax', 'flax', 'optax', "
-            "'multimodal_eeg_fmri_tpu') if m in sys.modules]\n"
+            "'multimodal_eeg_fmri_tpu', 'sklearn') if m in sys.modules]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
