@@ -76,6 +76,27 @@ LOSO with subject votes and the pooled clinical report, and a 4-seed sweep.
 Gate d wants finite histories, metrics and clinical values, coverage in
 [0, 1] and each sweep's interval around its mean. A ``cv`` JSON line holds
 the timings, and the kernels line gives K1-K3 each path's launches.
+The kernel-vs-plain phase also runs K1, K2 and K3 once at B·H = 65,600,
+past the 65,535 blocks of the grid's y axis (B·H runs on its x axis).
+
+Last, the bridge slice (the bridge phase: ``xai/``, ``train/bridge_flow.py``),
+at the JAX package's default widths with only epoch counts cut: stage 1
+trains TriModalFusionNetV4 (EEGConfig, dropout 0.3, 66 subjects at T=512)
+and FMRIFusionNet (32 subjects) 3 epochs each with selection on the train
+loss; ``extract_fused_features`` (one eval forward, K1 in the four temporal
+layers) gives embeddings held to the einsum route's and a CPU copy's within
+1e-5 of the largest, and ``align_bridge_dataset`` 32 subjects;
+``run_bridge_loocv`` at BridgeConfig's widths, 32 folds of 10 epochs, IG
+over 50 steps, has its pooled metrics recomputed from ``cv.test_probs``,
+two folds' XAI equal to the attribution functions applied by hand (bit for
+bit), and finite records and clinical values; ``Explainer.explain`` on the
+frozen EEG model over 8 subjects launches K1-K3 as its structure says (7,
+3, 3 per flash layer) at IG over 50 steps and over 8 (the steps are folded
+into the batch), and its saliency, gradient×input and IG hold to the einsum
+route and a CPU copy within 1e-4 of the largest; Kernel SHAP on the bridge
+(M = 192) and on the frozen EEG model (M = 48,075, 256 coalition rows in
+one batch) holds to a CPU copy within 1e-5. A ``bridge`` JSON line holds
+the timings.
 Any failed phase raises, so the exit code is not 0 and the final line is
 not printed.
 There is no CPU mode: without a GPU the script fails at once.
@@ -124,6 +145,7 @@ COHORT, VAL_ROWS, EPOCHS = 32, 8, 3
 ACCUM, EMA_DECAY = 2, 0.99
 PROFILE_TOP = 12          # ops listed by device time in a profile
 C5_CASE, C5_SEEDS = (8, 4, 512, 512, 32), 16    # fault C5's card-test case
+GRID_CASE = (16400, 4, 64, 32)    # B·H past gridDim.y's 65,535
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): the fastest route to
 # f32-accurate products, 3xTF32 on the tensor cores (495 TFLOP/s TF32, three
 # products per f32 product); bf16 products (exact in f32 accumulators); the
@@ -1571,6 +1593,432 @@ def cv_phase(dev, card: str) -> dict:
     return eeg
 
 
+# --- the bridge slice: xai/ and train/bridge_flow.py on the card ------------
+
+STAGE1_EPOCHS, BRIDGE_EPOCHS = 3, 10      # cut from the configs' 50 each
+BRIDGE_IG_STEPS = 50                      # run_bridge_loocv's default
+XAI_ROWS, XAI_IG_STEPS, XAI_ROUTE_STEPS, XAI_CPU_ROWS = 8, 50, 8, 2
+SHAP_BRIDGE_SAMPLES, SHAP_EEG_ROWS, SHAP_EEG_SAMPLES = 100, 4, 64
+EXTRACT_RTOL = 1e-5       # embeddings, route against route, of the largest
+ATTR_RTOL = 1e-4          # attributions, route against route, of the largest
+# SHAP, card against CPU, of the largest: every coalition row's probability
+# (what the card computes), and the bridge's Shapley values; the EEG model's
+# 64 coalitions under-determine its 48,075 values, and the least squares
+# amplifies the probabilities' f32 rounding there (printed, not gated)
+SHAP_RTOL = 1e-5
+
+
+def rel_gap(a, b) -> float:
+    """max |a − b| over max |b|, for arrays or tensors, or dicts of them
+    with equal keys (the largest over the keys)."""
+    if isinstance(b, dict):
+        if set(a) != set(b):
+            fail(f"keys differ: {sorted(set(a) ^ set(b))}")
+        return max(rel_gap(a[k], b[k]) for k in b)
+    a, b = (np.asarray(x.cpu() if torch.is_tensor(x) else x, np.float64)
+            for x in (a, b))
+    if a.shape != b.shape:
+        fail(f"shapes differ: {a.shape} vs {b.shape}")
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def on_cpu(tensors: dict) -> dict:
+    return {k: v.cpu() for k, v in tensors.items()}
+
+
+def explain_expected_launches(layers: int) -> dict:
+    """K1-K3 launches of ``Explainer.explain`` with no target class, as the
+    JAX package structures it: one probability forward; saliency,
+    gradient×input and IG each recompute the target classes (a forward)
+    and make one forward and one backward (IG's steps folded into the
+    batch, so the count does not depend on them)."""
+    return {"flash_fwd": layers * 7, "flash_bwd_dkv": layers * 3,
+            "flash_bwd_dq": layers * 3}
+
+
+def bridge_stage1(dev, card: str) -> dict:
+    """Stage 1 as the JAX package's ``run_bridge_experiment`` trains it:
+    TriModalFusionNetV4 at EEGConfig's widths (dropout 0.3: training takes
+    the einsum route) on 66 subjects at T=512 and FMRIFusionNet at
+    FMRIConfig's on 32, ``selection='train_loss'``, no eval set."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import (
+        EEGConfig,
+        FMRIConfig,
+        TrainConfig,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.arrays import pad_rows
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+        synthetic_fmri,
+    )
+    from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet
+    from multimodal_eeg_fmri_tpu_torch.train.fit import make_fit_fn
+
+    e, f = EEGConfig(), FMRIConfig()
+    eeg = synthetic_eeg_trimodal(n_subjects=CV_EEG_N, time_steps=T_SERVE)
+    fmri = synthetic_fmri(n_subjects=CV_FMRI_N)
+    fmri.pop("reg_label")
+    cfg = dataclasses.replace(TrainConfig(), num_epochs=STAGE1_EPOCHS,
+                              selection="train_loss")
+
+    def stage1(model, data):
+        n = len(data["label"])
+        train = pad_rows({k: v for k, v in data.items() if k != "subject"}, n)
+        return make_fit_fn(model, cfg, eval_names=())(cfg.seed, train, {},
+                                                      None)
+
+    eeg_net = eeg_model(e, e.dropout, dev)
+    fmri_net = FMRIFusionNet(hidden_dim=f.hidden_dim, dropout=f.dropout,
+                             device=dev)
+    (eeg_res, fmri_res), seconds = timed(lambda: (
+        stage1(eeg_net, eeg), stage1(fmri_net, fmri)))
+    losses = {k: r.history["train_loss"].cpu().numpy()
+              for k, r in (("eeg", eeg_res), ("fmri", fmri_res))}
+    print(f"stage 1: {STAGE1_EPOCHS} epochs of TriModalFusionNetV4 on "
+          f"{CV_EEG_N} subjects at T={T_SERVE} and FMRIFusionNet on "
+          f"{CV_FMRI_N} in {seconds:.2f} s {card}; train loss "
+          + ", ".join(f"{k} {np.array2string(v, precision=4)}"
+                      for k, v in losses.items()))
+    if not all(np.all(np.isfinite(v)) for v in losses.values()):
+        fail("stage 1: non-finite train loss")
+    return dict(eeg=eeg, fmri=fmri, eeg_model=eeg_net, eeg_res=eeg_res,
+                fmri_model=fmri_net, fmri_res=fmri_res, seconds=seconds)
+
+
+def bridge_extract(s1: dict, card: str) -> dict:
+    """Extraction (one eval forward of all 66 EEG subjects: K1 in the four
+    temporal layers) and alignment; the gate holds the kernel route's EEG
+    embeddings to the einsum route's and a CPU copy's."""
+    from multimodal_eeg_fmri_tpu_torch.train.bridge_flow import (
+        align_bridge_dataset,
+        extract_fused_features,
+    )
+
+    eeg, fmri, res = s1["eeg"], s1["fmri"], s1["eeg_res"]
+    model = s1["eeg_model"]
+    layers = flash_layers(model, eeg)
+    reset_all_launches()
+    (eeg_subj, eeg_feats), seconds = timed(lambda: extract_fused_features(
+        model, res.params, res.batch_stats, eeg))
+    launches = total_launches()
+    expected = {"flash_fwd": layers, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    print(f"extract_fused_features: {CV_EEG_N} subjects in one forward, "
+          f"{1e3 * seconds:.3f} ms {card}; launches {launches} (expected "
+          f"{expected})")
+    if launches != expected:
+        fail(f"extraction launched {launches}, expected {expected}")
+    _, einsum_feats = extract_fused_features(
+        einsum_route(copy.deepcopy(model)), res.params, res.batch_stats, eeg)
+    _, cpu_feats = extract_fused_features(
+        copy.deepcopy(model).cpu(), on_cpu(res.params),
+        on_cpu(res.batch_stats), eeg)
+    gaps = {"einsum": rel_gap(eeg_feats, einsum_feats),
+            "cpu": rel_gap(eeg_feats, cpu_feats)}
+    print(f"extraction gate: EEG embeddings, kernel route vs einsum route "
+          f"{gaps['einsum']:.3e}, vs CPU {gaps['cpu']:.3e} of the largest "
+          f"(limit {EXTRACT_RTOL:g})")
+    if not all(g <= EXTRACT_RTOL for g in gaps.values()):
+        fail("extraction: the kernel route's embeddings disagree")
+
+    fmri_subj, fmri_feats = extract_fused_features(
+        s1["fmri_model"], s1["fmri_res"].params, s1["fmri_res"].batch_stats,
+        fmri)
+    labels = {int(s): int(y) for s, y in zip(eeg["subject"], eeg["label"])}
+    data = align_bridge_dataset(eeg_subj, eeg_feats, fmri_subj, fmri_feats,
+                                labels)
+    shapes = {k: v.shape for k, v in data.items()}
+    print(f"aligned: {shapes}")
+    if shapes != {"eeg": (CV_FMRI_N, 128), "fmri": (CV_FMRI_N, 64),
+                  "label": (CV_FMRI_N,), "subject": (CV_FMRI_N,)}:
+        fail(f"alignment gave {shapes}")
+    return {"data": data, "launches": launches, "ms": 1e3 * seconds}
+
+
+def fold_xai(model, cv, f: int, data: dict, dev) -> tuple:
+    """Fold ``f``'s XAI by hand: saliency and IG of its held-out subject
+    under the fold's best params, as ``run_bridge_loocv`` computes them."""
+    from multimodal_eeg_fmri_tpu_torch.xai.attribution import (
+        gradient_saliency,
+        integrated_gradients,
+        make_apply_fn,
+    )
+
+    apply_fn = make_apply_fn(model, {k: v[f] for k, v in cv.params.items()},
+                             {k: v[f] for k, v in cv.batch_stats.items()})
+    inputs = {k: torch.as_tensor(data[k][f:f + 1], device=dev)
+              for k in ("eeg", "fmri")}
+    return (gradient_saliency(apply_fn, inputs),
+            integrated_gradients(apply_fn, inputs, n_steps=BRIDGE_IG_STEPS))
+
+
+def bridge_loocv(data: dict, dev, card: str) -> dict:
+    """run_bridge_loocv at BridgeConfig's widths over 32 folds; its pooled
+    metrics against a recomputation, two folds' XAI against a hand
+    computation (bit for bit), and the records and clinical values."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import (
+        BridgeConfig,
+        TrainConfig,
+    )
+    from multimodal_eeg_fmri_tpu_torch.models.bridge import BridgeFusionNet
+    from multimodal_eeg_fmri_tpu_torch.report.metrics import (
+        binary_classification_metrics,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.bridge_flow import (
+        run_bridge_loocv,
+    )
+
+    b = BridgeConfig()
+    cfg = dataclasses.replace(TrainConfig(), learning_rate=1e-4,
+                              weight_decay=1e-4, selection="train_loss",
+                              num_epochs=BRIDGE_EPOCHS)
+    reset_all_launches()
+    res, seconds = timed(lambda: run_bridge_loocv(
+        data, cfg, bridge_dim=b.bridge_dim, num_heads=b.num_heads,
+        dropout=b.dropout, ig_steps=BRIDGE_IG_STEPS, device=dev))
+    launches = total_launches()
+    n = res.cv.n_folds
+    print(f"run_bridge_loocv: {n} folds, {BRIDGE_EPOCHS} epochs, IG over "
+          f"{BRIDGE_IG_STEPS} steps, in {seconds:.2f} s, {seconds / n:.3f} s "
+          f"per fold {card}; pooled "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res.loocv_metrics.items())
+          + f"; launches {launches} (the bridge's keys are 2 long: none)")
+    if any(launches.values()):
+        fail(f"the bridge LOOCV launched {launches}")
+
+    real = res.cv.test_weight > 0
+    probs, labels = res.cv.test_probs[real], res.cv.test_labels[real]
+    again = {k: float(v) for k, v in binary_classification_metrics(
+        torch.as_tensor(np.log(np.maximum(probs, 1e-9)), device=dev),
+        torch.as_tensor(labels, device=dev)).items()}
+    acc = float(np.mean(probs.argmax(-1) == labels))
+    print(f"pooled metrics vs a recomputation from cv.test_probs: equal "
+          f"{again == res.loocv_metrics}; accuracy by numpy {acc:.6f}")
+    if again != res.loocv_metrics or abs(acc - again["accuracy"]) > 1e-6:
+        fail("the pooled LOOCV metrics disagree with cv.test_probs")
+
+    model = BridgeFusionNet(eeg_dim=128, fmri_dim=64,
+                            bridge_dim=b.bridge_dim, num_heads=b.num_heads,
+                            dropout=b.dropout, device=dev)
+    xai_ms = []
+    for f in (0, n - 1):
+        (sal, ig), s = timed(lambda: fold_xai(model, res.cv, f, data, dev))
+        xai_ms.append(1e3 * s)
+        gap = max(
+            float(np.abs(res.xai[f"{name}_{k}"][f] - a[k][0].cpu().numpy()
+                         ).max())
+            for name, a in (("saliency", sal), ("ig", ig))
+            for k in ("eeg", "fmri"))
+        print(f"fold {f}: per-fold XAI vs the attribution functions by hand "
+              f"max|d| {gap:.3e} (limit 0); {xai_ms[-1]:.3f} ms by hand "
+              f"{card}")
+        if gap != 0:
+            fail(f"fold {f}'s XAI differs from the hand computation")
+
+    shapes = {k: v.shape for k, v in res.xai.items()}
+    values = [v for r in res.per_subject for k, v in r.items()
+              if k in ("prob_class1", "fusion_weights", "attn_weights")]
+    print(f"records {len(res.per_subject)}, XAI {shapes}; clinical "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res.clinical.items()))
+    if (len(res.per_subject) != n or n != CV_FMRI_N
+            or shapes != {"saliency_eeg": (n, 128), "saliency_fmri": (n, 64),
+                          "ig_eeg": (n, 128), "ig_fmri": (n, 64)}
+            or not all(np.all(np.isfinite(v)) for v in values)
+            or not all(np.all(np.isfinite(v)) for v in res.xai.values())
+            or not all(math.isfinite(v) for v in res.clinical.values())):
+        fail("bridge LOOCV: records, XAI shapes or clinical values")
+    return {"result": res, "model": model, "seconds": seconds,
+            "seconds_per_fold": seconds / n, "fold_xai_ms": xai_ms}
+
+
+def attributions(model, params, stats, inputs: dict, targets, steps: int):
+    """Saliency, gradient×input and IG over ``steps`` on ``model``'s route
+    and device, for explicit target classes."""
+    from multimodal_eeg_fmri_tpu_torch.xai.attribution import (
+        gradient_saliency,
+        gradient_x_input,
+        integrated_gradients,
+        make_apply_fn,
+    )
+
+    apply_fn = make_apply_fn(model, params, stats)
+    t = targets.to(apply_fn.device)
+    return {"saliency": gradient_saliency(apply_fn, inputs, t),
+            "grad_x_input": gradient_x_input(apply_fn, inputs, t),
+            "ig": integrated_gradients(apply_fn, inputs, t, n_steps=steps)}
+
+
+def bridge_explain(s1: dict, card: str) -> dict:
+    """Explainer.explain on the frozen EEG model at T=512: launches held to
+    the counts derived from its structure at IG over 50 and 8 steps (α
+    folded into the batch), its time and busy share; saliency,
+    gradient×input and IG on the kernel route against the einsum route and
+    a CPU copy."""
+    from multimodal_eeg_fmri_tpu_torch.xai.explainer import Explainer
+
+    model, res = s1["eeg_model"], s1["eeg_res"]
+    inputs = {k: s1["eeg"][k][:XAI_ROWS] for k in EEG_KEYS}
+    expected = explain_expected_launches(flash_layers(model, s1["eeg"]))
+    out = {}
+    for steps in (XAI_IG_STEPS, XAI_ROUTE_STEPS):
+        explainer = Explainer(model, res.params, res.batch_stats,
+                              ig_steps=steps)
+        reset_all_launches()
+        result = explainer.explain(inputs)    # counted; warms the shapes
+        launches = total_launches()
+        _, seconds = timed(lambda: explainer.explain(inputs))
+        print(f"Explainer.explain, {XAI_ROWS} subjects, IG over {steps} steps "
+              f"({steps * XAI_ROWS} rows): {1e3 * seconds:.3f} ms {card}; "
+              f"launches {launches} (expected {expected})")
+        if launches != expected:
+            fail(f"explain at {steps} steps launched {launches}, expected "
+                 f"{expected}")
+        if not all(np.all(np.isfinite(v)) for a in (
+                result.saliency, result.grad_x_input,
+                result.integrated_gradients) for v in a.values()):
+            fail("explain: non-finite attributions")
+        out.setdefault("launches", launches)
+        out[f"ms_ig{steps}"] = 1e3 * seconds
+    explainer = Explainer(model, res.params, res.batch_stats,
+                          ig_steps=XAI_IG_STEPS)
+    out["busy"] = profile_calls(lambda: explainer.explain(inputs),
+                                f"Explainer.explain, IG over {XAI_IG_STEPS} "
+                                "steps", card, n=2)
+
+    targets = torch.as_tensor(result.predictions)
+    few = {k: v[:XAI_CPU_ROWS] for k, v in inputs.items()}
+    routes = {
+        "einsum": (attributions(model, res.params, res.batch_stats, inputs,
+                                targets, XAI_ROUTE_STEPS),
+                   attributions(einsum_route(copy.deepcopy(model)),
+                                res.params, res.batch_stats, inputs, targets,
+                                XAI_ROUTE_STEPS)),
+        "cpu": (attributions(model, res.params, res.batch_stats, few,
+                             targets[:XAI_CPU_ROWS], XAI_ROUTE_STEPS),
+                attributions(copy.deepcopy(model).cpu(), on_cpu(res.params),
+                             on_cpu(res.batch_stats), few,
+                             targets[:XAI_CPU_ROWS], XAI_ROUTE_STEPS))}
+    for name in ("saliency", "grad_x_input", "ig"):
+        gaps = {r: rel_gap(k[name], o[name]) for r, (k, o) in routes.items()}
+        print(f"{name}, IG over {XAI_ROUTE_STEPS} steps: kernel route vs "
+              f"einsum route ({XAI_ROWS} subjects) {gaps['einsum']:.3e}, vs "
+              f"CPU ({XAI_CPU_ROWS}) {gaps['cpu']:.3e} of the largest (limit "
+              f"{ATTR_RTOL:g})")
+        if not all(g <= ATTR_RTOL for g in gaps.values()):
+            fail(f"{name}: the kernel route disagrees")
+    return out
+
+
+def shap_case(model, params, stats, template: dict, X, background,
+              n_samples: int) -> tuple:
+    """Kernel SHAP of the class-1 probability on the model's device and on
+    a CPU copy, the same coalitions (numpy, seed 0) on both: (Shapley
+    values, card and CPU; the probabilities of every row the estimator
+    evaluated, card and CPU; seconds on the card)."""
+    from multimodal_eeg_fmri_tpu_torch.xai.shap_kernel import (
+        kernel_shap,
+        make_class_prob_fn,
+    )
+
+    def run(m, p, s):
+        f, rows = make_class_prob_fn(m, p, s, template), []
+
+        def recorded(x):
+            rows.append(f(x))
+            return rows[-1]
+
+        phi = kernel_shap(recorded, X, background, n_samples=n_samples,
+                          rng=np.random.default_rng(0))
+        return phi, np.concatenate(rows)
+
+    (phi, probs), seconds = timed(lambda: run(model, params, stats))
+    phi_cpu, probs_cpu = run(copy.deepcopy(model).cpu(), on_cpu(params),
+                             on_cpu(stats))
+    return phi, phi_cpu, probs, probs_cpu, seconds
+
+
+def bridge_shap(s1: dict, loocv: dict, data: dict, card: str) -> dict:
+    """Kernel SHAP on the bridge (fold 0's class-1 probability, 32
+    subjects, M = 192) and on the frozen EEG model (4 subjects, M =
+    512·18 + 512·75 + 459, one batch of 4·64 coalition rows), card
+    against CPU."""
+    cv = loocv["result"].cv
+    X = np.concatenate([data["eeg"], data["fmri"]], axis=1)
+    phi, phi_cpu, probs, probs_cpu, bridge_s = shap_case(
+        loocv["model"], {k: v[0] for k, v in cv.params.items()},
+        {k: v[0] for k, v in cv.batch_stats.items()},
+        {"eeg": (128,), "fmri": (64,)}, X, X, SHAP_BRIDGE_SAMPLES)
+    gaps = (rel_gap(probs, probs_cpu), rel_gap(phi, phi_cpu))
+    print(f"kernel SHAP, bridge fold 0: {X.shape[0]} subjects, M = "
+          f"{X.shape[1]}, {SHAP_BRIDGE_SAMPLES} coalitions each, in "
+          f"{bridge_s:.3f} s {card}; card vs CPU: probabilities of the "
+          f"{len(probs)} rows {gaps[0]:.3e}, Shapley values {gaps[1]:.3e} "
+          f"of the largest (limit {SHAP_RTOL:g})")
+    if not (max(gaps) <= SHAP_RTOL and np.all(np.isfinite(phi))):
+        fail("kernel SHAP on the bridge: card and CPU disagree")
+
+    eeg, res = s1["eeg"], s1["eeg_res"]
+    n = len(eeg["label"])
+    flat = np.concatenate([eeg[k].reshape(n, -1) for k in EEG_KEYS], axis=1)
+    template = {k: eeg[k].shape[1:] for k in EEG_KEYS}
+    layers = flash_layers(s1["eeg_model"], eeg)
+    reset_all_launches()
+    phi, phi_cpu, probs, probs_cpu, eeg_s = shap_case(
+        s1["eeg_model"], res.params, res.batch_stats, template,
+        flat[:SHAP_EEG_ROWS], flat, SHAP_EEG_SAMPLES)
+    launches = total_launches()
+    # three calls on the card (the samples, the background, the coalition
+    # rows), each one batch; the CPU copy launches nothing
+    expected = {"flash_fwd": 3 * layers, "flash_bwd_dkv": 0,
+                "flash_bwd_dq": 0}
+    gaps = (rel_gap(probs, probs_cpu), rel_gap(phi, phi_cpu))
+    print(f"kernel SHAP, frozen EEG model: {SHAP_EEG_ROWS} subjects, M = "
+          f"{flat.shape[1]}, {SHAP_EEG_SAMPLES} coalitions each "
+          f"({SHAP_EEG_ROWS * SHAP_EEG_SAMPLES} rows in one call), in "
+          f"{eeg_s:.3f} s {card}; launches {launches} (expected {expected}); "
+          f"card vs CPU: probabilities of the {len(probs)} rows "
+          f"{gaps[0]:.3e} of the largest (limit {SHAP_RTOL:g}), Shapley "
+          f"values {gaps[1]:.3e} (the estimator's amplification, not gated)")
+    if launches != expected:
+        fail(f"kernel SHAP on the EEG model launched {launches}")
+    if not (gaps[0] <= SHAP_RTOL and np.all(np.isfinite(phi))):
+        fail("kernel SHAP on the EEG model: card and CPU disagree")
+    return {"bridge_seconds": bridge_s, "eeg_seconds": eeg_s,
+            "launches": launches}
+
+
+def bridge_phase(dev, card: str) -> dict:
+    """The bridge phase: stage 1, extraction and alignment, the bridge
+    LOOCV, the explainer at T=512 and Kernel SHAP. Only epoch counts are
+    cut: stage 1 to 3 epochs and the bridge to 10, from 50 each."""
+    print(f"cuts: stage-1 epochs 50 -> {STAGE1_EPOCHS}, bridge epochs 50 -> "
+          f"{BRIDGE_EPOCHS}; widths, cohorts and IG steps are the JAX "
+          "package's defaults")
+    s1 = bridge_stage1(dev, card)
+    phase("bridge-extract: extract_fused_features and align_bridge_dataset")
+    extracted = bridge_extract(s1, card)
+    data = extracted["data"]
+    phase(f"bridge-loocv: run_bridge_loocv at BridgeConfig's widths, "
+          f"{CV_FMRI_N} folds, {BRIDGE_EPOCHS} epochs")
+    loocv = bridge_loocv(data, dev, card)
+    phase(f"xai-explain-T{T_SERVE}: Explainer.explain on the frozen EEG model")
+    explained = bridge_explain(s1, card)
+    phase("xai-shap: kernel SHAP on the bridge and on the frozen EEG model")
+    shap = bridge_shap(s1, loocv, data, card)
+    print(json.dumps({"bridge": {
+        "stage1_s": s1["seconds"], "extract_ms": extracted["ms"],
+        "loocv_s": loocv["seconds"],
+        "loocv_s_per_fold": loocv["seconds_per_fold"],
+        "fold_xai_ms": loocv["fold_xai_ms"],
+        "explain_ms_ig50": explained[f"ms_ig{XAI_IG_STEPS}"],
+        "explain_ms_ig8": explained[f"ms_ig{XAI_ROUTE_STEPS}"],
+        "explain_busy": explained["busy"],
+        "shap_bridge_s": shap["bridge_seconds"],
+        "shap_eeg_s": shap["eeg_seconds"], "device": card}}))
+    return {"bridge-extract": extracted["launches"],
+            f"xai-explain-T{T_SERVE}": explained["launches"],
+            "xai-shap-eeg": shap["launches"]}
+
+
 def main() -> None:
     # deterministic cuBLAS for the resume phase; read when cuBLAS starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1675,6 +2123,30 @@ def main() -> None:
         if cdt == torch.float32:
             worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e_dkv)
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e_dq)
+
+    phase(f"K1, K2 and K3 past gridDim.y's limit: (B,H,T,D)={GRID_CASE}, "
+          f"B·H = {GRID_CASE[0] * GRID_CASE[1]:,}")
+    B, H, T, d = GRID_CASE
+    q, k, v, g = (torch.randn(B, H, T, d, device=dev, generator=gen)
+                  for _ in range(4))
+    out_k, lse_k = flash_forward_cuda(q, k, v)
+    out_p, lse_p = flash_forward_plain(q, k, v)
+    delta = flash_delta(out_p, g)
+    dk_k, dv_k = flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta)
+    dq_k = flash_bwd_dq_cuda(q, k, v, g, lse_p, delta)
+    dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, g, lse_p, delta)
+    dq_p = flash_bwd_dq_plain(q, k, v, g, lse_p, delta)
+    torch.cuda.synchronize()
+    e_fwd = max((out_k - out_p).abs().max().item(),
+                (lse_k - lse_p).abs().max().item())
+    e_bwd = max((a - b).abs().max().item()
+                for a, b in ((dk_k, dk_p), (dv_k, dv_p), (dq_k, dq_p)))
+    print(f"max|d(O, lse)|={e_fwd:.3e} (limit {KERNEL_ATOL:g}), "
+          f"max|d(dQ, dK, dV)|={e_bwd:.3e} (limit {GRAD_ATOL:g})")
+    if not (e_fwd <= KERNEL_ATOL and e_bwd <= GRAD_ATOL):
+        fail(f"the kernels disagree with their plain versions at {GRID_CASE}")
+    del q, k, v, g, out_k, out_p, delta, dk_k, dv_k, dq_k, dk_p, dv_p, dq_p
+    torch.cuda.empty_cache()
 
     phase(f"fault C5: K2 and K3 in the bf16-operand mode at "
           f"{C5_CASE}, over {C5_SEEDS} seeds of g_lse")
@@ -2237,6 +2709,9 @@ def main() -> None:
     phase(f"cv: train/cv.py on the card {card}")
     cv = cv_phase(dev, card)
 
+    phase(f"bridge: xai/ and train/bridge_flow.py on the card {card}")
+    bridge = bridge_phase(dev, card)
+
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     print(json.dumps({"kernels": [{
         "name": name,
@@ -2244,9 +2719,11 @@ def main() -> None:
         "source": source[name],
         "replaces": replaces[name],
         "launches": train_launches[name],
-        # each path's launches: the training path's, and run_cv's
+        # each path's launches: the training path's, run_cv's and the
+        # bridge phase's
         "launches_by_path": {"train-e2e-T512": train_launches[name],
-                             "cv-eeg-kfold-T512": cv["launches"][name]},
+                             "cv-eeg-kfold-T512": cv["launches"][name],
+                             **{path: n[name] for path, n in bridge.items()}},
         "max_abs_err": worst[name],
         **timings(per_step[name, "f32"]),
         # the mixed-precision fit's launches by storage, and the

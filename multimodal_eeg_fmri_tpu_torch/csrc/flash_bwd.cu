@@ -16,8 +16,8 @@
 // dQ into rows that every other key tile's block also writes (atomics, in an
 // order that changes from run to run); one that owns a query tile would do
 // the same for dK/dV. Two kernels let each block own its output rows: K2 one
-// block per (64-key tile, b*h) looping over query tiles, K3 one block per
-// (64-query tile, b*h) looping over key tiles. Each writes its rows once, in
+// block per (b*h, 64-key tile) looping over query tiles, K3 one block per
+// (b*h, 64-query tile) looping over key tiles. Each writes its rows once, in
 // f32 sums taken in a fixed order, at the price of computing S and dP twice.
 //
 // Design, as opposed to the TPU original: the TPU streams the non-resident
@@ -87,9 +87,9 @@ constexpr size_t dq_smem_bytes() {
     return sizeof(T) * (size_t)(2 * BQ + 4 * BK) * pitch<D, T>();
 }
 
-// K2: one block per (64-key tile, batch*head), 16 keys a warp; query tiles
-// stream. At least one block an SM, as K1 (flash_fwd.cu): registers before
-// occupancy.
+// K2: one block per (batch*head on grid x, 64-key tile on y), 16 keys a
+// warp; query tiles stream. At least one block an SM, as K1 (flash_fwd.cu):
+// registers before occupancy.
 template <int D, typename T, bool BF16_OPS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -116,9 +116,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int bh = blockIdx.y;
+    const int bh = blockIdx.x;         // B·H on x, up to 2^31 − 1 blocks
     const int b = bh / H, h = bh % H;
-    const int k0 = blockIdx.x * BK;
+    const int k0 = blockIdx.y * BK;
     const T* qb = q + b * qsb + h * qsh;
     const T* gb = dout + b * gsb + h * gsh;
     const float* lse_bh = lse + (int64_t)bh * Tq;
@@ -255,8 +255,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// K3: one block per (64-query tile, batch*head), 16 queries a warp; key
-// tiles stream, double-buffered. At least one block an SM, as K1 and K2.
+// K3: one block per (batch*head on grid x, 64-query tile on y), 16 queries
+// a warp; key tiles stream, double-buffered. At least one block an SM, as
+// K1 and K2.
 template <int D, typename T, bool BF16_OPS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -281,9 +282,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int bh = blockIdx.y;
+    const int bh = blockIdx.x;         // B·H on x, up to 2^31 − 1 blocks
     const int b = bh / H, h = bh % H;
-    const int q0 = blockIdx.x * BQ;
+    const int q0 = blockIdx.y * BQ;
     const T* kb = k + b * ksb + h * ksh;
     const T* vb = v + b * vsb + h * vsh;
     const T* sQw = sQ + warp * 16 * LD;  // the warp's 16 query rows
@@ -429,7 +430,7 @@ cudaError_t launch_dkv(const Args& a) {
     if (err != cudaSuccess) return err;
     const int64_t* st = a.st;
     const void* inputs[] = {a.q, a.k, a.v, a.dout};
-    dim3 grid((a.Tk + BK - 1) / BK, a.B * a.H);
+    dim3 grid(a.B * a.H, (a.Tk + BK - 1) / BK);
     kernel<<<grid, THREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -450,7 +451,7 @@ cudaError_t launch_dq(const Args& a) {
     if (err != cudaSuccess) return err;
     const int64_t* st = a.st;
     const void* inputs[] = {a.q, a.k, a.v, a.dout};
-    dim3 grid((a.Tq + BQ - 1) / BQ, a.B * a.H);
+    dim3 grid(a.B * a.H, (a.Tq + BQ - 1) / BQ);
     kernel<<<grid, THREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -475,7 +476,9 @@ cudaError_t by_head_dim(int D, const Args& a) {
 
 template <bool DKV>
 int dispatch(int D, int is_bf16, int bf16_ops, const Args& a) {
-    if (a.B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0 || a.B * a.H > 65535)
+    if (a.B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0
+        || (int64_t)a.B * a.H > INT32_MAX || (a.Tq + BQ - 1) / BQ > 65535
+        || (a.Tk + BK - 1) / BK > 65535)
         return (int)cudaErrorInvalidValue;
     if (is_bf16)
         return (int)(bf16_ops ? by_head_dim<DKV, __nv_bfloat16, true>(D, a)

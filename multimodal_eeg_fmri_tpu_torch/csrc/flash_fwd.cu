@@ -88,9 +88,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int bh = blockIdx.y;
+    const int bh = blockIdx.x;         // B·H on x, up to 2^31 − 1 blocks
     const int b = bh / H, h = bh % H;
-    const int q0 = blockIdx.x * BQ;
+    const int q0 = blockIdx.y * BQ;
     const T* kb = k + b * ksb + h * ksh;
     const T* vb = v + b * vsb + h * vsh;
     const T* sQw = sQ + warp * 16 * LD;  // the warp's 16 query rows
@@ -228,7 +228,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
         configured = true;
     }
     const void* inputs[] = {q, k, v};
-    dim3 grid((Tq + BQ - 1) / BQ, B * H);
+    dim3 grid(B * H, (Tq + BQ - 1) / BQ);
     kernel<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), H, Tq, Tk,
@@ -261,7 +261,8 @@ extern "C" int mmef_flash_fwd(const void* q, const void* k, const void* v, void*
                               void* lse, int B, int H, int Tq, int Tk, int D,
                               int is_bf16, int bf16_ops, const int64_t* strides,
                               void* stream) {
-    if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || B * H > 65535)
+    if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || (int64_t)B * H > INT32_MAX
+        || (Tq + BQ - 1) / BQ > 65535)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (is_bf16)

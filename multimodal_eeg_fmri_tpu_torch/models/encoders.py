@@ -7,6 +7,8 @@ constructor arguments, with the serving shapes' widths as defaults.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -86,6 +88,11 @@ class MultiScaleConv(nn.Module):
         f = branch_features
         self.kernel = nn.Parameter(torch.empty(7, in_channels, 3 * f,
                                                device=device))
+        # torch's default for a conv weight, as nn.Conv1d draws it:
+        # U(±1/√fan_in) over the 7·C_in taps (convert.init_weights draws
+        # flax's)
+        bound = 1.0 / math.sqrt(7 * in_channels)
+        nn.init.uniform_(self.kernel, -bound, bound)
         self.bias = nn.Parameter(torch.zeros(3 * f, device=device))
         self.bn = batch_norm(3 * f, device)
         # branch 0 sees taps 2..4, branch 1 taps 1..5, branch 2 all seven

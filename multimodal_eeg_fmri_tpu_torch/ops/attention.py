@@ -137,7 +137,10 @@ def _check_kernel_inputs(name, q, k, v, compute_dtype, *extra):
                          f"{[tuple(t.shape) for t in extra]} disagree")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {KERNEL_HEAD_DIMS}")
-    if min(B, H, Tq, Tk) < 1 or B * H > 65535:
+    # B·H runs on the grid's x axis (2^31 − 1 blocks), the 64-row tiles of
+    # Tq and Tk on its y axis (65,535)
+    if (min(B, H, Tq, Tk) < 1 or B * H > 2**31 - 1
+            or max(Tq, Tk) > 65535 * 64):
         raise ValueError(f"unsupported sizes B={B} H={H} Tq={Tq} Tk={Tk}")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("the head dim of every kernel input must be "

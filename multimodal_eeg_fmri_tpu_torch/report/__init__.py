@@ -1,5 +1,6 @@
 """Reports of the port: metrics on the device, calibration, conformal
-sets, the per-fold clinical report and statistical tests."""
+sets, the per-fold clinical report, statistical tests and the exports
+(CSV, NPZ, text; ``plots`` holds the matplotlib figures)."""
 
 from multimodal_eeg_fmri_tpu_torch.report.calibration import (
     brier_score,
@@ -18,6 +19,14 @@ from multimodal_eeg_fmri_tpu_torch.report.conformal import (
     conformal_calibrate,
     conformal_sets,
     coverage_and_size,
+)
+from multimodal_eeg_fmri_tpu_torch.report.export import (
+    export_cv_results,
+    export_per_subject_records,
+    export_xai_arrays,
+    results_dataframe,
+    summary_dataframe,
+    write_analysis_report,
 )
 from multimodal_eeg_fmri_tpu_torch.report.metrics import (
     accuracy,
@@ -48,6 +57,9 @@ __all__ = [
     "coverage_and_size",
     "evaluate_late_fusion",
     "expected_calibration_error",
+    "export_cv_results",
+    "export_per_subject_records",
+    "export_xai_arrays",
     "fit_temperature",
     "fit_temperature_ensemble",
     "late_fusion_probs",
@@ -57,6 +69,9 @@ __all__ = [
     "precision_recall_f1",
     "regression_metrics",
     "reliability_curve",
+    "results_dataframe",
     "softmax_probs",
+    "summary_dataframe",
     "threshold_sweep",
+    "write_analysis_report",
 ]

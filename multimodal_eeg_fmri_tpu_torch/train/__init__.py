@@ -1,7 +1,14 @@
 """Training of the port: ``make_fit_fn`` / ``fit`` and their train step,
-evaluation, the ``Trainer`` class, chunked ``fit_resumable`` and the
-cross-validation runs (``cv``)."""
+evaluation, the ``Trainer`` class, chunked ``fit_resumable``, the
+cross-validation runs (``cv``) and the two-stage bridge pipeline
+(``bridge_flow``)."""
 
+from multimodal_eeg_fmri_tpu_torch.train.bridge_flow import (
+    BridgeResult,
+    align_bridge_dataset,
+    extract_fused_features,
+    run_bridge_loocv,
+)
 from multimodal_eeg_fmri_tpu_torch.train.cv import (
     CVResult,
     build_fold_arrays,
@@ -36,16 +43,19 @@ from multimodal_eeg_fmri_tpu_torch.train.resilient import (
 from multimodal_eeg_fmri_tpu_torch.train.trainer import Trainer
 
 __all__ = [
+    "BridgeResult",
     "CVResult",
     "RESERVED_KEYS",
     "FitCarry",
     "FitResult",
     "TrainStep",
     "Trainer",
+    "align_bridge_dataset",
     "apply_model",
     "build_fold_arrays",
     "eeg_kfold_splits",
     "evaluate_dataset",
+    "extract_fused_features",
     "fit",
     "fit_resumable",
     "fmri_kfold_splits",
@@ -55,6 +65,7 @@ __all__ = [
     "loso_splits",
     "make_fit_fn",
     "predict_probs",
+    "run_bridge_loocv",
     "run_cv",
     "run_model_suite",
     "run_seed_sweep",

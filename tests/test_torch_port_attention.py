@@ -128,9 +128,19 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.report.calibration, "
             "multimodal_eeg_fmri_tpu_torch.report.conformal, "
             "multimodal_eeg_fmri_tpu_torch.report.clinical, "
-            "multimodal_eeg_fmri_tpu_torch.train.cv\n"
+            "multimodal_eeg_fmri_tpu_torch.train.cv, "
+            "multimodal_eeg_fmri_tpu_torch.train.bridge_flow, "
+            "multimodal_eeg_fmri_tpu_torch.xai, "
+            "multimodal_eeg_fmri_tpu_torch.xai.montage, "
+            "multimodal_eeg_fmri_tpu_torch.xai.analysis, "
+            "multimodal_eeg_fmri_tpu_torch.xai.attribution, "
+            "multimodal_eeg_fmri_tpu_torch.xai.shap_kernel, "
+            "multimodal_eeg_fmri_tpu_torch.xai.explainer, "
+            "multimodal_eeg_fmri_tpu_torch.report.export, "
+            "multimodal_eeg_fmri_tpu_torch.report.plots\n"
             "bad = [m for m in ('jax', 'flax', 'optax', "
-            "'multimodal_eeg_fmri_tpu', 'sklearn') if m in sys.modules]\n"
+            "'multimodal_eeg_fmri_tpu', 'sklearn', 'pandas', 'matplotlib') "
+            "if m in sys.modules]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

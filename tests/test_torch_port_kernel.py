@@ -194,6 +194,25 @@ def test_backward_kernels_match_plain(cuda_device, case, compute_dtype, atol):
 
 
 @pytest.mark.cuda
+def test_kernels_launch_past_the_grid_y_limit(cuda_device):
+    """B·H = 65,600 rows of blocks, past gridDim.y's 65,535: B·H runs on the
+    grid's x axis, so K1, K2 and K3 launch and agree with their plain
+    versions (the batch of integrated gradients at 50 steps over 328
+    subjects, or of Kernel SHAP's coalitions)."""
+    case = (16400, 4, 64, 64, 32)
+    q, k, v, out, lse, g = _backward_inputs(cuda_device, case, torch.float32)
+    out_k, lse_k = flash_forward_cuda(q, k, v)
+    torch.testing.assert_close(out_k, out, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse_k, lse, atol=2e-5, rtol=0)
+    got = flash_backward_cuda(q, k, v, out, lse, g)
+    want = flash_backward_plain(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=0,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
 def test_backward_kernels_take_bf16_storage(cuda_device):
     q, k, v, out, lse, g = (t.bfloat16() if t.dim() == 4 else t
                             for t in _backward_inputs(
