@@ -97,6 +97,24 @@ route and a CPU copy within 1e-4 of the largest; Kernel SHAP on the bridge
 (M = 192) and on the frozen EEG model (M = 48,075, 256 coalition rows in
 one batch) holds to a CPU copy within 1e-5. A ``bridge`` JSON line holds
 the timings.
+Last, the serving slice (the serving phase: the rest of ``serving.py``,
+``core/quantize.py``, ``report/uncertainty.py`` and ``report/drift.py``) at
+MultimodalEndToEnd's defaults, T=512, batch 8, five members from five
+seeds (member 0 trained 6 epochs on a separable cohort): gate a, a
+``from_checkpoint`` round trip bit for bit; gate b, ``EnsemblePredictor``
+against a host loop of five ``Predictor``s within 1e-5 for each reduction
+(votes exactly), K1 launched 4 times per served batch (the member axis
+folded into one launch per layer), and K1 on the folded (40, 4, 512, 32)
+batch within 2e-5 of its plain version, with what the operator's dispatch
+costs the host per call; gate c, exported programs of the
+predictor and the ensemble, loaded again, within 1e-6 and launching K1;
+gate d, int8 and int4 payloads written and served on the card within the
+JAX tests' drift bounds (0.05, 0.15) with the same decisions, the int8 one
+over 3× smaller; gate e, ``calibrated``; gate f, ``DynamicBatcher``: 32
+threads' rows equal to the direct call, fewer calls than rows,
+``QueueFull`` under a burst, ``close()`` draining; gate g, the ensemble's
+uncertainty and a drift monitor on the card. A ``serving`` JSON line holds
+the timings.
 Any failed phase raises, so the exit code is not 0 and the final line is
 not printed.
 There is no CPU mode: without a GPU the script fails at once.
@@ -118,6 +136,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -2019,6 +2038,509 @@ def bridge_phase(dev, card: str) -> dict:
             "xai-shap-eeg": shap["launches"]}
 
 
+# --- the serving slice ----------------------------------------------------
+SERVE_MEMBERS = 5                 # the 5-fold protocol's fold models
+SERVE_EPOCHS = 6                  # member 0's fit on a separable cohort
+SERVE_ATOL = 1e-5                 # ensemble vs a host loop, of the largest
+EXPORT_ATOL = 1e-6                # exported program vs the live predictor
+# tests/test_quantize.py:107,167: drift of the served probabilities
+QUANT_DRIFT = {8: 0.05, 4: 0.15}
+QUANT_MIN_RATIO = 3.0             # f32 bytes over the int8 payload's
+BATCHER_ROWS, QUEUE_BURST, MAX_QUEUE = 32, 32, 4
+# tests/test_drift.py:69-91: a 2σ shift alarms within 30 samples
+DRIFT_FEATURES, DRIFT_NULL, DRIFT_SHIFTED, DRIFT_DELAY = 8, 150, 60, 30
+WAIT_S = 60.0                     # any thread's longest wait
+
+
+def separable(n: int, T: int, seed: int) -> dict:
+    """``request`` rows with labels half of each class and every modality
+    shifted by ±1 with its class, so that a short fit learns them."""
+    data = request(n, T, seed)
+    label = np.arange(n) % 2
+    sign = (2.0 * label - 1.0).astype(np.float32)
+    data = {k: v + sign.reshape((n,) + (1,) * (v.ndim - 1))
+            for k, v in data.items()}
+    data["label"] = label.astype(np.int64)
+    data["weight"] = np.ones(n, np.float32)
+    return data
+
+
+def serve_members(dev) -> list:
+    """Five full-width members from five seeds; member 0 trained
+    ``SERVE_EPOCHS`` epochs on a separable cohort, so that its decisions hold a margin for the
+    quantized payloads' argmax gate."""
+    from multimodal_eeg_fmri_tpu_torch import (
+        MultimodalEndToEnd,
+        TrainConfig,
+        init_weights,
+        make_fit_fn,
+    )
+
+    members = [init_weights(MultimodalEndToEnd(device=dev),
+                            torch.Generator().manual_seed(100 + k))
+               for k in range(SERVE_MEMBERS)]
+    cohort, val = ({k: torch.as_tensor(v, device=dev) for k, v in
+                    separable(n, T_SERVE, seed=seed).items()}
+                   for n, seed in ((32, 40), (16, 41)))
+    make_fit_fn(members[0], TrainConfig(batch_size=BATCH,
+                                        num_epochs=SERVE_EPOCHS,
+                                        learning_rate=1e-3),
+                eval_names=("val",))(0, cohort, {"val": val},
+                                     torch.ones(2, device=dev))
+    return members
+
+
+def serve_gate_ensemble(members, rows: dict, card: str) -> dict:
+    """Gate b: each reduction against a host loop of K ``Predictor``s, and
+    K1's launches per served batch."""
+    from multimodal_eeg_fmri_tpu_torch import Predictor
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        reset_kernel_launches,
+    )
+    from multimodal_eeg_fmri_tpu_torch.serving import EnsemblePredictor
+
+    loop = np.stack([Predictor(m, BATCH)(**rows) for m in members])
+    votes = np.eye(loop.shape[-1], dtype=np.float32)[loop.argmax(-1)]
+    want = {"mean_probs": loop.mean(0), "vote": votes.mean(0), "none": loop}
+    ensembles, errs = {}, {}
+    for reduce, expect in want.items():
+        ens = EnsemblePredictor.from_modules(members, batch_size=BATCH,
+                                             reduce=reduce)
+        reset_kernel_launches()
+        got = ens(**rows)
+        torch.cuda.synchronize()
+        launches = total_launches()
+        if launches != {"flash_fwd": 4, "flash_bwd_dkv": 0,
+                        "flash_bwd_dq": 0}:
+            fail(f"EnsemblePredictor({SERVE_MEMBERS}, {reduce}) launched "
+                 f"{launches} for one batch; expected 4 flash_fwd (the "
+                 "member axis folded into each launch)")
+        errs[reduce] = float(np.abs(got - expect).max())
+        limit = 0.0 if reduce == "vote" else SERVE_ATOL * np.abs(
+            expect).max()
+        if got.shape != expect.shape or not errs[reduce] <= limit:
+            fail(f"ensemble {reduce}: shape {got.shape}, max|d| "
+                 f"{errs[reduce]:.3e} against the host loop (limit "
+                 f"{limit:.1e})")
+        ensembles[reduce] = ens
+    print(f"gate b: EnsemblePredictor(K={SERVE_MEMBERS}) vs a loop of "
+          f"{SERVE_MEMBERS} Predictors, max|d| {errs} (limit {SERVE_ATOL:g} "
+          f"of the largest, votes exact); 4 flash_fwd launches per batch, "
+          f"not {4 * SERVE_MEMBERS}")
+    return ensembles
+
+
+def serve_gate_folded_k1(dev, card: str) -> dict:
+    """K1 reached through vmap over the members at the ensemble's shape:
+    one launch on the folded (K·B, 4, 512, 32) batch, held against the
+    plain version there; its times beside its bound and SDPA's."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        flash_attention_lse,
+        flash_forward_cuda,
+        flash_forward_plain,
+        reset_kernel_launches,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    K, H, d = SERVE_MEMBERS, 4, 32
+    q, k, v = (torch.randn(K, BATCH, H, T_SERVE, d, device=dev,
+                           generator=gen) for _ in range(3))
+    reset_kernel_launches()
+    with torch.inference_mode():
+        out, lse = torch.func.vmap(flash_attention_lse)(q, k, v)
+    torch.cuda.synchronize()
+    if total_launches()["flash_fwd"] != 1:
+        fail(f"vmap over {K} members launched K1 {total_launches()} times")
+    folded = [t.reshape(K * BATCH, H, T_SERVE, d) for t in (q, k, v)]
+    out_p, lse_p = flash_forward_plain(*folded)
+    err = max(float((out.reshape(out_p.shape) - out_p).abs().max()),
+              float((lse.reshape(lse_p.shape) - lse_p).abs().max()))
+    shape = (K * BATCH, H, T_SERVE, d)
+    print(f"K1 under vmap on the folded {shape}: max|d| {err:.3e} against "
+          f"flash_forward_plain (limit {KERNEL_ATOL:g})")
+    if not err <= KERNEL_ATOL:
+        fail("K1 on the folded ensemble batch disagrees with its plain "
+             "version")
+    ms, plain_ms = in_turns(lambda: cuda_ms(lambda: flash_forward_cuda(
+        *folded)), lambda: cuda_ms(lambda: flash_forward_plain(*folded)))
+    dev_ms = device_ms(lambda: flash_forward_cuda(*folded))
+    lib_ms = cuda_ms(lambda: sdpa(*folded))
+    b_ms, by = bound_ms("flash_fwd", K * BATCH, H, T_SERVE, T_SERVE, d)
+    print(f"flash_fwd {shape} f32: kernel {ms:.4f} ms (device {dev_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+          f"library (SDPA forward) {lib_ms:.4f} ms per call {card}")
+    return {"shape": list(shape), "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def serve_dispatch_cost(dev, card: str) -> dict:
+    """What reaching K1-K3 through the operators costs the host, at the
+    serving shape (8, 4, 512, 32), where a call is host-bound: wall time
+    per call (CUDA events around the calls) of ``flash_attention`` against
+    the wrapper ``flash_forward_cuda`` itself, in inference; and a forward
+    and backward through autograd, by the port's route (the operators
+    inside ``_FlashAttention``) against the same autograd wiring calling the
+    wrappers directly, as before the operators, and against K1, K2 and K3
+    called by hand."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_backward_cuda,
+        flash_forward_cuda,
+    )
+
+    class Wrappers(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = flash_forward_cuda(q, k, v)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, out, lse = ctx.saved_tensors
+            return flash_backward_cuda(q, k, v, out, lse, g.contiguous())
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, g = (torch.randn(BATCH, 4, T_SERVE, 32, device=dev,
+                              generator=gen) for _ in range(4))
+    with torch.inference_mode():
+        op_ms, wrapper_ms = in_turns(
+            lambda: cuda_ms(lambda: flash_attention(q, k, v), iters=500),
+            lambda: cuda_ms(lambda: flash_forward_cuda(q, k, v), iters=500))
+    qg = q.clone().requires_grad_()
+
+    def by_hand():
+        out, lse = flash_forward_cuda(q, k, v)
+        flash_backward_cuda(q, k, v, out, lse, g)
+
+    ops_ms, wired_ms = in_turns(
+        lambda: cuda_ms(lambda: torch.autograd.backward(
+            flash_attention(qg, k, v), g)),
+        lambda: cuda_ms(lambda: torch.autograd.backward(
+            Wrappers.apply(qg, k, v), g)))
+    hand_ms = cuda_ms(by_hand)
+    print(f"K1 through the operator, (8, 4, 512, 32), inference: "
+          f"{op_ms:.4f} ms a call, the wrapper alone {wrapper_ms:.4f} ms; "
+          f"forward and backward through autograd: the operators "
+          f"{ops_ms:.4f} ms, the wrappers {wired_ms:.4f} ms, K1+K2+K3 by "
+          f"hand {hand_ms:.4f} ms {card}")
+    return {"op_call_ms": op_ms, "wrapper_call_ms": wrapper_ms,
+            "autograd_ops_fwd_bwd_ms": ops_ms,
+            "autograd_wrappers_fwd_bwd_ms": wired_ms,
+            "kernels_by_hand_fwd_bwd_ms": hand_ms}
+
+
+def serve_gate_exports(live, ensemble, rows: dict, tmp: Path) -> None:
+    """Gate c: each exported program, loaded again, equals its live
+    predictor and launches K1 inside its own call."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        reset_kernel_launches,
+    )
+    from multimodal_eeg_fmri_tpu_torch.serving import load_artifact
+
+    for name, served in (("Predictor", live), ("EnsemblePredictor",
+                                               ensemble)):
+        path = tmp / f"{name}.pt2"
+        size = len(served.export_artifact(rows, path))
+        fn = load_artifact(path)
+        want = served(**rows)
+        reset_kernel_launches()
+        got = fn(**rows)
+        torch.cuda.synchronize()
+        n = total_launches()["flash_fwd"]
+        err = float(np.abs(got - want).max())
+        print(f"gate c: exported {name} ({size} bytes), loaded again: "
+              f"max|d| {err:.3e} (limit {EXPORT_ATOL:g}), {n} flash_fwd "
+              "launches inside its call")
+        if not (err <= EXPORT_ATOL and n == 4):
+            fail(f"the exported {name} disagrees or did not launch K1")
+
+
+def serve_gate_quantized(dev, model, val: dict, tmp: Path) -> None:
+    """Gate d: int8 and int4 payloads of the card model, written by the
+    port, served on the card within the JAX tests' drift bounds with the
+    same decisions; the int8 payload over 3× smaller than f32."""
+    from multimodal_eeg_fmri_tpu_torch import MultimodalEndToEnd, Predictor
+    from multimodal_eeg_fmri_tpu_torch.convert import (
+        flax_variables_from_module,
+    )
+    from multimodal_eeg_fmri_tpu_torch.core.quantize import save_quantized
+
+    variables = flax_variables_from_module(model)
+    f32_bytes = sum(a.nbytes for tree in variables.values()
+                    for a in _leaves(tree))
+    ref = Predictor(model, BATCH)(**val)
+    for bits in (8, 4):
+        path = save_quantized(tmp / f"int{bits}", variables, bits=bits)
+        served = Predictor.from_quantized(MultimodalEndToEnd(device=dev),
+                                          path, batch_size=BATCH)
+        if served.device != next(model.parameters()).device:
+            fail("the quantized predictor is not on the card")
+        got = served(**val)
+        drift = float(np.abs(got - ref).max())
+        same = bool(np.array_equal(got.argmax(-1), ref.argmax(-1)))
+        ratio = f32_bytes / path.stat().st_size
+        print(f"gate d: int{bits} payload {path.stat().st_size} bytes "
+              f"({ratio:.2f}x smaller than f32), served on the card: "
+              f"max|d| {drift:.3e} (limit {QUANT_DRIFT[bits]}), same "
+              f"decisions {same}; f32 margins: min |p1-p0| "
+              f"{np.abs(ref[:, 1] - ref[:, 0]).min():.3f}")
+        if not (drift < QUANT_DRIFT[bits] and same):
+            fail(f"the int{bits} payload drifts past its bound or flips a "
+                 "decision")
+        if bits == 8 and not ratio > QUANT_MIN_RATIO:
+            fail(f"the int8 payload is only {ratio:.2f}x smaller than f32")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def serve_gate_calibrated(live, val: dict) -> float:
+    """Gate e: a finite T > 0 and the calibrated forward softmax(z/T)."""
+    from multimodal_eeg_fmri_tpu_torch import Predictor
+
+    cal = live.calibrated(val, val["label"])
+    t = cal.temperature
+    logits = Predictor(live.model, BATCH, return_probs=False)(**val)
+    want = torch.softmax(torch.from_numpy(logits) / t, -1).numpy()
+    err = float(np.abs(cal(**val) - want).max())
+    print(f"gate e: calibrated T = {t:.6f}; forward vs softmax(z/T): max|d| "
+          f"{err:.3e} (limit {EXPORT_ATOL:g})")
+    if not (math.isfinite(t) and t > 0 and err <= EXPORT_ATOL):
+        fail("calibration gave a bad temperature or forward")
+    return t
+
+
+def _threads(fn, n: int) -> None:
+    """Run ``fn(i)`` on ``n`` threads and raise the first exception any of
+    them raised once all have joined (or hung past ``WAIT_S``)."""
+    errors = []
+
+    def run(i):
+        try:
+            fn(i)
+        except BaseException as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(WAIT_S)
+        if t.is_alive():
+            fail("a request thread hung")
+    if errors:
+        raise errors[0]
+
+
+def serve_gate_batcher(live, card: str) -> float:
+    """Gate f: 32 one-row requests from 32 threads equal the direct call
+    in fewer calls than rows; a burst past ``max_queue`` gets
+    ``QueueFull``; ``close()`` drains what was accepted."""
+    from multimodal_eeg_fmri_tpu_torch.serving import (
+        DynamicBatcher,
+        QueueFull,
+    )
+
+    rows = request(BATCHER_ROWS, T_SERVE, seed=60)
+    direct = live(**rows)
+    out = {}
+
+    def one(b, i):
+        out[i] = b(**{k: v[i:i + 1] for k, v in rows.items()})
+
+    with DynamicBatcher(live, max_delay_ms=5.0, max_batch=BATCH,
+                        timeout_s=WAIT_S) as b:
+        t0 = time.perf_counter()
+        _threads(lambda i: one(b, i), BATCHER_ROWS)
+        rows_per_s = BATCHER_ROWS / (time.perf_counter() - t0)
+        batches = b.batches
+    if not all(np.array_equal(out[i], direct[i:i + 1])
+               for i in range(BATCHER_ROWS)):
+        fail("a batched row differs from the direct call")
+    print(f"gate f: {BATCHER_ROWS} threads, one row each: rows equal the "
+          f"direct call; {batches} calls, {BATCHER_ROWS / batches:.2f} rows "
+          f"per call; {rows_per_s:.1f} rows/s {card}")
+    if not batches < BATCHER_ROWS:
+        fail("the batcher coalesced nothing")
+
+    # a burst while the first call is held: the queue takes MAX_QUEUE rows
+    release = threading.Event()
+
+    def held(**inputs):
+        release.wait(WAIT_S)
+        return live(**inputs)
+
+    served, rejected = {}, []
+    b = DynamicBatcher(held, max_delay_ms=1.0, max_batch=4,
+                       max_queue=MAX_QUEUE, timeout_s=WAIT_S)
+
+    def burst(i):
+        try:
+            served[i] = b(**{k: v[i:i + 1] for k, v in rows.items()})
+        except QueueFull:
+            rejected.append(i)
+
+    threads = [threading.Thread(target=burst, args=(i,))
+               for i in range(QUEUE_BURST)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + WAIT_S
+    while (len(rejected) < QUEUE_BURST - 4 - MAX_QUEUE
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    release.set()
+    b.close()   # drains the accepted requests
+    for t in threads:
+        t.join(WAIT_S)
+        if t.is_alive():
+            fail("a burst thread hung")
+    print(f"burst of {QUEUE_BURST} against max_queue={MAX_QUEUE}: "
+          f"{len(rejected)} QueueFull, {len(served)} served after close()")
+    if not (rejected and b.rejected == len(rejected)
+            and len(served) + len(rejected) == QUEUE_BURST and all(
+                np.array_equal(v, direct[i:i + 1])
+                for i, v in served.items())):
+        fail("backpressure or the drain on close() misbehaved")
+    return rows_per_s
+
+
+def serve_gate_monitoring(dev, ensemble_none, rows: dict) -> None:
+    """Gate g: the members' uncertainty from the card's outputs, and a
+    drift monitor on the card over a replayed stream with a 2σ shift on
+    one feature."""
+    from multimodal_eeg_fmri_tpu_torch.report.drift import (
+        make_drift_monitor,
+    )
+    from multimodal_eeg_fmri_tpu_torch.report.uncertainty import (
+        ensemble_uncertainty,
+    )
+
+    members = torch.as_tensor(ensemble_none(**rows), device=dev)
+    unc = ensemble_uncertainty(members)
+    if not all(bool(torch.isfinite(v).all()) for v in unc.values()) or bool(
+            (unc["mutual_information"] < 0).any()):
+        fail(f"uncertainty not finite or BALD < 0: {unc}")
+    r = np.random.default_rng(70)
+    ref = r.standard_normal((5000, DRIFT_FEATURES)).astype(np.float32)
+    stream = r.standard_normal((DRIFT_NULL + DRIFT_SHIFTED,
+                                DRIFT_FEATURES)).astype(np.float32)
+    stream[DRIFT_NULL:, 3] += 2.0
+    init, step = make_drift_monitor(torch.as_tensor(ref.mean(0), device=dev),
+                                    ref.std(0), k=0.5, h=8.0)
+    state, alarms = init(), []
+    for x in torch.as_tensor(stream, device=dev):
+        state, out = step(state, x)
+        alarms.append(out["per_feature"])
+    alarms = torch.stack(alarms).cpu().numpy()
+    hits = np.nonzero(alarms[DRIFT_NULL:].any(-1))[0]
+    delay = int(hits[0]) if len(hits) else DRIFT_NULL + DRIFT_SHIFTED
+    named = (np.nonzero(alarms[DRIFT_NULL + delay])[0].tolist()
+             if len(hits) else [])
+    print(f"gate g: BALD {unc['mutual_information'].cpu().numpy().round(5)}"
+          f", disagreement {unc['disagreement'].cpu().numpy()}; drift on "
+          f"{state.n.device}: {int(alarms[:DRIFT_NULL].sum())} alarms before "
+          f"the shift, the first after it in {delay} samples (limit "
+          f"{DRIFT_DELAY}) naming features {named}")
+    if alarms[:DRIFT_NULL].any() or delay >= DRIFT_DELAY or named != [3]:
+        fail("the drift monitor missed the shift or named another feature")
+
+
+def serve_timings(live, members, ensemble, rows: dict, card: str) -> dict:
+    """p50/p95 of a batch of 8 for the Predictor, the ensemble, and the
+    sequential loop of five Predictors; the profiler's busy share for one
+    ensemble batch."""
+    from multimodal_eeg_fmri_tpu_torch import Predictor
+
+    single = live.benchmark(rows, warmup=5, iters=30)
+    ens = ensemble.benchmark(rows, warmup=5, iters=30)
+    preds = [Predictor(m, BATCH) for m in members]
+    dev_rows = live._to_device({k: v[:BATCH] for k, v in rows.items()})
+
+    def loop():
+        for p in preds:
+            p._forward(dev_rows)
+        torch.cuda.synchronize()
+
+    for _ in range(5):
+        loop()
+    times = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        loop()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    loop_p50 = float(np.percentile(times, 50))
+    print(f"Predictor B={BATCH} T={T_SERVE}: p50 {single['p50_ms']:.3f} ms, "
+          f"p95 {single['p95_ms']:.3f} ms {card}")
+    print(f"EnsemblePredictor(K={SERVE_MEMBERS}) B={BATCH} T={T_SERVE}: p50 "
+          f"{ens['p50_ms']:.3f} ms, p95 {ens['p95_ms']:.3f} ms; a loop of "
+          f"{SERVE_MEMBERS} Predictors: p50 {loop_p50:.3f} ms {card}")
+    busy = profile_calls(lambda: ensemble._forward(dev_rows),
+                         f"one EnsemblePredictor(K={SERVE_MEMBERS}) batch",
+                         card)
+    return {"predictor_p50_ms": single["p50_ms"],
+            "predictor_p95_ms": single["p95_ms"],
+            "ensemble_p50_ms": ens["p50_ms"], "ensemble_p95_ms": ens["p95_ms"],
+            "member_loop_p50_ms": loop_p50, "ensemble_busy_share": busy}
+
+
+def serving_phase(dev, card: str) -> dict:
+    """The serving phase: gates a-g; returns K1's launches per ensemble
+    batch, its folded-shape timings and the phase's times."""
+    from multimodal_eeg_fmri_tpu_torch import MultimodalEndToEnd, Predictor
+    from multimodal_eeg_fmri_tpu_torch.core.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        print(f"  {what} done at {time.perf_counter() - t0:.1f} s of the "
+              "phase", flush=True)
+
+    members = serve_members(dev)
+    lap("members")
+    rows = request(BATCH, T_SERVE, seed=50)
+    val = separable(16, T_SERVE, seed=41)
+    live = Predictor(members[0], BATCH)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        params = {k: p.detach() for k, p in members[0].named_parameters()}
+        stats = {k: v for k, v in members[0].state_dict().items()
+                 if k not in params}
+        save_checkpoint(tmp / "ck", params, batch_stats=stats)
+        loaded = Predictor.from_checkpoint(MultimodalEndToEnd(device=dev),
+                                           tmp / "ck", batch_size=BATCH)
+        same = np.array_equal(loaded(**rows), live(**rows))
+        print(f"gate a: Predictor.from_checkpoint equals the live predictor "
+              f"bit for bit: {same}")
+        if not same:
+            fail("the checkpoint round trip changed the served output")
+        ensembles = serve_gate_ensemble(members, rows, card)
+        lap("gates a, b")
+        folded = serve_gate_folded_k1(dev, card)
+        dispatch = serve_dispatch_cost(dev, card)
+        lap("K1 folded, dispatch cost")
+        serve_gate_exports(live, ensembles["mean_probs"], rows, tmp)
+        lap("gate c")
+        serve_gate_quantized(dev, members[0], val, tmp)
+        lap("gate d")
+    temperature = serve_gate_calibrated(live, val)
+    rows_per_s = serve_gate_batcher(live, card)
+    serve_gate_monitoring(dev, ensembles["none"], rows)
+    lap("gates e, f, g")
+    times = serve_timings(live, members, ensembles["mean_probs"], rows, card)
+    seconds = time.perf_counter() - t0
+    print(f"serving phase: {seconds:.1f} s {card}")
+    return {"launches_per_batch": 4, "folded": folded,
+            "times": {**times, **dispatch, "batcher_rows_per_s": rows_per_s,
+                      "calibrated_temperature": temperature,
+                      "phase_s": seconds}}
+
+
 def main() -> None:
     # deterministic cuBLAS for the resume phase; read when cuBLAS starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2712,6 +3234,13 @@ def main() -> None:
     phase(f"bridge: xai/ and train/bridge_flow.py on the card {card}")
     bridge = bridge_phase(dev, card)
 
+    phase(f"serving: serving.py, core/quantize.py, report/uncertainty.py and "
+          f"report/drift.py on the card {card}")
+    serving = serving_phase(dev, card)
+    print(json.dumps({"serving": {**serving["times"],
+                                  "flash_fwd_folded": serving["folded"],
+                                  "device": smi}}))
+
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     print(json.dumps({"kernels": [{
         "name": name,
@@ -2723,7 +3252,10 @@ def main() -> None:
         # bridge phase's
         "launches_by_path": {"train-e2e-T512": train_launches[name],
                              "cv-eeg-kfold-T512": cv["launches"][name],
-                             **{path: n[name] for path, n in bridge.items()}},
+                             **{path: n[name] for path, n in bridge.items()},
+                             "serve-ensemble-T512, per batch": (
+                                 serving["launches_per_batch"]
+                                 if name == "flash_fwd" else 0)},
         "max_abs_err": worst[name],
         **timings(per_step[name, "f32"]),
         # the mixed-precision fit's launches by storage, and the
@@ -2731,6 +3263,9 @@ def main() -> None:
         "launches_bf16_fit": mp_launches[name],
         "bf16_storage": {"max_abs_err": worst_bf16[name],
                          **timings(per_step[name, "bf16"])},
+        # K1 on the ensemble's folded batch (40, 4, 512, 32)
+        **({"serve_ensemble_T512": serving["folded"]}
+           if name == "flash_fwd" else {}),
     } for name in names] + [{
         "name": "sosfilt",
         "route": "cuda",

@@ -16,7 +16,13 @@ from multimodal_eeg_fmri_tpu_torch.models import (
     ModelOutput,
     MultimodalEndToEnd,
 )
-from multimodal_eeg_fmri_tpu_torch.serving import Predictor
+from multimodal_eeg_fmri_tpu_torch.serving import (
+    DynamicBatcher,
+    EnsemblePredictor,
+    Predictor,
+    QueueFull,
+    load_artifact,
+)
 from multimodal_eeg_fmri_tpu_torch.train import (
     FitCarry,
     FitResult,
@@ -28,11 +34,14 @@ from multimodal_eeg_fmri_tpu_torch.train import (
 )
 
 __all__ = [
+    "DynamicBatcher",
+    "EnsemblePredictor",
     "FitCarry",
     "FitResult",
     "ModelOutput",
     "MultimodalEndToEnd",
     "Predictor",
+    "QueueFull",
     "TrainConfig",
     "Trainer",
     "carry_from_jax",
@@ -40,6 +49,7 @@ __all__ = [
     "fit",
     "fit_resumable",
     "init_weights",
+    "load_artifact",
     "load_flax_variables",
     "make_fit_fn",
 ]

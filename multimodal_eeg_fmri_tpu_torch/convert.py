@@ -5,6 +5,9 @@ its JAX counterpart, given as nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, variables)`` gives). It is strict: a flax leaf
 that nothing takes, or a port tensor that nothing fills, raises.
 
+``flax_variables_from_module`` is its inverse: a port module's weights as
+flax variable trees, for the int8/int4 payloads of ``core/quantize.py``.
+
 ``carry_from_jax`` turns the training state of a JAX ``fit``
 (``FitResult.carry`` with numpy leaves) into the port's ``FitCarry``, so
 that the port's ``fit`` can resume a run the JAX package began.
@@ -29,6 +32,7 @@ from torch import nn
 from multimodal_eeg_fmri_tpu_torch.models.encoders import MultiScaleConv
 from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet
 from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
+from multimodal_eeg_fmri_tpu_torch.models.layers import MultiHeadAttention
 from multimodal_eeg_fmri_tpu_torch.train.fit import FitCarry
 
 # flax's truncated_normal initialisers divide by this: the std of a unit
@@ -114,6 +118,63 @@ def load_flax_variables(module: nn.Module, params: Mapping,
     if unfilled:
         raise ValueError(f"port tensors not filled: {sorted(unfilled)}")
     return module
+
+
+def _flax_kernel(parent: Optional[nn.Module], key: str,
+                 linear: nn.Linear) -> np.ndarray:
+    """A ``Linear``'s weight as flax's kernel: (in, out), but for the
+    multi-head projections, which flax keeps as ``DenseGeneral`` kernels
+    (d, H, hd) for q/k/v and (H, hd, d) for the output."""
+    kernel = linear.weight.detach().cpu().numpy().T
+    if isinstance(parent, MultiHeadAttention):
+        heads = (parent.num_heads, parent.head_dim)
+        shape = ((*heads, kernel.shape[1]) if key == "out_proj"
+                 else (kernel.shape[0], *heads))
+        return kernel.reshape(shape)
+    return kernel
+
+
+def _flax_trees(module: nn.Module, parent: Optional[nn.Module] = None,
+                key: str = "") -> Tuple[dict, dict]:
+    """(params, batch_stats) of ``module`` in flax layout; the inverse of
+    ``_Loader.fill``."""
+    def host(t):
+        return t.detach().cpu().numpy().copy()
+
+    if isinstance(module, nn.Linear):
+        bias = host(module.bias)
+        if isinstance(parent, MultiHeadAttention) and key != "out_proj":
+            bias = bias.reshape(parent.num_heads, parent.head_dim)
+        return {"kernel": _flax_kernel(parent, key, module), "bias": bias}, {}
+    if isinstance(module, nn.Conv1d):
+        return {"kernel": host(module.weight).transpose(2, 1, 0),
+                "bias": host(module.bias)}, {}
+    if isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
+        p = {"scale": host(module.weight), "bias": host(module.bias)}
+        if isinstance(module, nn.BatchNorm1d):
+            return p, {"mean": host(module.running_mean),
+                       "var": host(module.running_var)}
+        return p, {}
+    p = {k: host(v) for k, v in module.named_parameters(recurse=False)}
+    s = {}
+    for name, child in module.named_children():
+        if not child.state_dict():  # dropout, pooling: nothing to take
+            continue
+        cp, cs = _flax_trees(child, module, name)
+        if cp:
+            p[name] = cp
+        if cs:
+            s[name] = cs
+    return p, s
+
+
+def flax_variables_from_module(module: nn.Module) -> dict:
+    """``{"params", "batch_stats"}`` of ``module`` as nested dicts of numpy
+    arrays in flax layout, the inverse of ``load_flax_variables``: what the
+    JAX counterpart's ``init`` would give for these weights, so that
+    ``core.quantize.save_quantized`` writes the JAX package's payload."""
+    params, stats = _flax_trees(module)
+    return {"params": params, "batch_stats": stats}
 
 
 def _port_tensors(module: nn.Module, params: Mapping,

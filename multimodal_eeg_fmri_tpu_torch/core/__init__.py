@@ -1,4 +1,5 @@
-"""Configuration, seeds and checkpoints of the port."""
+"""Configuration, seeds, checkpoints, quantized payloads, profiling and
+the determinism harness of the port."""
 
 from multimodal_eeg_fmri_tpu_torch.core.checkpoint import (
     export_frozen_encoder,
@@ -14,6 +15,18 @@ from multimodal_eeg_fmri_tpu_torch.core.config import (
     MeshConfig,
     TrainConfig,
 )
+from multimodal_eeg_fmri_tpu_torch.core.determinism import (
+    run_twice_and_compare,
+)
+from multimodal_eeg_fmri_tpu_torch.core.profiling import (
+    StepTimer,
+    annotate,
+    trace,
+)
+from multimodal_eeg_fmri_tpu_torch.core.quantize import (
+    load_quantized,
+    save_quantized,
+)
 from multimodal_eeg_fmri_tpu_torch.core.rng import (
     RngStream,
     fold_in,
@@ -21,6 +34,7 @@ from multimodal_eeg_fmri_tpu_torch.core.rng import (
 )
 
 __all__ = ["BridgeConfig", "EEGConfig", "ExperimentConfig", "FMRIConfig",
-           "MeshConfig", "RngStream", "TrainConfig", "export_frozen_encoder",
-           "find_best_checkpoint", "fold_in", "load_checkpoint",
-           "save_checkpoint", "seed_everything"]
+           "MeshConfig", "RngStream", "StepTimer", "TrainConfig", "annotate",
+           "export_frozen_encoder", "find_best_checkpoint", "fold_in",
+           "load_checkpoint", "load_quantized", "run_twice_and_compare",
+           "save_checkpoint", "save_quantized", "seed_everything", "trace"]

@@ -7,16 +7,19 @@ and K3 (``csrc/flash_bwd.cu``), all built by ``ops/_kernels.py``, or raise;
 on a CPU tensor they run the plain PyTorch math of the same kernels, so the
 CPU tests check the formulas the kernels implement. Each kernel wrapper
 counts its launches by storage dtype in a dict attribute, ``launches``
-({"f32": n, "bf16": m}); ``kernel_launches()`` reads the three.
+({"f32": n, "bf16": m}); ``kernel_launches()`` reads the three. The
+forward is reached through the operator ``mmef::flash_fwd``, which
+``torch.func.vmap`` folds into one launch and ``torch.export`` traces.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch._C import _functorch
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -277,19 +280,97 @@ def _flash_backward(q, k, v, o, lse, g, g_lse, compute_dtype):
     return flash_backward_cuda(q, k, v, o, lse, g, g_lse, compute_dtype)
 
 
+def _compute_dtype(bf16_operands: bool) -> torch.dtype:
+    return torch.bfloat16 if bf16_operands else torch.float32
+
+
+def _bf16_operands(compute_dtype) -> bool:
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be f32 or bf16, got {compute_dtype}")
+    return compute_dtype == torch.bfloat16
+
+
+# K1 as a PyTorch operator, so that torch.func.vmap and torch.export reach
+# it: ``mmef::flash_fwd`` runs the kernel on a CUDA tensor (or raises) and
+# the plain version on a CPU tensor; its fake gives the output shapes; its
+# vmap rule folds the vmapped axis into B for one launch. ``_FlashAttention``
+# differentiates it through ``mmef::flash_bwd`` (K2 and K3). Registering
+# builds nothing: the library is built at the first CUDA call
+# (``ops/_kernels.py``).
+@torch.library.custom_op("mmef::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 bf16_operands: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    out, lse = _flash_forward(q, k, v, _compute_dtype(bf16_operands))
+    return out.contiguous(), lse.contiguous()
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, bf16_operands):
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+def _fold(x, dim, n):
+    """``x`` with its vmapped axis ``dim`` (None: not vmapped, so repeated
+    ``n`` times) folded into the batch axis: (n·B, ...)."""
+    x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+    x = x.reshape(n * x.shape[1], *x.shape[2:])
+    # a fold that copies keeps the head dim contiguous; a view may not
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+@flash_fwd_op.register_vmap
+def _(info, in_dims, q, k, v, bf16_operands):
+    # vmapped rows are independent batch rows: one launch over n·B
+    n = info.batch_size
+    out, lse = flash_fwd_op(*(_fold(x, d, n) for x, d in
+                              zip((q, k, v), in_dims[:3])), bf16_operands)
+    return (out.unflatten(0, (n, -1)), lse.unflatten(0, (n, -1))), (0, 0)
+
+
+@torch.library.custom_op("mmef::flash_bwd", mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                 g_lse: Optional[torch.Tensor], bf16_operands: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dq, dk, dv = _flash_backward(q, k, v, o, lse, g, g_lse,
+                                 _compute_dtype(bf16_operands))
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
+@flash_bwd_op.register_fake
+def _(q, k, v, o, lse, g, g_lse, bf16_operands):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@flash_bwd_op.register_vmap
+def _(info, in_dims, *args):
+    raise NotImplementedError(
+        "the flash backward (K2, K3) has no vmap rule: a gradient through "
+        "flash attention under torch.func.vmap is not supported (ROADMAP.md "
+        "queue A item 3, training folds side by side); differentiate each "
+        "member outside vmap, or fold the members into the batch")
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, with the residuals (q, k, v, o, lse) saved for
-    the two backward kernels; differentiable in both outputs, and the
-    cotangent of lse folds into Δ."""
+    """The forward op with the residuals (q, k, v, o, lse) saved for the
+    backward op; differentiable in both outputs, and the cotangent of lse
+    folds into Δ. Under torch.func.vmap the forward folds into one K1
+    launch and the backward raises (``flash_bwd_op`` has no vmap rule)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, q, k, v, compute_dtype):
-        out, lse = _flash_forward(q, k, v, compute_dtype)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.compute_dtype = compute_dtype
+    def forward(q, k, v, bf16_operands):
+        return flash_fwd_op(q, k, v, bf16_operands)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, bf16_operands = inputs
+        ctx.save_for_backward(q, k, v, *output)
+        ctx.bf16_operands = bf16_operands
         # an output that is not used gets None, not a tensor of zeros
         ctx.set_materialize_grads(False)
-        return out, lse
 
     @staticmethod
     def backward(ctx, g, g_lse):
@@ -300,9 +381,23 @@ class _FlashAttention(torch.autograd.Function):
             # autograd may hand over an expanded cotangent; the kernels read
             # dO with its last dim contiguous
             g = g.contiguous()
-        dq, dk, dv = _flash_backward(q, k, v, o, lse, g, g_lse,
-                                     ctx.compute_dtype)
-        return dq, dk, dv, None
+        # the gradients are not differentiable again (no double backward)
+        with torch.no_grad():
+            grads = flash_bwd_op(q, k, v, o, lse, g, g_lse, ctx.bf16_operands)
+        return (*grads, None)
+
+
+def _flash(q, k, v, compute_dtype):
+    """The op itself where no gradient is wanted (so that torch.export
+    traces one ``mmef::flash_fwd`` node, also under vmap), else through
+    ``_FlashAttention``."""
+    bf16_operands = _bf16_operands(compute_dtype)
+    # a vmapped tensor does not show whether the tensor it wraps needs grad
+    if torch.is_grad_enabled() and any(
+            t.requires_grad or _functorch.is_functorch_wrapped_tensor(t)
+            for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, bf16_operands)
+    return flash_fwd_op(q, k, v, bf16_operands)
 
 
 def flash_attention(q, k, v, compute_dtype=torch.float32) -> torch.Tensor:
@@ -311,13 +406,13 @@ def flash_attention(q, k, v, compute_dtype=torch.float32) -> torch.Tensor:
 
     ``compute_dtype=torch.bfloat16`` feeds the per-tile products bf16
     operands, with f32 sums and f32 softmax statistics."""
-    return _FlashAttention.apply(q, k, v, compute_dtype)[0]
+    return _flash(q, k, v, compute_dtype)[0]
 
 
 def flash_attention_lse(q, k, v, compute_dtype=torch.float32):
     """``flash_attention`` that also returns the per-row logsumexp
     (B, H, Tq) in f32; differentiable in both outputs."""
-    return _FlashAttention.apply(q, k, v, compute_dtype)
+    return _flash(q, k, v, compute_dtype)
 
 
 def attention(q, k, v, min_flash_len: int = 256,

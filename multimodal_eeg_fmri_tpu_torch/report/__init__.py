@@ -1,6 +1,7 @@
 """Reports of the port: metrics on the device, calibration, conformal
-sets, the per-fold clinical report, statistical tests and the exports
-(CSV, NPZ, text; ``plots`` holds the matplotlib figures)."""
+sets, the per-fold clinical report, statistical tests, the exports (CSV,
+NPZ, text; ``plots`` holds the matplotlib figures), ensemble uncertainty
+and drift monitors."""
 
 from multimodal_eeg_fmri_tpu_torch.report.calibration import (
     brier_score,
@@ -19,6 +20,11 @@ from multimodal_eeg_fmri_tpu_torch.report.conformal import (
     conformal_calibrate,
     conformal_sets,
     coverage_and_size,
+)
+from multimodal_eeg_fmri_tpu_torch.report.drift import (
+    cusum_step,
+    ewma_step,
+    make_drift_monitor,
 )
 from multimodal_eeg_fmri_tpu_torch.report.export import (
     export_cv_results,
@@ -43,6 +49,9 @@ from multimodal_eeg_fmri_tpu_torch.report.stats import (
     late_fusion_probs,
     paired_tests,
 )
+from multimodal_eeg_fmri_tpu_torch.report.uncertainty import (
+    ensemble_uncertainty,
+)
 
 __all__ = [
     "accuracy",
@@ -55,7 +64,10 @@ __all__ = [
     "conformal_calibrate",
     "conformal_sets",
     "coverage_and_size",
+    "cusum_step",
+    "ensemble_uncertainty",
     "evaluate_late_fusion",
+    "ewma_step",
     "expected_calibration_error",
     "export_cv_results",
     "export_per_subject_records",
@@ -63,6 +75,7 @@ __all__ = [
     "fit_temperature",
     "fit_temperature_ensemble",
     "late_fusion_probs",
+    "make_drift_monitor",
     "optimal_threshold",
     "paired_tests",
     "pooled_clinical_report",

@@ -1,86 +1,143 @@
-"""Inference path (PyTorch). Counterpart of ``Predictor`` in
-``multimodal_eeg_fmri_tpu/serving.py``: a fixed-batch predictor that pads
-any request to whole batches by repeating row 0, runs the model in eval mode
-under ``torch.inference_mode()``, and returns f32 probabilities (or logits),
-with an optional temperature applied before the softmax.
+"""Inference and serving (PyTorch). Counterpart of
+``multimodal_eeg_fmri_tpu/serving.py``:
+
+- ``Predictor``: a fixed-batch predictor that pads any request to whole
+  batches by repeating row 0, runs the model in eval mode and returns f32
+  probabilities (or logits), with an optional temperature before the
+  softmax; built from a module, a checkpoint (``from_checkpoint``) or an
+  int8/int4 payload (``from_quantized``); ``calibrated`` fits the
+  temperature on held-out data.
+- ``export_artifact`` / ``load_artifact``: the served forward, weights
+  included, as a ``torch.export`` program in one file.
+- ``EnsemblePredictor``: K member models in one ``torch.func.vmap`` of
+  ``functional_call`` over their stacked weights. The flash forward K1
+  folds the member axis into its batch (``ops/attention.py``), so a served
+  batch launches it once per attention layer, not once per member.
+- ``DynamicBatcher``: coalesces concurrent small requests into one call,
+  with a bounded queue (``QueueFull``) and a per-request timeout.
 """
 
 from __future__ import annotations
 
+import copy
+import threading
 import time
-from typing import Callable, Dict, Optional
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from multimodal_eeg_fmri_tpu_torch.convert import load_flax_variables
+from multimodal_eeg_fmri_tpu_torch.core.checkpoint import load_checkpoint
+from multimodal_eeg_fmri_tpu_torch.core.quantize import load_quantized
 from multimodal_eeg_fmri_tpu_torch.data.arrays import as_tensor
+# registers mmef::flash_fwd, which the programs of load_artifact call
+from multimodal_eeg_fmri_tpu_torch.ops import attention as _ops  # noqa: F401
 from multimodal_eeg_fmri_tpu_torch.train.fit import RESERVED_KEYS
 
 
-class Predictor:
-    """Fixed-batch predictor over a model whose weights are loaded. The
-    model is put in eval mode; inputs go to the device of its parameters."""
+def _pad(inputs: Dict[str, np.ndarray], batch_size: int):
+    """(chunk of ``batch_size`` rows, real rows) pairs; a short last chunk
+    repeats its row 0."""
+    n = len(next(iter(inputs.values())))
+    chunks = []
+    for start in range(0, n, batch_size):
+        chunk = {k: np.asarray(v)[start:start + batch_size]
+                 for k, v in inputs.items()}
+        m = len(next(iter(chunk.values())))
+        if m < batch_size:
+            chunk = {k: np.concatenate(
+                [v, np.repeat(v[:1], batch_size - m, axis=0)])
+                for k, v in chunk.items()}
+        chunks.append((chunk, m))
+    return chunks
 
-    def __init__(self, model: nn.Module, batch_size: int = 8,
-                 preprocess: Optional[Callable] = None,
-                 return_probs: bool = True,
-                 temperature: Optional[float] = None):
-        if temperature is not None and temperature <= 0:
-            raise ValueError(f"temperature must be > 0, got {temperature}")
-        self.model = model.eval()
-        self.batch_size = batch_size
-        # read-only after construction, as in the JAX Predictor
-        self.temperature = (float(temperature) if temperature is not None
-                            else None)
-        self._preprocess = preprocess
-        self._return_probs = return_probs
-        self.device = next(model.parameters()).device
+
+def _served(inputs: dict) -> dict:
+    return {k: v for k, v in inputs.items() if k not in RESERVED_KEYS}
+
+
+def _scaled_probs(logits: torch.Tensor, temperature: Optional[float],
+                  probs: bool = True) -> torch.Tensor:
+    logits = logits.float()
+    if temperature is not None:
+        logits = logits / temperature
+    return torch.softmax(logits, dim=-1) if probs else logits
+
+
+def _check_temperature(temperature) -> Optional[float]:
+    if temperature is not None and temperature <= 0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    return float(temperature) if temperature is not None else None
+
+
+class _PredictorNet(nn.Module):
+    """What a ``Predictor`` serves, as a module (the exported program)."""
+
+    def __init__(self, model: nn.Module, preprocess, temperature,
+                 return_probs: bool):
+        super().__init__()
+        self.model = model
+        self.preprocess = preprocess
+        self.temperature = temperature
+        self.return_probs = return_probs
+
+    def forward(self, **inputs) -> torch.Tensor:
+        if self.preprocess is not None:
+            inputs = {**inputs, **self.preprocess(inputs)}
+        return _scaled_probs(self.model(**inputs).logits, self.temperature,
+                             self.return_probs)
+
+
+class _Serving:
+    """Batching, device transfer, export and timing shared by the two
+    predictors; a subclass sets ``self.net``, ``self.batch_size`` and
+    ``self.device``."""
+
+    net: nn.Module
+    batch_size: int
+    device: torch.device
+
+    def _to_device(self, chunk: Dict[str, np.ndarray]):
+        """The chunk on the served device; float64 becomes float32, as the
+        JAX package's ``jnp.asarray`` makes it."""
+        return {k: as_tensor(v, self.device) for k, v in chunk.items()}
+
+    def _pad(self, inputs: Dict[str, np.ndarray]):
+        return _pad(inputs, self.batch_size)
 
     def _forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         with torch.inference_mode():
-            if self._preprocess is not None:
-                inputs = {**inputs, **self._preprocess(inputs)}
-            logits = self.model(**inputs).logits.float()
-            if self.temperature is not None:
-                logits = logits / self.temperature
-            if self._return_probs:
-                return torch.softmax(logits, dim=-1)
-            return logits
+            return self.net(**inputs)
 
-    def _pad(self, inputs: Dict[str, np.ndarray]):
-        n = len(next(iter(inputs.values())))
-        chunks = []
-        for start in range(0, n, self.batch_size):
-            chunk = {k: np.asarray(v)[start:start + self.batch_size]
-                     for k, v in inputs.items()}
-            m = len(next(iter(chunk.values())))
-            if m < self.batch_size:
-                chunk = {k: np.concatenate(
-                    [v, np.repeat(v[:1], self.batch_size - m, axis=0)])
-                    for k, v in chunk.items()}
-            chunks.append((chunk, m))
-        return chunks
-
-    def _to_device(self, chunk: Dict[str, np.ndarray]):
-        """The chunk on the model's device; float64 becomes float32, as
-        the JAX ``Predictor``'s ``jnp.asarray`` makes it."""
-        return {k: as_tensor(v, self.device) for k, v in chunk.items()}
-
-    def __call__(self, **inputs) -> np.ndarray:
-        """Predict for any number of rows, in batches of ``batch_size``."""
-        inputs = {k: v for k, v in inputs.items() if k not in RESERVED_KEYS}
-        outs = [self._forward(self._to_device(chunk)).cpu().numpy()[:m]
-                for chunk, m in self._pad(inputs)]
-        return np.concatenate(outs, axis=0)
+    def export_artifact(self, example: Dict[str, np.ndarray],
+                        path: str | Path) -> bytes:
+        """Write the served forward, weights included, as a
+        ``torch.export`` program (``torch.export.save``) and return the
+        file's bytes; ``load_artifact`` serves it. The program is traced at
+        this predictor's batch size from ``example``'s keys, shapes and
+        dtypes, on this predictor's device, and runs there: an artifact
+        exported on the card launches the flash kernel as ``mmef::flash_fwd``
+        wherever the live predictor would."""
+        chunk = self._to_device(self._pad(_served(example))[0][0])
+        with torch.no_grad():
+            # lowered to ATen ops: vmap resolves into batched ops and the
+            # folded ``mmef::flash_fwd`` call, with none of its own
+            # plumbing left in the graph (which not every torch version
+            # can serialize)
+            program = torch.export.export(self.net, (), chunk
+                                          ).run_decompositions({})
+        path = Path(path)
+        torch.export.save(program, path)
+        return path.read_bytes()
 
     def benchmark(self, example: Dict[str, np.ndarray], warmup: int = 3,
                   iters: int = 30) -> Dict[str, float]:
         """Latency percentiles of one batch, host clock around a forward
         that ends in ``torch.cuda.synchronize()`` on a CUDA device."""
-        dev = self._to_device({k: np.asarray(v)[: self.batch_size]
-                               for k, v in example.items()
-                               if k not in RESERVED_KEYS})
+        dev = self._to_device(self._pad(_served(example))[0][0])
         cuda = self.device.type == "cuda"
 
         def run():
@@ -102,3 +159,446 @@ class Predictor:
                 "batch_size": self.batch_size,
                 "device": (torch.cuda.get_device_name(self.device) if cuda
                            else str(self.device))}
+
+
+class Predictor(_Serving):
+    """Fixed-batch predictor over a model whose weights are loaded. The
+    model is put in eval mode; inputs go to the device of its parameters."""
+
+    def __init__(self, model: nn.Module, batch_size: int = 8,
+                 preprocess: Optional[Callable] = None,
+                 return_probs: bool = True,
+                 temperature: Optional[float] = None):
+        self.model = model.eval()
+        self.batch_size = batch_size
+        # read-only after construction, as in the JAX Predictor
+        self.temperature = _check_temperature(temperature)
+        self._preprocess = preprocess
+        self._return_probs = return_probs
+        self.device = next(model.parameters()).device
+        self.net = _PredictorNet(self.model, preprocess, self.temperature,
+                                 return_probs)
+
+    @classmethod
+    def from_checkpoint(cls, model: nn.Module, checkpoint_path,
+                        **kw) -> "Predictor":
+        """Load a ``core/checkpoint.py`` checkpoint's params and statistics
+        into ``model`` (strictly) and serve it."""
+        return cls(_load_state(model, load_checkpoint(
+            checkpoint_path, map_location=next(model.parameters()).device)),
+            **kw)
+
+    @classmethod
+    def from_quantized(cls, model: nn.Module, path, **kw) -> "Predictor":
+        """Load an int8/int4 weight-only payload (``core/quantize.py``,
+        either package's) into ``model`` and serve it: weights dequantize
+        at load, compute stays f32."""
+        restored = load_quantized(path)
+        return cls(load_flax_variables(model, restored["params"],
+                                       restored.get("batch_stats")), **kw)
+
+    def _logits(self, inputs: Dict[str, np.ndarray]) -> torch.Tensor:
+        """The model's raw logits for any number of rows, on the device."""
+        out = []
+        with torch.inference_mode():
+            for chunk, m in self._pad(_served(inputs)):
+                dev = self._to_device(chunk)
+                if self._preprocess is not None:
+                    dev = {**dev, **self._preprocess(dev)}
+                out.append(self.model(**dev).logits[:m])
+        return torch.cat(out)
+
+    def calibrated(self, val_inputs: Dict[str, np.ndarray],
+                   val_labels: np.ndarray,
+                   weights: Optional[np.ndarray] = None) -> "Predictor":
+        """A new ``Predictor`` serving ``softmax(z / T)``, T fitted to
+        minimize the validation NLL of this model's raw logits
+        (``report/calibration.fit_temperature``)."""
+        from multimodal_eeg_fmri_tpu_torch.report.calibration import (
+            fit_temperature,
+        )
+
+        logits = self._logits(val_inputs)
+        t = float(fit_temperature(
+            logits, np.asarray(val_labels),
+            weights=None if weights is None else np.asarray(weights)))
+        return Predictor(self.model, batch_size=self.batch_size,
+                         preprocess=self._preprocess,
+                         return_probs=self._return_probs, temperature=t)
+
+    def __call__(self, **inputs) -> np.ndarray:
+        """Predict for any number of rows, in batches of ``batch_size``."""
+        outs = [self._forward(self._to_device(chunk)).cpu().numpy()[:m]
+                for chunk, m in self._pad(_served(inputs))]
+        return np.concatenate(outs, axis=0)
+
+
+def _load_state(model: nn.Module, restored: dict) -> nn.Module:
+    model.load_state_dict({**restored["params"],
+                           **(restored.get("batch_stats") or {})})
+    return model
+
+
+
+def load_artifact(path: str | Path) -> Callable[..., np.ndarray]:
+    """Load an ``export_artifact`` file into ``fn(**inputs) -> probs``.
+    Inputs must have the exported batch size and keys. No model code is
+    needed, but the port's operator library is: the program calls K1 as
+    ``mmef::flash_fwd``, registered when ``ops/attention.py`` is imported
+    (this module imports it). That is the one
+    difference from a ``jax.export`` artifact, which carries its kernels
+    compiled. The program runs on the device it was exported on."""
+    program = torch.export.load(Path(path))
+    tensors = [*program.state_dict.values(), *program.constants.values()]
+    device = tensors[0].device if tensors else torch.device("cpu")
+    fn = program.module()
+
+    def call(**inputs) -> np.ndarray:
+        dev = {k: as_tensor(v, device) for k, v in _served(inputs).items()}
+        with torch.no_grad():
+            return fn(**dev).cpu().numpy()
+
+    return call
+
+
+def stack_variable_trees(trees: Sequence[Dict[str, torch.Tensor]]
+                         ) -> Dict[str, torch.Tensor]:
+    """Stack K state dicts of one layout on a new leading member axis."""
+    names = list(trees[0])
+    for i, t in enumerate(trees[1:], 1):
+        if list(t) != names:
+            raise ValueError(f"member {i}'s tensors differ from member 0's: "
+                             f"{sorted(set(t) ^ set(names))}")
+    return {k: torch.stack([torch.as_tensor(t[k]) for t in trees])
+            for k in names}
+
+
+class _EnsembleNet(nn.Module):
+    """What an ``EnsemblePredictor`` serves, as a module: the stacked
+    member state is its buffers, so that an exported program carries it."""
+
+    def __init__(self, model: nn.Module, params: Dict[str, torch.Tensor],
+                 buffers: Dict[str, torch.Tensor], preprocess, reduce: str,
+                 temperature: Optional[float]):
+        super().__init__()
+        # the structure only: functional_call gives it every tensor it
+        # reads, so it holds none (nor does an exported program)
+        self.skeleton = copy.deepcopy(model).to("meta")
+        for m in self.skeleton.modules():
+            m._parameters.clear()
+            m._buffers.clear()
+            m._non_persistent_buffers_set.clear()
+        self.names = (list(params), list(buffers))
+        for i, t in enumerate(params.values()):
+            self.register_buffer(f"p{i}", t)
+        for i, t in enumerate(buffers.values()):
+            self.register_buffer(f"b{i}", t)
+        self.preprocess = preprocess
+        self.reduce = reduce
+        self.temperature = temperature
+
+    def state(self):
+        params, buffers = self.names
+        return ({n: getattr(self, f"p{i}") for i, n in enumerate(params)},
+                {n: getattr(self, f"b{i}") for i, n in enumerate(buffers)})
+
+    def member_logits(self, inputs: dict) -> torch.Tensor:
+        """(K, B, C) logits, one vmapped forward over the stacked state."""
+        def member(state, inputs):
+            return torch.func.functional_call(
+                self.skeleton, state, (), inputs).logits
+
+        return torch.func.vmap(member, in_dims=(0, None))(self.state(),
+                                                          inputs)
+
+    def forward(self, **inputs) -> torch.Tensor:
+        if self.preprocess is not None:
+            inputs = {**inputs, **self.preprocess(inputs)}
+        # the temperature sits inside each member's softmax: the fusion
+        # averages probabilities, not logits
+        probs = _scaled_probs(self.member_logits(inputs), self.temperature)
+        if self.reduce == "mean_probs":
+            return probs.mean(dim=0)
+        if self.reduce == "vote":
+            # per-class vote fractions: their argmax is the majority vote
+            votes = nn.functional.one_hot(probs.argmax(dim=-1),
+                                          probs.shape[-1])
+            return votes.to(probs.dtype).mean(dim=0)
+        return probs
+
+
+class EnsemblePredictor(_Serving):
+    """Serve K member models (the folds of a CV run, say) in one forward:
+    their weights stack on a leading member axis and ``torch.func.vmap``
+    maps ``functional_call`` of ``model`` over it, in eval mode, the inputs
+    shared. ``model`` gives the structure (its own weights are not used);
+    the predictor runs on the device of the stacked weights.
+
+    ``reduce="mean_probs"`` returns the late-fusion average (n, classes);
+    ``"vote"`` per-class majority-vote fractions (n, classes), whose argmax
+    is the members' majority vote; ``"none"`` each member's probabilities
+    (K, n, classes). ``stacked_params`` and ``stacked_buffers`` are state
+    dicts with the member axis first (``stack_variable_trees``,
+    ``from_modules``). ``plan`` (the JAX package's mesh sharding of the
+    member axis) is not ported."""
+
+    def __init__(self, model: nn.Module,
+                 stacked_params: Dict[str, torch.Tensor],
+                 stacked_buffers: Optional[Dict[str, torch.Tensor]] = None,
+                 plan=None, batch_size: int = 8,
+                 preprocess: Optional[Callable] = None,
+                 reduce: str = "mean_probs",
+                 temperature: Optional[float] = None):
+        if plan is not None:
+            raise NotImplementedError(
+                "EnsemblePredictor(plan=...) shards the member axis over a "
+                "mesh, which is not ported yet (ROADMAP.md queue A item 7, "
+                "parallel axes on torch.distributed)")
+        if reduce not in ("mean_probs", "vote", "none"):
+            raise ValueError(f"unknown reduce={reduce!r}")
+        self.model = model.eval()
+        self.batch_size = batch_size
+        self.reduce = reduce
+        self.temperature = _check_temperature(temperature)
+        self._preprocess = preprocess
+        self.n_members = int(next(iter(stacked_params.values())).shape[0])
+        self.device = next(iter(stacked_params.values())).device
+        self.net = _EnsembleNet(self.model, stacked_params,
+                                stacked_buffers or {}, preprocess, reduce,
+                                self.temperature)
+
+    @classmethod
+    def from_modules(cls, models: Sequence[nn.Module],
+                     **kw) -> "EnsemblePredictor":
+        """Serve K modules of one architecture (``models[0]`` gives the
+        structure), their parameters and buffers stacked as
+        ``torch.func.stack_module_state`` stacks them."""
+        return cls(models[0],
+                   stack_variable_trees([{k: p.detach() for k, p in
+                                          m.named_parameters()}
+                                         for m in models]),
+                   stack_variable_trees([dict(m.named_buffers())
+                                         for m in models]), **kw)
+
+    @classmethod
+    def from_checkpoints(cls, model: nn.Module,
+                         checkpoint_paths: Sequence, **kw
+                         ) -> "EnsemblePredictor":
+        """Build from K ``core/checkpoint.py`` checkpoints (the per-fold
+        ``best_{model}_fold{k}`` layout), each loaded strictly into a copy
+        of ``model``."""
+        dev = next(model.parameters()).device
+        restored = [load_checkpoint(p, map_location=dev)
+                    for p in checkpoint_paths]
+        _check_batch_stats(checkpoint_paths, restored)
+        return cls.from_modules(
+            [_load_state(copy.deepcopy(model), r) for r in restored], **kw)
+
+    @classmethod
+    def from_quantized(cls, model: nn.Module, paths: Sequence,
+                       **kw) -> "EnsemblePredictor":
+        """Build from K int8/int4 weight-only payloads
+        (``core/quantize.save_quantized``, either package's); weights
+        dequantize at load, compute stays f32."""
+        restored = [load_quantized(p) for p in paths]
+        _check_batch_stats(paths, restored)
+        return cls.from_modules(
+            [load_flax_variables(copy.deepcopy(model), r["params"],
+                                 r.get("batch_stats")) for r in restored],
+            **kw)
+
+    def _logits(self, inputs: Dict[str, np.ndarray]) -> torch.Tensor:
+        """(K, n, C) member logits for any number of rows, on the device."""
+        out = []
+        with torch.inference_mode():
+            for chunk, m in self._pad(_served(inputs)):
+                dev = self._to_device(chunk)
+                if self._preprocess is not None:
+                    dev = {**dev, **self._preprocess(dev)}
+                out.append(self.net.member_logits(dev)[:, :m])
+        return torch.cat(out, dim=1)
+
+    def calibrated(self, val_inputs: Dict[str, np.ndarray],
+                   val_labels: np.ndarray,
+                   weights: Optional[np.ndarray] = None
+                   ) -> "EnsemblePredictor":
+        """A new ``EnsemblePredictor`` with one temperature fitted on the
+        stacked member logits (``report/calibration.
+        fit_temperature_ensemble``), applied inside each member's
+        softmax."""
+        from multimodal_eeg_fmri_tpu_torch.report.calibration import (
+            fit_temperature_ensemble,
+        )
+
+        t = float(fit_temperature_ensemble(
+            self._logits(val_inputs), np.asarray(val_labels),
+            weights=None if weights is None else np.asarray(weights)))
+        params, buffers = self.net.state()
+        return EnsemblePredictor(
+            self.model, params, buffers, batch_size=self.batch_size,
+            preprocess=self._preprocess, reduce=self.reduce, temperature=t)
+
+    def __call__(self, **inputs) -> np.ndarray:
+        outs = []
+        for chunk, m in self._pad(_served(inputs)):
+            probs = self._forward(self._to_device(chunk)).cpu().numpy()
+            outs.append(probs[:, :m] if self.reduce == "none" else probs[:m])
+        return np.concatenate(outs, axis=1 if self.reduce == "none" else 0)
+
+
+def _check_batch_stats(paths: Sequence, restored: List[dict]) -> None:
+    """Raise on a member set where some have BatchNorm statistics and some
+    do not (the JAX package drops them all silently)."""
+    has = [bool(r.get("batch_stats")) for r in restored]
+    if any(has) and not all(has):
+        lacking = [str(p) for p, h in zip(paths, has) if not h]
+        raise ValueError(f"batch_stats missing from {lacking} but present "
+                         f"in the other members' payloads")
+
+
+class QueueFull(RuntimeError):
+    """Raised on enqueue when the DynamicBatcher's bounded queue is full:
+    a burst beyond the device's throughput reaches the caller instead of
+    growing host memory and tail latency without bound."""
+
+
+class _Request:
+    __slots__ = ("inputs", "n", "event", "result", "error")
+
+    def __init__(self, inputs, n):
+        self.inputs = inputs
+        self.n = n
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+
+
+class DynamicBatcher:
+    """Coalesce concurrent small requests into one call of ``predictor``
+    (a ``Predictor``, a reducing ``EnsemblePredictor``, or any
+    ``fn(**inputs) -> array`` whose output leads with the batch axis),
+    behind the same calling convention. A worker thread flushes the queue
+    when ``max_batch`` rows wait or the oldest request has waited
+    ``max_delay_ms``. Callers block only for their own rows; requests with
+    different key sets are never mixed in one call.
+
+    ``max_queue`` bounds the pending rows: an enqueue beyond it raises
+    ``QueueFull`` at once. ``timeout_s`` bounds a caller's wait: a call that
+    wedges gives ``TimeoutError``, and a request still queued then is
+    withdrawn. ``rows / batches`` is the coalescing ratio."""
+
+    def __init__(self, predictor: Callable, max_delay_ms: float = 5.0,
+                 max_batch: Optional[int] = None,
+                 max_queue: Optional[int] = None,
+                 timeout_s: Optional[float] = None):
+        if max_delay_ms < 0:
+            raise ValueError(f"max_delay_ms must be >= 0, got {max_delay_ms}")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if timeout_s is not None and timeout_s <= 0:
+            raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
+        if getattr(predictor, "reduce", None) == "none":
+            raise ValueError(
+                "EnsemblePredictor(reduce='none') returns (K, N, C): the "
+                "batch axis is not leading, so per-request slicing would "
+                "cut the member axis; wrap a reducing ensemble "
+                "(reduce='mean_probs') instead")
+        self.predictor = predictor
+        self._delay = max_delay_ms / 1e3
+        self._max = int(max_batch
+                        or getattr(predictor, "batch_size", None) or 8)
+        self._max_queue = None if max_queue is None else int(max_queue)
+        self._timeout = timeout_s
+        self.rejected = 0  # QueueFull rejections
+        self._cv = threading.Condition()
+        self._queue: list = []  # (enqueue_time, _Request)
+        self._closed = False
+        self.batches = 0  # calls of the predictor
+        self.rows = 0     # rows served
+        self._worker = threading.Thread(
+            target=self._run, name="dynamic-batcher", daemon=True)
+        self._worker.start()
+
+    def __call__(self, **inputs) -> np.ndarray:
+        """Enqueue one request (any row count) and block for its slice of
+        the batched result."""
+        inputs = {k: np.asarray(v) for k, v in _served(inputs).items()}
+        if not inputs:
+            raise ValueError("empty request")
+        req = _Request(inputs, len(next(iter(inputs.values()))))
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("DynamicBatcher is closed")
+            if self._max_queue is not None:
+                pending = sum(r.n for _, r in self._queue)
+                if pending + req.n > self._max_queue:
+                    self.rejected += 1
+                    raise QueueFull(
+                        f"DynamicBatcher queue full: {pending} rows pending "
+                        f"(max_queue={self._max_queue}); request of {req.n} "
+                        f"row(s) rejected; retry later or raise max_queue")
+            self._queue.append((time.monotonic(), req))
+            self._cv.notify_all()
+        if not req.event.wait(self._timeout):
+            # withdraw it if still queued; if already in flight its result
+            # is dropped
+            with self._cv:
+                self._queue = [(t, r) for t, r in self._queue if r is not req]
+            raise TimeoutError(
+                f"DynamicBatcher request timed out after {self._timeout}s "
+                f"(the call wedged or the server is overloaded)")
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    self._cv.wait()
+                if not self._queue and self._closed:
+                    return
+                deadline = self._queue[0][0] + self._delay
+                while (sum(r.n for _, r in self._queue) < self._max
+                       and not self._closed):
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    self._cv.wait(timeout=remaining)
+                batch, self._queue = self._queue, []
+            groups: Dict[frozenset, list] = {}
+            for _, r in batch:
+                groups.setdefault(frozenset(r.inputs), []).append(r)
+            for reqs in groups.values():
+                try:
+                    joined = {
+                        k: (np.concatenate([r.inputs[k] for r in reqs])
+                            if len(reqs) > 1 else reqs[0].inputs[k])
+                        for k in reqs[0].inputs
+                    }
+                    out = np.asarray(self.predictor(**joined))
+                    self.batches += 1
+                    self.rows += sum(r.n for r in reqs)
+                    off = 0
+                    for r in reqs:
+                        r.result = out[off:off + r.n]
+                        off += r.n
+                except Exception as e:  # deliver it; the worker goes on
+                    for r in reqs:
+                        r.error = e
+                finally:
+                    for r in reqs:
+                        r.event.set()
+
+    def close(self):
+        """Drain the queue and stop the worker (idempotent)."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._worker.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

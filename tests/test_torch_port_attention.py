@@ -137,9 +137,20 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.xai.shap_kernel, "
             "multimodal_eeg_fmri_tpu_torch.xai.explainer, "
             "multimodal_eeg_fmri_tpu_torch.report.export, "
-            "multimodal_eeg_fmri_tpu_torch.report.plots\n"
+            "multimodal_eeg_fmri_tpu_torch.report.plots, "
+            "multimodal_eeg_fmri_tpu_torch.serving, "
+            "multimodal_eeg_fmri_tpu_torch.core.quantize, "
+            "multimodal_eeg_fmri_tpu_torch.core.profiling, "
+            "multimodal_eeg_fmri_tpu_torch.core.determinism, "
+            "multimodal_eeg_fmri_tpu_torch.report.uncertainty, "
+            "multimodal_eeg_fmri_tpu_torch.report.drift\n"
+            "from multimodal_eeg_fmri_tpu_torch.ops import _kernels\n"
+            "import torch\n"
+            "assert torch.ops.mmef.flash_fwd.default is not None\n"
+            "assert _kernels.library.cache_info().currsize == 0\n"
             "bad = [m for m in ('jax', 'flax', 'optax', "
-            "'multimodal_eeg_fmri_tpu', 'sklearn', 'pandas', 'matplotlib') "
+            "'multimodal_eeg_fmri_tpu', 'sklearn', 'pandas', 'matplotlib', "
+            "'triton') "
             "if m in sys.modules]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

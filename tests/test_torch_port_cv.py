@@ -43,6 +43,9 @@ from multimodal_eeg_fmri_tpu_torch.models.eeg import TriModalFusionNetV4 as TTri
 from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet as TFMRI
 from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
 
+# one torch thread per pytest-xdist worker: see test_torch_port_train.py
+torch.set_num_threads(1)
+
 j_cv = importlib.import_module("multimodal_eeg_fmri_tpu.train.cv")
 t_cv = importlib.import_module("multimodal_eeg_fmri_tpu_torch.train.cv")
 j_fit = importlib.import_module("multimodal_eeg_fmri_tpu.train.fit")

@@ -53,6 +53,9 @@ from multimodal_eeg_fmri_tpu_torch.models.layers import BatchNorm
 from multimodal_eeg_fmri_tpu_torch.ops.augment import make_eeg_augment
 from multimodal_eeg_fmri_tpu_torch.train.evaluate import evaluate_dataset
 
+# one torch thread per pytest-xdist worker: see test_torch_port_train.py
+torch.set_num_threads(1)
+
 j_fit = importlib.import_module("multimodal_eeg_fmri_tpu.train.fit")
 t_fit = importlib.import_module("multimodal_eeg_fmri_tpu_torch.train.fit")
 port_attn = importlib.import_module(

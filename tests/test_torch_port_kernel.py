@@ -144,6 +144,67 @@ def test_kernel_reads_strided_inputs_and_counts(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("member_dim", [0, 2])
+def test_vmapped_members_fold_into_one_launch(cuda_device, member_dim):
+    """``torch.func.vmap`` over K=5 members of the serving shape
+    (8, 4, 512, 32) reaches K1 once, on the folded (40, 4, 512, 32) batch,
+    and equals the plain version there; a member axis inside the tensor
+    is moved and folded the same way."""
+    K, B, H, T, D = 5, 8, 4, 512, 32
+    q, k, v = (torch.randn(K, B, H, T, D, device=cuda_device).movedim(
+        0, member_dim) for _ in range(3))
+    before = dict(flash_forward_cuda.launches)
+    with torch.inference_mode():
+        out, lse = torch.func.vmap(flash_attention_lse,
+                                   in_dims=member_dim)(q, k, v)
+    assert flash_forward_cuda.launches == {"f32": before["f32"] + 1,
+                                           "bf16": before["bf16"]}
+    folded = [t.movedim(member_dim, 0).reshape(K * B, H, T, D)
+              for t in (q, k, v)]
+    out_p, lse_p = flash_forward_plain(*folded)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.reshape(K * B, H, T, D), out_p,
+                               atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse.reshape(K * B, H, T), lse_p, atol=2e-5,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_gradient_under_vmap_raises_on_the_card(cuda_device):
+    q, k, v = (torch.randn(2, 1, 2, 64, 32, device=cuda_device)
+               for _ in range(3))
+
+    def loss(q, k, v):
+        return flash_attention(q, k, v).sum()
+
+    with pytest.raises(NotImplementedError, match="no vmap rule"):
+        torch.func.vmap(torch.func.grad(loss))(q, k, v)
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_k1(cuda_device, tmp_path):
+    """A ``torch.export`` program saved and loaded again calls K1 as
+    ``mmef::flash_fwd``: the launch count moves inside its call."""
+    class Attend(torch.nn.Module):
+        def forward(self, q, k, v):
+            return flash_attention(q, k, v) * 2.0
+
+    q, k, v = (torch.randn(2, 2, 300, 32, device=cuda_device)
+               for _ in range(3))
+    with torch.no_grad():
+        program = torch.export.export(Attend(), (q, k, v))
+    torch.export.save(program, tmp_path / "attend.pt2")
+    loaded = torch.export.load(tmp_path / "attend.pt2").module()
+    before = flash_forward_cuda.launches["f32"]
+    with torch.no_grad():
+        out = loaded(q, k, v)
+    assert flash_forward_cuda.launches["f32"] == before + 1
+    ref, _ = flash_forward_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, 2.0 * ref, atol=4e-5, rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["mixed_dtype", "head_dim", "dtype",
                                  "last_stride"])
 def test_kernel_wrapper_refuses(cuda_device, bad):

@@ -46,6 +46,14 @@ from multimodal_eeg_fmri_tpu_torch.ops import augment as t_augment
 from multimodal_eeg_fmri_tpu_torch.ops import losses as t_losses
 from multimodal_eeg_fmri_tpu_torch.report import metrics as t_metrics
 
+# Tests run under pytest-xdist, six workers on an eight-core host. torch's
+# default of one intra-op thread per core in every worker oversubscribed the
+# cores twelvefold, and the port's small CPU ops spent their time waiting
+# for threads: capped at one thread, the six-worker run of the port's test
+# files took a third of its time. Every worker imports every test file, so
+# the cap holds for the whole run.
+torch.set_num_threads(1)
+
 # the packages' ``ops.attention`` and ``train.fit`` attributes are
 # functions, so the modules are looked up by name
 jax_attn = importlib.import_module("multimodal_eeg_fmri_tpu.ops.attention")

@@ -69,6 +69,9 @@ from multimodal_eeg_fmri_tpu_torch.train.resilient import (
 )
 from multimodal_eeg_fmri_tpu_torch.train.trainer import Trainer
 
+# one torch thread per pytest-xdist worker: see test_torch_port_train.py
+torch.set_num_threads(1)
+
 j_fit = importlib.import_module("multimodal_eeg_fmri_tpu.train.fit")
 t_fit = importlib.import_module("multimodal_eeg_fmri_tpu_torch.train.fit")
 

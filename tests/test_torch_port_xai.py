@@ -49,6 +49,9 @@ from multimodal_eeg_fmri_tpu_torch.xai import explainer as t_explainer
 from multimodal_eeg_fmri_tpu_torch.xai import montage as t_montage
 from multimodal_eeg_fmri_tpu_torch.xai import shap_kernel as t_shap
 
+# one torch thread per pytest-xdist worker: see test_torch_port_train.py
+torch.set_num_threads(1)
+
 port_attn = importlib.import_module(
     "multimodal_eeg_fmri_tpu_torch.ops.attention")
 
