@@ -115,6 +115,28 @@ threads' rows equal to the direct call, fewer calls than rows,
 ``QueueFull`` under a burst, ``close()`` draining; gate g, the ensemble's
 uncertainty and a drift monitor on the card. A ``serving`` JSON line holds
 the timings.
+Then the model zoo (the zoo phase, after the cv phase): zoo-suite-T512
+runs ``run_model_suite`` over the four models of the JAX package's EEG
+experiment (``pipelines.run_eeg_experiment``: TriModalFusionNetV4,
+SmartFusionNetV4, PWOnlyNet and ERPOnlyNet as it builds them from
+EEGConfig, with its augmentation) over 66 subjects at T=512 in 5 folds, 2
+epochs, each model's run timed and its K1-K3 launches held to the counts
+derived from its flash layers, the fold length and whether its attention
+dropout keeps the train steps on the einsum route (the two transformer
+models: K1 in the evaluations only; the baselines: none); zoo-step-T512
+runs SmartFusionNetV4 and TriModalFusionNetGNN (on (8, 18, 18, 3)
+connectivity matrices) at dropout 0, batch 8, each launching K1, K2 and
+K3 4 times in a forward and backward: gate a, a train step against the
+einsum route and the CPU's (loss within 1e-5 of the einsum route's, and
+of the CPU's plus 4× the einsum route's card-vs-CPU gap; each gradient
+within 1e-4 plus 4× that tensor's own card-vs-CPU gap on that route, since
+training-mode BatchNorm over 8 rows in the head amplifies f32 rounding);
+gate b, an eval-mode backward against the einsum route and a float64 copy
+(loss within 1e-5, each gradient within 3e-4 of its tensor's largest, and
+within 1e-4 of the largest gradient); and one ``Predictor`` batch of the
+GNN (4 K1 launches, logits within 1e-4 of the einsum route's). A ``zoo``
+JSON line holds the suite's timings, and the kernels line each path's
+launches.
 Any failed phase raises, so the exit code is not 0 and the final line is
 not printed.
 There is no CPU mode: without a GPU the script fails at once.
@@ -631,6 +653,48 @@ def cancelled_biases(model) -> set:
             names |= {f"{prefix}.dense_{i}.bias" for i in range(m.n)
                       if hasattr(m, f"bn_{i}")}
     return names
+
+
+def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a − b| over max|b| (0 where both are 0)."""
+    return ((a - b).abs().max() / b.abs().max()).nan_to_num(0.0).item()
+
+
+def step_gate(what: str, losses: dict, grads: dict, noisy: set,
+              rtol: dict = None, loss_atol: dict = None) -> None:
+    """The train-step gate: the kernel route's loss within its limit
+    (``loss_atol`` by route, else STEP_LOSS_ATOL) of each other route's,
+    and each gradient within its limit (``rtol`` by name, else
+    STEP_GRAD_RTOL) of its tensor's largest |value|; the biases whose
+    gradient is zero up to rounding (``noisy``) within STEP_GRAD_RTOL of
+    the largest gradient of the first other route."""
+    rtol, loss_atol = rtol or {}, loss_atol or {}
+    g_max = max(g.abs().max().item()
+                for g in next(v for r, v in grads.items()
+                              if r != "kernel").values())
+    for other in (r for r in grads if r != "kernel"):
+        d_loss = abs(losses["kernel"] - losses[other])
+        loss_limit = loss_atol.get(other, STEP_LOSS_ATOL)
+        # the heads whose logits MultimodalEndToEnd does not use get
+        # exactly zero gradient on every route
+        rel = {k: rel_gap(grads["kernel"][k], g)
+               for k, g in grads[other].items() if k not in noisy}
+        worst_name = max(rel, key=lambda k: rel[k]
+                         / rtol.get(k, STEP_GRAD_RTOL))
+        limit = rtol.get(worst_name, STEP_GRAD_RTOL)
+        d_noisy = max((grads["kernel"][k] - grads[other][k]).abs().max().item()
+                      for k in noisy) / g_max
+        print(f"{what}kernel vs {other}: loss {losses['kernel']:.7f} vs "
+              f"{losses[other]:.7f} (|d|={d_loss:.3e}, limit "
+              f"{loss_limit:.3e}); gradients max|d|/max|g| per tensor, "
+              f"the nearest its limit: {rel[worst_name]:.3e} at {worst_name} "
+              f"(limit {limit:.3e}); the {len(noisy)} biases whose gradient "
+              f"is zero up to rounding: max|d| / the largest gradient "
+              f"{d_noisy:.3e}")
+        if not (d_loss <= loss_limit and rel[worst_name] <= limit
+                and d_noisy <= STEP_GRAD_RTOL):
+            fail(f"{what}the kernel route's train step disagrees with the "
+                 f"{other} route")
 
 
 # --- the raw-signal slice: S1 and the phases of bench.py's extras ----------
@@ -1270,12 +1334,15 @@ def flash_layers(model, data: dict) -> int:
 
 
 def cv_expected_launches(layers: int, train_rows: int, batch: int,
-                         epochs: int, folds: int, eval_sets: int = 2) -> dict:
+                         epochs: int, folds: int, eval_sets: int = 2,
+                         in_steps: bool = True) -> dict:
     """K1-K3 launches of a ``run_cv`` whose folds pad to ``train_rows``:
     per fold, each of ``layers`` flash layers runs K1 in every train step
     and every per-epoch evaluation, plus the final test evaluation, and K2
-    and K3 in every train step."""
-    steps = train_rows // min(batch, train_rows)
+    and K3 in every train step. A model whose attention dropout is on
+    trains on the einsum route (``in_steps`` False): K1 in the evaluations
+    only."""
+    steps = train_rows // min(batch, train_rows) if in_steps else 0
     return {"flash_fwd": folds * layers * ((steps + eval_sets) * epochs + 1),
             "flash_bwd_dkv": folds * layers * steps * epochs,
             "flash_bwd_dq": folds * layers * steps * epochs}
@@ -1610,6 +1677,321 @@ def cv_phase(dev, card: str) -> dict:
         k: v for k, v in eeg.items() if k != "launches"},
         "eeg_pipeline_T250": pipeline, "fmri": fmri, "device": card}}))
     return eeg
+
+
+# --- the model zoo: the reference's four-model suite, K1-K3 in new models ---
+
+ZOO_EPOCHS = 2                    # cut from TrainConfig's 50
+# a train step's gradient gap in one tensor may be a few times that
+# tensor's own f32 floor, the einsum route's gap between card and CPU
+ZOO_FLOOR_FACTOR = 4
+# the kernel route's eval-mode gradients, per tensor, over the tensor's
+# largest: ~1e-4 measured in the q/k projections (ROADMAP C8)
+ZOO_GRAD_RTOL = 3e-4
+ZOO_STEP_MODELS = ("SmartFusionNetV4", "TriModalFusionNetGNN")
+
+
+def zoo_suite_models(e, dev) -> dict:
+    """The four models of ``pipelines.run_eeg_experiment``, built as it
+    builds them from the EEGConfig ``e``."""
+    from multimodal_eeg_fmri_tpu_torch.models import (
+        ERPOnlyNet,
+        PWOnlyNet,
+        SmartFusionNetV4,
+    )
+
+    return {"trimodal": eeg_model(e, e.dropout, dev),
+            "fusion": SmartFusionNetV4(
+                hidden_dim=e.hidden_dim,
+                num_transformer_layers=e.num_transformer_layers,
+                num_heads=e.num_heads, erp_channels=e.erp_channels,
+                pw_channels=e.pw_channels, device=dev),
+            "pwonly": PWOnlyNet(hidden_dim=e.hidden_dim // 2,
+                                pw_channels=e.pw_channels, device=dev),
+            "erponly": ERPOnlyNet(hidden_dim=e.hidden_dim // 2,
+                                  erp_channels=e.erp_channels, device=dev)}
+
+
+def trains_on_the_kernels(model) -> bool:
+    """Whether a train step may take K1-K3: the "auto" rule sends an
+    attention layer with probability dropout to the einsum route."""
+    from multimodal_eeg_fmri_tpu_torch.models.layers import MultiHeadAttention
+
+    return not any(m.dropout for m in model.modules()
+                   if isinstance(m, MultiHeadAttention))
+
+
+def zoo_suite_phase(dev, card: str) -> dict:
+    """zoo-suite-T512: ``run_model_suite`` over the reference's four models
+    at EEGConfig's widths with the pipeline's augmentation, 66 subjects at
+    T=512, 5 folds, ZOO_EPOCHS epochs. Each model's run is timed and its
+    launches counted around its ``run_cv`` (the suite's loop calls it by
+    name) and held to the counts derived from its flash layers, the fold
+    length and whether it trains on the kernels."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import (
+        EEGConfig,
+        TrainConfig,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+    )
+    from multimodal_eeg_fmri_tpu_torch.ops.augment import make_eeg_augment
+    from multimodal_eeg_fmri_tpu_torch.train import cv as cv_module
+
+    e = EEGConfig()
+    data = synthetic_eeg_trimodal(n_subjects=CV_EEG_N, time_steps=T_SERVE)
+    cfg = TrainConfig(num_epochs=ZOO_EPOCHS)
+    splits = cv_module.eeg_kfold_splits(data, cfg, n_splits=e.n_splits)
+    stacks = cv_module.build_fold_arrays(data, splits, "scalar", EEG_KEYS)
+    rows = stacks[0]["label"].shape[1]
+    fold0 = {k: v[0] for k, v in stacks[0].items()}
+    models = zoo_suite_models(e, dev)
+    expected = {}
+    for name, model in models.items():
+        layers = flash_layers(model, fold0)
+        expected[name] = cv_expected_launches(
+            layers, rows, cfg.batch_size, ZOO_EPOCHS, len(splits),
+            in_steps=trains_on_the_kernels(model))
+        print(f"{name}: {type(model).__name__}, "
+              f"{sum(p.numel() for p in model.parameters())} parameters, "
+              f"{layers} flash layers a forward, trains on the kernels: "
+              f"{trains_on_the_kernels(model)}")
+
+    names = {id(m): name for name, m in models.items()}
+    measured = {}
+    run_cv = cv_module.run_cv
+
+    def counted_run_cv(model, *args, **kw):
+        reset_all_launches()
+        out, seconds = timed(lambda: run_cv(model, *args, **kw))
+        measured[names[id(model)]] = (total_launches(), seconds)
+        return out
+
+    augment = make_eeg_augment(noise_std=e.augment_noise_std,
+                               channel_dropout=e.augment_channel_dropout,
+                               prob=e.augment_prob)
+    cv_module.run_cv = counted_run_cv
+    try:
+        results, seconds = timed(lambda: cv_module.run_model_suite(
+            models, cfg, data, splits, normalize_keys=EEG_KEYS,
+            augment=augment))
+    finally:
+        cv_module.run_cv = run_cv
+    if list(results) != list(models) or list(measured) != list(models):
+        fail(f"run_model_suite ran {list(measured)}, returned "
+             f"{list(results)}")
+    out = {"seconds": seconds, "models": {}}
+    for name, result in results.items():
+        launches, s = measured[name]
+        what = f"zoo-suite-T{T_SERVE} {name}"
+        print_cv(result, s, what, card)
+        print(f"{what}: launches {launches} (expected {expected[name]})")
+        if launches != expected[name]:
+            fail(f"{what} launched {launches}, expected {expected[name]}")
+        cv_finite(result, what)
+        out["models"][name] = {"seconds_per_fold": s / result.n_folds,
+                               "launches": launches,
+                               "f1": result.summary["f1"]}
+    print(f"zoo-suite-T{T_SERVE}: 4 models x {len(splits)} folds in "
+          f"{seconds:.2f} s {card}")
+    return out
+
+
+def zoo_route_grads(m, batch: dict, cw, train: bool, cfg,
+                    out_device) -> tuple:
+    """(loss, {name: gradient on ``out_device``}, launches) of one forward
+    and backward of ``m`` on ``batch`` in ``m``'s device and dtype: a
+    ``TrainStep``'s loss in training mode, or the same weighted
+    cross-entropy on the eval-mode forward."""
+    from multimodal_eeg_fmri_tpu_torch.ops.losses import (
+        weighted_cross_entropy,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
+
+    p0 = next(m.parameters())
+    batch = {k: v.to(p0.device, p0.dtype) if v.is_floating_point()
+             else v.to(p0.device) for k, v in batch.items()}
+    cw = cw.to(p0.device, p0.dtype)
+    reset_all_launches()
+    if train:
+        loss = TrainStep(m, cfg, preprocess=zscore).loss(batch, cw)
+    else:
+        inputs = {**{k: batch[k] for k in ("erp", "pw", "conn")},
+                  **zscore(batch)}
+        loss = weighted_cross_entropy(m.eval()(**inputs).logits,
+                                      batch["label"], cw, batch["weight"])
+    loss.backward()
+    torch.cuda.synchronize()
+    return (loss.item(), {k: p.grad.to(out_device)
+                          for k, p in m.named_parameters()},
+            total_launches())
+
+
+def zoo_step_phase(dev, card: str) -> dict:
+    """zoo-step-T512: SmartFusionNetV4 and TriModalFusionNetGNN at
+    EEGConfig's widths, dropout 0, batch 8 (the GNN on (8, 18, 18, 3)
+    connectivity matrices), each from one set of weights on the kernel
+    route, the einsum route and the CPU's einsum route. Each launches K1,
+    K2 and K3 once per temporal layer (4) in a forward and backward.
+
+    Gate a, one train step: the launches; ``step_gate`` against the einsum
+    route and against the CPU's, with each gradient's limit (max|d| over
+    its tensor's largest) STEP_GRAD_RTOL plus ZOO_FLOOR_FACTOR times that
+    tensor's floor, the gap between the einsum route on the card and on
+    the CPU; the loss within STEP_LOSS_ATOL of the einsum route's, and of
+    the CPU's plus ZOO_FLOOR_FACTOR times the loss's own floor. Training-mode BatchNorm over 8 rows of nearly equal pooled
+    features in the head amplifies f32 rounding (E[x²] − E[x]² cancels),
+    so that two f32 computations of the einsum route part by up to ~1e-3
+    in a tensor: the train-step gate's 1e-4 alone is below the step's own
+    floor.
+    Gate b, the same weights and batch in eval mode (BatchNorm an affine
+    map), a forward and a backward: ``step_gate`` against the einsum route
+    and against the einsum route of a float64 copy of the model, each
+    gradient within ZOO_GRAD_RTOL of its tensor's largest (the flash
+    backward's Δ = rowsum(dO∘O) carries O's rounding into dS, whose rows
+    should sum to zero, and keys with a large common part amplify it in
+    the query and key projections); and every gradient within
+    STEP_GRAD_RTOL of the largest gradient of the float64 copy.
+    Then one ``Predictor`` batch of the GNN: 4 K1 launches, logits within
+    LOGITS_ATOL of the einsum route's."""
+    from multimodal_eeg_fmri_tpu_torch import (
+        Predictor,
+        TrainConfig,
+        init_weights,
+    )
+    from multimodal_eeg_fmri_tpu_torch.core.config import EEGConfig
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+    )
+    from multimodal_eeg_fmri_tpu_torch.models import (
+        SmartFusionNetV4,
+        TriModalFusionNetGNN,
+    )
+    from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
+
+    e = EEGConfig()
+    widths = dict(hidden_dim=e.hidden_dim, dropout=0.0,
+                  num_transformer_layers=e.num_transformer_layers,
+                  num_heads=e.num_heads, erp_channels=e.erp_channels,
+                  pw_channels=e.pw_channels, device=dev)
+    data = synthetic_eeg_trimodal(n_subjects=BATCH, time_steps=T_SERVE,
+                                  conn_as_matrix=True)
+    batch = {k: torch.as_tensor(data[k], device=dev)
+             for k in ("erp", "pw", "conn", "label")}
+    batch["weight"] = torch.ones(BATCH, device=dev)
+    cw = torch.ones(2, device=dev)
+    cfg = TrainConfig(batch_size=BATCH)
+    per_step = 2 * e.num_transformer_layers   # the ERP and PW encoders
+    expected = dict.fromkeys(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+                             per_step)
+    none = dict.fromkeys(expected, 0)
+    out = {}
+    for cls in (SmartFusionNetV4, TriModalFusionNetGNN):
+        base = init_weights(cls(**widths), torch.Generator().manual_seed(4))
+        for m in base.modules():
+            if isinstance(m, LearnedFusion):
+                m.gate_dropout = 0.0
+        name = cls.__name__
+        noisy = cancelled_biases(base)
+        runs = {}
+        for mode, routes in (
+                ("train", (("kernel", copy.deepcopy(base)),
+                           ("einsum", einsum_route(copy.deepcopy(base))),
+                           ("cpu", einsum_route(copy.deepcopy(base).cpu())))),
+                ("eval", (("kernel", copy.deepcopy(base)),
+                          ("einsum", einsum_route(copy.deepcopy(base))),
+                          ("f64",
+                           einsum_route(copy.deepcopy(base)).double())))):
+            for route, m in routes:
+                runs[mode, route] = zoo_route_grads(
+                    m, batch, cw, mode == "train", cfg, dev)
+            launches = {r: runs[mode, r][2] for r in ("kernel", "einsum")}
+            print(f"zoo-step-T{T_SERVE} {name}, {mode} mode: launches, "
+                  f"kernel route {launches['kernel']}, einsum route "
+                  f"{launches['einsum']} (expected {expected} and none)")
+            if launches != {"kernel": expected, "einsum": none}:
+                fail(f"zoo-step-T{T_SERVE} {name}, {mode} mode, launched "
+                     f"{launches}")
+        out[name] = runs["train", "kernel"][2]
+
+        what = f"zoo-step-T{T_SERVE} {name}, gate a (train step): "
+        losses, grads = ({r: runs["train", r][i]
+                          for r in ("kernel", "einsum", "cpu")}
+                         for i in (0, 1))
+        loss_floor = abs(losses["einsum"] - losses["cpu"])
+        floor = {k: rel_gap(grads["einsum"][k], g)
+                 for k, g in grads["cpu"].items() if k not in noisy}
+        top = max(floor, key=floor.get)
+        print(f"{what}the einsum route, card vs CPU: loss |d|="
+              f"{loss_floor:.3e}; gradients max|d|/max|g| per tensor up to "
+              f"{floor[top]:.3e} at {top}")
+        # the CPU's loss carries the floor in it: it is held to the floor
+        # too, the einsum route's to STEP_LOSS_ATOL alone
+        step_gate(what, losses, grads, noisy,
+                  {k: STEP_GRAD_RTOL + ZOO_FLOOR_FACTOR * f
+                   for k, f in floor.items()},
+                  {"cpu": STEP_LOSS_ATOL + ZOO_FLOOR_FACTOR * loss_floor})
+
+        what = f"zoo-step-T{T_SERVE} {name}, gate b (eval mode): "
+        losses, grads = ({r: runs["eval", r][i]
+                          for r in ("kernel", "einsum", "f64")}
+                         for i in (0, 1))
+        # in eval mode only the key-projection biases cancel
+        key_biases = {k for k in noisy if k.endswith(".k_proj.bias")}
+        step_gate(what, losses, grads, key_biases,
+                  dict.fromkeys(grads["f64"], ZOO_GRAD_RTOL))
+        g_max = max(g.abs().max().item() for g in grads["f64"].values())
+        for r in ("kernel", "einsum"):
+            d_max, at = max(((grads[r][k] - g).abs().max().item(), k)
+                            for k, g in grads["f64"].items())
+            rel, worst = max((rel_gap(grads[r][k], g), k)
+                             for k, g in grads["f64"].items()
+                             if k not in key_biases)
+            print(f"{what}{r} route vs the float64 einsum route: gradients "
+                  f"max|d| / the largest gradient {d_max / g_max:.3e} at {at}"
+                  f" (limit {STEP_GRAD_RTOL:g}); per tensor max|d|/max|g| up "
+                  f"to {rel:.3e} at {worst}")
+            if r == "kernel" and d_max > STEP_GRAD_RTOL * g_max:
+                fail(f"{what}the kernel route disagrees with the float64 "
+                     "route")
+
+        if cls is TriModalFusionNetGNN:
+            request_rows = {k: data[k] for k in ("erp", "pw", "conn")}
+            reset_all_launches()
+            logits = Predictor(base, BATCH, return_probs=False)(
+                **request_rows)
+            torch.cuda.synchronize()
+            served = total_launches()
+            plain = Predictor(einsum_route(copy.deepcopy(base)), BATCH,
+                              return_probs=False)(**request_rows)
+            d = float(np.abs(logits - plain).max())
+            print(f"zoo-serve-gnn-T{T_SERVE}: Predictor batch of {BATCH}, "
+                  f"launches {served}, logits shape {logits.shape}, kernel "
+                  f"vs einsum route max|d|={d:.3e} (limit {LOGITS_ATOL:g})")
+            if served != {**none, "flash_fwd": per_step}:
+                fail(f"the GNN's Predictor batch launched {served}")
+            if not (logits.shape == (BATCH, 2) and np.all(np.isfinite(logits))
+                    and d <= LOGITS_ATOL):
+                fail("the GNN's Predictor batch disagrees with the einsum "
+                     "route or is not finite")
+            out["serve_gnn"] = served["flash_fwd"]
+    return out
+
+
+def zoo_phase(dev, card: str) -> dict:
+    """The zoo phase: the four-model suite, then the train steps and the
+    Predictor batch of the two new models that run K1-K3."""
+    phase(f"zoo-suite-T{T_SERVE}: run_model_suite of trimodal, fusion, "
+          f"pwonly and erponly at EEGConfig's widths, {CV_EEG_N} subjects, "
+          f"5 folds, {ZOO_EPOCHS} epochs")
+    suite = zoo_suite_phase(dev, card)
+    phase(f"zoo-step-T{T_SERVE}: {' and '.join(ZOO_STEP_MODELS)} at "
+          "dropout 0, batch 8: a train step and an eval-mode backward on the "
+          "kernel route, the einsum route and a reference; a Predictor "
+          "batch of the GNN")
+    steps = zoo_step_phase(dev, card)
+    print(json.dumps({"zoo": {"suite_T512": suite, "device": card}}))
+    return {"suite": suite, "steps": steps}
 
 
 # --- the bridge slice: xai/ and train/bridge_flow.py on the card ------------
@@ -2856,28 +3238,7 @@ def main() -> None:
         loss.backward()
         losses[name] = loss.item()
         grads[name] = {k: p.grad.to(dev) for k, p in m.named_parameters()}
-    noisy = cancelled_biases(base)
-    g_max = max(g.abs().max().item() for g in grads["einsum"].values())
-    for other in ("einsum", "cpu"):
-        d_loss = abs(losses["kernel"] - losses[other])
-        # the heads whose logits MultimodalEndToEnd does not use get
-        # exactly zero gradient on every route
-        rel, worst_name = max(
-            (((grads["kernel"][k] - g).abs().max()
-              / g.abs().max()).nan_to_num(0.0).item(), k)
-            for k, g in grads[other].items() if k not in noisy)
-        d_noisy = max((grads["kernel"][k] - grads[other][k]).abs().max().item()
-                      for k in noisy) / g_max
-        print(f"kernel vs {other}: loss {losses['kernel']:.7f} vs "
-              f"{losses[other]:.7f} (|d|={d_loss:.3e}, limit "
-              f"{STEP_LOSS_ATOL:g}); gradients max|d|/max|g| per tensor "
-              f"{rel:.3e} at {worst_name} (limit {STEP_GRAD_RTOL:g}); the "
-              f"{len(noisy)} biases whose gradient is zero up to rounding: "
-              f"max|d| / the largest gradient {d_noisy:.3e}")
-        if not (d_loss <= STEP_LOSS_ATOL and rel <= STEP_GRAD_RTOL
-                and d_noisy <= STEP_GRAD_RTOL):
-            fail(f"the kernel route's train step disagrees with the {other} "
-                 "route")
+    step_gate("", losses, grads, cancelled_biases(base))
 
     phase(f"mixed-precision training path: compute_dtype='bfloat16', "
           f"MultimodalEndToEnd(dropout=0.0) defaults, {COHORT} subjects, "
@@ -3231,6 +3592,9 @@ def main() -> None:
     phase(f"cv: train/cv.py on the card {card}")
     cv = cv_phase(dev, card)
 
+    phase(f"zoo: the model zoo on the card {card}")
+    zoo = zoo_phase(dev, card)
+
     phase(f"bridge: xai/ and train/bridge_flow.py on the card {card}")
     bridge = bridge_phase(dev, card)
 
@@ -3252,6 +3616,14 @@ def main() -> None:
         # bridge phase's
         "launches_by_path": {"train-e2e-T512": train_launches[name],
                              "cv-eeg-kfold-T512": cv["launches"][name],
+                             **{f"zoo-suite-T512 {model}": v["launches"][name]
+                                for model, v in zoo["suite"]["models"].items()},
+                             **{f"zoo-step-T512 {model}, per step":
+                                zoo["steps"][model][name]
+                                for model in ZOO_STEP_MODELS},
+                             "zoo-serve-gnn-T512, per batch": (
+                                 zoo["steps"]["serve_gnn"]
+                                 if name == "flash_fwd" else 0),
                              **{path: n[name] for path, n in bridge.items()},
                              "serve-ensemble-T512, per batch": (
                                  serving["launches_per_batch"]

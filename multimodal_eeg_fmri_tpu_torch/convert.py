@@ -15,8 +15,9 @@ that the port's ``fit`` can resume a run the JAX package began.
 ``init_weights`` initialises a port module as flax would: lecun-normal
 kernels (a normal truncated at ±2σ, rescaled to unit variance over fan-in),
 zero biases, unit norm scales, and the special initial values of
-``LearnedFusion`` and ``FMRIFusionNet``. The numbers come from an explicit
-CPU ``torch.Generator``, so one seed gives the same weights on every device.
+``LearnedFusion``, ``FMRIFusionNet`` and ``HybridFusion``. The numbers come
+from an explicit CPU ``torch.Generator``, so one seed gives the same weights
+on every device.
 """
 
 from __future__ import annotations
@@ -31,7 +32,10 @@ from torch import nn
 
 from multimodal_eeg_fmri_tpu_torch.models.encoders import MultiScaleConv
 from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet
-from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
+from multimodal_eeg_fmri_tpu_torch.models.fusion import (
+    HybridFusion,
+    LearnedFusion,
+)
 from multimodal_eeg_fmri_tpu_torch.models.layers import MultiHeadAttention
 from multimodal_eeg_fmri_tpu_torch.train.fit import FitCarry
 
@@ -76,7 +80,9 @@ class _Loader:
             k = take_p("kernel").reshape(module.in_features,
                                          module.out_features)
             self.put(module.weight, k.T, f"{name}weight")
-            self.put(module.bias, take_p("bias").reshape(-1), f"{name}bias")
+            if module.bias is not None:  # flax's Dense(use_bias=False)
+                self.put(module.bias, take_p("bias").reshape(-1),
+                         f"{name}bias")
             return
         if isinstance(module, nn.Conv1d):
             # flax (K, Cin, Cout) → torch (Cout, Cin, K)
@@ -142,10 +148,13 @@ def _flax_trees(module: nn.Module, parent: Optional[nn.Module] = None,
         return t.detach().cpu().numpy().copy()
 
     if isinstance(module, nn.Linear):
-        bias = host(module.bias)
-        if isinstance(parent, MultiHeadAttention) and key != "out_proj":
-            bias = bias.reshape(parent.num_heads, parent.head_dim)
-        return {"kernel": _flax_kernel(parent, key, module), "bias": bias}, {}
+        p = {"kernel": _flax_kernel(parent, key, module)}
+        if module.bias is not None:
+            p["bias"] = host(module.bias)
+            if isinstance(parent, MultiHeadAttention) and key != "out_proj":
+                p["bias"] = p["bias"].reshape(parent.num_heads,
+                                              parent.head_dim)
+        return p, {}
     if isinstance(module, nn.Conv1d):
         return {"kernel": host(module.weight).transpose(2, 1, 0),
                 "bias": host(module.bias)}, {}
@@ -260,7 +269,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
         own = dict(sub.named_parameters(recurse=False))
         if isinstance(sub, nn.Linear):
             _lecun_normal(sub.weight, sub.in_features, generator)
-            sub.bias.zero_()
+            if sub.bias is not None:
+                sub.bias.zero_()
         elif isinstance(sub, nn.Conv1d):
             _lecun_normal(sub.weight, sub.weight[0].numel(), generator)
             sub.bias.zero_()
@@ -280,6 +290,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(sub, FMRIFusionNet):
             sub.activation_weight.fill_(0.5)
             sub.connectivity_weight.fill_(0.5)
+        elif isinstance(sub, HybridFusion):
+            sub.final_gate.copy_(torch.tensor([0.6, 0.4]))
         elif own:
             raise TypeError(f"init_weights does not know {type(sub).__name__}")
         done |= {id(p) for p in own.values()}

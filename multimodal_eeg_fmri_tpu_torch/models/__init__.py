@@ -1,17 +1,52 @@
-"""Models of the serving slice, mirroring ``multimodal_eeg_fmri_tpu.models``."""
+"""The model zoo, mirroring ``multimodal_eeg_fmri_tpu.models``.
+
+``MODEL_REGISTRY`` maps the JAX package's registry names to the port's
+classes; ``long_context`` is not ported yet (ROADMAP.md, queue A item 5b).
+"""
 
 from multimodal_eeg_fmri_tpu_torch.models.bridge import BridgeFusionNet
 from multimodal_eeg_fmri_tpu_torch.models.eeg import (
+    ERPOnlyNet,
     ModelOutput,
+    PWOnlyNet,
+    SmartFusionNetV4,
+    TriModalFusionNetGNN,
     TriModalFusionNetV4,
+    TriModalFusionNetV4Lite,
 )
-from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet
+from multimodal_eeg_fmri_tpu_torch.models.fmri import (
+    FMRIActivationOnly,
+    FMRIConnectivityOnly,
+    FMRIFusionNet,
+)
 from multimodal_eeg_fmri_tpu_torch.models.multimodal import MultimodalEndToEnd
+
+MODEL_REGISTRY = {
+    "trimodal": TriModalFusionNetV4,
+    "trimodal_lite": TriModalFusionNetV4Lite,
+    "trimodal_gnn": TriModalFusionNetGNN,
+    "fusion": SmartFusionNetV4,           # bi-modal ERP+PW (reference name)
+    "erponly": ERPOnlyNet,
+    "pwonly": PWOnlyNet,
+    "fmri_fusion": FMRIFusionNet,
+    "fmri_activation_only": FMRIActivationOnly,
+    "fmri_connectivity_only": FMRIConnectivityOnly,
+    "bridge": BridgeFusionNet,
+    "multimodal_e2e": MultimodalEndToEnd,
+}
 
 __all__ = [
     "BridgeFusionNet",
+    "ERPOnlyNet",
+    "FMRIActivationOnly",
+    "FMRIConnectivityOnly",
     "FMRIFusionNet",
+    "MODEL_REGISTRY",
     "ModelOutput",
     "MultimodalEndToEnd",
+    "PWOnlyNet",
+    "SmartFusionNetV4",
+    "TriModalFusionNetGNN",
     "TriModalFusionNetV4",
+    "TriModalFusionNetV4Lite",
 ]

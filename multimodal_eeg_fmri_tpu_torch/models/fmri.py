@@ -1,7 +1,11 @@
-"""fMRI model family (PyTorch). Counterpart of ``FMRIEncoder``, ``_Head``
-and ``FMRIFusionNet`` in ``multimodal_eeg_fmri_tpu/models/fmri.py``."""
+"""fMRI model family (PyTorch). Counterpart of
+``multimodal_eeg_fmri_tpu/models/fmri.py``: ``FMRIEncoder``, ``_Head``, the
+two unimodal nets and ``FMRIFusionNet``, for classification (a
+``num_classes``-logit head) and regression (a scalar head)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +50,51 @@ class _Head(nn.Module):
         x = F.dropout(F.relu(self.dense(x)), self.dropout, self.training)
         x = self.out(x)
         return x[..., 0] if self.task == "regression" else x
+
+
+class _UnimodalFMRI(nn.Module):
+    def __init__(self, in_features: int, hidden_dim: int, num_classes: int,
+                 dropout: float, task: str, device):
+        super().__init__()
+        device = model_device(device)
+        self.encoder = FMRIEncoder(in_features, hidden_dim, dropout, device)
+        self.head = _Head(hidden_dim, num_classes, dropout, task, device)
+
+    def _predict(self, x: torch.Tensor) -> ModelOutput:
+        feat = self.encoder(x)
+        return ModelOutput(self.head(feat), feat, None, None)
+
+
+class FMRIActivationOnly(_UnimodalFMRI):
+    """Unimodal net over ROI-activation features; ``connectivity`` is
+    accepted and ignored. Builds on the GPU unless ``device`` says
+    otherwise."""
+
+    def __init__(self, hidden_dim: int = 64, num_classes: int = 2,
+                 dropout: float = 0.4, task: str = "classification",
+                 activation_features: int = 90, device="cuda"):
+        super().__init__(activation_features, hidden_dim, num_classes,
+                         dropout, task, device)
+
+    def forward(self, *, activation: torch.Tensor,
+                connectivity: Optional[torch.Tensor] = None) -> ModelOutput:
+        return self._predict(activation)
+
+
+class FMRIConnectivityOnly(_UnimodalFMRI):
+    """Unimodal net over PPI-connectivity features; ``activation`` is
+    accepted and ignored. Builds on the GPU unless ``device`` says
+    otherwise."""
+
+    def __init__(self, hidden_dim: int = 64, num_classes: int = 2,
+                 dropout: float = 0.4, task: str = "classification",
+                 connectivity_features: int = 64, device="cuda"):
+        super().__init__(connectivity_features, hidden_dim, num_classes,
+                         dropout, task, device)
+
+    def forward(self, *, connectivity: torch.Tensor,
+                activation: Optional[torch.Tensor] = None) -> ModelOutput:
+        return self._predict(connectivity)
 
 
 class FMRIFusionNet(nn.Module):

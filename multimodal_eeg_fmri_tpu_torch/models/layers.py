@@ -176,7 +176,7 @@ class MultiHeadAttention(nn.Module):
         if impl in ("ring", "ring_local"):
             raise NotImplementedError(
                 f"attn_impl={impl!r} is not ported yet (ROADMAP.md, queue A "
-                "item 8: parallel axes on torch.distributed)")
+                "item 7: parallel axes on torch.distributed)")
         if impl == "flash":
             from multimodal_eeg_fmri_tpu_torch.ops.attention import (
                 flash_attention,
@@ -211,7 +211,7 @@ class TransformerBlock(nn.Module):
         if num_experts > 0:
             raise NotImplementedError(
                 "the Mixture-of-Experts FFN is not ported yet (ROADMAP.md, "
-                "queue A item 6: ops/moe.py:MoEFFN)")
+                "queue A item 5b: ops/moe.py:MoEFFN)")
         ff = dim_feedforward or 4 * d_model
         self.dropout = dropout
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)

@@ -413,7 +413,7 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
             "pass the selection set or use selection='train_loss'")
     if param_sharding is not None:
         raise NotImplementedError(
-            "param_sharding is not ported yet (ROADMAP.md, queue A item 8: "
+            "param_sharding is not ported yet (ROADMAP.md, queue A item 7: "
             "parallel axes on torch.distributed)")
     compute_dtype(cfg)
     metric_mode_max = cfg.selection != "train_loss"

@@ -143,7 +143,12 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.core.profiling, "
             "multimodal_eeg_fmri_tpu_torch.core.determinism, "
             "multimodal_eeg_fmri_tpu_torch.report.uncertainty, "
-            "multimodal_eeg_fmri_tpu_torch.report.drift\n"
+            "multimodal_eeg_fmri_tpu_torch.report.drift, "
+            "multimodal_eeg_fmri_tpu_torch.models.eeg, "
+            "multimodal_eeg_fmri_tpu_torch.models.encoders, "
+            "multimodal_eeg_fmri_tpu_torch.models.fusion, "
+            "multimodal_eeg_fmri_tpu_torch.models.fmri\n"
+            "from multimodal_eeg_fmri_tpu_torch.models import MODEL_REGISTRY\n"
             "from multimodal_eeg_fmri_tpu_torch.ops import _kernels\n"
             "import torch\n"
             "assert torch.ops.mmef.flash_fwd.default is not None\n"

@@ -318,6 +318,74 @@ def test_autograd_through_kernels_matches_reference(cuda_device, with_lse):
     torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
 
 
+def _zoo_route_grads(model, inputs, labels):
+    """Logits and every gradient (parameters and inputs) of one eval-mode
+    forward and cross-entropy backward."""
+    model.eval().zero_grad()
+    x = {k: v.clone().requires_grad_() for k, v in inputs.items()}
+    logits = model(**x).logits
+    torch.nn.functional.cross_entropy(logits, labels).backward()
+    # SmartFusionNetV4 ignores conn: it gets no gradient
+    grads = {**{k: p.grad for k, p in model.named_parameters()},
+             **{k: v.grad for k, v in x.items()}}
+    return logits.detach(), {k: g for k, g in grads.items() if g is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["SmartFusionNetV4", "TriModalFusionNetGNN"])
+def test_zoo_flash_route_matches_einsum_route(cuda_device, name):
+    """A forward and backward at the full widths and T=512, batch 4, of the
+    two zoo models on the V4 encoders: the flash route (K1 forward, K2 and
+    K3 backward, 4 temporal layers each) against the einsum route. Eval
+    mode, so that BatchNorm is the affine map of its running statistics
+    (training-mode statistics over 4 rows amplify f32 rounding far past
+    the kernels' own). Logits within 1e-4; every gradient within 1e-4 of
+    the largest gradient, and within 3e-4 of its own tensor's largest (the
+    flash backward's rounding measured 1.3e-4 per tensor here, in the
+    attention projections and the layers below them), but the key
+    projections' biases, whose gradient the softmax cancels, and the graph
+    encoder's source-score weights, whose gradient it cancels too where
+    the leaky ReLU does not bend (~1e-10 on these inputs)."""
+    import copy
+
+    from multimodal_eeg_fmri_tpu_torch import init_weights
+    from multimodal_eeg_fmri_tpu_torch import models as zoo
+    from multimodal_eeg_fmri_tpu_torch.models.layers import MultiHeadAttention
+
+    model = init_weights(getattr(zoo, name)(device=cuda_device),
+                         torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    B, T = 4, 512
+    inputs = {"erp": torch.randn(B, T, 18, device=cuda_device, generator=gen),
+              "pw": torch.randn(B, T, 75, device=cuda_device, generator=gen),
+              "conn": torch.rand(B, *((18, 18, 3) if "GNN" in name else (459,)),
+                                 device=cuda_device, generator=gen)}
+    labels = torch.arange(B, device=cuda_device) % 2
+    einsum = copy.deepcopy(model)
+    for m in einsum.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.attn_impl = "einsum"
+    before = {k: fn.launches["f32"] for k, fn in (
+        ("fwd", flash_forward_cuda), ("dkv", flash_bwd_dkv_cuda),
+        ("dq", flash_bwd_dq_cuda))}
+    logits, grads = _zoo_route_grads(model, inputs, labels)
+    torch.cuda.synchronize()
+    assert {k: fn.launches["f32"] - before[k] for k, fn in (
+        ("fwd", flash_forward_cuda), ("dkv", flash_bwd_dkv_cuda),
+        ("dq", flash_bwd_dq_cuda))} == {"fwd": 4, "dkv": 4, "dq": 4}
+    ref_logits, ref = _zoo_route_grads(einsum, inputs, labels)
+    torch.testing.assert_close(logits, ref_logits, atol=1e-4, rtol=0)
+    assert grads.keys() == ref.keys()
+    g_max = max(g.abs().max().item() for g in ref.values())
+    cancelled = {f"{n}.k_proj.bias" for n, m in model.named_modules()
+                 if isinstance(m, MultiHeadAttention)}
+    cancelled |= {k for k in ref if ".a_src_" in k}
+    for k, g in ref.items():
+        d = (grads[k] - g).abs().max().item()
+        assert d <= 1e-4 * g_max, k
+        assert k in cancelled or d <= 3e-4 * g.abs().max().item(), k
+
+
 @pytest.mark.cuda
 def test_backward_wrapper_refuses(cuda_device):
     q, k, v, out, lse, g = _backward_inputs(cuda_device, (1, 1, 8, 8, 32),
