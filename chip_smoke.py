@@ -137,6 +137,27 @@ within 1e-4 of the largest gradient); and one ``Predictor`` batch of the
 GNN (4 K1 launches, logits within 1e-4 of the einsum route's). A ``zoo``
 JSON line holds the suite's timings, and the kernels line each path's
 launches.
+Then the long-context slice (the lc phase, after the zoo phase):
+lc-moe-T2048 trains ``LongContextClassifier`` at its JAX defaults (hidden
+64, 2 layers, 4 heads: K1-K3 at D=16) with 4 experts, top-2, on raw EEG
+(8, 2048, 18) through ``make_fit_fn`` (32 subjects with a class signal, 3
+epochs, 8 validation rows) and serves it through ``Predictor(batch_size=8)``;
+gate a, the launches derived from the steps, evaluations and served
+batches (2 layers each); gate d, the served logits within 1e-4 of the
+einsum route's; gate c, the same fit with ``remat=True``: its history within
+1e-6 of the plain fit's, 2 more K1 a step, and both fits' peak memory;
+gate b, one train step on the kernel route, the einsum route and the CPU
+through ``step_gate`` (each gradient to its tensor's floor, as in the zoo
+phase), after printing the tokens each route sends to other experts and
+their top-k margins (a route with such flips runs again on the kernel
+route's expert choices); gate f, the step's loss minus its task loss equal
+to 0.01 · Σ aux over the blocks, and no aux from an eval forward; gate e,
+``TriModalFusionNetV4(num_experts=4, moe_top_k=2, dropout=0.0)`` at T=512,
+batch 8, one train step (4 launches of each kernel) through the same gate.
+It times the steps (kernel route, einsum route, remat), the ``Predictor``,
+the device time of a step split into K1-K3, the MoE layers and the rest,
+and K1-K3 per call at (8, 4, 2048, 16) with their bound and SDPA's time;
+an ``lc`` JSON line holds them.
 Any failed phase raises, so the exit code is not 0 and the final line is
 not printed.
 There is no CPU mode: without a GPU the script fails at once.
@@ -485,6 +506,14 @@ def device_profile(fn, n: int = 50, attempts: int = 3) -> tuple:
             [(e.count, _device_us(e)) for e in device_events(prof)], n)
         if ms > 0:
             return ms, kernels
+        free, total = torch.cuda.mem_get_info()
+        print(f"profile: no device time in a trace of {n} calls "
+              f"({len(prof.key_averages())} ops; device memory free "
+              f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB, reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB); taken "
+              "again after emptying the allocator's cache")
+        torch.cuda.empty_cache()
+        time.sleep(1.0)
     fail("the profiler recorded no device time")
 
 
@@ -502,10 +531,12 @@ def device_ms(fn, n: int = 50) -> float:
     return device_profile(fn, n)[0]
 
 
-def profile_calls(fn, label: str, card: str, n: int = 5):
+def profile_calls(fn, label: str, card: str, n: int = 5,
+                  record: dict = None):
     """Device busy share and device time by op over n calls of ``fn``
     (torch.profiler); returns the busy share, or None (and goes on) if the
-    trace has no device time."""
+    trace has no device time. ``record``, if given, receives the busy ms a
+    call and each kernel's device ms a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -531,6 +562,10 @@ def profile_calls(fn, label: str, card: str, n: int = 5):
     for e in sorted(events, key=_device_us, reverse=True)[:PROFILE_TOP]:
         print(f"  {e.key[:60]:60s} {_device_us(e) / 1000.0 / n:8.4f} ms/call "
               f"{e.count / n:6.1f} calls/call")
+    if record is not None:
+        record["busy_ms"] = busy_ms
+        record["kernels"] = {e.key: _device_us(e) / 1000.0 / n
+                             for e in events}
     return busy_ms / wall_ms
 
 
@@ -1798,11 +1833,11 @@ def zoo_suite_phase(dev, card: str) -> dict:
 
 
 def zoo_route_grads(m, batch: dict, cw, train: bool, cfg,
-                    out_device) -> tuple:
+                    out_device, preprocess=zscore) -> tuple:
     """(loss, {name: gradient on ``out_device``}, launches) of one forward
     and backward of ``m`` on ``batch`` in ``m``'s device and dtype: a
-    ``TrainStep``'s loss in training mode, or the same weighted
-    cross-entropy on the eval-mode forward."""
+    ``TrainStep``'s loss (with ``preprocess``) in training mode, or the
+    same weighted cross-entropy on the eval-mode forward."""
     from multimodal_eeg_fmri_tpu_torch.ops.losses import (
         weighted_cross_entropy,
     )
@@ -1814,7 +1849,7 @@ def zoo_route_grads(m, batch: dict, cw, train: bool, cfg,
     cw = cw.to(p0.device, p0.dtype)
     reset_all_launches()
     if train:
-        loss = TrainStep(m, cfg, preprocess=zscore).loss(batch, cw)
+        loss = TrainStep(m, cfg, preprocess=preprocess).loss(batch, cw)
     else:
         inputs = {**{k: batch[k] for k in ("erp", "pw", "conn")},
                   **zscore(batch)}
@@ -1992,6 +2027,510 @@ def zoo_phase(dev, card: str) -> dict:
     steps = zoo_step_phase(dev, card)
     print(json.dumps({"zoo": {"suite_T512": suite, "device": card}}))
     return {"suite": suite, "steps": steps}
+
+
+# --- the long-context slice: LongContextClassifier with MoE, K1-K3 at D=16 --
+
+LC_T, LC_EXPERTS, LC_TOP_K = 2048, 4, 2   # 8.2 s at 250 Hz; 4 experts, top-2
+LC_COHORT, LC_VAL, LC_EPOCHS = 32, 8, 3
+LC_SERVE_ROWS = 12                 # two Predictor batches, the last padded
+LC_REMAT_ATOL = 1e-6               # the remat fit's history, of the plain fit's
+LC_AUX_RTOL = 1e-6                 # the step's aux loss, of 0.01 · Σ aux
+LC_KERNEL_SHAPE = (8, 4, LC_T, 16)  # K1-K3 in both layers: 64 over 4 heads
+
+
+def lc_cohort(n: int, T: int, seed: int, dev) -> dict:
+    """n subjects' raw EEG (n, T, 18) on the card, half of each class,
+    class 1 with its channels' mean shifted by 0.3 (the class signal)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    label = torch.arange(n, device=dev) % 2
+    erp = (torch.randn(n, T, 18, device=dev, generator=gen)
+           + 0.3 * label[:, None, None])
+    return {"erp": erp, "label": label, "weight": torch.ones(n, device=dev)}
+
+
+def lc_model(dev, remat: bool = False, seed: int = 0):
+    """``LongContextClassifier`` at its JAX defaults (hidden 64, 2 layers,
+    4 heads, patch 1, dropout 0) with 4 experts, top-2, flax's initial
+    weights from ``seed``."""
+    from multimodal_eeg_fmri_tpu_torch import init_weights
+    from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
+
+    return init_weights(
+        LongContextClassifier(num_experts=LC_EXPERTS, moe_top_k=LC_TOP_K,
+                              remat=remat, device=dev),
+        torch.Generator().manual_seed(seed))
+
+
+def lc_expected(layers: int, steps: int, evals: int, served: int,
+                remat: bool = False) -> dict:
+    """K1-K3 launches: K1 in every train step, evaluation and served batch
+    (and again in a remat step's backward), K2 and K3 in every train step,
+    once a layer each."""
+    return {"flash_fwd": layers * ((2 if remat else 1) * steps + evals
+                                   + served),
+            "flash_bwd_dkv": layers * steps, "flash_bwd_dq": layers * steps}
+
+
+@contextlib.contextmanager
+def routing_recorded(calls: list, pinned: list = None):
+    """Record every ``top_k_choices`` call of the MoE layers as (sorted
+    router probabilities (S, E), top-k indices (S, k)); with ``pinned``,
+    the recordings of another run, take their indices in call order
+    instead of this run's own (the gates still come from this run's
+    probabilities)."""
+    from multimodal_eeg_fmri_tpu_torch.ops import moe
+
+    real = moe.top_k_choices
+    given = iter(pinned or ())
+
+    def choices(probs, k):
+        top_p, top_i = real(probs, k)
+        if pinned is not None:
+            top_i = next(given)[1].to(probs.device)
+            top_p = probs.gather(-1, top_i)
+        calls.append((torch.sort(probs.detach(), -1, descending=True)[0],
+                      top_i))
+        return top_p, top_i
+
+    moe.top_k_choices = choices
+    try:
+        yield calls
+    finally:
+        moe.top_k_choices = real
+
+
+def print_flips(what: str, records: dict) -> dict:
+    """Tokens routed to other experts, or in another order, than on the
+    kernel route, per other route and MoE call, with the smallest top-k
+    margin among them (the gap between adjacent probabilities among a
+    token's first k+1 on the kernel route); returns the flips by route."""
+    flips = {}
+    for other in (r for r in records if r != "kernel"):
+        flips[other] = 0
+        for call, ((p_k, i_k), (_, i_o)) in enumerate(
+                zip(records["kernel"], records[other], strict=True)):
+            k = i_k.shape[1]
+            margin = (p_k[:, :k] - p_k[:, 1:k + 1]).amin(-1)
+            flipped = (i_k != i_o.to(i_k.device)).any(-1)
+            n = int(flipped.sum())
+            flips[other] += n
+            least = margin[flipped].min().item() if n else float("nan")
+            print(f"{what}MoE call {call}, kernel vs {other} route: {n} of "
+                  f"{len(flipped)} tokens routed otherwise (smallest top-k "
+                  f"margin among them {least:.3e}; over all tokens "
+                  f"{margin.min().item():.3e})")
+    return flips
+
+
+def lc_step_gate(base, batch: dict, cfg, cw, dev, what: str,
+                 preprocess) -> dict:
+    """One train step of ``base`` on the kernel route, the einsum route
+    and the CPU's einsum route. The tokens each route sends elsewhere than
+    the kernel route are printed with their margins; a route with such
+    flips is run again with the kernel route's expert choices, so that
+    every token routes alike (a near-tie flip moves a token's output by
+    O(1), which no rounding limit can hold). Then ``step_gate`` with each
+    gradient's limit STEP_GRAD_RTOL plus ZOO_FLOOR_FACTOR times its
+    tensor's floor (the einsum route, card against CPU), as in the zoo
+    phase. Returns the kernel route's and the einsum route's launches and
+    the flips."""
+    from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
+
+    for m in base.modules():
+        if isinstance(m, LearnedFusion):
+            m.gate_dropout = 0.0
+    models = {"kernel": copy.deepcopy(base),
+              "einsum": einsum_route(copy.deepcopy(base)),
+              "cpu": einsum_route(copy.deepcopy(base).cpu())}
+    runs, records = {}, {}
+
+    def run(route, pinned=None):
+        m = copy.deepcopy(models[route])
+        with routing_recorded([], pinned) as calls:
+            runs[route] = zoo_route_grads(m, batch, cw, True, cfg, dev,
+                                          preprocess)
+        return calls
+
+    for route in models:
+        records[route] = run(route)
+    flips = print_flips(what, records)
+    for route, n in flips.items():
+        if n:
+            print(f"{what}the {route} route again with the kernel route's "
+                  "expert choices")
+            run(route, records["kernel"])
+    noisy = cancelled_biases(base)
+    losses, grads = ({r: runs[r][i] for r in runs} for i in (0, 1))
+    loss_floor = abs(losses["einsum"] - losses["cpu"])
+    floor = {k: rel_gap(grads["einsum"][k], g)
+             for k, g in grads["cpu"].items() if k not in noisy}
+    top = max(floor, key=floor.get)
+    print(f"{what}the einsum route, card vs CPU: loss |d|={loss_floor:.3e}; "
+          f"gradients max|d|/max|g| per tensor up to {floor[top]:.3e} at "
+          f"{top}")
+    step_gate(what, losses, grads, noisy,
+              {k: STEP_GRAD_RTOL + ZOO_FLOOR_FACTOR * f
+               for k, f in floor.items()},
+              {"cpu": STEP_LOSS_ATOL + ZOO_FLOOR_FACTOR * loss_floor})
+    return {"kernel": runs["kernel"][2], "einsum": runs["einsum"][2],
+            "flips": flips}
+
+
+def lc_fit(model, cfg, cohort: dict, val: dict, dev) -> tuple:
+    """(FitResult, seconds, launches, peak bytes allocated) of a fit of
+    ``model`` from seed 0."""
+    from multimodal_eeg_fmri_tpu_torch import make_fit_fn
+
+    fit = make_fit_fn(model, cfg, eval_names=("val",))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    result, seconds = timed(lambda: fit(0, cohort, {"val": val},
+                                        torch.ones(2, device=dev)))
+    return (result, seconds, total_launches(),
+            torch.cuda.max_memory_allocated(dev))
+
+
+def lc_aux_gate(model, batch: dict, cfg, cw) -> dict:
+    """Gate f: a train-mode loss minus its task loss is 0.01 · Σ aux over
+    the blocks (each block's aux as ``top_k_routing`` returned it); an
+    eval forward leaves no aux loss."""
+    from multimodal_eeg_fmri_tpu_torch.ops import moe
+    from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
+
+    step = TrainStep(model, cfg)
+    raw, real = [], moe.top_k_routing
+
+    def recorded(*a):
+        out = real(*a)
+        raw.append(out[2].item())
+        return out
+
+    moe.top_k_routing = recorded
+    try:
+        task, aux = step.losses(batch, cw)
+    finally:
+        moe.top_k_routing = real
+    loss = (task + aux).item()
+    with torch.no_grad(), moe.collect_aux_losses() as sink:
+        model.eval()(erp=batch["erp"])
+    weight = model.block_0.moe.aux_weight
+    want = sum(weight * a for a in raw)
+    got = loss - task.item()
+    # the difference of two f32 numbers near the loss: its rounding
+    limit = LC_AUX_RTOL * want + 2 * float(np.spacing(np.float32(loss)))
+    print(f"gate f: train-mode loss {loss:.7f} - task loss {task.item():.7f}"
+          f" = {got:.7e}; {weight:g} · Σ aux over {len(raw)} blocks "
+          f"{want:.7e} (aux per block {', '.join(f'{a:.6f}' for a in raw)}; "
+          f"limit {limit:.3e}); the step's aux {aux.item():.7e}; an eval "
+          f"forward left {len(sink)} aux losses")
+    if not (len(raw) == model.num_layers and not sink
+            and abs(aux.item() - want) <= LC_AUX_RTOL * want
+            and abs(got - want) <= limit):
+        fail("gate f: the train-mode loss does not add 0.01 · Σ aux, or an "
+             "eval forward left an aux loss")
+    return {"aux": want, "blocks": raw}
+
+
+def moe_layer_ms(dev, rows: int, T: int, d: int) -> float:
+    """ms of one MoE FFN forward and backward (the model's 2 layers take
+    twice this) on an input of the model's shape, by CUDA events: its
+    kernels keep the card busy, so this is its device time."""
+    from multimodal_eeg_fmri_tpu_torch.ops.moe import MoEFFN
+
+    moe = MoEFFN(d, LC_EXPERTS, top_k=LC_TOP_K, device=dev).train()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(rows, T, d, device=dev, generator=gen,
+                    requires_grad=True)
+    g = torch.randn(rows, T, d, device=dev, generator=gen)
+
+    def fwd_bwd():
+        torch.autograd.grad(moe(x), (x, *moe.parameters()), g)
+
+    return cuda_ms(fwd_bwd, iters=5, warmup=2)
+
+
+def kernel_call_times(q, k, v, g, storage: str, card: str,
+                      iters: int = 200, n: int = 50) -> dict:
+    """K1, K2 and K3 per call on (q, k, v) with cotangent g, printed and
+    returned by kernel: CUDA events around ``iters`` calls and the
+    profiler's device time over ``n`` (with ``n`` 0, None: not measured
+    here), their plain versions in turns, the bound, and SDPA's forward
+    or backward on the same inputs."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dkv_plain,
+        flash_bwd_dq_cuda,
+        flash_bwd_dq_plain,
+        flash_delta,
+        flash_forward_cuda,
+        flash_forward_plain,
+    )
+
+    B, H, T, d = q.shape
+    out, lse = flash_forward_cuda(q, k, v)
+    delta = flash_delta(out, g)
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(ql, kl, vl)
+
+    def lib_fwd():
+        return sdpa(q, k, v)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), g,
+                                   retain_graph=True)
+
+    lib_times = {f: (cuda_ms(f, iters), device_ms(f, n) if n else None)
+                 for f in (lib_fwd, lib_bwd)}
+    pairs = {
+        "flash_fwd": (lambda: flash_forward_cuda(q, k, v),
+                      lambda: flash_forward_plain(q, k, v), lib_fwd),
+        "flash_bwd_dkv": (
+            lambda: flash_bwd_dkv_cuda(q, k, v, g, lse, delta),
+            lambda: flash_bwd_dkv_plain(q, k, v, g, lse, delta), lib_bwd),
+        "flash_bwd_dq": (
+            lambda: flash_bwd_dq_cuda(q, k, v, g, lse, delta),
+            lambda: flash_bwd_dq_plain(q, k, v, g, lse, delta), lib_bwd),
+    }
+    times = {}
+    for name, (kern, plain, lib_fn) in pairs.items():
+        ms, plain_ms = in_turns(lambda: cuda_ms(kern, iters),
+                                lambda: cuda_ms(plain, iters))
+        dev_ms = device_ms(kern, n) if n else None
+        lib_ms, lib_dev_ms = lib_times[lib_fn]
+        b_ms, by = bound_ms(name, B, H, T, T, d, storage)
+        times[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": by,
+                       "library_ms": lib_ms, "library_device_ms": lib_dev_ms}
+        print(f"{name} (B,H,T,D)=({B},{H},{T},{d}) {storage} storage: "
+              f"kernel {ms:.4f} ms "
+              f"(device {_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({by}), library (SDPA "
+              f"{'forward' if name == 'flash_fwd' else 'backward, dQ+dK+dV'}"
+              f") {lib_ms:.4f} ms (device {_ms(lib_dev_ms)}) per call "
+              f"{card}")
+    return times
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def lc_kernel_times(dev, card: str) -> dict:
+    """K1-K3 per call at LC_KERNEL_SHAPE (``kernel_call_times``) by CUDA
+    events; the phase takes their device time from the train step's
+    trace."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, g = (torch.randn(*LC_KERNEL_SHAPE, device=dev, generator=gen)
+                  for _ in range(4))
+    return {name: {"shape": list(LC_KERNEL_SHAPE), **t} for name, t in
+            kernel_call_times(q, k, v, g, "f32", card, iters=50,
+                              n=0).items()}
+
+
+def lc_phase(dev, card: str) -> dict:
+    """lc-moe-T2048: ``LongContextClassifier`` at its JAX defaults with 4
+    experts, top-2, over raw EEG (8, 2048, 18), through ``make_fit_fn`` (a
+    32-subject cohort with a class signal, 3 epochs, batch 8, 8 validation
+    rows), ``Predictor(batch_size=8)``, and the same fit with
+    ``remat=True``; then the V4-MoE step. Gates a-f as the module's
+    docstring lists them."""
+    from multimodal_eeg_fmri_tpu_torch import (
+        Predictor,
+        TrainConfig,
+        init_weights,
+    )
+    from multimodal_eeg_fmri_tpu_torch.core.config import EEGConfig
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+    )
+    from multimodal_eeg_fmri_tpu_torch.models import TriModalFusionNetV4
+    from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
+
+    cohort = lc_cohort(LC_COHORT, LC_T, 50, dev)
+    val = lc_cohort(LC_VAL, LC_T, 51, dev)
+    cfg = TrainConfig(batch_size=BATCH, num_epochs=LC_EPOCHS,
+                      learning_rate=1e-3, weight_decay=1e-5, grad_clip=1.0,
+                      loss="weighted_ce", selection="val")
+    cw = torch.ones(2, device=dev)
+    steps = LC_EPOCHS * (LC_COHORT // BATCH)
+    out = {"launches": {}}
+
+    phase(f"lc-moe-T{LC_T}, gate a: make_fit_fn, {LC_COHORT} subjects + "
+          f"{LC_VAL} val rows, {LC_EPOCHS} epochs, batch {BATCH}; "
+          f"Predictor(batch_size={BATCH}) over {LC_SERVE_ROWS} rows")
+    model = lc_model(dev, seed=1)
+    layers = model.num_layers
+    result, fit_s, launches, peak = lc_fit(model, cfg, cohort, val, dev)
+    want = lc_expected(layers, steps, LC_EPOCHS, 0)
+    history = {k: v.cpu().numpy() for k, v in result.history.items()}
+    print(f"fit: {steps} steps and {LC_EPOCHS} evals in {fit_s:.2f} s "
+          f"({1000 * fit_s / steps:.1f} ms a step, evaluations included); "
+          f"peak memory {peak / 2**30:.2f} GiB; launches {launches} "
+          f"(expected {want}) {card}")
+    print("history: " + ", ".join(f"{k}={np.array2string(v, precision=6)}"
+                                  for k, v in history.items()))
+    if launches != want:
+        fail(f"lc-moe-T{LC_T} fit launched {launches}, expected {want}")
+    if not all(np.all(np.isfinite(v)) and v.shape == (LC_EPOCHS,)
+               for v in history.values()):
+        fail(f"lc-moe-T{LC_T}: non-finite or short history")
+    out["launches"]["fit"] = launches
+    rows = {"erp": val["erp"][:LC_SERVE_ROWS // 2].repeat(2, 1, 1).cpu()
+            .numpy()}
+    served_batches = -(-LC_SERVE_ROWS // BATCH)
+    predictor = Predictor(model, batch_size=BATCH, return_probs=False)
+    reset_all_launches()
+    logits = predictor(**rows)
+    torch.cuda.synchronize()
+    served = total_launches()
+    want_served = lc_expected(layers, 0, 0, served_batches)
+    print(f"Predictor: {LC_SERVE_ROWS} rows in {served_batches} batches, "
+          f"logits {logits.shape}, launches {served} (expected "
+          f"{want_served})")
+    if served != want_served:
+        fail(f"lc-moe-T{LC_T} serving launched {served}, expected "
+             f"{want_served}")
+    out["launches"]["serve"] = served
+
+    phase(f"lc-moe-T{LC_T}, gate d: Predictor logits, kernel vs einsum route")
+    plain = Predictor(einsum_route(copy.deepcopy(model)), BATCH,
+                      return_probs=False)
+    records, served_logits = {}, {}
+    for route, p in (("kernel", predictor), ("einsum", plain)):
+        with routing_recorded([]) as records[route]:
+            served_logits[route] = p(**rows)
+    if print_flips("gate d: ", records)["einsum"]:
+        print("gate d: the einsum route again with the kernel route's "
+              "expert choices")
+        with routing_recorded([], records["kernel"]):
+            served_logits["einsum"] = plain(**rows)
+    plain_logits = served_logits["einsum"]
+    d_serve = float(np.abs(logits - plain_logits).max())
+    print(f"logits {logits.shape}, finite {np.all(np.isfinite(logits))}; "
+          f"kernel vs einsum route max|d|={d_serve:.3e} (limit "
+          f"{LOGITS_ATOL:g})")
+    if not (logits.shape == (LC_SERVE_ROWS, 2) and np.all(np.isfinite(logits))
+            and d_serve <= LOGITS_ATOL):
+        fail(f"lc-moe-T{LC_T}: served logits disagree with the einsum route")
+
+    phase(f"lc-moe-T{LC_T}, gate c: the same fit with remat=True")
+    remat_model = lc_model(dev, remat=True, seed=1)
+    r_result, r_s, r_launches, r_peak = lc_fit(remat_model, cfg, cohort, val,
+                                               dev)
+    r_want = lc_expected(layers, steps, LC_EPOCHS, 0, remat=True)
+    r_gap = max_diff(r_result.history, result.history)
+    print(f"remat fit: {r_s:.2f} s; peak memory {r_peak / 2**30:.2f} GiB "
+          f"(without remat {peak / 2**30:.2f} GiB); launches {r_launches} "
+          f"(expected {r_want}); history max|d| against the plain fit "
+          f"{r_gap:.3e} (limit {LC_REMAT_ATOL:g}) {card}")
+    if r_launches != r_want or not r_gap <= LC_REMAT_ATOL:
+        fail(f"lc-moe-T{LC_T}: the remat fit launched {r_launches} or parts "
+             f"from the plain fit by {r_gap:.3e}")
+    out["launches"]["remat_fit"] = r_launches
+    out["peak_bytes"] = {"plain": peak, "remat": r_peak}
+
+    phase(f"lc-moe-T{LC_T}, gate b: one train step, kernel vs einsum route "
+          "and the CPU")
+    batch = {k: v[:BATCH] for k, v in cohort.items()}
+    base = lc_model(dev, seed=2)
+    gate_b = lc_step_gate(base, batch, cfg, cw, dev,
+                          f"lc-moe-T{LC_T}, gate b: ", None)
+    if (gate_b["kernel"], gate_b["einsum"]) != (
+            lc_expected(layers, 1, 0, 0), lc_expected(0, 0, 0, 0)):
+        fail(f"lc-moe-T{LC_T}: the step launched {gate_b}")
+    out["launches"]["step"] = gate_b["kernel"]
+    out["flips"] = {"lc_step": gate_b["flips"]}
+
+    phase(f"lc-moe-T{LC_T}, gate f: the aux loss")
+    out["aux"] = lc_aux_gate(copy.deepcopy(base), batch, cfg, cw)
+
+    e = EEGConfig()
+    phase(f"v4-moe-T{T_SERVE}, gate e: TriModalFusionNetV4(num_experts="
+          f"{LC_EXPERTS}, moe_top_k={LC_TOP_K}, dropout=0.0) at EEGConfig's "
+          f"widths, batch {BATCH}: one train step")
+    data = synthetic_eeg_trimodal(n_subjects=BATCH, time_steps=T_SERVE)
+    v4_batch = {k: torch.as_tensor(data[k], device=dev)
+                for k in ("erp", "pw", "conn", "label")}
+    v4_batch["weight"] = torch.ones(BATCH, device=dev)
+    v4 = init_weights(TriModalFusionNetV4(
+        hidden_dim=e.hidden_dim, dropout=0.0,
+        num_transformer_layers=e.num_transformer_layers,
+        num_heads=e.num_heads, device=dev, num_experts=LC_EXPERTS,
+        moe_top_k=LC_TOP_K), torch.Generator().manual_seed(5))
+    v4_launches = lc_step_gate(v4, v4_batch, TrainConfig(batch_size=BATCH),
+                               cw, dev, f"v4-moe-T{T_SERVE}, gate e: ",
+                               zscore)
+    out["flips"]["v4_step"] = v4_launches["flips"]
+    v4_want = lc_expected(2 * e.num_transformer_layers, 1, 0, 0)
+    print(f"v4-moe-T{T_SERVE}: launches {v4_launches['kernel']} (expected "
+          f"{v4_want})")
+    if v4_launches["kernel"] != v4_want:
+        fail(f"v4-moe-T{T_SERVE} launched {v4_launches['kernel']}")
+    out["launches"]["v4_step"] = v4_launches["kernel"]
+
+    phase(f"lc-moe-T{LC_T} timing {card}")
+    del remat_model, r_result, base, v4, plain, predictor
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"device memory free {free / 2**30:.2f} of {total / 2**30:.2f} GiB"
+          f", reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    stats = Predictor(model, batch_size=BATCH).benchmark(
+        {"erp": rows["erp"][:BATCH]}, warmup=3, iters=20)
+    timed_steps = {
+        "kernel": TrainStep(lc_model(dev, seed=3), cfg),
+        "einsum": TrainStep(einsum_route(lc_model(dev, seed=3)), cfg),
+        "remat": TrainStep(lc_model(dev, remat=True, seed=3), cfg)}
+    kernel_ms, einsum_ms = in_turns(
+        lambda: step_ms(timed_steps["kernel"], batch, cw, iters=10),
+        lambda: step_ms(timed_steps["einsum"], batch, cw, iters=10))
+    remat_ms = step_ms(timed_steps["remat"], batch, cw, iters=10)
+    print(f"train step B={BATCH} T={LC_T}: kernel route {kernel_ms:.3f} ms, "
+          f"einsum route {einsum_ms:.3f} ms, remat {remat_ms:.3f} ms; "
+          f"Predictor p50 {stats['p50_ms']:.3f} ms, p95 "
+          f"{stats['p95_ms']:.3f} ms {card}")
+    # one trace in this phase: late in this script a trace may come back
+    # without device events, and the next ones too (PERF.md §7)
+    trace = {"busy_ms": None, "kernels": {}}
+    busy = profile_calls(lambda: timed_steps["kernel"](batch, cw),
+                         f"5 train steps B={BATCH} T={LC_T} kernel route",
+                         card, record=trace)
+    kernels = lc_kernel_times(dev, card)
+    moe_ms = layers * moe_layer_ms(dev, BATCH, LC_T, 64)
+    # K1-K3's device time by name in the step's trace: each runs once a
+    # layer in a step
+    for name, t in kernels.items():
+        t["device_ms"] = next((ms / layers for key, ms in
+                               trace["kernels"].items()
+                               if f"{name}_kernel<" in key), None)
+    step_device = trace["busy_ms"]
+    flash_ms = rest = None
+    if step_device is not None:
+        flash_ms = sum(layers * t["device_ms"] for t in kernels.values())
+        rest = step_device - flash_ms - moe_ms
+        print(f"device time a step {step_device:.3f} ms: K1-K3 "
+              f"{flash_ms:.3f} ms ({100 * flash_ms / step_device:.1f}%), the "
+              f"MoE layers {moe_ms:.3f} ms by events "
+              f"({100 * moe_ms / step_device:.1f}%), the rest {rest:.3f} ms "
+              f"({100 * rest / step_device:.1f}%) {card}")
+    else:
+        print(f"device time a step: not measured (no device time in the "
+              f"trace); the MoE layers {moe_ms:.3f} ms by events {card}")
+    out["times"] = {"step_ms": kernel_ms, "einsum_step_ms": einsum_ms,
+                    "remat_step_ms": remat_ms, "fit_s": fit_s,
+                    "remat_fit_s": r_s, "predictor_p50_ms": stats["p50_ms"],
+                    "predictor_p95_ms": stats["p95_ms"], "busy_share": busy,
+                    "step_device_ms": step_device, "flash_device_ms": flash_ms,
+                    "moe_device_ms": moe_ms, "rest_device_ms": rest,
+                    "peak_gib": peak / 2**30, "remat_peak_gib": r_peak / 2**30}
+    out["kernels"] = kernels
+    print(json.dumps({"lc": {**out["times"], "flips": out["flips"],
+                             "device": card}}))
+    return out
 
 
 # --- the bridge slice: xai/ and train/bridge_flow.py on the card ------------
@@ -3512,8 +4051,6 @@ def main() -> None:
     profile_calls(lambda: timed["kernel"](batch, class_weights),
                   f"5 train steps B={BATCH} T={T_SERVE} kernel route", card)
 
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
     per_step = {(k, storage): {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                                "bound_ms": 0.0, "library_ms": 0.0,
                                "library_device_ms": 0.0, "ops": 0.0}
@@ -3524,50 +4061,13 @@ def main() -> None:
         q, k, v, g = (torch.randn(B, H, T, d, device=dev, generator=gen).to(
             torch.float32 if storage == "f32" else torch.bfloat16)
             for _ in range(4))
-        out, lse = flash_forward_cuda(q, k, v)
-        delta = flash_delta(out, g)
-        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
-        lib_out = sdpa(ql, kl, vl)
-
-        def lib_fwd():
-            return sdpa(q, k, v)
-
-        def lib_bwd():
-            return torch.autograd.grad(lib_out, (ql, kl, vl), g,
-                                       retain_graph=True)
-
-        lib_times = {f: (cuda_ms(f), device_ms(f))
-                     for f in (lib_fwd, lib_bwd)}
-        pairs = {
-            "flash_fwd": (lambda: flash_forward_cuda(q, k, v),
-                          lambda: flash_forward_plain(q, k, v), lib_fwd),
-            "flash_bwd_dkv": (
-                lambda: flash_bwd_dkv_cuda(q, k, v, g, lse, delta),
-                lambda: flash_bwd_dkv_plain(q, k, v, g, lse, delta), lib_bwd),
-            "flash_bwd_dq": (
-                lambda: flash_bwd_dq_cuda(q, k, v, g, lse, delta),
-                lambda: flash_bwd_dq_plain(q, k, v, g, lse, delta), lib_bwd),
-        }
-        for name, (kern, plain, lib_fn) in pairs.items():
-            ms, plain_ms = in_turns(lambda: cuda_ms(kern),
-                                    lambda: cuda_ms(plain))
-            dev_ms = device_ms(kern)
-            lib_ms, lib_dev_ms = lib_times[lib_fn]
-            b_ms, by = bound_ms(name, B, H, T, T, d, storage)
-            # two layers of each shape per train step
-            for key, val in (("ms", ms), ("device_ms", dev_ms),
-                             ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                             ("library_ms", lib_ms),
-                             ("library_device_ms", lib_dev_ms),
-                             ("ops", by == "operations")):
-                per_step[name, storage][key] += 2 * val
-            print(f"{name} (B,H,T,D)=({B},{H},{T},{d}) {storage} storage: "
-                  f"kernel {ms:.4f} ms "
-                  f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({by}), library (SDPA "
-                  f"{'forward' if name == 'flash_fwd' else 'backward, dQ+dK+dV'}"
-                  f") {lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms) per call "
-                  f"{card}")
+        # two layers of each shape per train step
+        for name, t in kernel_call_times(q, k, v, g, storage, card).items():
+            for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                        "library_ms", "library_device_ms"):
+                per_step[name, storage][key] += 2 * t[key]
+            per_step[name, storage]["ops"] += 2 * (t["bound_by"]
+                                                   == "operations")
 
     replaces = {"flash_fwd": "multimodal_eeg_fmri_tpu/ops/attention.py:63",
                 "flash_bwd_dkv": "multimodal_eeg_fmri_tpu/ops/attention.py:121",
@@ -3594,6 +4094,9 @@ def main() -> None:
 
     phase(f"zoo: the model zoo on the card {card}")
     zoo = zoo_phase(dev, card)
+
+    phase(f"lc: models/long_context.py and ops/moe.py on the card {card}")
+    lc = lc_phase(dev, card)
 
     phase(f"bridge: xai/ and train/bridge_flow.py on the card {card}")
     bridge = bridge_phase(dev, card)
@@ -3624,6 +4127,13 @@ def main() -> None:
                              "zoo-serve-gnn-T512, per batch": (
                                  zoo["steps"]["serve_gnn"]
                                  if name == "flash_fwd" else 0),
+                             **{f"{cell} {path}": lc["launches"][path][name]
+                                for cell, path in (
+                                    (f"lc-moe-T{LC_T}", "fit"),
+                                    (f"lc-moe-T{LC_T}", "remat_fit"),
+                                    (f"lc-moe-T{LC_T}", "serve"),
+                                    (f"lc-moe-T{LC_T}", "step"),
+                                    (f"v4-moe-T{T_SERVE}", "v4_step"))},
                              **{path: n[name] for path, n in bridge.items()},
                              "serve-ensemble-T512, per batch": (
                                  serving["launches_per_batch"]
@@ -3638,6 +4148,8 @@ def main() -> None:
         # K1 on the ensemble's folded batch (40, 4, 512, 32)
         **({"serve_ensemble_T512": serving["folded"]}
            if name == "flash_fwd" else {}),
+        # each call at lc-moe-T2048's (8, 4, 2048, 16)
+        f"lc_moe_T{LC_T}": lc["kernels"][name],
     } for name in names] + [{
         "name": "sosfilt",
         "route": "cuda",

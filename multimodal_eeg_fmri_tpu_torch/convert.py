@@ -15,9 +15,11 @@ that the port's ``fit`` can resume a run the JAX package began.
 ``init_weights`` initialises a port module as flax would: lecun-normal
 kernels (a normal truncated at ±2σ, rescaled to unit variance over fan-in),
 zero biases, unit norm scales, and the special initial values of
-``LearnedFusion``, ``FMRIFusionNet`` and ``HybridFusion``. The numbers come
-from an explicit CPU ``torch.Generator``, so one seed gives the same weights
-on every device.
+``LearnedFusion``, ``FMRIFusionNet`` and ``HybridFusion``; the MoE
+experts' stacked kernels count their leading expert axis into fan-in, as
+flax's ``lecun_normal`` does (D·E for ``w1`` (E, D, ff), ff·E for
+``w2``). The numbers come from an explicit CPU ``torch.Generator``, so one
+seed gives the same weights on every device.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from multimodal_eeg_fmri_tpu_torch.models.fusion import (
     LearnedFusion,
 )
 from multimodal_eeg_fmri_tpu_torch.models.layers import MultiHeadAttention
+from multimodal_eeg_fmri_tpu_torch.ops.moe import MoEFFN
 from multimodal_eeg_fmri_tpu_torch.train.fit import FitCarry
 
 # flax's truncated_normal initialisers divide by this: the std of a unit
@@ -283,6 +286,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
             _lecun_normal(sub.kernel, sub.kernel.shape[0] * sub.kernel.shape[1],
                           generator)
             sub.bias.zero_()
+        elif isinstance(sub, MoEFFN):
+            for w, b in ((sub.w1, sub.b1), (sub.w2, sub.b2)):
+                _lecun_normal(w, w.shape[0] * w.shape[1], generator)
+                b.zero_()
         elif isinstance(sub, LearnedFusion):
             sub.fusion_logits.fill_(1.0)
             if sub.temperature is not None:

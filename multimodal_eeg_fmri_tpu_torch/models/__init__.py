@@ -1,7 +1,9 @@
 """The model zoo, mirroring ``multimodal_eeg_fmri_tpu.models``.
 
 ``MODEL_REGISTRY`` maps the JAX package's registry names to the port's
-classes; ``long_context`` is not ported yet (ROADMAP.md, queue A item 5b).
+classes, every one of them. ``PipelinedLongContextClassifier``, which the
+JAX package exports beside them, waits for the parallel axes (ROADMAP.md,
+queue A item 7).
 """
 
 from multimodal_eeg_fmri_tpu_torch.models.bridge import BridgeFusionNet
@@ -19,6 +21,9 @@ from multimodal_eeg_fmri_tpu_torch.models.fmri import (
     FMRIConnectivityOnly,
     FMRIFusionNet,
 )
+from multimodal_eeg_fmri_tpu_torch.models.long_context import (
+    LongContextClassifier,
+)
 from multimodal_eeg_fmri_tpu_torch.models.multimodal import MultimodalEndToEnd
 
 MODEL_REGISTRY = {
@@ -33,6 +38,7 @@ MODEL_REGISTRY = {
     "fmri_connectivity_only": FMRIConnectivityOnly,
     "bridge": BridgeFusionNet,
     "multimodal_e2e": MultimodalEndToEnd,
+    "long_context": LongContextClassifier,
 }
 
 __all__ = [
@@ -41,6 +47,7 @@ __all__ = [
     "FMRIActivationOnly",
     "FMRIConnectivityOnly",
     "FMRIFusionNet",
+    "LongContextClassifier",
     "MODEL_REGISTRY",
     "ModelOutput",
     "MultimodalEndToEnd",

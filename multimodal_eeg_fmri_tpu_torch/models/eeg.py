@@ -53,17 +53,21 @@ class ModelOutput(NamedTuple):
 
 class TriModalFusionNetV4(nn.Module):
     """ERP + PW + CONN tri-modal net with cross-modal attention and learned
-    fusion. Builds on the GPU unless ``device`` says otherwise."""
+    fusion. With ``num_experts`` > 0 the ERP and PW temporal transformers
+    take Mixture-of-Experts FFNs (``ops.moe.MoEFFN``, top-``moe_top_k``),
+    whose load-balance loss ``fit`` adds in training. Builds on the GPU
+    unless ``device`` says otherwise."""
 
     def __init__(self, hidden_dim: int = 128, num_classes: int = 2,
                  dropout: float = 0.3, num_transformer_layers: int = 2,
                  num_heads: int = 4, erp_channels: int = 18,
                  pw_channels: int = 75, conn_features: int = 459,
-                 device="cuda"):
+                 device="cuda", num_experts: int = 0, moe_top_k: int = 1):
         super().__init__()
         device = model_device(device)
         _v4_encoders(self, erp_channels, pw_channels, hidden_dim,
-                     num_transformer_layers, num_heads, dropout, device)
+                     num_transformer_layers, num_heads, dropout, device,
+                     num_experts, moe_top_k)
         self.conn_encoder = ConnMLPEncoder(conn_features, hidden_dim, dropout,
                                            device)
         self.cross_attn = MultiHeadAttention(hidden_dim, num_heads, dropout,
@@ -91,13 +95,15 @@ def _trimodal(net: nn.Module, erp, pw, conn) -> ModelOutput:
 
 
 def _v4_encoders(net: nn.Module, erp_channels, pw_channels, hidden_dim,
-                 num_transformer_layers, num_heads, dropout, device) -> None:
+                 num_transformer_layers, num_heads, dropout, device,
+                 num_experts: int = 0, moe_top_k: int = 1) -> None:
+    moe = dict(num_experts=num_experts, moe_top_k=moe_top_k)
     net.erp_encoder = ERPEncoder(erp_channels, hidden_dim,
                                  num_transformer_layers, num_heads, dropout,
-                                 device)
+                                 device, **moe)
     net.pw_encoder = PowerEncoder(pw_channels, hidden_dim,
                                   num_transformer_layers, num_heads, dropout,
-                                  device)
+                                  device, **moe)
 
 
 class SmartFusionNetV4(nn.Module):

@@ -53,11 +53,14 @@ def max_pool_time(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 
 
 class ERPEncoder(nn.Module):
-    """CNN + temporal-transformer ERP encoder (V4 'enhanced')."""
+    """CNN + temporal-transformer ERP encoder (V4 'enhanced'); with
+    ``num_experts`` > 0 each transformer block's FFN is a Mixture of
+    Experts."""
 
     def __init__(self, in_channels: int = 18, hidden_dim: int = 128,
                  num_transformer_layers: int = 2, num_heads: int = 4,
-                 dropout: float = 0.3, device=None):
+                 dropout: float = 0.3, device=None,
+                 num_experts: int = 0, moe_top_k: int = 1):
         super().__init__()
         self.dropout = dropout
         self.conv1 = ConvBNBlock(in_channels, 64, 7, dropout, device)
@@ -67,7 +70,8 @@ class ERPEncoder(nn.Module):
         self.n_layers = num_transformer_layers
         for i in range(num_transformer_layers):
             self.add_module(f"transformer_{i}", TransformerBlock(
-                hidden_dim, num_heads, dropout=dropout, device=device))
+                hidden_dim, num_heads, dropout=dropout, num_experts=num_experts,
+                moe_top_k=moe_top_k, device=device))
         self.proj = Dense(hidden_dim, hidden_dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -113,11 +117,13 @@ class MultiScaleConv(nn.Module):
 
 
 class PowerEncoder(nn.Module):
-    """Multi-scale CNN + transformer power-spectrum encoder (V4)."""
+    """Multi-scale CNN + transformer power-spectrum encoder (V4); MoE
+    FFNs as in ``ERPEncoder``."""
 
     def __init__(self, in_channels: int = 75, hidden_dim: int = 128,
                  num_transformer_layers: int = 2, num_heads: int = 4,
-                 dropout: float = 0.3, device=None):
+                 dropout: float = 0.3, device=None,
+                 num_experts: int = 0, moe_top_k: int = 1):
         super().__init__()
         self.dropout = dropout
         self.multiscale = MultiScaleConv(in_channels, 64, device)
@@ -126,7 +132,8 @@ class PowerEncoder(nn.Module):
         self.n_layers = num_transformer_layers
         for i in range(num_transformer_layers):
             self.add_module(f"transformer_{i}", TransformerBlock(
-                hidden_dim, num_heads, dropout=dropout, device=device))
+                hidden_dim, num_heads, dropout=dropout, num_experts=num_experts,
+                moe_top_k=moe_top_k, device=device))
         self.proj = Dense(hidden_dim, hidden_dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_eeg_fmri_tpu_torch.data.arrays import model_device
+from multimodal_eeg_fmri_tpu_torch.ops.moe import MoEFFN
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -126,7 +127,8 @@ class MultiHeadAttention(nn.Module):
     ``flash_min_len`` long (and without probability dropout in training) to
     ``ops.attention.flash_attention``; "einsum" and "flash" force a route.
     The probabilities are None on the flash route. "ring" and "ring_local"
-    are not ported yet."""
+    raise: sequence parallelism waits for the parallel axes (ROADMAP.md,
+    queue A item 7)."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
                  flash_min_len: int = 256, attn_impl: str = "auto",
@@ -202,31 +204,45 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm block: LN → MHA → residual; LN → GELU FFN → residual."""
+    """Pre-norm block: LN → MHA → residual; LN → FFN → residual. The FFN is
+    GELU of width ``dim_feedforward`` (0: 4·d_model) with dropout inside,
+    or with ``num_experts`` > 0 the Mixture-of-Experts FFN
+    (``ops.moe.MoEFFN``, top-``moe_top_k`` routing), which has none.
+    ``attn_impl`` and ``flash_compute_dtype`` go to the attention."""
 
     def __init__(self, d_model: int, num_heads: int = 4,
                  dim_feedforward: int = 0, dropout: float = 0.1,
-                 num_experts: int = 0, device=None):
+                 num_experts: int = 0, device=None, *,
+                 attn_impl: str = "auto", moe_top_k: int = 1,
+                 moe_capacity_factor: float = 2.0,
+                 moe_aux_weight: float = 0.01,
+                 flash_compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if num_experts > 0:
-            raise NotImplementedError(
-                "the Mixture-of-Experts FFN is not ported yet (ROADMAP.md, "
-                "queue A item 5b: ops/moe.py:MoEFFN)")
         ff = dim_feedforward or 4 * d_model
         self.dropout = dropout
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.attn = MultiHeadAttention(d_model, num_heads, dropout,
-                                       device=device)
+        self.attn = MultiHeadAttention(
+            d_model, num_heads, dropout, attn_impl=attn_impl,
+            flash_compute_dtype=flash_compute_dtype, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.ffn1 = Dense(d_model, ff, device=device)
-        self.ffn2 = Dense(ff, d_model, device=device)
+        if num_experts > 0:
+            self.moe = MoEFFN(d_model, num_experts, dim_feedforward,
+                              moe_top_k, moe_capacity_factor, moe_aux_weight,
+                              device=device)
+        else:
+            self.ffn1 = Dense(d_model, ff, device=device)
+            self.ffn2 = Dense(ff, d_model, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.norm1(x)
         y, _ = self.attn(y, y, y)
         x = x + F.dropout(y, self.dropout, self.training)
-        y = gelu(self.ffn1(self.norm2(x)))
-        y = self.ffn2(F.dropout(y, self.dropout, self.training))
+        y = self.norm2(x)
+        if hasattr(self, "moe"):
+            y = self.moe(y)
+        else:
+            y = gelu(self.ffn1(y))
+            y = self.ffn2(F.dropout(y, self.dropout, self.training))
         return x + F.dropout(y, self.dropout, self.training)
 
 

@@ -2,6 +2,7 @@
 wrappers and their plain versions; ``signal`` the signal processing, with
 the biquad-cascade kernel's wrapper (``sosfilt``) and its plain version;
 ``losses`` and ``augment`` the train step's losses and augmentation;
+``moe`` the Mixture-of-Experts FFN and its routing;
 ``schedules`` the host-side LR and early-stopping controllers."""
 
 from multimodal_eeg_fmri_tpu_torch.ops.attention import (
@@ -24,6 +25,7 @@ from multimodal_eeg_fmri_tpu_torch.ops.losses import (
     mse_loss,
     weighted_cross_entropy,
 )
+from multimodal_eeg_fmri_tpu_torch.ops.moe import MoEFFN, top_k_routing
 from multimodal_eeg_fmri_tpu_torch.ops.schedules import (
     EarlyStopping,
     ReduceLROnPlateau,
@@ -32,6 +34,7 @@ from multimodal_eeg_fmri_tpu_torch.ops.schedules import (
 
 __all__ = [
     "EarlyStopping",
+    "MoEFFN",
     "ReduceLROnPlateau",
     "attention",
     "augment_temporal",
@@ -46,6 +49,7 @@ __all__ = [
     "mse_loss",
     "reference_attention",
     "reset_kernel_launches",
+    "top_k_routing",
     "warmup_cosine_schedule",
     "weighted_cross_entropy",
 ]

@@ -15,10 +15,14 @@ stopped.
 
 The other options of the config, as in the JAX package:
 
-- ``grad_accum = k`` splits each batch into k microbatches whose losses are
-  scaled by their share of the batch's effective weight, so that the summed
-  f32 gradients are the full batch's; BatchNorm's running statistics thread
-  through the microbatches in order.
+- The loss of a train step is the task loss plus the aux losses that
+  Mixture-of-Experts layers leave in training mode (``ops.moe``), as the
+  JAX package adds its sown "losses" collection.
+- ``grad_accum = k`` splits each batch into k microbatches whose task
+  losses are scaled by their share of the batch's effective weight, so that
+  the summed f32 gradients are the full batch's, and whose aux losses are
+  divided by k; BatchNorm's running statistics thread through the
+  microbatches in order.
 - ``ema_decay = d`` keeps a Polyak average of the params (not of the
   BatchNorm statistics), started at the initial params. Evaluation and
   selection use it with the raw statistics of the same epoch, so
@@ -54,6 +58,10 @@ from torch.func import functional_call
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
 from multimodal_eeg_fmri_tpu_torch.data.arrays import as_tensor
 from multimodal_eeg_fmri_tpu_torch.ops.losses import make_loss_fn
+from multimodal_eeg_fmri_tpu_torch.ops.moe import (
+    collect_aux_losses,
+    total_aux_loss,
+)
 from multimodal_eeg_fmri_tpu_torch.report.metrics import (
     binary_classification_metrics,
     regression_metrics,
@@ -218,11 +226,20 @@ class TrainStep:
                   for k, v in inputs.items()}
         return functional_call(self.model, params, (), inputs)
 
-    def loss(self, batch: Tensors, class_weights=None) -> torch.Tensor:
-        """The forward in train mode and the loss, reduced in f32."""
-        out = self.forward(self.inputs(batch))
-        return self.loss_fn(out.logits, batch["label"], class_weights,
+    def losses(self, batch: Tensors, class_weights=None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(task loss, Σ aux) of the forward in train mode, in f32: the aux
+        losses the MoE layers leave (``ops.moe``), None without one."""
+        with collect_aux_losses() as sink:
+            out = self.forward(self.inputs(batch))
+        task = self.loss_fn(out.logits, batch["label"], class_weights,
                             batch.get("weight"))
+        return task, total_aux_loss(sink)
+
+    def loss(self, batch: Tensors, class_weights=None) -> torch.Tensor:
+        """The forward in train mode and the loss, task + Σ aux."""
+        task, aux = self.losses(batch, class_weights)
+        return task if aux is None else task + aux
 
     def _eff_weight(self, batch: Tensors, class_weights) -> torch.Tensor:
         """Per-row weight of the loss's own denominator (every loss reduces
@@ -239,10 +256,11 @@ class TrainStep:
     def objective(self, batch: Tensors, class_weights=None,
                   backward: bool = True) -> torch.Tensor:
         """The batch's loss, backpropagated into the params' ``.grad`` if
-        ``backward``. Over k microbatches it is Σ_k (ŵ_k/W)·L_k with ŵ_k the
-        microbatch's clamped weight sum and W the batch's: each microbatch's
-        gradient is scaled by its share and the f32 gradients sum. Rows
-        beyond micro·k are dropped."""
+        ``backward``. Over k microbatches it is Σ_k (ŵ_k/W)·L_k + aux_k/k
+        with ŵ_k the microbatch's clamped weight sum, W the batch's and
+        aux_k the microbatch's aux loss: each microbatch's task gradient is
+        scaled by its share, its aux averages, and the f32 gradients sum.
+        Rows beyond micro·k are dropped."""
         if self.accum == 1:
             loss = self.loss(batch, class_weights)
             if backward:
@@ -257,7 +275,10 @@ class TrainStep:
         for i in range(k):
             mb = {key: v[i * micro:(i + 1) * micro]
                   for key, v in batch.items()}
-            loss = scales[i] * self.loss(mb, class_weights)
+            task, aux = self.losses(mb, class_weights)
+            loss = scales[i] * task
+            if aux is not None:
+                loss = loss + aux / k
             if backward:
                 loss.backward()
             total = total + loss.detach()

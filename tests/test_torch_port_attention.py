@@ -147,7 +147,9 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.models.eeg, "
             "multimodal_eeg_fmri_tpu_torch.models.encoders, "
             "multimodal_eeg_fmri_tpu_torch.models.fusion, "
-            "multimodal_eeg_fmri_tpu_torch.models.fmri\n"
+            "multimodal_eeg_fmri_tpu_torch.models.fmri, "
+            "multimodal_eeg_fmri_tpu_torch.models.long_context, "
+            "multimodal_eeg_fmri_tpu_torch.ops.moe\n"
             "from multimodal_eeg_fmri_tpu_torch.models import MODEL_REGISTRY\n"
             "from multimodal_eeg_fmri_tpu_torch.ops import _kernels\n"
             "import torch\n"

@@ -387,6 +387,53 @@ def test_zoo_flash_route_matches_einsum_route(cuda_device, name):
 
 
 @pytest.mark.cuda
+def test_long_context_flash_route_matches_einsum_route(cuda_device):
+    """A 1-layer ``LongContextClassifier`` at its full width (hidden 64
+    over 4 heads: D = 16) over (2, 2048, 18), in training mode at dropout
+    0: the flash route (one K1 forward, one K2 and one K3 backward)
+    against the einsum route, logits within 1e-4 and every gradient within
+    1e-4 of the largest gradient and within 3e-4 of its own tensor's
+    largest, but the key projection's bias, whose gradient the softmax
+    cancels."""
+    import copy
+
+    from multimodal_eeg_fmri_tpu_torch import init_weights
+    from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
+    from multimodal_eeg_fmri_tpu_torch.models.layers import MultiHeadAttention
+
+    model = init_weights(LongContextClassifier(num_layers=1,
+                                               device=cuda_device),
+                         torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    erp = torch.randn(2, 2048, 18, device=cuda_device, generator=gen)
+    labels = torch.arange(2, device=cuda_device)
+    einsum = copy.deepcopy(model)
+    for m in einsum.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.attn_impl = "einsum"
+
+    def run(m):
+        m.train()
+        logits = m(erp=erp).logits
+        torch.nn.functional.cross_entropy(logits, labels).backward()
+        return logits.detach(), {k: p.grad for k, p in m.named_parameters()}
+
+    kernels = (flash_forward_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    before = [fn.launches["f32"] for fn in kernels]
+    logits, grads = run(model)
+    torch.cuda.synchronize()
+    assert [fn.launches["f32"] - b for fn, b in zip(kernels, before)] == [
+        1, 1, 1]
+    ref_logits, ref = run(einsum)
+    torch.testing.assert_close(logits, ref_logits, atol=1e-4, rtol=0)
+    g_max = max(g.abs().max().item() for g in ref.values())
+    for k, g in ref.items():
+        d = (grads[k] - g).abs().max().item()
+        assert d <= 1e-4 * g_max, k
+        assert k.endswith("k_proj.bias") or d <= 3e-4 * g.abs().max().item(), k
+
+
+@pytest.mark.cuda
 def test_backward_wrapper_refuses(cuda_device):
     q, k, v, out, lse, g = _backward_inputs(cuda_device, (1, 1, 8, 8, 32),
                                             torch.float32)

@@ -327,8 +327,16 @@ def test_mha_fences(impl, kw, err):
 
 
 def test_moe_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_layers.TransformerBlock(32, 2, num_experts=4)
+    """``TransformerBlock(num_experts=4)`` builds with the JAX block's
+    parameter tree (``moe`` in place of ``ffn1``/``ffn2``) and loads its
+    initialised variables."""
+    fmod = j_layers.TransformerBlock(32, 2, num_experts=4, moe_top_k=2)
+    tmod = t_layers.TransformerBlock(32, 2, num_experts=4, moe_top_k=2)
+    v = jax.jit(fmod.init)(jax.random.key(0), jnp.zeros((2, 8, 32)))
+    load_flax_variables(tmod, jax.tree.map(np.asarray, v["params"]))
+    assert not hasattr(tmod, "ffn1")
+    assert tmod.moe.w1.shape == (4, 32, 128)
+    assert tmod.moe.router.weight.shape == (4, 32)
 
 
 def test_load_flax_variables_is_strict():

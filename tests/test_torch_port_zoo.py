@@ -49,6 +49,7 @@ from multimodal_eeg_fmri_tpu_torch.models import fusion as t_fusion
 from multimodal_eeg_fmri_tpu_torch.models import layers as t_layers
 from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
 from multimodal_eeg_fmri_tpu_torch.ops import losses as t_losses
+from multimodal_eeg_fmri_tpu_torch.ops import moe as t_moe
 
 # one torch thread per pytest-xdist worker: see test_torch_port_train.py
 torch.set_num_threads(1)
@@ -390,13 +391,15 @@ REGISTRY_INPUTS = {
     "fmri_connectivity_only": lambda: _fmri(B=2),
     "bridge": lambda: dict(eeg=_x(2, 128), fmri=_x(2, 64, seed=1)),
     "multimodal_e2e": lambda: {**_eeg(B=2, T=16), **_fmri(B=2)},
+    "long_context": lambda: dict(erp=_x(2, 16, 18)),
 }
 
 
 def test_registry_keys_are_jax_less_long_context():
-    assert set(t_models.MODEL_REGISTRY) == (
-        set(j_models.MODEL_REGISTRY) - {"long_context"})
-    assert "long_context" not in t_models.MODEL_REGISTRY
+    """The two registries are equal, ``long_context`` included: the same
+    keys, and classes of the same names."""
+    assert set(t_models.MODEL_REGISTRY) == set(j_models.MODEL_REGISTRY)
+    assert "long_context" in t_models.MODEL_REGISTRY
     for name, cls in t_models.MODEL_REGISTRY.items():
         assert cls.__name__ == j_models.MODEL_REGISTRY[name].__name__, name
         assert getattr(t_models, cls.__name__) is cls
@@ -443,11 +446,13 @@ def test_registry_model_builds_on_the_gpu_unless_asked(name):
 
 @pytest.mark.parametrize("what,match", [
     ("ring", "queue A item 7"), ("ring_local", "queue A item 7"),
-    ("moe", "queue A item 5b")])
+    ("moe_mesh", "queue A item 7"), ("moe_expert_axis", "queue A item 7")])
 def test_unported_guards_name_their_queue_item(what, match):
     with pytest.raises(NotImplementedError, match=match):
-        if what == "moe":
-            t_layers.TransformerBlock(32, 2, num_experts=4)
+        if what == "moe_mesh":
+            t_moe.MoEFFN(32, 4, mesh=object(), device="cpu")
+        elif what == "moe_expert_axis":
+            t_moe.MoEFFN(32, 4, expert_axis="expert", device="cpu")
         else:
             x = torch.zeros(1, 4, 32)
             t_layers.MultiHeadAttention(32, 2, attn_impl=what)(x, x, x)
