@@ -158,6 +158,26 @@ It times the steps (kernel route, einsum route, remat), the ``Predictor``,
 the device time of a step split into K1-K3, the MoE layers and the rest,
 and K1-K3 per call at (8, 4, 2048, 16) with their bound and SDPA's time;
 an ``lc`` JSON line holds them.
+Last, the experiment front-ends (the pipelines phase, after the serving
+phase: ``pipelines.py``, ``__main__.py``, ``train/hpo.py`` and the file
+loaders). K1-K3 take every head dim up to 128, padding the ones between
+their instances (8, 12, 24, 48 here) to the next: the kernel-vs-plain
+phases above run them at those head dims in f32 and bf16 storage, and the
+timing phase times them at (8, 4, 512, 24) beside D=32. The phase serves
+one ``Predictor`` batch of ``TriModalFusionNetV4(hidden_dim=96,
+num_heads=4)`` at T=512 (head dim 24) against the einsum route;
+pipelines-all-T512 writes a cohort in the reference's file formats (66 EEG
+subjects' classic .mat conn, PW and ERP files for five bands and
+``medical_score.csv``, 32 fMRI subjects' CSVs and labels) and runs
+``__main__.main(["--pipeline", "all", ...])`` in process with a JSON config
+at EEGConfig's full widths, T=512, one epoch: each pipeline timed, its
+K1-K3 launches held to the counts derived from its models' flash layers,
+folds and evaluations, the file ingest timed with its path (native or
+numpy) printed, the headline metrics printed, the exported files checked;
+hpo-default-T512 runs ``run_hpo(build_trimodal, ...)`` over DEFAULT_SPACE,
+16 trials, on 66 synthetic subjects with matrix connectivity, every trial
+finishing and K1's launches by head dim held to the derived count. A
+``pipelines`` JSON line holds the timings.
 Any failed phase raises, so the exit code is not 0 and the final line is
 not printed.
 There is no CPU mode: without a GPU the script fails at once.
@@ -170,6 +190,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import hashlib
 import importlib.util
 import json
@@ -3462,6 +3483,358 @@ def serving_phase(dev, card: str) -> dict:
                       "phase_s": seconds}}
 
 
+# ---------------------------------------------------------------------------
+# The pipelines phase: pipelines.py, __main__.py, train/hpo.py and the
+# file loaders, on the card
+# ---------------------------------------------------------------------------
+
+PIPE_T = 512                       # 2-second epochs: K1 in the temporal layers
+PIPE_EPOCHS = 1                    # cut from TrainConfig's 50
+PIPE_GOOD, PIPE_POOR, PIPE_NAN = 35, 31, 3   # outcomes; rows with no score
+PIPE_BANDS = ("delta", "theta", "alpha", "beta", "gamma")
+FMRI_TYPES = ("sensory", "AN", "LN", "cognitive", "DMN")
+FMRI_ROWS, FMRI_ROIS, FMRI_CONN = 20, 9, 8
+HPO_TRIALS, HPO_TOP = 16, 0.25
+HPO_TRAIN, HPO_VAL = 50, 16        # of 66 synthetic subjects
+PADDED_DIMS = (8, 12, 24, 48)      # head dims between the kernel instances
+PADDED_SHAPES = [(2, 2, 300, 333, d) for d in PADDED_DIMS]
+PAD_TIMING_SHAPE = (8, 4, 512, 24)  # hidden 96 over 4 heads at T=512
+
+
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """``module.name`` set to ``value`` while the block runs."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def write_cohort(root: Path, cfg) -> dict:
+    """A cohort in the reference's file formats, with scipy and numpy only:
+    ``medical_score.csv`` (66 EEG subjects, 35 good and 31 poor outcomes,
+    and subjects with no score), the five bands' classic .mat conn, PW and
+    ERP files (ERP 18 channels, PW 75 rows, CONN 3 × 153 = 459, T = 512),
+    32 fMRI subjects' activation and connectivity CSVs and
+    ``DATA/labels/labels.csv``. Returns the file counts."""
+    from scipy.io import savemat
+
+    r = np.random.default_rng(60)
+    eeg, fmri = root / "eeg", root / "fmri"
+    for d in ("conn", "pw", "erp"):
+        (eeg / d).mkdir(parents=True)
+    n = PIPE_GOOD + PIPE_POOR
+    scores = np.concatenate([r.integers(1, 3, PIPE_GOOD),
+                             r.integers(3, 6, PIPE_POOR)])
+    r.shuffle(scores)
+    with open(eeg / "medical_score.csv", "w") as f:
+        f.write("Subject,Postoperative evaluation\n")
+        for s in range(1, n + PIPE_NAN + 1):
+            f.write(f"sub{s:02d},{scores[s - 1] if s <= n else ''}\n")
+    files = 0
+    for s in range(1, n + 1):
+        sign = 1.0 if scores[s - 1] > 2 else -1.0    # a class signal
+        for band, (lo, hi) in cfg.eeg.freq_bands.items():
+            freq = f"{int(lo)}_{int(hi)}_Hz"
+            for cond in ("open", "close"):
+                savemat(eeg / "conn" / f"conn_{band.capitalize()}_{cond}_"
+                        f"sub{s:02d}.mat", {"conn": (
+                            r.standard_normal((3, 153)) + 0.3 * sign
+                        ).astype(np.float32)})
+            savemat(eeg / "pw" / f"powspctrm_{band}_{freq}_sub{s:02d}.mat",
+                    {"powspctrm": (r.standard_normal((75, PIPE_T))
+                                   + 0.3 * sign).astype(np.float32)})
+            savemat(eeg / "erp" / f"ERP_sub{s:02d}_{band}_{freq}.mat",
+                    {"erp": (r.standard_normal((18, PIPE_T))
+                             + 0.3 * sign).astype(np.float32)})
+            files += 4
+    for s in cfg.fmri.subjects:
+        d = fmri / f"sub-{s}"
+        d.mkdir(parents=True)
+        for kind in FMRI_TYPES:
+            np.savetxt(d / f"subject_{s}_activation_{kind}.csv",
+                       r.standard_normal((FMRI_ROWS, FMRI_ROIS)),
+                       delimiter=",", comments="",
+                       header=",".join(map(str, range(FMRI_ROIS))))
+        np.savetxt(d / f"subject_{s}_fdr_PPI_Connectivity_DMN.csv",
+                   r.standard_normal((FMRI_CONN, FMRI_CONN)), delimiter=",",
+                   comments="", header=",".join(map(str, range(FMRI_CONN))))
+        files += len(FMRI_TYPES) + 1
+    (fmri / "DATA" / "labels").mkdir(parents=True)
+    with open(fmri / "DATA" / "labels" / "labels.csv", "w") as f:
+        f.write("Subject,Label,Score\n")
+        for s in cfg.fmri.subjects:
+            f.write(f"{s},{s % 2},{r.standard_normal():.6f}\n")
+    return {"eeg_subjects": n, "fmri_subjects": len(cfg.fmri.subjects),
+            "files": files + 2}
+
+
+def pipeline_expected(cfg, dev) -> dict:
+    """K1 launches each pipeline must make, from the flash layers of the
+    models it builds (an eval forward of two rows at T=512), its folds and
+    evaluations: the transformer models train with attention dropout on
+    (the einsum route), so K1 runs only in evaluations, per fold
+    ``layers × (2 eval sets × epochs + 1 test evaluation)``; the LOSO run
+    has a fold per subject; the bridge's extraction is one forward of all
+    subjects; the fMRI models have no attention. No K2 or K3."""
+    from multimodal_eeg_fmri_tpu_torch import pipelines
+
+    data = pipelines.load_or_synthesize_eeg(cfg)
+    per_fold = 2 * PIPE_EPOCHS + 1
+    layers = {name: flash_layers(m, data) for name, m in
+              pipelines.eeg_models(cfg, data, dev).items()}
+    eeg = sum(cfg.eeg.n_splits * n * per_fold for n in layers.values())
+    eeg += len(data["label"]) * layers["trimodal"] * per_fold   # LOSO
+    lite = cfg.eeg.n_splits * flash_layers(
+        pipelines.lite_model(cfg, data, dev), data) * per_fold
+    zero = {"flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    return {"eeg": {"flash_fwd": eeg, **zero},
+            "fmri": {"flash_fwd": 0, **zero},
+            "bridge": {"flash_fwd": layers["trimodal"], **zero},
+            "lite": {"flash_fwd": lite, **zero}, "layers": layers}
+
+
+def pipelines_all_phase(dev, card: str) -> dict:
+    """pipelines-all-T512: ``python -m multimodal_eeg_fmri_tpu_torch
+    --pipeline all`` in process (``__main__.main``) with a JSON config at
+    EEGConfig's full widths and T=512, data roots on a cohort written in the
+    reference's file formats, one epoch, exports to a temp dir. Each
+    pipeline is timed and its launches held to ``pipeline_expected``; the
+    file ingest is timed and its path printed; the exports must exist."""
+    from multimodal_eeg_fmri_tpu_torch import __main__ as cli
+    from multimodal_eeg_fmri_tpu_torch import pipelines
+    from multimodal_eeg_fmri_tpu_torch.core.config import (
+        EEGConfig,
+        ExperimentConfig,
+        FMRIConfig,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data import native_io
+
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        cfg = ExperimentConfig(
+            eeg=EEGConfig(data_root=str(tmp / "eeg"), time_steps=PIPE_T),
+            fmri=FMRIConfig(data_root=str(tmp / "fmri")),
+            output_dir=str(tmp / "results"))
+        counts, write_s = timed(lambda: write_cohort(tmp, cfg))
+        print(f"cohort: {counts} written in {write_s:.2f} s")
+        (tmp / "cfg.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+
+        expected = pipeline_expected(cfg, dev)
+        ingest = {"eeg": [], "fmri": []}
+        results = {}
+
+        def timed_load(kind, load):
+            def wrapper(c):
+                data, s = timed(lambda: load(c))
+                ingest[kind].append(s)
+                return data
+            return wrapper
+
+        def timed_run(pipe, run):
+            def wrapper(*a, **kw):
+                reset_all_launches()
+                out, s = timed(lambda: run(*a, **kw))
+                results[pipe] = {"s": s, "launches": total_launches(),
+                                 "out": out}
+                return out
+            return wrapper
+
+        with contextlib.ExitStack() as stack:
+            for name, wrap in (
+                    ("load_or_synthesize_eeg", functools.partial(
+                        timed_load, "eeg")),
+                    ("load_or_synthesize_fmri", functools.partial(
+                        timed_load, "fmri")),
+                    ("run_eeg_experiment", functools.partial(
+                        timed_run, "eeg")),
+                    ("run_fmri_experiment", functools.partial(
+                        timed_run, "fmri")),
+                    ("run_bridge_experiment", functools.partial(
+                        timed_run, "bridge")),
+                    ("run_lite_training", functools.partial(
+                        timed_run, "lite"))):
+                stack.enter_context(patched(pipelines, name,
+                                            wrap(getattr(pipelines, name))))
+            rc = cli.main(["--pipeline", "all", "--config",
+                           str(tmp / "cfg.json"), "--epochs",
+                           str(PIPE_EPOCHS)])
+        exports = sorted(re.sub(r"_\d+(\.\w+)$", r"\1", p.name)
+                         for p in (tmp / "results").iterdir())
+    path = "native" if native_io.native_available() else "numpy"
+    print(f"ingest path: {path}; EEG ingest {ingest['eeg']} s, fMRI ingest "
+          f"{ingest['fmri']} s {card}")
+    print(f"flash layers at T={PIPE_T}: {expected['layers']}")
+    for pipe, res in results.items():
+        print(f"pipelines-all-T{PIPE_T} {pipe}: {res['s']:.2f} s {card}; "
+              f"launches {res['launches']} (expected {expected[pipe]})")
+    if rc != 0 or set(results) != {"eeg", "fmri", "bridge", "lite"}:
+        fail(f"the CLI returned {rc} after {sorted(results)}")
+    bad = {p: r["launches"] for p, r in results.items()
+           if r["launches"] != expected[p]}
+    if bad:
+        fail(f"pipelines launched {bad}, expected "
+             f"{ {p: expected[p] for p in bad} }")
+    eeg_out = results["eeg"]["out"]
+    print("headline: eeg trimodal f1 {:.4f} ± {:.4f}, LOSO subject accuracy "
+          "{:.4f}; fmri fusion accuracy {:.4f} ± {:.4f}; bridge LOOCV "
+          "accuracy {:.4f}; lite f1 {:.4f} ± {:.4f}".format(
+              *eeg_out["kfold"]["trimodal"].summary["f1"],
+              eeg_out["loso"]["subject_accuracy"],
+              *results["fmri"]["out"]["classification"]["fusion"]
+              .summary["accuracy"],
+              results["bridge"]["out"]["bridge"].loocv_metrics["accuracy"],
+              *results["lite"]["out"]["lite"].summary["f1"]))
+    want = ["bridge_subjects.csv", "bridge_xai.npz", "eeg_detailed.csv",
+            "eeg_summary.csv", "fmri_detailed.csv", "fmri_summary.csv",
+            "lite_detailed.csv", "lite_summary.csv"]
+    print(f"exports: {exports}")
+    if exports != want:
+        fail(f"exports {exports}, expected {want}")
+    finite = [np.all(np.isfinite(r.fold_metrics[k]))
+              for out in (eeg_out["kfold"],
+                          results["fmri"]["out"]["classification"],
+                          {"lite": results["lite"]["out"]["lite"]})
+              for r in out.values() for k in r.fold_metrics]
+    if not all(finite) or not np.isfinite(
+            results["bridge"]["out"]["bridge"].loocv_metrics["accuracy"]):
+        fail("a pipeline gave non-finite metrics")
+    return {"seconds": {p: r["s"] for p, r in results.items()},
+            "ingest_s": ingest, "ingest_path": path,
+            "launches": {p: r["launches"] for p, r in results.items()},
+            "cohort_write_s": write_s}
+
+
+def hpo_phase(dev, card: str) -> dict:
+    """hpo-default-T512: ``run_hpo(build_trimodal, ...)`` over
+    DEFAULT_SPACE, 16 trials, seed 0, 66 synthetic subjects at T=512 with
+    matrix connectivity (18, 18, 3), one proxy and one full epoch,
+    ``top_fraction=0.25``. Every trial must finish, those at head dims
+    between the kernel instances included; K1's launches by head dim are
+    held to the count derived from each trial's flash layers (attention
+    dropout is on in every trial: K1 in the one validation forward a
+    trial-epoch, none in training)."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
+    from multimodal_eeg_fmri_tpu_torch.data.arrays import (
+        balanced_class_weights,
+        pad_rows,
+        subset,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+    )
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        kernel_launches_by_head_dim,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.hpo import (
+        DEFAULT_SPACE,
+        OPT_KEYS,
+        build_trimodal,
+        run_hpo,
+        sample_trials,
+    )
+
+    data = synthetic_eeg_trimodal(n_subjects=HPO_TRAIN + HPO_VAL,
+                                  time_steps=T_SERVE, conn_as_matrix=True)
+    data.pop("subject")
+    train = pad_rows(subset(data, np.arange(HPO_TRAIN)), HPO_TRAIN)
+    val = pad_rows(subset(data, np.arange(HPO_TRAIN, HPO_TRAIN + HPO_VAL)),
+                   HPO_VAL)
+    make_model = functools.partial(build_trimodal, device=dev,
+                                conn_shape=data["conn"].shape[1:])
+    trials = sample_trials(DEFAULT_SPACE, HPO_TRIALS, seed=0)
+
+    def arch(t):
+        return {k: v for k, v in t.items() if k not in OPT_KEYS}
+
+    layers = {}
+    for t in trials:
+        key = tuple(sorted(arch(t).items()))
+        if key not in layers:
+            layers[key] = flash_layers(make_model(**arch(t)), val)
+    reset_all_launches()
+    res, seconds = timed(lambda: run_hpo(
+        make_model, TrainConfig(), train, val, space=DEFAULT_SPACE,
+        n_trials=HPO_TRIALS, proxy_epochs=1, full_epochs=1,
+        top_fraction=HPO_TOP, seed=0,
+        class_weights=balanced_class_weights(train["label"])))
+    by_dim = kernel_launches_by_head_dim()
+    launches = total_launches()
+    k = max(1, int(round(HPO_TRIALS * HPO_TOP)))
+    finalists = [trials[i] for i in np.argsort(-res.rung_scores[0])[:k]]
+    expected = {}
+    for t in trials + finalists:
+        d = t["hidden_dim"] // t["num_heads"]
+        expected[d] = expected.get(d, 0) + layers[tuple(sorted(
+            arch(t).items()))]
+    expected = dict(sorted(expected.items()))
+    dims = [t["hidden_dim"] // t["num_heads"] for t in trials]
+    print(f"hpo-default-T{T_SERVE}: {HPO_TRIALS} trials + {k} finalists in "
+          f"{seconds:.2f} s {card}; head dims of the trials {sorted(dims)}")
+    print(f"rung 1 scores {np.array2string(res.rung_scores[0], precision=4)}"
+          f"; rung 2 {np.array2string(res.rung_scores[1], precision=4)}; "
+          f"best {res.best_params} ({res.best_score:.4f})")
+    print(f"K1 launches by head dim {by_dim['flash_fwd']} (expected "
+          f"{expected}), in total {launches['flash_fwd']}; K2 "
+          f"{launches['flash_bwd_dkv']}, K3 {launches['flash_bwd_dq']}")
+    if not all(np.all(np.isfinite(s)) for s in res.rung_scores):
+        fail("an HPO trial did not finish with a finite score")
+    if not set(PADDED_DIMS) <= set(dims):
+        fail(f"the trials' head dims {sorted(set(dims))} miss one of "
+             f"{PADDED_DIMS}")
+    if (by_dim["flash_fwd"] != expected or launches["flash_bwd_dkv"]
+            or launches["flash_bwd_dq"]):
+        fail("hpo launched other than expected")
+    return {"seconds": seconds, "launches": launches,
+            "flash_fwd_by_head_dim": by_dim["flash_fwd"],
+            "best_score": res.best_score}
+
+
+def padded_predictor_gate(dev, card: str) -> dict:
+    """One Predictor batch of TriModalFusionNetV4(hidden_dim=96,
+    num_heads=4) at T=512 (head dim 24: K1 on the padded instance, 32)
+    against the einsum route."""
+    from multimodal_eeg_fmri_tpu_torch import Predictor, init_weights
+    from multimodal_eeg_fmri_tpu_torch.models import TriModalFusionNetV4
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        kernel_launches_by_head_dim,
+    )
+
+    model = init_weights(TriModalFusionNetV4(hidden_dim=96, num_heads=4,
+                                             device=dev),
+                         torch.Generator().manual_seed(12))
+    rows = {k: v for k, v in request(BATCH, T_SERVE, seed=61).items()
+            if k in ("erp", "pw", "conn")}
+    reset_all_launches()
+    logits = Predictor(model, BATCH, return_probs=False)(**rows)
+    by_dim = kernel_launches_by_head_dim()["flash_fwd"]
+    plain = Predictor(einsum_route(copy.deepcopy(model)), BATCH,
+                      return_probs=False)(**rows)
+    d = float(np.abs(logits - plain).max())
+    print(f"Predictor batch of TriModalFusionNetV4(hidden_dim=96, "
+          f"num_heads=4) at T={T_SERVE}: K1 launches by head dim {by_dim}; "
+          f"logits vs einsum route max|d|={d:.3e} (limit {LOGITS_ATOL:g})")
+    if by_dim != {24: 4} or not d <= LOGITS_ATOL:
+        fail("the D=24 Predictor batch launched otherwise or disagrees with "
+             "the einsum route")
+    return {"launches": by_dim, "max_abs_err": d}
+
+
+def pipelines_phase(dev, card: str) -> dict:
+    """The pipelines phase: pipelines-all-T512, hpo-default-T512 and the
+    D=24 Predictor batch; a ``pipelines`` JSON line."""
+    t0 = time.perf_counter()
+    pred = padded_predictor_gate(dev, card)
+    pipes = pipelines_all_phase(dev, card)
+    hpo = hpo_phase(dev, card)
+    seconds = time.perf_counter() - t0
+    print(f"pipelines phase: {seconds:.1f} s {card}")
+    return {"predictor_D24": pred, "all": pipes, "hpo": hpo,
+            "phase_s": seconds}
+
+
 def main() -> None:
     # deterministic cuBLAS for the resume phase; read when cuBLAS starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3519,8 +3892,10 @@ def main() -> None:
     for shape, cdt, atol in (
             [((*s[:3], s[2], s[3]), torch.float32, KERNEL_ATOL)
              for s in SLICE_SHAPES]
-            + [(s, torch.float32, KERNEL_ATOL) for s in RAGGED_SHAPES]
-            + [((8, 4, 512, 512, 32), torch.bfloat16, BF16_ATOL)]):
+            + [(s, torch.float32, KERNEL_ATOL)
+               for s in RAGGED_SHAPES + PADDED_SHAPES]
+            + [((8, 4, 512, 512, 32), torch.bfloat16, BF16_ATOL)]
+            + [(s, torch.bfloat16, BF16_ATOL) for s in PADDED_SHAPES]):
         B, H, tq, tk, d = shape
         q = torch.randn(B, H, tq, d, device=dev, generator=gen)
         k = torch.randn(B, H, tk, d, device=dev, generator=gen)
@@ -3541,8 +3916,10 @@ def main() -> None:
     for shape, cdt, atol in (
             [((*s[:3], s[2], s[3]), torch.float32, GRAD_ATOL)
              for s in SLICE_SHAPES]
-            + [(s, torch.float32, GRAD_ATOL) for s in RAGGED_SHAPES]
-            + [((8, 4, 512, 512, 32), torch.bfloat16, GRAD_BF16_ATOL)]):
+            + [(s, torch.float32, GRAD_ATOL)
+               for s in RAGGED_SHAPES + PADDED_SHAPES]
+            + [((8, 4, 512, 512, 32), torch.bfloat16, GRAD_BF16_ATOL)]
+            + [(s, torch.bfloat16, GRAD_BF16_ATOL) for s in PADDED_SHAPES]):
         B, H, tq, tk, d = shape
         q = torch.randn(B, H, tq, d, device=dev, generator=gen)
         k = torch.randn(B, H, tk, d, device=dev, generator=gen)
@@ -3596,9 +3973,10 @@ def main() -> None:
     c5_sweep(dev)
 
     phase("kernel vs plain version in bf16 storage, f32 operands: K1, K2 "
-          "and K3 at the main path's shapes")
+          "and K3 at the main path's shapes and at the padded head dims "
+          f"{PADDED_DIMS}")
     worst_bf16 = dict.fromkeys(worst, 0.0)
-    for B, H, T, d in SLICE_SHAPES:
+    for B, H, T, d in SLICE_SHAPES + [(8, 4, 512, d) for d in PADDED_DIMS]:
         q, k, v, g = (torch.randn(B, H, T, d, device=dev,
                                   generator=gen).bfloat16() for _ in range(4))
         out_k, lse_k = flash_forward_cuda(q, k, v)
@@ -4082,6 +4460,19 @@ def main() -> None:
                   f"(bound {v['bound_ms']:.4f})"
                   for (k, st), v in per_step.items() if st == storage))
 
+    phase(f"K1-K3 at a padded head dim: {PAD_TIMING_SHAPE} (the kernels' "
+          f"D=32 instance) beside D=32 itself {card}")
+    padded_times = {}
+    for d in (PAD_TIMING_SHAPE[3], 32):
+        q, k, v, g = (torch.randn(*PAD_TIMING_SHAPE[:3], d, device=dev,
+                                  generator=gen) for _ in range(4))
+        padded_times[d] = kernel_call_times(q, k, v, g, "f32", card)
+    for name, t in padded_times[PAD_TIMING_SHAPE[3]].items():
+        print(f"{name}: D={PAD_TIMING_SHAPE[3]} padded to 32 takes "
+              f"{t['device_ms'] / padded_times[32][name]['device_ms']:.3f}x "
+              f"the device time of D=32; {t['bound_ms'] / t['device_ms']:.1%}"
+              f" of the bound of D={PAD_TIMING_SHAPE[3]}'s own work {card}")
+
     def timings(t: dict) -> dict:
         return {"ms": t["ms"], "device_ms": t["device_ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4107,6 +4498,18 @@ def main() -> None:
     print(json.dumps({"serving": {**serving["times"],
                                   "flash_fwd_folded": serving["folded"],
                                   "device": smi}}))
+
+    phase(f"pipelines: pipelines.py, __main__.py, train/hpo.py and the file "
+          f"loaders on the card {card}")
+    pipes = pipelines_phase(dev, card)
+    print(json.dumps({"pipelines": {
+        "seconds": pipes["all"]["seconds"],
+        "ingest_s": pipes["all"]["ingest_s"],
+        "ingest_path": pipes["all"]["ingest_path"],
+        "cohort_write_s": pipes["all"]["cohort_write_s"],
+        "hpo_s": pipes["hpo"]["seconds"],
+        "hpo_flash_fwd_by_head_dim": pipes["hpo"]["flash_fwd_by_head_dim"],
+        "phase_s": pipes["phase_s"], "device": smi}}))
 
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     print(json.dumps({"kernels": [{
@@ -4137,7 +4540,12 @@ def main() -> None:
                              **{path: n[name] for path, n in bridge.items()},
                              "serve-ensemble-T512, per batch": (
                                  serving["launches_per_batch"]
-                                 if name == "flash_fwd" else 0)},
+                                 if name == "flash_fwd" else 0),
+                             **{f"pipelines-all-T{PIPE_T} {pipe}": n[name]
+                                for pipe, n in
+                                pipes["all"]["launches"].items()},
+                             f"hpo-default-T{T_SERVE}":
+                                 pipes["hpo"]["launches"][name]},
         "max_abs_err": worst[name],
         **timings(per_step[name, "f32"]),
         # the mixed-precision fit's launches by storage, and the
@@ -4150,6 +4558,13 @@ def main() -> None:
            if name == "flash_fwd" else {}),
         # each call at lc-moe-T2048's (8, 4, 2048, 16)
         f"lc_moe_T{LC_T}": lc["kernels"][name],
+        # each call at (8, 4, 512, 24), padded to the D=32 instance (the
+        # bound from D=24's own work), and at D=32
+        "padded_D24": {"shape": list(PAD_TIMING_SHAPE),
+                       **timings({**padded_times[24][name], "ops": (
+                           padded_times[24][name]["bound_by"]
+                           == "operations")}),
+                       "d32_device_ms": padded_times[32][name]["device_ms"]},
     } for name in names] + [{
         "name": "sosfilt",
         "route": "cuda",

@@ -3,8 +3,12 @@
 Mirrors the JAX package's module paths and class names. Plain tensor code is
 PyTorch; the JAX package's Pallas TPU kernels become hand-written CUDA
 kernels under ``csrc/``, built at first use (``ops/_kernels.py``). Imports
-neither jax nor the JAX package.
+neither jax nor the JAX package. ``python -m multimodal_eeg_fmri_tpu_torch
+--pipeline eeg|fmri|bridge|lite|all`` runs the experiment pipelines
+(``pipelines.py``).
 """
+
+__version__ = "0.1.0"
 
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
 from multimodal_eeg_fmri_tpu_torch.convert import (

@@ -1,5 +1,5 @@
-"""Configuration, seeds, checkpoints, quantized payloads, profiling and
-the determinism harness of the port."""
+"""Configuration, seeds, logging, checkpoints, quantized payloads,
+profiling and the determinism harness of the port."""
 
 from multimodal_eeg_fmri_tpu_torch.core.checkpoint import (
     export_frozen_encoder,
@@ -14,9 +14,15 @@ from multimodal_eeg_fmri_tpu_torch.core.config import (
     FMRIConfig,
     MeshConfig,
     TrainConfig,
+    load_config,
+    save_config,
 )
 from multimodal_eeg_fmri_tpu_torch.core.determinism import (
     run_twice_and_compare,
+)
+from multimodal_eeg_fmri_tpu_torch.core.logging import (
+    MetricsLogger,
+    get_logger,
 )
 from multimodal_eeg_fmri_tpu_torch.core.profiling import (
     StepTimer,
@@ -34,7 +40,9 @@ from multimodal_eeg_fmri_tpu_torch.core.rng import (
 )
 
 __all__ = ["BridgeConfig", "EEGConfig", "ExperimentConfig", "FMRIConfig",
-           "MeshConfig", "RngStream", "StepTimer", "TrainConfig", "annotate",
-           "export_frozen_encoder", "find_best_checkpoint", "fold_in",
-           "load_checkpoint", "load_quantized", "run_twice_and_compare",
-           "save_checkpoint", "save_quantized", "seed_everything", "trace"]
+           "MeshConfig", "MetricsLogger", "RngStream", "StepTimer",
+           "TrainConfig", "annotate", "export_frozen_encoder",
+           "find_best_checkpoint", "fold_in", "get_logger", "load_checkpoint",
+           "load_config", "load_quantized", "run_twice_and_compare",
+           "save_checkpoint", "save_config", "save_quantized",
+           "seed_everything", "trace"]

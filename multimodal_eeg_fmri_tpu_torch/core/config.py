@@ -1,14 +1,25 @@
-"""Configuration of the port. A copy of the config classes of the JAX
-package's ``core/config.py``, with the same fields and defaults:
-``TrainConfig``, ``EEGConfig``, ``FMRIConfig``, ``BridgeConfig``,
-``MeshConfig`` and ``ExperimentConfig``. ``save_config``/``load_config``
-(YAML) are not ported yet."""
+"""Configuration of the port. A copy of the JAX package's
+``core/config.py``, with the same fields and defaults: ``TrainConfig``,
+``EEGConfig``, ``FMRIConfig``, ``BridgeConfig``, ``MeshConfig`` and
+``ExperimentConfig``, and ``save_config`` / ``load_config``.
+
+The JAX package reads and writes the config tree as YAML with PyYAML. The
+port writes YAML where PyYAML imports; without it (the card's machine has
+none) ``save_config`` writes the same tree as JSON, with every float in
+exponent form given a decimal point ("1.0e-05"), which PyYAML's YAML 1.1
+rules need to read it as a float. ``load_config`` reads a JSON file as
+JSON and anything else as YAML. A JSON file is valid YAML, so one overlay
+file serves both packages."""
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
+import re
 from dataclasses import dataclass, field
-from typing import Mapping, Tuple
+from pathlib import Path
+from typing import Any, Mapping, Tuple
 
 
 @dataclass(frozen=True)
@@ -73,7 +84,7 @@ class EEGConfig:
     num_transformer_layers: int = 2
     num_heads: int = 4
     # >0 swaps the V4 temporal transformers' dense FFNs for a
-    # Mixture-of-Experts FFN (not ported yet)
+    # Mixture-of-Experts FFN
     num_experts: int = 0
     moe_top_k: int = 1
     conn_metrics: Tuple[str, ...] = ("plv", "coh", "wpli")
@@ -160,3 +171,104 @@ class ExperimentConfig:
     checkpoint_dir: str = "./checkpoints"
     log_dir: str = "./logs"
     experiment_name: str = "multimodal_eeg_fmri"
+
+
+def _to_dict(cfg: Any) -> Any:
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: _to_dict(getattr(cfg, f.name))
+                for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, Mapping):
+        return {k: _to_dict(v) for k, v in cfg.items()}
+    if isinstance(cfg, (list, tuple)):
+        return [_to_dict(v) for v in cfg]
+    return cfg
+
+
+def _from_dict(cls, d: Mapping[str, Any]):
+    kwargs = {}
+    hints = {f.name: f for f in dataclasses.fields(cls)}
+    for k, v in d.items():
+        if k not in hints:
+            continue
+        f = hints[k]
+        sub = f.type if isinstance(f.type, type) else None
+        if (sub is not None and dataclasses.is_dataclass(sub)
+                and isinstance(v, Mapping)):
+            kwargs[k] = _from_dict(sub, v)
+        elif isinstance(v, list):
+            kwargs[k] = tuple(tuple(x) if isinstance(x, list) else x
+                              for x in v)
+        else:
+            kwargs[k] = v
+    return cls(**kwargs)
+
+
+_SECTIONS = {
+    "train": TrainConfig,
+    "eeg": EEGConfig,
+    "fmri": FMRIConfig,
+    "bridge": BridgeConfig,
+    "mesh": MeshConfig,
+}
+
+
+def _yaml():
+    """PyYAML, or None where it is not installed."""
+    try:
+        import yaml
+    except ImportError:
+        return None
+    return yaml
+
+
+# a JSON string, or a number in exponent form without a decimal point
+_JSON_TOKEN = re.compile(r'"(?:\\.|[^"\\])*"|(-?\d+)([eE][-+]?\d+)')
+
+
+def _yaml_safe_json(tree: Any) -> str:
+    """``tree`` as JSON that PyYAML reads back alike: "1e-05" becomes
+    "1.0e-05" (YAML 1.1 reads a float without a point as a string)."""
+    return _JSON_TOKEN.sub(
+        lambda m: m[0] if m[1] is None else f"{m[1]}.0{m[2]}",
+        json.dumps(tree, indent=2))
+
+
+def save_config(cfg: ExperimentConfig, path: str | Path) -> None:
+    """Serialize the config tree (reference: ``Config.save_config``,
+    ``EEG_CODE/config.py:75-80``): YAML as the JAX package writes it, or
+    the same tree as JSON where PyYAML is not installed."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    yaml = _yaml()
+    with open(path, "w") as f:
+        if yaml is not None:
+            yaml.safe_dump(_to_dict(cfg), f, sort_keys=False)
+        else:
+            f.write(_yaml_safe_json(_to_dict(cfg)) + "\n")
+
+
+def load_config(path: str | Path) -> ExperimentConfig:
+    """Load a JSON or YAML overlay into an ``ExperimentConfig``
+    (reference: ``Config.load_config``, ``EEG_CODE/config.py:66-73``).
+    Unknown keys are ignored; missing keys take defaults. Without PyYAML a
+    file that is not JSON raises."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        raw = json.loads(text) if text.strip() else {}
+    except json.JSONDecodeError as e:
+        yaml = _yaml()
+        if yaml is None:
+            raise ValueError(
+                f"{path} is not JSON, and PyYAML is not installed to read it "
+                f"as YAML: write the overlay as JSON (valid YAML too) or "
+                f"install PyYAML") from e
+        raw = yaml.safe_load(text) or {}
+    kwargs: dict[str, Any] = {}
+    for name, cls in _SECTIONS.items():
+        if name in raw and isinstance(raw[name], Mapping):
+            kwargs[name] = _from_dict(cls, raw[name])
+    for k in ("output_dir", "checkpoint_dir", "log_dir", "experiment_name"):
+        if k in raw:
+            kwargs[k] = raw[k]
+    return ExperimentConfig(**kwargs)

@@ -408,6 +408,7 @@ struct Args {
     const void *q, *k, *v, *dout, *lse, *delta;
     void *out0, *out1;                 // dK and dV for K2; dQ (and unused) for K3
     int B, H, Tq, Tk;
+    float scale;                       // one over the root of the true head dim
     const int64_t* st;                 // q, k, v, dO strides (batch, head, time)
     cudaStream_t stream;
 };
@@ -437,7 +438,7 @@ cudaError_t launch_dkv(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.H, a.Tq, a.Tk,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        st[9], st[10], st[11], (float)(1.0 / sqrt((double)D)),
+        st[9], st[10], st[11], a.scale,
         aligned_rows_mask(inputs, st, sizeof(T)));
     return cudaGetLastError();
 }
@@ -458,7 +459,7 @@ cudaError_t launch_dq(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<T*>(a.out0), a.H, a.Tq, a.Tk,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        st[9], st[10], st[11], (float)(1.0 / sqrt((double)D)),
+        st[9], st[10], st[11], a.scale,
         aligned_rows_mask(inputs, st, sizeof(T)));
     return cudaGetLastError();
 }
@@ -493,14 +494,14 @@ int dispatch(int D, int is_bf16, int bf16_ops, const Args& a) {
 // head, time) given in `strides` as q's three, then k's, v's and dO's; the
 // last dim is contiguous. lse and delta: contiguous (B, H, Tq) f32. dk, dv:
 // contiguous (B, H, Tk, D) of the input type. is_bf16 selects bf16 storage
-// (else f32); bf16_ops the bf16 tile operands. Returns the cudaError_t of the
-// launch.
+// (else f32); bf16_ops the bf16 tile operands. D and scale as in
+// mmef_flash_fwd. Returns the cudaError_t of the launch.
 extern "C" int mmef_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
                                   void* dk, void* dv, int B, int H, int Tq, int Tk,
-                                  int D, int is_bf16, int bf16_ops,
+                                  int D, int is_bf16, int bf16_ops, float scale,
                                   const int64_t* strides, void* stream) {
-    const Args a{q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, strides,
+    const Args a{q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, strides,
                  static_cast<cudaStream_t>(stream)};
     return dispatch<true>(D, is_bf16, bf16_ops, a);
 }
@@ -509,9 +510,9 @@ extern "C" int mmef_flash_bwd_dkv(const void* q, const void* k, const void* v,
 extern "C" int mmef_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  void* dq, int B, int H, int Tq, int Tk, int D,
-                                 int is_bf16, int bf16_ops, const int64_t* strides,
-                                 void* stream) {
-    const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, H, Tq, Tk, strides,
-                 static_cast<cudaStream_t>(stream)};
+                                 int is_bf16, int bf16_ops, float scale,
+                                 const int64_t* strides, void* stream) {
+    const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, H, Tq, Tk, scale,
+                 strides, static_cast<cudaStream_t>(stream)};
     return dispatch<false>(D, is_bf16, bf16_ops, a);
 }

@@ -217,7 +217,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D, typename T, bool BF16_OPS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int B, int H, int Tq, int Tk, const int64_t* st, cudaStream_t stream) {
+                   int B, int H, int Tq, int Tk, float scale, const int64_t* st,
+                   cudaStream_t stream) {
     auto kernel = flash_fwd_kernel<D, T, BF16_OPS>;
     constexpr size_t smem = smem_bytes<D, T>();
     static bool configured = false;  // the attribute is set once per instance
@@ -233,19 +234,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), H, Tq, Tk,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        (float)(1.0 / sqrt((double)D)), aligned_rows_mask(inputs, st, sizeof(T)));
+        scale, aligned_rows_mask(inputs, st, sizeof(T)));
     return cudaGetLastError();
 }
 
 template <typename T, bool BF16_OPS>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, void* lse,
-                       int B, int H, int Tq, int Tk, int D, const int64_t* st,
-                       cudaStream_t stream) {
+                       int B, int H, int Tq, int Tk, int D, float scale,
+                       const int64_t* st, cudaStream_t stream) {
     switch (D) {
-        case 16: return launch<16, T, BF16_OPS>(q, k, v, o, lse, B, H, Tq, Tk, st, stream);
-        case 32: return launch<32, T, BF16_OPS>(q, k, v, o, lse, B, H, Tq, Tk, st, stream);
-        case 64: return launch<64, T, BF16_OPS>(q, k, v, o, lse, B, H, Tq, Tk, st, stream);
-        case 128: return launch<128, T, BF16_OPS>(q, k, v, o, lse, B, H, Tq, Tk, st, stream);
+        case 16: return launch<16, T, BF16_OPS>(q, k, v, o, lse, B, H, Tq, Tk, scale, st, stream);
+        case 32: return launch<32, T, BF16_OPS>(q, k, v, o, lse, B, H, Tq, Tk, scale, st, stream);
+        case 64: return launch<64, T, BF16_OPS>(q, k, v, o, lse, B, H, Tq, Tk, scale, st, stream);
+        case 128: return launch<128, T, BF16_OPS>(q, k, v, o, lse, B, H, Tq, Tk, scale, st, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -256,20 +257,22 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, voi
 // `strides` as q's three, then k's, then v's; the last dim is contiguous.
 // o: contiguous (B, H, Tq, D) of the input type; lse: contiguous (B, H, Tq)
 // f32. is_bf16 selects bf16 storage (else f32); bf16_ops the bf16 tile
-// operands. Returns the cudaError_t of the launch.
+// operands. D is a kernel instance's head dim; scale multiplies the logits
+// (one over the root of the true head dim d <= D, where the caller zero-pads
+// q, k and v from d to D). Returns the cudaError_t of the launch.
 extern "C" int mmef_flash_fwd(const void* q, const void* k, const void* v, void* o,
                               void* lse, int B, int H, int Tq, int Tk, int D,
-                              int is_bf16, int bf16_ops, const int64_t* strides,
-                              void* stream) {
+                              int is_bf16, int bf16_ops, float scale,
+                              const int64_t* strides, void* stream) {
     if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || (int64_t)B * H > INT32_MAX
         || (Tq + BQ - 1) / BQ > 65535)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (is_bf16)
         return (int)(bf16_ops
-            ? dispatch_d<__nv_bfloat16, true>(q, k, v, o, lse, B, H, Tq, Tk, D, strides, s)
-            : dispatch_d<__nv_bfloat16, false>(q, k, v, o, lse, B, H, Tq, Tk, D, strides, s));
+            ? dispatch_d<__nv_bfloat16, true>(q, k, v, o, lse, B, H, Tq, Tk, D, scale, strides, s)
+            : dispatch_d<__nv_bfloat16, false>(q, k, v, o, lse, B, H, Tq, Tk, D, scale, strides, s));
     return (int)(bf16_ops
-        ? dispatch_d<float, true>(q, k, v, o, lse, B, H, Tq, Tk, D, strides, s)
-        : dispatch_d<float, false>(q, k, v, o, lse, B, H, Tq, Tk, D, strides, s));
+        ? dispatch_d<float, true>(q, k, v, o, lse, B, H, Tq, Tk, D, scale, strides, s)
+        : dispatch_d<float, false>(q, k, v, o, lse, B, H, Tq, Tk, D, scale, strides, s));
 }

@@ -1,7 +1,9 @@
 """Data of the port: dataset helpers (numpy), cross-validation splits
 (``splits``) and per-fold normalization (``normalize``), synthetic cohorts
 (``synthetic``), the raw-EEG featurizer (``raw``), NIfTI I/O and the fMRI
-ROI pipeline (``nifti``), and the streaming featurizer (``streaming``)."""
+ROI pipeline (``nifti``), the streaming featurizer (``streaming``), the
+reference's file readers (``loaders``, over the native ingest in
+``native_io``) and the subject joiners (``handler``)."""
 
 from multimodal_eeg_fmri_tpu_torch.data.arrays import (
     balanced_class_weights,

@@ -89,15 +89,18 @@ def library() -> ctypes.CDLL:
     """The built library with every entry point's C signature declared."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mmef_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                   ctypes.POINTER(ctypes.c_int64), p]
+    f = ctypes.c_float
+    # q, k, v, O, lse, B, H, Tq, Tk, D, is_bf16, bf16_ops, scale
+    lib.mmef_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [
+        f, ctypes.POINTER(ctypes.c_int64), p]
     lib.mmef_flash_fwd.restype = i
     strides = ctypes.POINTER(ctypes.c_int64)
-    # q, k, v, dO, lse, delta, dK, dV, B, H, Tq, Tk, D, is_bf16, bf16_ops
-    lib.mmef_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [strides, p]
+    # q, k, v, dO, lse, delta, dK, dV, B, H, Tq, Tk, D, is_bf16, bf16_ops,
+    # scale
+    lib.mmef_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [f, strides, p]
     lib.mmef_flash_bwd_dkv.restype = i
-    # q, k, v, dO, lse, delta, dQ, B, H, Tq, Tk, D, is_bf16, bf16_ops
-    lib.mmef_flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [strides, p]
+    # q, k, v, dO, lse, delta, dQ, B, H, Tq, Tk, D, is_bf16, bf16_ops, scale
+    lib.mmef_flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [f, strides, p]
     lib.mmef_flash_bwd_dq.restype = i
     # x, y, zi, zf, coeffs (host), carry, scratch, G, S, T, M, L, stream
     lib.mmef_sosfilt.argtypes = [p] * 7 + [i] * 5 + [p]

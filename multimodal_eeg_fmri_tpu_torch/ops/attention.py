@@ -7,9 +7,19 @@ and K3 (``csrc/flash_bwd.cu``), all built by ``ops/_kernels.py``, or raise;
 on a CPU tensor they run the plain PyTorch math of the same kernels, so the
 CPU tests check the formulas the kernels implement. Each kernel wrapper
 counts its launches by storage dtype in a dict attribute, ``launches``
-({"f32": n, "bf16": m}); ``kernel_launches()`` reads the three. The
-forward is reached through the operator ``mmef::flash_fwd``, which
-``torch.func.vmap`` folds into one launch and ``torch.export`` traces.
+({"f32": n, "bf16": m}), and by true head dim in ``launches_by_head_dim``;
+``kernel_launches()`` and ``kernel_launches_by_head_dim()`` read the three
+kernels' counts. The forward is reached through the operator
+``mmef::flash_fwd``, which ``torch.func.vmap`` folds into one launch and
+``torch.export`` traces.
+
+The kernels are built for the head dims in ``KERNEL_HEAD_DIMS``. A wrapper
+given another head dim d ≤ 128 zero-pads q, k, v (and dO) to the next one,
+passes the kernel the true scale 1/√d and slices its outputs back to d, as
+the JAX package's wrapper pads to 128 lanes: the zero columns add nothing to
+Q·Kᵀ, give zero output and gradient columns, and leave Δ = rowsum(dO∘O) as
+it is. The padding stays inside the ``*_cuda`` wrappers, so the operators
+and everything above them see the true d.
 """
 
 from __future__ import annotations
@@ -22,6 +32,24 @@ import torch
 from torch._C import _functorch
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim of the kernel instance that computes head dim ``d``:
+    the smallest of ``KERNEL_HEAD_DIMS`` not below it."""
+    for kd in KERNEL_HEAD_DIMS:
+        if 1 <= d <= kd:
+            return kd
+    raise ValueError(f"head dim {d} is outside the flash kernels' range "
+                     f"1..{KERNEL_HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x`` zero-padded on its last axis to ``d`` (``x`` itself when it
+    is that wide already)."""
+    if x.shape[-1] == d:
+        return x
+    return torch.nn.functional.pad(x, (0, d - x.shape[-1]))
 
 
 def reference_attention(q, k, v, scale: Optional[float] = None,
@@ -37,11 +65,16 @@ def reference_attention(q, k, v, scale: Optional[float] = None,
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(q.dtype), v)
 
 
-def flash_forward_plain(q, k, v, compute_dtype=torch.float32):
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def flash_forward_plain(q, k, v, compute_dtype=torch.float32, scale=None):
     """The kernel's math in plain PyTorch: returns (out (B,H,Tq,D) in
     q.dtype, lse (B,H,Tq) f32). f32 mode scales q before the dot; bf16 mode
-    rounds the q/k and p/v operands to bf16 and scales after the dot."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    rounds the q/k and p/v operands to bf16 and scales after the dot.
+    ``scale`` defaults to 1/√D."""
+    scale = _scale(q, scale)
     if compute_dtype == torch.float32:
         s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
     else:
@@ -69,12 +102,12 @@ def flash_delta(o, g, g_lse=None) -> torch.Tensor:
     return delta
 
 
-def _recompute_plain(q, k, v, g, lse, delta, compute_dtype):
+def _recompute_plain(q, k, v, g, lse, delta, compute_dtype, scale):
     """What both backward kernels recompute: S·scale after the dot,
     P = exp(S − lse) and dS = P ⊙ (dO·Vᵀ − Δ). Returns (operand cast, q, k,
     dO as product operands, P, dS, scale). bf16 mode rounds q, k, v and dO,
     and P and dS before their products, to bf16; every sum stays f32."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale(q, scale)
 
     def op(x):  # a product operand in compute_dtype, summed in f32
         return x.to(compute_dtype).float()
@@ -88,21 +121,24 @@ def _recompute_plain(q, k, v, g, lse, delta, compute_dtype):
     return op, qc, kc, gc, p, ds, scale
 
 
-def flash_bwd_dkv_plain(q, k, v, g, lse, delta, compute_dtype=torch.float32):
+def flash_bwd_dkv_plain(q, k, v, g, lse, delta, compute_dtype=torch.float32,
+                        scale=None):
     """K2's math in plain PyTorch: (dk, dv) with dV = Pᵀ·dO and
-    dK = dSᵀ·Q·scale; arguments as ``flash_bwd_dkv_cuda``."""
+    dK = dSᵀ·Q·scale; arguments as ``flash_bwd_dkv_cuda``, ``scale`` as
+    ``flash_forward_plain``'s."""
     op, qc, _, gc, p, ds, scale = _recompute_plain(q, k, v, g, lse, delta,
-                                                   compute_dtype)
+                                                   compute_dtype, scale)
     dv = torch.einsum("bhqk,bhqd->bhkd", op(p), gc)
     dk = torch.einsum("bhqk,bhqd->bhkd", op(ds), qc) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd_dq_plain(q, k, v, g, lse, delta, compute_dtype=torch.float32):
+def flash_bwd_dq_plain(q, k, v, g, lse, delta, compute_dtype=torch.float32,
+                       scale=None):
     """K3's math in plain PyTorch: dQ = dS·K·scale; arguments as
-    ``flash_bwd_dq_cuda``."""
+    ``flash_bwd_dq_cuda``, ``scale`` as ``flash_forward_plain``'s."""
     op, _, kc, _, _, ds, scale = _recompute_plain(q, k, v, g, lse, delta,
-                                                  compute_dtype)
+                                                  compute_dtype, scale)
     dq = torch.einsum("bhqk,bhkd->bhqd", op(ds), kc) * scale
     return dq.to(q.dtype)
 
@@ -138,8 +174,7 @@ def _check_kernel_inputs(name, q, k, v, compute_dtype, *extra):
             t.shape != q.shape for t in extra):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"{[tuple(t.shape) for t in extra]} disagree")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {KERNEL_HEAD_DIMS}")
+    kernel_head_dim(D)
     # B·H runs on the grid's x axis (2^31 − 1 blocks), the 64-row tiles of
     # Tq and Tk on its y axis (65,535)
     if (min(B, H, Tq, Tk) < 1 or B * H > 2**31 - 1
@@ -162,6 +197,12 @@ def _storage(t) -> str:
     return "bf16" if t.dtype == torch.bfloat16 else "f32"
 
 
+def _count(fn, q, d: int) -> None:
+    """One launch of ``fn``'s kernel on ``q``'s storage at head dim d."""
+    fn.launches[_storage(q)] += 1
+    fn.launches_by_head_dim[d] = fn.launches_by_head_dim.get(d, 0) + 1
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -173,16 +214,19 @@ def flash_forward_cuda(q, k, v, compute_dtype=torch.float32):
                                            compute_dtype)
     from multimodal_eeg_fmri_tpu_torch.ops._kernels import library
 
-    out = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
+    kd = kernel_head_dim(D)
+    q, k, v = (pad_head_dim(t, kd) for t in (q, k, v))
+    out = torch.empty((B, H, Tq, kd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     err = library().mmef_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, Tq, Tk, D, int(q.dtype == torch.bfloat16),
-        int(compute_dtype == torch.bfloat16), _strides(q, k, v), _stream(q))
+        lse.data_ptr(), B, H, Tq, Tk, kd, int(q.dtype == torch.bfloat16),
+        int(compute_dtype == torch.bfloat16), 1.0 / math.sqrt(D),
+        _strides(q, k, v), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
-    flash_forward_cuda.launches[_storage(q)] += 1
-    return out, lse
+    _count(flash_forward_cuda, q, D)
+    return out[..., :D], lse
 
 
 def _check_stats(lse, delta, B, H, Tq, device):
@@ -202,19 +246,21 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
     _check_stats(lse, delta, B, H, Tq, q.device)
     from multimodal_eeg_fmri_tpu_torch.ops._kernels import library
 
-    dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=k.device)
-    dv = torch.empty((B, H, Tk, D), dtype=v.dtype, device=v.device)
+    kd = kernel_head_dim(D)
+    q, k, v, g = (pad_head_dim(t, kd) for t in (q, k, v, g))
+    dk = torch.empty((B, H, Tk, kd), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, H, Tk, kd), dtype=v.dtype, device=v.device)
     err = library().mmef_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, Tq, Tk, D, int(q.dtype == torch.bfloat16),
-        int(compute_dtype == torch.bfloat16), _strides(q, k, v, g),
-        _stream(q))
+        B, H, Tq, Tk, kd, int(q.dtype == torch.bfloat16),
+        int(compute_dtype == torch.bfloat16), 1.0 / math.sqrt(D),
+        _strides(q, k, v, g), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: "
                            f"cudaError {err}")
-    flash_bwd_dkv_cuda.launches[_storage(q)] += 1
-    return dk, dv
+    _count(flash_bwd_dkv_cuda, q, D)
+    return dk[..., :D], dv[..., :D]
 
 
 def flash_bwd_dq_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
@@ -225,17 +271,19 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
     _check_stats(lse, delta, B, H, Tq, q.device)
     from multimodal_eeg_fmri_tpu_torch.ops._kernels import library
 
-    dq = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
+    kd = kernel_head_dim(D)
+    q, k, v, g = (pad_head_dim(t, kd) for t in (q, k, v, g))
+    dq = torch.empty((B, H, Tq, kd), dtype=q.dtype, device=q.device)
     err = library().mmef_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Tq, Tk, D,
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Tq, Tk, kd,
         int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
-        _strides(q, k, v, g), _stream(q))
+        1.0 / math.sqrt(D), _strides(q, k, v, g), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: "
                            f"cudaError {err}")
-    flash_bwd_dq_cuda.launches[_storage(q)] += 1
-    return dq
+    _count(flash_bwd_dq_cuda, q, D)
+    return dq[..., :D]
 
 
 _KERNELS = {"flash_fwd": flash_forward_cuda,
@@ -249,9 +297,17 @@ def kernel_launches() -> dict:
     return {k: dict(fn.launches) for k, fn in _KERNELS.items()}
 
 
+def kernel_launches_by_head_dim() -> dict:
+    """Launches of each flash kernel since the counts were last reset, by
+    the true head dim: {kernel: {d: n}}."""
+    return {k: dict(sorted(fn.launches_by_head_dim.items()))
+            for k, fn in _KERNELS.items()}
+
+
 def reset_kernel_launches() -> None:
     for fn in _KERNELS.values():
         fn.launches = {"f32": 0, "bf16": 0}
+        fn.launches_by_head_dim = {}
 
 
 reset_kernel_launches()
@@ -348,8 +404,9 @@ def _(info, in_dims, *args):
     raise NotImplementedError(
         "the flash backward (K2, K3) has no vmap rule: a gradient through "
         "flash attention under torch.func.vmap is not supported (ROADMAP.md "
-        "queue A item 3, training folds side by side); differentiate each "
-        "member outside vmap, or fold the members into the batch")
+        "queue B item 5, for training folds and HPO trials side by side); "
+        "differentiate each member outside vmap, or fold the members into "
+        "the batch")
 
 
 class _FlashAttention(torch.autograd.Function):

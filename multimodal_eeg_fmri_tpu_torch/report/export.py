@@ -1,7 +1,10 @@
 """Result exports: detailed/summary CSVs, XAI NPZ bundles, text reports.
-Counterpart of ``multimodal_eeg_fmri_tpu/report/export.py``, copied: host
-code on numpy, with ``pandas`` imported only by the CSV writers, so that
-the NPZ bundle and the text report work where pandas is not installed.
+Counterpart of ``multimodal_eeg_fmri_tpu/report/export.py``: host code on
+numpy. The JAX package writes its CSVs through pandas; the card's machine
+has no pandas, so the port's CSV writers use the ``csv`` module and write
+the bytes that ``pandas.DataFrame(rows).to_csv(index=False)`` writes
+(``_write_csv``). ``results_dataframe`` and ``summary_dataframe`` still
+return pandas frames and import pandas when called.
 
 Reference: ``create_results_dataframe``/``create_summary_dataframe`` + CSV
 writes (``run_fmri_v11.py:510-548,690-709``), fold/fusion-weight CSVs
@@ -12,7 +15,9 @@ writes (``run_fmri_v11.py:510-548,690-709``), fold/fusion-weight CSVs
 
 from __future__ import annotations
 
+import csv
 import json
+import math
 import time
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Sequence
@@ -20,24 +25,17 @@ from typing import Any, Dict, Mapping, Optional, Sequence
 import numpy as np
 
 
-def results_dataframe(results: Mapping[str, Any]):
-    """Per-fold long-format dataframe over CVResults
-    {model: CVResult} → columns model/fold/metric/value."""
-    import pandas as pd
-
+def _results_rows(results: Mapping[str, Any]) -> list:
     rows = []
     for model, res in results.items():
         for metric, values in res.fold_metrics.items():
             for fold, v in enumerate(values):
                 rows.append({"model": model, "fold": fold,
                              "metric": metric, "value": float(v)})
-    return pd.DataFrame(rows)
+    return rows
 
 
-def summary_dataframe(results: Mapping[str, Any]):
-    """mean ± std summary table (reference summary CSV)."""
-    import pandas as pd
-
+def _summary_rows(results: Mapping[str, Any]) -> list:
     rows = []
     for model, res in results.items():
         row = {"model": model}
@@ -45,7 +43,55 @@ def summary_dataframe(results: Mapping[str, Any]):
             row[f"{metric}_mean"] = mean
             row[f"{metric}_std"] = std
         rows.append(row)
-    return pd.DataFrame(rows)
+    return rows
+
+
+def results_dataframe(results: Mapping[str, Any]):
+    """Per-fold long-format dataframe over CVResults
+    {model: CVResult} → columns model/fold/metric/value."""
+    import pandas as pd
+
+    return pd.DataFrame(_results_rows(results))
+
+
+def summary_dataframe(results: Mapping[str, Any]):
+    """mean ± std summary table (reference summary CSV)."""
+    import pandas as pd
+
+    return pd.DataFrame(_summary_rows(results))
+
+
+def _column_text(values: list) -> list:
+    """A column's fields as pandas writes them: a column of bools or of
+    ints as they are; a column of numbers with a float or a missing value
+    as float64 (``repr``, missing ''); any other column with ``str``,
+    missing ''."""
+    def is_int(v):
+        return isinstance(v, (int, np.integer)) and not isinstance(
+            v, (bool, np.bool_))
+
+    present = [v for v in values if v is not None]
+    if values and len(present) == len(values) and all(
+            isinstance(v, (bool, np.bool_)) for v in values):
+        return [str(bool(v)) for v in values]
+    if values and len(present) == len(values) and all(map(is_int, values)):
+        return [str(int(v)) for v in values]
+    if all(is_int(v) or isinstance(v, (float, np.floating))
+           for v in present):
+        return ["" if v is None or math.isnan(v) else repr(float(v))
+                for v in values]
+    return ["" if v is None else str(v) for v in values]
+
+
+def _write_csv(path: Path, rows: Sequence[Mapping[str, Any]]) -> None:
+    """``rows`` as ``pandas.DataFrame(rows).to_csv(path, index=False)``
+    writes them: columns in first-seen order, minimal quoting, '\n'."""
+    names = list(dict.fromkeys(k for r in rows for k in r))
+    columns = [_column_text([r.get(k) for r in rows]) for k in names]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(names)
+        w.writerows(zip(*columns))
 
 
 def export_cv_results(
@@ -60,10 +106,10 @@ def export_cv_results(
     tag = f"_{int(time.time())}" if timestamp else ""
     paths = {}
     detailed = out / f"{prefix}_detailed{tag}.csv"
-    results_dataframe(results).to_csv(detailed, index=False)
+    _write_csv(detailed, _results_rows(results))
     paths["detailed"] = detailed
     summary = out / f"{prefix}_summary{tag}.csv"
-    summary_dataframe(results).to_csv(summary, index=False)
+    _write_csv(summary, _summary_rows(results))
     paths["summary"] = summary
     return paths
 
@@ -88,8 +134,6 @@ def export_per_subject_records(
     prefix: str = "per_subject", timestamp: bool = True,
 ) -> Path:
     """Per-subject prediction/weight records → CSV."""
-    import pandas as pd
-
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     tag = f"_{int(time.time())}" if timestamp else ""
@@ -103,7 +147,7 @@ def export_per_subject_records(
                     row[f"{k}_{i}"] = float(x)
         rows.append(row)
     path = out / f"{prefix}{tag}.csv"
-    pd.DataFrame(rows).to_csv(path, index=False)
+    _write_csv(path, rows)
     return path
 
 

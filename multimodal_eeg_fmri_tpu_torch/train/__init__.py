@@ -1,7 +1,7 @@
 """Training of the port: ``make_fit_fn`` / ``fit`` and their train step,
 evaluation, the ``Trainer`` class, chunked ``fit_resumable``, the
-cross-validation runs (``cv``) and the two-stage bridge pipeline
-(``bridge_flow``)."""
+cross-validation runs (``cv``), the two-stage bridge pipeline
+(``bridge_flow``) and hyperparameter search (``hpo``)."""
 
 from multimodal_eeg_fmri_tpu_torch.train.bridge_flow import (
     BridgeResult,
@@ -36,6 +36,13 @@ from multimodal_eeg_fmri_tpu_torch.train.fit import (
     make_fit_fn,
     split_batch,
 )
+from multimodal_eeg_fmri_tpu_torch.train.hpo import (
+    DEFAULT_SPACE,
+    HPOResult,
+    build_trimodal,
+    run_hpo,
+    sample_trials,
+)
 from multimodal_eeg_fmri_tpu_torch.train.resilient import (
     fit_resumable,
     latest_chunk,
@@ -45,6 +52,8 @@ from multimodal_eeg_fmri_tpu_torch.train.trainer import Trainer
 __all__ = [
     "BridgeResult",
     "CVResult",
+    "DEFAULT_SPACE",
+    "HPOResult",
     "RESERVED_KEYS",
     "FitCarry",
     "FitResult",
@@ -53,6 +62,7 @@ __all__ = [
     "align_bridge_dataset",
     "apply_model",
     "build_fold_arrays",
+    "build_trimodal",
     "eeg_kfold_splits",
     "evaluate_dataset",
     "extract_fused_features",
@@ -67,8 +77,10 @@ __all__ = [
     "predict_probs",
     "run_bridge_loocv",
     "run_cv",
+    "run_hpo",
     "run_model_suite",
     "run_seed_sweep",
+    "sample_trials",
     "split_batch",
     "subject_level_votes",
 ]

@@ -149,7 +149,14 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.models.fusion, "
             "multimodal_eeg_fmri_tpu_torch.models.fmri, "
             "multimodal_eeg_fmri_tpu_torch.models.long_context, "
-            "multimodal_eeg_fmri_tpu_torch.ops.moe\n"
+            "multimodal_eeg_fmri_tpu_torch.ops.moe, "
+            "multimodal_eeg_fmri_tpu_torch.core.logging, "
+            "multimodal_eeg_fmri_tpu_torch.data.native_io, "
+            "multimodal_eeg_fmri_tpu_torch.data.loaders, "
+            "multimodal_eeg_fmri_tpu_torch.data.handler, "
+            "multimodal_eeg_fmri_tpu_torch.train.hpo, "
+            "multimodal_eeg_fmri_tpu_torch.pipelines, "
+            "multimodal_eeg_fmri_tpu_torch.__main__\n"
             "from multimodal_eeg_fmri_tpu_torch.models import MODEL_REGISTRY\n"
             "from multimodal_eeg_fmri_tpu_torch.ops import _kernels\n"
             "import torch\n"
@@ -157,7 +164,7 @@ def test_port_imports_no_jax():
             "assert _kernels.library.cache_info().currsize == 0\n"
             "bad = [m for m in ('jax', 'flax', 'optax', "
             "'multimodal_eeg_fmri_tpu', 'sklearn', 'pandas', 'matplotlib', "
-            "'triton') "
+            "'triton', 'h5py') "
             "if m in sys.modules]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

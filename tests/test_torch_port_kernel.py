@@ -212,8 +212,8 @@ def test_kernel_wrapper_refuses(cuda_device, bad):
     err = {"mixed_dtype": TypeError, "dtype": TypeError}.get(bad, ValueError)
     if bad == "mixed_dtype":
         q = q.bfloat16()
-    elif bad == "head_dim":
-        q, k, v = _qkv(cuda_device, 1, 1, 8, 8, 48)
+    elif bad == "head_dim":   # past the widest instance, 128
+        q, k, v = _qkv(cuda_device, 1, 1, 8, 8, 160)
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     else:
@@ -252,6 +252,68 @@ def test_backward_kernels_match_plain(cuda_device, case, compute_dtype, atol):
             a, b, atol=atol, rtol=0,
             msg=lambda m, name=name: f"{name} at (B,H,Tq,Tk,D)={case}, "
                                      f"{compute_dtype} operands: {m}")
+
+
+PADDED_DIMS = (8, 12, 24, 48)   # head dims the HPO space draws, padded
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+def test_kernels_take_padded_head_dims(cuda_device, d, storage):
+    """K1, K2 and K3 at a head dim between the instances: the wrapper pads
+    to the next instance with the true scale 1/√d and slices back, so each
+    holds against its plain version at d, at the gates above (bf16 storage:
+    1e-2 forward, 2e-3 plus one bf16 ulp of the largest gradient)."""
+    dtype = torch.float32 if storage == "f32" else torch.bfloat16
+    q, k, v = (t.to(dtype) for t in _qkv(cuda_device, 2, 3, 200, 333, d))
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        q.shape, dtype=np.float32)).to(cuda_device, dtype)
+    before = {fn: fn.launches_by_head_dim.get(d, 0) for fn in (
+        flash_forward_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)}
+    out_k, lse_k = flash_forward_cuda(q, k, v)
+    out_p, lse_p = flash_forward_plain(q, k, v)
+    delta = flash_delta(out_p, g)
+    got = (*flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta),
+           flash_bwd_dq_cuda(q, k, v, g, lse_p, delta))
+    want = (*flash_bwd_dkv_plain(q, k, v, g, lse_p, delta),
+            flash_bwd_dq_plain(q, k, v, g, lse_p, delta))
+    torch.cuda.synchronize()
+    assert {fn: fn.launches_by_head_dim[d] - n
+            for fn, n in before.items()} == dict.fromkeys(before, 1)
+    assert out_k.shape == q.shape and out_k.dtype == dtype
+    atol = 2e-5 if storage == "f32" else 1e-2
+    torch.testing.assert_close(out_k.float(), out_p.float(), atol=atol,
+                               rtol=0)
+    torch.testing.assert_close(lse_k, lse_p, atol=2e-5, rtol=0)
+    for a, b, name in zip(got, want, ("dk", "dv", "dq")):
+        assert a.shape == b.shape and a.dtype == dtype
+        if storage == "f32":
+            grad_atol = 2e-4
+        else:
+            largest = b.float().abs().max().item()
+            grad_atol = GRAD_BF16_ATOL + 2.0 ** (math.floor(
+                math.log2(largest)) - 7)
+        torch.testing.assert_close(a.float(), b.float(), atol=grad_atol,
+                                   rtol=0, msg=lambda m, name=name:
+                                   f"{name} at d={d}, {storage}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", PADDED_DIMS)
+def test_kernels_padded_head_dims_bf16_operands(cuda_device, d):
+    """The bf16-operand mode of K1-K3 at a padded head dim, at its gates
+    (1e-2 forward, 2e-3 gradients)."""
+    q, k, v, out, lse, g = _backward_inputs(cuda_device, (2, 2, 130, 200, d),
+                                            torch.bfloat16)
+    out_k, lse_k = flash_forward_cuda(q, k, v, torch.bfloat16)
+    torch.testing.assert_close(out_k, out, atol=1e-2, rtol=0)
+    torch.testing.assert_close(lse_k, lse, atol=1e-2, rtol=0)
+    got = flash_backward_cuda(q, k, v, out, lse, g, None, torch.bfloat16)
+    want = flash_backward_plain(q, k, v, out, lse, g, None, torch.bfloat16)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=GRAD_BF16_ATOL, rtol=0)
 
 
 @pytest.mark.cuda
