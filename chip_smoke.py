@@ -93,7 +93,10 @@ bit), and finite records and clinical values; ``Explainer.explain`` on the
 frozen EEG model over 8 subjects launches K1-K3 as its structure says (7,
 3, 3 per flash layer) at IG over 50 steps and over 8 (the steps are folded
 into the batch), and its saliency, gradient×input and IG hold to the einsum
-route and a CPU copy within 1e-4 of the largest; Kernel SHAP on the bridge
+route and a CPU copy within 1e-4 of the largest (a route that broke one of
+the ERP max-pool's ties at IG's zero baseline otherwise than the kernel
+route is printed and rerun with the kernel route's choices; a choice made
+otherwise at a pair that is no tie fails); Kernel SHAP on the bridge
 (M = 192) and on the frozen EEG model (M = 48,075, 256 coalition rows in
 one batch) holds to a CPU copy within 1e-5. A ``bridge`` JSON line holds
 the timings.
@@ -178,6 +181,32 @@ hpo-default-T512 runs ``run_hpo(build_trimodal, ...)`` over DEFAULT_SPACE,
 16 trials, on 66 synthetic subjects with matrix connectivity, every trial
 finishing and K1's launches by head dim held to the derived count. A
 ``pipelines`` JSON line holds the timings.
+K1-K3 past head dim 128 run on the CUDA cores (``csrc/flash_wide.cu``):
+the wide phase, after the bf16-storage checks, holds them against their
+plain versions at (8, 4, 512, d), d in (160, 256), in f32 and bf16
+storage and the bf16-operand mode, prints each instance's registers and
+spills from the build, and times them (the kernels line's
+``wide_head_dims``).
+Last, sequence parallelism (the ring phase, after the pipelines phase:
+``parallel/``, ``ops/ring_attention.py``): lc-ring-T8192 trains
+``LongContextClassifier`` at its JAX defaults with ``attn_impl="ring"``,
+``ring_chunk_impl="flash"`` over a seq axis of 4 on raw EEG (8, 8192,
+18), T_local 2048 (32 subjects, 3 epochs, 8 validation rows), in 4 ranks
+spawned from this script (NCCL, a card each, where 4 cards exist; else
+gloo on one card, the hops staged through host memory; the backend, the
+ranks a card and the bytes staged printed). Gate a, its loss history
+within rtol 2e-4, atol 2e-5 of the single-device flash fit at T=8192 from
+the same weights, equal on every rank, as are the final params; gate b,
+one step's loss within the history's bounds and its gradient per tensor
+within 3e-4 of the single-device kernel route's and of a float64 einsum
+copy's; gate c, the einsum-chunk ring
+against the flash-chunk ring on 2 rows; gate d, each rank's launches
+exactly (K1 = layers × ring size a forward, K2 = K3 = that a backward);
+gate e, every K2/K3 call of the step given a nonzero lse cotangent, the
+largest printed. lc-ring-heads takes one step on a (seq 2 × model 2) mesh
+of the same world against the same references; a world of one over NCCL
+gives the single-device flash logits within 2e-5. A ``ring`` JSON line
+holds the times.
 Any failed phase raises, so the exit code is not 0 and the final line is
 not printed.
 There is no CPU mode: without a GPU the script fails at once.
@@ -388,6 +417,15 @@ def build_and_inspect(_kernels) -> None:
               f"{hmma.get(inst, 0)} HMMA")
     if faults := tensor_core_faults(resources, hmma):
         fail("; ".join(faults))
+    wide = parse_ptxas("\n".join(outputs), wide_instance)
+    for inst in sorted(wide):
+        regs, st, ld, frame = wide[inst]
+        print(f"{inst[0]} (any D past 128) {inst[1]} storage, {inst[2]} "
+              f"operands: {regs} registers, spill stores/loads {st}/{ld} "
+              f"bytes, stack frame {frame} bytes")
+    if len(wide) != 12:
+        fail(f"expected 12 instances of the CUDA-core flash kernels, ptxas "
+             f"listed {sorted(wide)}")
     s1 = parse_ptxas("\n".join(outputs), s1_instance)
     for inst in sorted(s1):
         regs, st, ld, frame = s1[inst]
@@ -2567,6 +2605,9 @@ ATTR_RTOL = 1e-4          # attributions, route against route, of the largest
 # 64 coalitions under-determine its 48,075 values, and the least squares
 # amplifies the probabilities' f32 rounding there (printed, not gated)
 SHAP_RTOL = 1e-5
+# a max-pool pair that another route chose otherwise than the kernel route
+# must be a tie up to f32 rounding: its gap at most this, of the row's largest
+POOL_TIE_RTOL = 1e-5
 
 
 def rel_gap(a, b) -> float:
@@ -2808,12 +2849,71 @@ def attributions(model, params, stats, inputs: dict, targets, steps: int):
             "ig": integrated_gradients(apply_fn, inputs, t, n_steps=steps)}
 
 
+@contextlib.contextmanager
+def pooling_recorded(calls: list, pinned: list = None):
+    """Record every ``max_pool_time`` call of the encoders as (|a − b| of
+    each pooled pair over the row's largest |value|, the chosen indices),
+    on the CPU; with ``pinned``, the recordings of another run, take their
+    indices in call order instead of this run's own (the values still come
+    from this run's input, and the gradient reaches the pinned element)."""
+    from multimodal_eeg_fmri_tpu_torch.models import encoders
+
+    real = encoders.max_pool_time
+    given = iter(pinned or ())
+
+    def pool(x, window=2):
+        xt = x.transpose(1, 2)                            # (B, C, T)
+        out, idx = torch.nn.functional.max_pool1d(xt, window,
+                                                  return_indices=True)
+        if pinned is not None:
+            idx = next(given)[1].to(x.device)
+            if idx.shape != out.shape:
+                fail(f"pinned max-pool indices {tuple(idx.shape)} for an "
+                     f"output {tuple(out.shape)}")
+            out = xt.gather(-1, idx)
+        pairs = xt[..., :out.shape[-1] * window].detach().unflatten(
+            -1, (-1, window))
+        top = x.detach().abs().flatten(1).amax(1).clamp_min(1e-30)
+        gap = (pairs.amax(-1) - pairs.amin(-1)) / top[:, None, None]
+        calls.append((gap.cpu(), idx.cpu()))
+        return out.transpose(1, 2)
+
+    encoders.max_pool_time = pool
+    try:
+        yield calls
+    finally:
+        encoders.max_pool_time = real
+
+
+def print_pool_flips(what: str, mine: list, theirs: list) -> int:
+    """Pooled pairs whose element another route chose otherwise than the
+    kernel route, per ``max_pool_time`` call, with the largest relative gap
+    between the pair's two values among them (on the kernel route); fails
+    unless each is a tie up to POOL_TIE_RTOL; returns their count."""
+    n = 0
+    for call, ((gap, i_k), (_, i_o)) in enumerate(
+            zip(mine, theirs, strict=True)):
+        flipped = i_k != i_o
+        k = int(flipped.sum())
+        n += k
+        most = gap[flipped].max().item() if k else 0.0
+        print(f"{what}max-pool call {call}: {k} of {flipped.numel()} pairs "
+              f"chosen otherwise (largest gap among them {most:.3e} of the "
+              f"row's largest, limit {POOL_TIE_RTOL:g}; exact ties over all "
+              f"pairs {int((gap == 0).sum())})")
+        if most > POOL_TIE_RTOL:
+            fail(f"{what}max-pool call {call} chose otherwise at a pair "
+                 f"that is no tie")
+    return n
+
+
 def bridge_explain(s1: dict, card: str) -> dict:
     """Explainer.explain on the frozen EEG model at T=512: launches held to
     the counts derived from its structure at IG over 50 and 8 steps (α
     folded into the batch), its time and busy share; saliency,
     gradient×input and IG on the kernel route against the einsum route and
-    a CPU copy."""
+    a CPU copy, each with the kernel route's max-pool choices where it
+    broke a tie otherwise."""
     from multimodal_eeg_fmri_tpu_torch.xai.explainer import Explainer
 
     model, res = s1["eeg_model"], s1["eeg_res"]
@@ -2847,17 +2947,31 @@ def bridge_explain(s1: dict, card: str) -> dict:
 
     targets = torch.as_tensor(result.predictions)
     few = {k: v[:XAI_CPU_ROWS] for k, v in inputs.items()}
-    routes = {
-        "einsum": (attributions(model, res.params, res.batch_stats, inputs,
-                                targets, XAI_ROUTE_STEPS),
-                   attributions(einsum_route(copy.deepcopy(model)),
-                                res.params, res.batch_stats, inputs, targets,
-                                XAI_ROUTE_STEPS)),
-        "cpu": (attributions(model, res.params, res.batch_stats, few,
-                             targets[:XAI_CPU_ROWS], XAI_ROUTE_STEPS),
-                attributions(copy.deepcopy(model).cpu(), on_cpu(res.params),
-                             on_cpu(res.batch_stats), few,
-                             targets[:XAI_CPU_ROWS], XAI_ROUTE_STEPS))}
+    # IG's α = 0 row is the zero baseline, where the ERP encoder's max-pool
+    # sees exact ties in exact arithmetic; a conv that rounds position by
+    # position breaks them its own way, and the gradient then reaches the
+    # other element of a pair (O(1) on erp's attributions, which no
+    # rounding limit can hold). A route that chose any pair otherwise is
+    # printed and run again with the kernel route's choices, as the MoE
+    # gates pin the router's.
+    others = {"einsum": (einsum_route(copy.deepcopy(model)), res.params,
+                         res.batch_stats, inputs),
+              "cpu": (copy.deepcopy(model).cpu(), on_cpu(res.params),
+                      on_cpu(res.batch_stats), few)}
+    routes = {}
+    for route, (m, params, stats, rows) in others.items():
+        t = targets[:len(rows[EEG_KEYS[0]])]
+        with pooling_recorded([]) as mine:
+            ours = attributions(model, res.params, res.batch_stats, rows, t,
+                                XAI_ROUTE_STEPS)
+        with pooling_recorded([]) as theirs:
+            other = attributions(m, params, stats, rows, t, XAI_ROUTE_STEPS)
+        if print_pool_flips(f"attributions, kernel vs {route} route: ", mine,
+                            theirs):
+            with pooling_recorded([], pinned=mine):
+                other = attributions(m, params, stats, rows, t,
+                                     XAI_ROUTE_STEPS)
+        routes[route] = (ours, other)
     for name in ("saliency", "grad_x_input", "ig"):
         gaps = {r: rel_gap(k[name], o[name]) for r, (k, o) in routes.items()}
         print(f"{name}, IG over {XAI_ROUTE_STEPS} steps: kernel route vs "
@@ -3835,6 +3949,506 @@ def pipelines_phase(dev, card: str) -> dict:
             "phase_s": seconds}
 
 
+# --- the sequence-parallel slice: ring attention over torch.distributed ----
+
+RING_T, RING_SEQ, RING_COHORT, RING_VAL, RING_EPOCHS = 8192, 4, 32, 8, 3
+RING_HEADS_MESH = (2, 2)          # lc-ring-heads: (seq, model)
+RING_SEED = 0                     # the weights, on every rank and the card
+RING_HISTORY_RTOL, RING_HISTORY_ATOL = 2e-4, 2e-5  # tests/test_long_context_training.py:74
+RING_GRAD_RTOL = 3e-4             # per tensor of its largest (ROADMAP C8)
+RING_CHUNK_ROWS = 2               # the einsum-chunk ring's rows: (T/4)² f32 tiles
+RING_TIMED_STEPS = 5
+WIDE_DIMS = (160, 256)            # past 128: the CUDA-core kernels
+WIDE_SHAPE = (8, 4, 512)          # (B, H, T) of their checks and times
+WIDE_SYMBOL = re.compile(
+    r"flash_wide_(fwd|bwd_dkv|bwd_dq)_kernelI(f|13__nv_bfloat16)Lb([01])E")
+
+
+def wide_instance(symbol: str):
+    """(kernel, storage, operands) of a CUDA-core flash kernel's mangled
+    symbol, or None."""
+    m = WIDE_SYMBOL.search(symbol)
+    if m is None:
+        return None
+    return (f"flash_wide_{m[1]}", "f32" if m[2] == "f" else "bf16",
+            "bf16" if m[3] == "1" else "f32")
+
+
+def wide_phase(dev, card: str) -> dict:
+    """K1, K2 and K3 past head dim 128 (``csrc/flash_wide.cu``) against
+    their plain versions at (8, 4, 512, d), d in WIDE_DIMS: f32 storage at
+    the f32 gates, bf16 storage and the bf16-operand mode at theirs, one
+    launch of each counted at d; then their times beside the plain
+    versions', the bound and SDPA's. Returns the worst f32 errors and the
+    times by d."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dkv_plain,
+        flash_bwd_dq_cuda,
+        flash_bwd_dq_plain,
+        flash_delta,
+        flash_forward_cuda,
+        flash_forward_plain,
+        kernel_launches_by_head_dim,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(160)
+    worst = dict.fromkeys(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+                          0.0)
+    out = {}
+    for d in WIDE_DIMS:
+        for storage, cdt in (("f32", torch.float32), ("bf16", torch.float32),
+                             ("f32", torch.bfloat16)):
+            dtype = torch.float32 if storage == "f32" else torch.bfloat16
+            q, k, v, g = (torch.randn(*WIDE_SHAPE, d, device=dev,
+                                      generator=gen).to(dtype)
+                          for _ in range(4))
+            reset_all_launches()
+            out_k, lse_k = flash_forward_cuda(q, k, v, cdt)
+            out_p, lse_p = flash_forward_plain(q, k, v, cdt)
+            delta = flash_delta(out_p, g)
+            dk_k, dv_k = flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta, cdt)
+            dq_k = flash_bwd_dq_cuda(q, k, v, g, lse_p, delta, cdt)
+            dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, g, lse_p, delta, cdt)
+            dq_p = flash_bwd_dq_plain(q, k, v, g, lse_p, delta, cdt)
+            torch.cuda.synchronize()
+            by_d = {n: c.get(d, 0) for n, c in
+                    kernel_launches_by_head_dim().items()}
+            e_fwd = (out_k.float() - out_p.float()).abs().max().item()
+            e_lse = (lse_k - lse_p).abs().max().item()
+            e_dkv = max((dk_k.float() - dk_p.float()).abs().max().item(),
+                        (dv_k.float() - dv_p.float()).abs().max().item())
+            e_dq = (dq_k.float() - dq_p.float()).abs().max().item()
+            if storage == "bf16":
+                lim_fwd, lim_lse = BF16_ATOL, LSE_ATOL
+                lim_dkv = grad_limit_bf16(max(dk_p.float().abs().max().item(),
+                                              dv_p.float().abs().max().item()))
+                lim_dq = grad_limit_bf16(dq_p.float().abs().max().item())
+            elif cdt == torch.bfloat16:
+                lim_fwd, lim_lse = BF16_ATOL, BF16_ATOL
+                lim_dkv = lim_dq = GRAD_BF16_ATOL
+            else:
+                lim_fwd = lim_lse = KERNEL_ATOL
+                lim_dkv = lim_dq = GRAD_ATOL
+            mode = (f"{storage} storage, "
+                    f"{'bf16' if cdt == torch.bfloat16 else 'f32'} operands")
+            print(f"(B,H,T,D)=({', '.join(map(str, WIDE_SHAPE))}, {d}) "
+                  f"{mode}: max|dO|={e_fwd:.3e} (limit {lim_fwd:g}), "
+                  f"max|dlse|={e_lse:.3e} (limit {lim_lse:g}), "
+                  f"max|d(dK,dV)|={e_dkv:.3e} (limit {lim_dkv:.3e}), "
+                  f"max|d(dQ)|={e_dq:.3e} (limit {lim_dq:.3e}); launches at "
+                  f"D={d}: {by_d}")
+            if by_d != dict.fromkeys(by_d, 1):
+                fail(f"the D={d} kernels launched {by_d}, expected one each")
+            if not (e_fwd <= lim_fwd and e_lse <= lim_lse
+                    and e_dkv <= lim_dkv and e_dq <= lim_dq):
+                fail(f"a D={d} kernel ({mode}) disagrees with its plain "
+                     "version")
+            if storage == "f32" and cdt == torch.float32:
+                worst["flash_fwd"] = max(worst["flash_fwd"], e_fwd, e_lse)
+                worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e_dkv)
+                worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e_dq)
+        q, k, v, g = (torch.randn(*WIDE_SHAPE, d, device=dev, generator=gen)
+                      for _ in range(4))
+        out[d] = kernel_call_times(q, k, v, g, "f32", card, iters=20, n=0)
+    return {"max_abs_err": worst, "times": out}
+
+
+def ring_cohort(n: int, T: int, seed: int) -> dict:
+    """n subjects' raw EEG (n, T, 18) in host memory, half of each class,
+    class 1 with its channels' mean shifted by 0.3, from a seed (numpy, so
+    that every rank and the single-device run make the same arrays)."""
+    r = np.random.default_rng(seed)
+    label = np.arange(n) % 2
+    erp = (r.standard_normal((n, T, 18), dtype=np.float32)
+           + np.float32(0.3) * label[:, None, None].astype(np.float32))
+    return {"erp": erp, "label": label, "weight": np.ones(n, np.float32)}
+
+
+def ring_setup():
+    """(train cohort, validation rows, the step gate's batch, config)."""
+    from multimodal_eeg_fmri_tpu_torch import TrainConfig
+
+    cohort = ring_cohort(RING_COHORT, RING_T, 60)
+    val = ring_cohort(RING_VAL, RING_T, 61)
+    batch = {k: v[:BATCH] for k, v in cohort.items()}
+    cfg = TrainConfig(batch_size=BATCH, num_epochs=RING_EPOCHS,
+                      learning_rate=1e-3, weight_decay=1e-5, grad_clip=1.0,
+                      loss="weighted_ce", selection="val")
+    return cohort, val, batch, cfg
+
+
+def ring_model(dev, mesh=None, heads=None, impl: str = "flash"):
+    """``LongContextClassifier`` at its JAX defaults (hidden 64, 2 layers,
+    4 heads, patch 1, no experts, dropout 0), the weights from RING_SEED:
+    on the ring route over ``mesh``'s "seq" axis, or single-device on the
+    flash route."""
+    from multimodal_eeg_fmri_tpu_torch import init_weights
+    from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
+
+    model = LongContextClassifier(
+        attn_impl="flash" if mesh is None else "ring", mesh=mesh,
+        seq_axis="seq", head_axis=heads, ring_chunk_impl=impl, device=dev)
+    return init_weights(model, torch.Generator().manual_seed(RING_SEED))
+
+
+def on_device(tree: dict, dev) -> dict:
+    return {k: torch.as_tensor(v).to(dev) for k, v in tree.items()}
+
+
+def step_grads(model, batch: dict, cfg, dev) -> tuple:
+    """(loss, {name: gradient in host memory}, launches) of one
+    ``TrainStep.backward`` (the mean over the model's mesh)."""
+    from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
+
+    reset_all_launches()
+    loss = TrainStep(model, cfg).backward(on_device(batch, dev),
+                                          torch.ones(2, device=dev))
+    torch.cuda.synchronize()
+    return (loss.item(), {k: p.grad.double().cpu()
+                          for k, p in model.named_parameters()},
+            total_launches())
+
+
+def ring_step_ms(model, batch: dict, cfg, dev) -> float:
+    """ms of one ``TrainStep`` (forward, backward, the mean over the mesh,
+    AdamW), by the host's clock around RING_TIMED_STEPS synchronised
+    steps after one warm-up."""
+    from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
+
+    step = TrainStep(model, cfg)
+    b, cw = on_device(batch, dev), torch.ones(2, device=dev)
+    step(b, cw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RING_TIMED_STEPS):
+        step(b, cw)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / RING_TIMED_STEPS
+
+
+def ring_worker(rank: int, world: int, one_card_each: bool) -> dict:
+    """One rank of the 4-rank world: the lc-ring-T8192 fit and step, the
+    einsum-chunk ring against the flash-chunk ring, and lc-ring-heads'
+    step on a (seq 2 × model 2) mesh of the same world. Returns the rank's
+    results in host memory."""
+    from multimodal_eeg_fmri_tpu_torch import make_fit_fn
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        Mesh,
+        reset_staged_bytes,
+        shard_sequence,
+        staged_bytes,
+    )
+
+    # the module (``ops.attention`` the package attribute is the function)
+    attention = importlib.import_module(
+        "multimodal_eeg_fmri_tpu_torch.ops.attention")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if one_card_each else 0)
+    torch.cuda.set_device(dev)
+    cohort, val, batch, cfg = ring_setup()
+    mesh = Mesh(np.arange(world), ("seq",))
+    out = {"device": str(dev)}
+
+    model = ring_model(dev, mesh)
+    fit = make_fit_fn(model, cfg, eval_names=("val",))
+    train = on_device(shard_sequence(cohort, mesh, "seq"), dev)
+    held = on_device(shard_sequence(val, mesh, "seq"), dev)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    reset_staged_bytes()
+    t0 = time.perf_counter()
+    result = fit(0, train, {"val": held}, torch.ones(2, device=dev))
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    out["fit_launches"] = total_launches()
+    out["fit_staged"] = staged_bytes()
+    out["history"] = {k: v.cpu() for k, v in result.history.items()}
+    out["final"] = {k: v.cpu() for k, v in result.final_params.items()}
+
+    # one step's gradient, with every g_lse that reaches K2/K3 recorded
+    local = shard_sequence(batch, mesh, "seq")
+    seen = {"calls": 0, "with_lse": 0, "max": 0.0}
+    real = attention._flash_backward
+
+    def spy(q, k, v, o, lse, g, g_lse, cdt):
+        seen["calls"] += 1
+        if g_lse is not None:
+            seen["with_lse"] += 1
+            seen["max"] = max(seen["max"], g_lse.abs().max().item())
+        return real(q, k, v, o, lse, g, g_lse, cdt)
+
+    attention._flash_backward = spy
+    reset_staged_bytes()
+    try:
+        out["step"] = step_grads(ring_model(dev, mesh), local, cfg, dev)
+    finally:
+        attention._flash_backward = real
+    out["step_staged"] = staged_bytes()
+    out["g_lse"] = seen
+    out["step_ms"] = ring_step_ms(ring_model(dev, mesh), local, cfg, dev)
+
+    rows = {k: v[:RING_CHUNK_ROWS] for k, v in local.items()}
+    out["chunks"] = {impl: step_grads(ring_model(dev, mesh, impl=impl), rows,
+                                      cfg, dev)
+                     for impl in ("flash", "einsum")}
+
+    heads = Mesh(np.arange(world).reshape(RING_HEADS_MESH), ("seq", "model"))
+    out["heads"] = step_grads(ring_model(dev, heads, heads="model"),
+                              shard_sequence(batch, heads, "seq"), cfg, dev)
+    return out
+
+
+def ring_one_worker(rank: int, world: int) -> dict:
+    """The world of one over NCCL: the ring of one's eval logits and one
+    step of the ring model on the step gate's batch."""
+    from multimodal_eeg_fmri_tpu_torch.parallel import Mesh
+    from multimodal_eeg_fmri_tpu_torch.parallel import collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _, _, batch, cfg = ring_setup()
+    mesh = Mesh(np.arange(world), ("seq",))
+    model = ring_model(dev, mesh)
+    reset_all_launches()
+    with torch.no_grad():
+        logits = model.eval()(
+            erp=torch.as_tensor(batch["erp"]).to(dev)).logits
+    torch.cuda.synchronize()
+    launches = total_launches()
+    group = mesh.group("seq")
+    return {"logits": logits.cpu(), "launches": launches,
+            "backend": str(torch.distributed.get_backend(group)),
+            "staged": collectives.staged_bytes(),
+            "step": step_grads(ring_model(dev, mesh), batch, cfg, dev)}
+
+
+def ring_grad_gate(what: str, loss: float, grads: dict, refs: dict,
+                   noisy: set) -> dict:
+    """``loss`` within the history gate's bounds of each reference route's
+    (RING_HISTORY_ATOL + RING_HISTORY_RTOL of it: a mean over 8,192
+    tokens, summed in another order on a ring), each gradient within
+    RING_GRAD_RTOL of its tensor's largest, and the biases whose gradient
+    is zero up to rounding (``noisy``) within STEP_GRAD_RTOL of the
+    reference's largest gradient. Returns the worst per-tensor gap by
+    reference."""
+    worst_by = {}
+    for name, (ref_loss, ref) in refs.items():
+        loss_limit = RING_HISTORY_ATOL + RING_HISTORY_RTOL * abs(ref_loss)
+        g_max = max(g.abs().max().item() for g in ref.values())
+        rel = {k: rel_gap(grads[k], g) for k, g in ref.items()
+               if k not in noisy}
+        worst = max(rel, key=rel.get)
+        d_noisy = max(((grads[k] - ref[k]).abs().max().item()
+                       for k in noisy), default=0.0) / g_max
+        d_loss = abs(loss - ref_loss)
+        print(f"{what}vs {name}: loss {loss:.7f} vs {ref_loss:.7f} "
+              f"(|d|={d_loss:.3e}, limit {loss_limit:.3e}); gradients "
+              f"max|d|/max|g| per tensor up to {rel[worst]:.3e} at {worst} "
+              f"(limit {RING_GRAD_RTOL:g}); the {len(noisy)} key biases "
+              f"max|d| / the largest gradient {d_noisy:.3e} (limit "
+              f"{STEP_GRAD_RTOL:g})")
+        if not (d_loss <= loss_limit and rel[worst] <= RING_GRAD_RTOL
+                and d_noisy <= STEP_GRAD_RTOL):
+            fail(f"{what}the gradient disagrees with {name}")
+        worst_by[name] = rel[worst]
+    return worst_by
+
+
+def f64_step(model, batch: dict, dev) -> tuple:
+    """(loss, {name: gradient}) of one step of a float64 copy of ``model``
+    on the einsum route, row by row (the model couples no rows, and the
+    weighted loss of the batch is the sum of each row's loss times its
+    share of the batch's weight), so that the (T, T) f64 scores of one row
+    at a time fit on the card."""
+    from multimodal_eeg_fmri_tpu_torch.ops.losses import (
+        weighted_cross_entropy,
+    )
+
+    m = einsum_route(copy.deepcopy(model)).double().train()
+    cw = torch.ones(2, dtype=torch.float64, device=dev)
+    label = torch.as_tensor(batch["label"]).to(dev)
+    weight = torch.as_tensor(batch["weight"]).to(dev, torch.float64)
+    eff = weight * cw[label]
+    total = 0.0
+    for i in range(len(label)):
+        erp = torch.as_tensor(batch["erp"][i:i + 1]).to(dev, torch.float64)
+        loss = weighted_cross_entropy(m(erp=erp).logits, label[i:i + 1], cw,
+                                      weight[i:i + 1]) * eff[i] / eff.sum()
+        loss.backward()
+        total += loss.item()
+    return total, {k: p.grad.cpu() for k, p in m.named_parameters()}
+
+
+def ring_phase(dev, card: str) -> dict:
+    """lc-ring-T8192, lc-ring-heads and a world of one over NCCL, after
+    the single-device references on ``dev``: the flash-route fit at
+    T=8192 and one step on the kernel route and on a float64 einsum copy."""
+    from multimodal_eeg_fmri_tpu_torch import make_fit_fn
+    from multimodal_eeg_fmri_tpu_torch.parallel import spawn_local_world
+
+    cohort, val, batch, cfg = ring_setup()
+    steps = RING_EPOCHS * (RING_COHORT // BATCH)
+    phase(f"lc-ring-T{RING_T}: the single-device references on {dev}: the "
+          f"flash-route fit at T={RING_T}, one step on the kernel route and "
+          "on a float64 einsum copy")
+    single = ring_model(dev)
+    layers = single.num_layers
+    fit = make_fit_fn(single, cfg, eval_names=("val",))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit(0, on_device(cohort, dev), {"val": on_device(val, dev)},
+              torch.ones(2, device=dev))
+    torch.cuda.synchronize()
+    single_fit_s = time.perf_counter() - t0
+    single_hist = {k: v.cpu() for k, v in res.history.items()}
+    single_step = step_grads(ring_model(dev), batch, cfg, dev)
+    single_ms = ring_step_ms(ring_model(dev), batch, cfg, dev)
+    f64 = f64_step(ring_model(dev), batch, dev)
+    noisy = {k for k in single_step[1] if k.endswith("k_proj.bias")}
+    print(f"single device: fit {single_fit_s:.2f} s ({steps} steps, "
+          f"{RING_EPOCHS} evals), a step {single_ms:.2f} ms, train loss "
+          f"{single_hist['train_loss'].numpy()} {card}")
+    del single, fit, res
+    torch.cuda.empty_cache()
+
+    cards = torch.cuda.device_count()
+    one_card_each = cards >= RING_SEQ
+    backend = "nccl" if one_card_each else "gloo"
+    per_card = 1 if one_card_each else RING_SEQ
+    phase(f"lc-ring-T{RING_T}: LongContextClassifier(attn_impl='ring', "
+          f"ring_chunk_impl='flash') over a seq axis of {RING_SEQ}, T_local "
+          f"{RING_T // RING_SEQ}: {RING_SEQ} ranks on {backend}, {per_card} "
+          f"rank(s) a card; then lc-ring-heads on a {RING_HEADS_MESH} "
+          "(seq, model) mesh of the same world")
+    t0 = time.perf_counter()
+    ranks = spawn_local_world(ring_worker, RING_SEQ, one_card_each,
+                              backend=backend)
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"backend {backend}, world {RING_SEQ}, ranks a card {per_card}, "
+          f"devices {[r['device'] for r in ranks]}; the world's run "
+          f"{world_s:.1f} s (process start-up included) {card}")
+    staged_step = [r["step_staged"] for r in ranks]
+    print(f"bytes staged through host memory per train step (forward, "
+          f"backward and the gradient mean), by rank: {staged_step}; over "
+          f"the fit: {[r['fit_staged'] for r in ranks]}")
+
+    # gate d: the launches, exactly, on every rank
+    hops = layers * RING_SEQ
+    want_fit = {"flash_fwd": hops * (steps + RING_EPOCHS),
+                "flash_bwd_dkv": hops * steps, "flash_bwd_dq": hops * steps}
+    want_step = dict.fromkeys(want_fit, hops)
+    head_hops = layers * RING_HEADS_MESH[0]
+    want_heads = dict.fromkeys(want_fit, head_hops)
+    for r, res in enumerate(ranks):
+        got = (res["fit_launches"], res["step"][2], res["heads"][2])
+        print(f"rank {r}: launches fit {got[0]} (expected {want_fit}), step "
+              f"{got[1]} (expected {want_step}), heads step {got[2]} "
+              f"(expected {want_heads})")
+        if got != (want_fit, want_step, want_heads):
+            fail(f"rank {r} launched {got}")
+
+    # gate e: the lse cotangent reached K2/K3
+    seen = [r["g_lse"] for r in ranks]
+    largest = ", ".join(f"{s['max']:.3e}" for s in seen)
+    print(f"gate e: K2/K3 calls of the step with a g_lse, by rank "
+          f"{[s['with_lse'] for s in seen]} of {[s['calls'] for s in seen]};"
+          f" largest |g_lse| by rank {largest}")
+    if not all(s["with_lse"] == s["calls"] == hops and s["max"] > 0
+               for s in seen):
+        fail("gate e: a K2/K3 call of the ring's step had no nonzero g_lse")
+
+    # gate a: the loss history against the single-device fit
+    for r, res in enumerate(ranks):
+        for k, v in res["history"].items():
+            if not torch.equal(v, r0["history"][k]):
+                fail(f"rank {r}'s {k} history differs from rank 0's")
+        for k, v in res["final"].items():
+            if not torch.equal(v, r0["final"][k]):
+                fail(f"rank {r}'s final {k} differs from rank 0's")
+    a = r0["history"]["train_loss"].double().numpy()
+    b = single_hist["train_loss"].double().numpy()
+    gap = np.abs(a - b)
+    limit = RING_HISTORY_ATOL + RING_HISTORY_RTOL * np.abs(b)
+    print(f"gate a: ring train loss {a} vs single device {b}: |d| "
+          f"{gap.max():.3e} (limit {RING_HISTORY_ATOL:g} + "
+          f"{RING_HISTORY_RTOL:g}·|b|); val f1 ring "
+          f"{r0['history']['val_f1'].numpy()} vs single "
+          f"{single_hist['val_f1'].numpy()}; every rank's history and "
+          "final params equal")
+    if not np.all(gap <= limit):
+        fail("gate a: the ring fit's loss history disagrees with the "
+             "single-device fit's")
+
+    # gate b: one step's gradient per tensor
+    loss, grads, _ = r0["step"]
+    for r, res in enumerate(ranks):
+        if any(not torch.equal(res["step"][1][k], g) for k, g in
+               grads.items()):
+            fail(f"rank {r}'s averaged gradient differs from rank 0's")
+    refs = {"the single-device kernel route": single_step[:2],
+            "the float64 einsum copy": f64}
+    worst_b = ring_grad_gate(f"lc-ring-T{RING_T} gate b: the ring's step ",
+                             loss, grads, refs, noisy)
+    ring_grad_gate(f"lc-ring-T{RING_T} gate b: (the single-device kernel "
+                   "route's own step) ", single_step[0], single_step[1],
+                   {"the float64 einsum copy": f64}, noisy)
+
+    # gate c: the einsum-chunk ring against the flash-chunk ring
+    flash_c, einsum_c = r0["chunks"]["flash"], r0["chunks"]["einsum"]
+    ring_grad_gate(f"lc-ring-T{RING_T} gate c ({RING_CHUNK_ROWS} rows): "
+                   "the flash-chunk ring ", flash_c[0], flash_c[1],
+                   {"the einsum-chunk ring": einsum_c[:2]}, noisy)
+    if einsum_c[2] != dict.fromkeys(einsum_c[2], 0):
+        fail(f"the einsum-chunk ring launched {einsum_c[2]}")
+
+    # lc-ring-heads: one step against the single-device step
+    worst_h = ring_grad_gate(
+        f"lc-ring-heads {RING_HEADS_MESH} (seq, model): the ring's step ",
+        r0["heads"][0], r0["heads"][1], refs, noisy)
+
+    phase("a world of one over NCCL: the ring of one against the "
+          "single-device flash route")
+    one = spawn_local_world(ring_one_worker, 1, backend="nccl")[0]
+    single = ring_model(dev)
+    with torch.no_grad():
+        want = single.eval()(erp=torch.as_tensor(batch["erp"]).to(dev))
+    d_logits = (one["logits"] - want.logits.cpu()).abs().max().item()
+    print(f"backend {one['backend']}, bytes staged {one['staged']}; "
+          f"launches of one eval forward {one['launches']}; logits max|d| "
+          f"{d_logits:.3e} (limit {KERNEL_ATOL:g})")
+    if not (one["backend"] == "nccl" and d_logits <= KERNEL_ATOL
+            and one["launches"] == {"flash_fwd": layers, "flash_bwd_dkv": 0,
+                                    "flash_bwd_dq": 0}):
+        fail("the ring of one disagrees with the single-device flash route")
+    ring_grad_gate("ring of one over NCCL: its step ", one["step"][0],
+                   one["step"][1],
+                   {"the single-device kernel route": single_step[:2]},
+                   noisy)
+
+    times = {"backend": backend, "world": RING_SEQ, "ranks_per_card":
+             per_card, "staged_bytes_per_step": staged_step[0],
+             "fit_s": r0["fit_s"], "single_fit_s": single_fit_s,
+             "step_ms": [r["step_ms"] for r in ranks],
+             "single_step_ms": single_ms,
+             "g_lse_max": max(s["max"] for s in seen),
+             "grad_gap_f64": worst_b["the float64 einsum copy"],
+             "heads_grad_gap_f64": worst_h["the float64 einsum copy"],
+             "world_s": world_s}
+    print(f"lc-ring-T{RING_T}: fit {r0['fit_s']:.2f} s on rank 0 against "
+          f"{single_fit_s:.2f} s on one device; a train step "
+          f"{', '.join(f'{t:.2f}' for t in times['step_ms'])} ms by rank "
+          f"against {single_ms:.2f} ms ({backend}, {per_card} rank(s) a "
+          f"card) {card}")
+    return {"launches": {"fit": r0["fit_launches"], "step": r0["step"][2],
+                         "heads": r0["heads"][2], "one": one["launches"]},
+            "times": times}
+
+
 def main() -> None:
     # deterministic cuBLAS for the resume phase; read when cuBLAS starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4009,6 +4623,11 @@ def main() -> None:
         for name, err in (("flash_fwd", max(d_out, d_lse)),
                           ("flash_bwd_dkv", e_dkv), ("flash_bwd_dq", e_dq)):
             worst_bf16[name] = max(worst_bf16[name], err)
+
+    phase(f"kernel vs plain version past head dim 128: K1, K2 and K3 on "
+          f"the CUDA cores (csrc/flash_wide.cu) at D={WIDE_DIMS}, f32 and "
+          f"bf16 storage and bf16 operands {card}")
+    wide = wide_phase(dev, card)
 
     phase("kernel vs plain version: S1, the biquad cascade (sosfilt), at "
           "the shapes of raw-featurize, raw-in-step, raw-e2e and stream")
@@ -4511,6 +5130,12 @@ def main() -> None:
         "hpo_flash_fwd_by_head_dim": pipes["hpo"]["flash_fwd_by_head_dim"],
         "phase_s": pipes["phase_s"], "device": smi}}))
 
+    phase(f"ring: parallel/, ops/ring_attention.py and LongContextClassifier"
+          f"(attn_impl='ring') on torch.distributed {card}")
+    reset_all_launches()
+    ring = ring_phase(dev, card)
+    print(json.dumps({"ring": {**ring["times"], "device": smi}}))
+
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     print(json.dumps({"kernels": [{
         "name": name,
@@ -4545,7 +5170,16 @@ def main() -> None:
                                 for pipe, n in
                                 pipes["all"]["launches"].items()},
                              f"hpo-default-T{T_SERVE}":
-                                 pipes["hpo"]["launches"][name]},
+                                 pipes["hpo"]["launches"][name],
+                             # each rank's, K1-K3 at (8, 4, 2048, 16) a hop
+                             f"lc-ring-T{RING_T} fit, per rank":
+                                 ring["launches"]["fit"][name],
+                             f"lc-ring-T{RING_T} step, per rank":
+                                 ring["launches"]["step"][name],
+                             "lc-ring-heads step, per rank":
+                                 ring["launches"]["heads"][name],
+                             "ring-nccl-world-1 eval forward":
+                                 ring["launches"]["one"][name]},
         "max_abs_err": worst[name],
         **timings(per_step[name, "f32"]),
         # the mixed-precision fit's launches by storage, and the
@@ -4558,6 +5192,17 @@ def main() -> None:
            if name == "flash_fwd" else {}),
         # each call at lc-moe-T2048's (8, 4, 2048, 16)
         f"lc_moe_T{LC_T}": lc["kernels"][name],
+        # past head dim 128, on the CUDA cores: the worst f32 error and
+        # each call at (8, 4, 512, d)
+        "wide_head_dims": {
+            "max_abs_err": wide["max_abs_err"][name],
+            **{f"D{d}": {"shape": [*WIDE_SHAPE, d], **timings({
+                **wide["times"][d][name],
+                "ops": wide["times"][d][name]["bound_by"] == "operations"})}
+               for d in WIDE_DIMS}},
+        # the largest lse cotangent that reached K2/K3 in the ring's step
+        **({"ring_g_lse_max": ring["times"]["g_lse_max"]}
+           if name != "flash_fwd" else {}),
         # each call at (8, 4, 512, 24), padded to the D=32 instance (the
         # bound from D=24's own work), and at D=32
         "padded_D24": {"shape": list(PAD_TIMING_SHAPE),

@@ -2,8 +2,8 @@
 
 ``MODEL_REGISTRY`` maps the JAX package's registry names to the port's
 classes, every one of them. ``PipelinedLongContextClassifier``, which the
-JAX package exports beside them, waits for the parallel axes (ROADMAP.md,
-queue A item 7).
+JAX package exports beside them, waits for the pipeline (ROADMAP.md,
+queue A item 7a).
 """
 
 from multimodal_eeg_fmri_tpu_torch.models.bridge import BridgeFusionNet

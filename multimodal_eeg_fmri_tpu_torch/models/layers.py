@@ -57,9 +57,13 @@ class Conv1d(nn.Conv1d):
 
 
 def sinusoidal_position_encoding(length: int, d_model: int, device=None,
-                                 dtype=torch.float32) -> torch.Tensor:
-    """(length, d_model) sinusoidal table, computed in f32."""
-    position = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+                                 dtype=torch.float32,
+                                 offset: int = 0) -> torch.Tensor:
+    """(length, d_model) sinusoidal table, computed in f32; ``offset`` is
+    the position of its first row (a rank's time slice of a longer table,
+    whose rows it equals)."""
+    position = torch.arange(offset, offset + length, dtype=torch.float32,
+                            device=device)[:, None]
     div_term = torch.exp(
         torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
         * (-math.log(10000.0) / d_model))
@@ -126,14 +130,22 @@ class MultiHeadAttention(nn.Module):
     ``attn_impl``: "auto" sends unmasked attention over keys at least
     ``flash_min_len`` long (and without probability dropout in training) to
     ``ops.attention.flash_attention``; "einsum" and "flash" force a route.
-    The probabilities are None on the flash route. "ring" and "ring_local"
-    raise: sequence parallelism waits for the parallel axes (ROADMAP.md,
-    queue A item 7)."""
+    The sequence-parallel routes take this rank's time slice of the
+    sequence: "ring" runs ``ops.ring_attention`` over ``seq_axis`` of
+    ``mesh``, and with ``head_axis`` over this rank's slice of the heads,
+    whose outputs are all-gathered over ``head_axis`` before ``out_proj``;
+    "ring_local" runs the ring body over ``seq_axis`` of ``mesh`` or of the
+    active mesh (``with mesh:``), whose size must be ``ring_size``.
+    ``ring_chunk_impl`` is each hop's attention ("einsum" or "flash", the
+    kernels). The probabilities are None on the flash and ring routes."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
                  flash_min_len: int = 256, attn_impl: str = "auto",
                  flash_compute_dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, *, mesh=None, seq_axis: str = "seq",
+                 head_axis: Optional[str] = None,
+                 ring_size: Optional[int] = None,
+                 ring_chunk_impl: str = "einsum"):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must divide num_heads")
@@ -145,6 +157,11 @@ class MultiHeadAttention(nn.Module):
         self.flash_min_len = flash_min_len
         self.attn_impl = attn_impl
         self.flash_compute_dtype = flash_compute_dtype
+        self.mesh = mesh
+        self.seq_axis = seq_axis
+        self.head_axis = head_axis
+        self.ring_size = ring_size
+        self.ring_chunk_impl = ring_chunk_impl
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(d_model, d_model, device=device))
 
@@ -176,10 +193,10 @@ class MultiHeadAttention(nn.Module):
                     "block's residual dropout is unaffected) or use "
                     "'einsum'/'auto'")
         if impl in ("ring", "ring_local"):
-            raise NotImplementedError(
-                f"attn_impl={impl!r} is not ported yet (ROADMAP.md, queue A "
-                "item 7: parallel axes on torch.distributed)")
-        if impl == "flash":
+            out = self._ring(impl, q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2)).transpose(1, 2)
+            mean_probs = None
+        elif impl == "flash":
             from multimodal_eeg_fmri_tpu_torch.ops.attention import (
                 flash_attention,
             )
@@ -202,13 +219,51 @@ class MultiHeadAttention(nn.Module):
         out = self.out_proj(out.reshape(B, Tq, d_model))
         return out, mean_probs
 
+    def _ring(self, impl: str, q, k, v) -> torch.Tensor:
+        """The ring routes on (B, H, T_local, hd) projections."""
+        from multimodal_eeg_fmri_tpu_torch.ops.ring_attention import (
+            ring_attention,
+            ring_attention_local,
+        )
+        from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
+            all_gather,
+        )
+
+        if impl == "ring_local":
+            if self.ring_size is None:
+                raise ValueError("attn_impl='ring_local' requires ring_size")
+            return ring_attention_local(
+                q, k, v, axis_name=self.seq_axis, axis_size=self.ring_size,
+                compute_dtype=self.flash_compute_dtype,
+                impl=self.ring_chunk_impl, mesh=self.mesh)
+        if self.mesh is None:
+            raise ValueError("attn_impl='ring' requires a mesh")
+        heads = self.head_axis
+        if heads is not None:
+            m = self.mesh.shape[heads]
+            if self.num_heads % m:
+                raise ValueError(f"H={self.num_heads} not divisible by "
+                                 f"{heads}={m}")
+            h = self.num_heads // m
+            j = self.mesh.axis_index(heads)
+            q, k, v = (t[:, j * h:(j + 1) * h] for t in (q, k, v))
+        out = ring_attention(q, k, v, self.mesh, axis=self.seq_axis,
+                             head_axis=heads,
+                             compute_dtype=self.flash_compute_dtype,
+                             impl=self.ring_chunk_impl)
+        if heads is not None:
+            out = all_gather(out, heads, axis=1, mesh=self.mesh)
+        return out
+
 
 class TransformerBlock(nn.Module):
     """Pre-norm block: LN → MHA → residual; LN → FFN → residual. The FFN is
     GELU of width ``dim_feedforward`` (0: 4·d_model) with dropout inside,
     or with ``num_experts`` > 0 the Mixture-of-Experts FFN
     (``ops.moe.MoEFFN``, top-``moe_top_k`` routing), which has none.
-    ``attn_impl`` and ``flash_compute_dtype`` go to the attention."""
+    ``attn_impl``, ``flash_compute_dtype`` and the ring's ``mesh``,
+    ``seq_axis``, ``head_axis``, ``ring_size`` and ``ring_chunk_impl`` go to
+    the attention."""
 
     def __init__(self, d_model: int, num_heads: int = 4,
                  dim_feedforward: int = 0, dropout: float = 0.1,
@@ -216,14 +271,20 @@ class TransformerBlock(nn.Module):
                  attn_impl: str = "auto", moe_top_k: int = 1,
                  moe_capacity_factor: float = 2.0,
                  moe_aux_weight: float = 0.01,
-                 flash_compute_dtype: torch.dtype = torch.float32):
+                 flash_compute_dtype: torch.dtype = torch.float32,
+                 mesh=None, seq_axis: str = "seq",
+                 head_axis: Optional[str] = None,
+                 ring_size: Optional[int] = None,
+                 ring_chunk_impl: str = "einsum"):
         super().__init__()
         ff = dim_feedforward or 4 * d_model
         self.dropout = dropout
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.attn = MultiHeadAttention(
             d_model, num_heads, dropout, attn_impl=attn_impl,
-            flash_compute_dtype=flash_compute_dtype, device=device)
+            flash_compute_dtype=flash_compute_dtype, device=device,
+            mesh=mesh, seq_axis=seq_axis, head_axis=head_axis,
+            ring_size=ring_size, ring_chunk_impl=ring_chunk_impl)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         if num_experts > 0:
             self.moe = MoEFFN(d_model, num_experts, dim_feedforward,

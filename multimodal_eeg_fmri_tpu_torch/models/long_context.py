@@ -15,10 +15,22 @@ training forward and backward runs K1 twice a block. The block's MoE aux
 loss leaves the checkpointed function as an output, so the recomputation
 adds none.
 
-The sequence-parallel paths wait for the parallel axes (ROADMAP.md, queue A
-item 7): ``attn_impl="ring"``, ``mesh``, ``head_axis``, ``expert_axis`` and
-``ring_chunk_impl="flash"`` raise, and ``PipelinedLongContextClassifier``
-is not ported.
+``attn_impl="ring"`` with a ``mesh`` (``parallel.mesh.Mesh``) trains with
+the time axis sharded over ``seq_axis``: each rank's ``erp`` is its time
+slice, (B, T/n, C) (``parallel.input.shard_sequence``), and every rank ends
+with the whole batch's logits. Each block's attention is ring attention
+(``ops.ring_attention``; with ``ring_chunk_impl="flash"`` every hop runs the
+kernels), the sinusoidal table starts at the slice's global offset, and the
+mean over tokens is a ``psum`` of the ranks' sums over the seq axis. With
+``head_axis`` each rank runs the ring over its slice of the heads and the
+heads are all-gathered before ``out_proj``. The parameters are the
+single-device model's (one state dict, one set of flax variables), the same
+on every rank; ``train.fit`` averages their gradients over the mesh.
+Mixture-of-Experts blocks route the tokens each rank holds, so they do not
+combine with the ring, and ``expert_axis`` (expert parallelism) raises;
+both wait for parameter sharding (ROADMAP.md, queue A item 7b).
+``PipelinedLongContextClassifier`` waits for the pipeline (queue A item
+7a).
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from multimodal_eeg_fmri_tpu_torch.ops.moe import (
     collect_aux_losses,
     total_aux_loss,
 )
+from multimodal_eeg_fmri_tpu_torch.parallel.collectives import psum
 
 
 def _block_and_aux(block: nn.Module, x: torch.Tensor):
@@ -69,28 +82,31 @@ class LongContextClassifier(nn.Module):
                  ring_chunk_impl: str = "einsum", remat: bool = False,
                  in_channels: int = 18, device="cuda"):
         super().__init__()
-        unported = {"attn_impl='ring'": attn_impl == "ring",
-                    "mesh": mesh is not None,
-                    "head_axis": head_axis is not None,
-                    "expert_axis": expert_axis is not None,
-                    "ring_chunk_impl='flash'": ring_chunk_impl == "flash"}
-        asked = [k for k, v in unported.items() if v]
-        if asked:
+        if expert_axis is not None:
             raise NotImplementedError(
-                f"LongContextClassifier: {', '.join(asked)} not ported yet "
-                "(ROADMAP.md, queue A item 7: parallel axes on "
-                "torch.distributed)")
+                "LongContextClassifier: expert_axis is not ported yet "
+                "(ROADMAP.md, queue A item 7b: parameter sharding)")
+        if attn_impl == "ring" and num_experts > 0:
+            raise NotImplementedError(
+                "LongContextClassifier: Mixture-of-Experts blocks with "
+                "attn_impl='ring' are not ported yet (ROADMAP.md, queue A "
+                "item 7b: parameter sharding)")
         device = model_device(device)
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
         self.patch = patch
         self.remat = remat
+        # the mesh the time axis shards over, on the ring route only
+        self.mesh = mesh if attn_impl == "ring" else None
+        self.seq_axis = seq_axis
         self.embed = Dense(patch * in_channels, hidden_dim, device=device)
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransformerBlock(
                 hidden_dim, num_heads, dropout=dropout,
                 num_experts=num_experts, device=device, attn_impl=attn_impl,
-                moe_top_k=moe_top_k, flash_compute_dtype=flash_compute_dtype))
+                moe_top_k=moe_top_k, flash_compute_dtype=flash_compute_dtype,
+                mesh=mesh, seq_axis=seq_axis, head_axis=head_axis,
+                ring_chunk_impl=ring_chunk_impl))
         self.final_ln = nn.LayerNorm(hidden_dim, eps=1e-5, device=device)
         self.pool_proj = Dense(hidden_dim, hidden_dim, device=device)
         self.classifier = ClassifierHead(hidden_dim, (hidden_dim // 2,),
@@ -104,8 +120,11 @@ class LongContextClassifier(nn.Module):
         if T % self.patch:
             raise ValueError(f"T={T} not divisible by patch={self.patch}")
         x = self.embed(erp.reshape(B, T // self.patch, self.patch * C))
+        tokens = x.shape[1]
+        offset = (0 if self.mesh is None
+                  else self.mesh.axis_index(self.seq_axis) * tokens)
         x = x + sinusoidal_position_encoding(
-            x.shape[1], self.hidden_dim, x.device, x.dtype)[None]
+            tokens, self.hidden_dim, x.device, x.dtype, offset)[None]
         for i in range(self.num_layers):
             block = getattr(self, f"block_{i}")
             if self.remat and torch.is_grad_enabled():
@@ -114,6 +133,11 @@ class LongContextClassifier(nn.Module):
                 add_aux_loss(aux)
             else:
                 x = block(x)
-        pooled = self.final_ln(x).mean(dim=1)
+        if self.mesh is None:
+            pooled = self.final_ln(x).mean(dim=1)
+        else:
+            n = self.mesh.shape[self.seq_axis]
+            pooled = psum(self.final_ln(x).sum(dim=1), self.seq_axis,
+                          self.mesh) / (n * tokens)
         feat = gelu(self.pool_proj(pooled))
         return ModelOutput(self.classifier(feat), feat, None, None)

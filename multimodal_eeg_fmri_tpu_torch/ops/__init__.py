@@ -2,7 +2,8 @@
 wrappers and their plain versions; ``signal`` the signal processing, with
 the biquad-cascade kernel's wrapper (``sosfilt``) and its plain version;
 ``losses`` and ``augment`` the train step's losses and augmentation;
-``moe`` the Mixture-of-Experts FFN and its routing;
+``moe`` the Mixture-of-Experts FFN and its routing; ``ring_attention``
+sequence-parallel attention over a mesh axis;
 ``schedules`` the host-side LR and early-stopping controllers."""
 
 from multimodal_eeg_fmri_tpu_torch.ops.attention import (
@@ -26,6 +27,10 @@ from multimodal_eeg_fmri_tpu_torch.ops.losses import (
     weighted_cross_entropy,
 )
 from multimodal_eeg_fmri_tpu_torch.ops.moe import MoEFFN, top_k_routing
+from multimodal_eeg_fmri_tpu_torch.ops.ring_attention import (
+    ring_attention,
+    ring_attention_local,
+)
 from multimodal_eeg_fmri_tpu_torch.ops.schedules import (
     EarlyStopping,
     ReduceLROnPlateau,
@@ -49,6 +54,8 @@ __all__ = [
     "mse_loss",
     "reference_attention",
     "reset_kernel_launches",
+    "ring_attention",
+    "ring_attention_local",
     "top_k_routing",
     "warmup_cosine_schedule",
     "weighted_cross_entropy",

@@ -102,6 +102,12 @@ def library() -> ctypes.CDLL:
     # q, k, v, dO, lse, delta, dQ, B, H, Tq, Tk, D, is_bf16, bf16_ops, scale
     lib.mmef_flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [f, strides, p]
     lib.mmef_flash_bwd_dq.restype = i
+    # the CUDA-core kernels past head dim 128 (flash_wide.cu) take the same
+    # arguments as the tensor-core ones
+    for name in ("mmef_flash_fwd", "mmef_flash_bwd_dkv", "mmef_flash_bwd_dq"):
+        wide = getattr(lib, f"{name}_wide")
+        wide.argtypes = getattr(lib, name).argtypes
+        wide.restype = i
     # x, y, zi, zf, coeffs (host), carry, scratch, G, S, T, M, L, stream
     lib.mmef_sosfilt.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.mmef_sosfilt.restype = i

@@ -13,13 +13,16 @@ kernels' counts. The forward is reached through the operator
 ``mmef::flash_fwd``, which ``torch.func.vmap`` folds into one launch and
 ``torch.export`` traces.
 
-The kernels are built for the head dims in ``KERNEL_HEAD_DIMS``. A wrapper
-given another head dim d ≤ 128 zero-pads q, k, v (and dO) to the next one,
-passes the kernel the true scale 1/√d and slices its outputs back to d, as
-the JAX package's wrapper pads to 128 lanes: the zero columns add nothing to
-Q·Kᵀ, give zero output and gradient columns, and leave Δ = rowsum(dO∘O) as
-it is. The padding stays inside the ``*_cuda`` wrappers, so the operators
-and everything above them see the true d.
+The tensor-core kernels are built for the head dims in
+``KERNEL_HEAD_DIMS``. A wrapper given another head dim d ≤ 128 zero-pads q,
+k, v (and dO) to the next one, passes the kernel the true scale 1/√d and
+slices its outputs back to d, as the JAX package's wrapper pads to 128
+lanes: the zero columns add nothing to Q·Kᵀ, give zero output and gradient
+columns, and leave Δ = rowsum(dO∘O) as it is. The padding stays inside the
+``*_cuda`` wrappers, so the operators and everything above them see the
+true d. A head dim past 128 (up to ``WIDE_MAX_HEAD_DIM``) goes unpadded to
+the same functions on the CUDA cores (``csrc/flash_wide.cu``), counted as
+the launches of K1, K2 and K3.
 """
 
 from __future__ import annotations
@@ -32,16 +35,35 @@ import torch
 from torch._C import _functorch
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# the CUDA-core kernels keep a warp's f32 rows of D in shared memory beside
+# two staged tiles: dK/dV's four rows of 12,448 fill the 227 KB of an SM
+WIDE_MAX_HEAD_DIM = 12448
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim of the kernel instance that computes head dim ``d``:
-    the smallest of ``KERNEL_HEAD_DIMS`` not below it."""
+    """The head dim of the tensor-core instance that computes head dim
+    ``d``: the smallest of ``KERNEL_HEAD_DIMS`` not below it."""
     for kd in KERNEL_HEAD_DIMS:
         if 1 <= d <= kd:
             return kd
-    raise ValueError(f"head dim {d} is outside the flash kernels' range "
-                     f"1..{KERNEL_HEAD_DIMS[-1]}")
+    raise ValueError(f"head dim {d} is outside the tensor-core instances' "
+                     f"range 1..{KERNEL_HEAD_DIMS[-1]}")
+
+
+def _launch_head_dim(d: int) -> int:
+    """The head dim a kernel is launched at: the tensor-core instance's for
+    d ≤ 128, d itself on the CUDA-core kernels past it."""
+    if KERNEL_HEAD_DIMS[-1] < d <= WIDE_MAX_HEAD_DIM:
+        return d
+    if d > WIDE_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is past the flash kernels' limit "
+                         f"{WIDE_MAX_HEAD_DIM}")
+    return kernel_head_dim(d)
+
+
+def _entry(lib, name: str, kd: int):
+    """The C entry point ``name`` for launch head dim ``kd``."""
+    return getattr(lib, name if kd <= KERNEL_HEAD_DIMS[-1] else f"{name}_wide")
 
 
 def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -174,11 +196,13 @@ def _check_kernel_inputs(name, q, k, v, compute_dtype, *extra):
             t.shape != q.shape for t in extra):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"{[tuple(t.shape) for t in extra]} disagree")
-    kernel_head_dim(D)
+    _launch_head_dim(D)
     # B·H runs on the grid's x axis (2^31 − 1 blocks), the 64-row tiles of
-    # Tq and Tk on its y axis (65,535)
+    # Tq and Tk on its y axis (65,535); past head dim 128, blocks of 1 to 4
+    # rows
+    rows_per_block = 64 if D <= KERNEL_HEAD_DIMS[-1] else 1
     if (min(B, H, Tq, Tk) < 1 or B * H > 2**31 - 1
-            or max(Tq, Tk) > 65535 * 64):
+            or max(Tq, Tk) > 65535 * rows_per_block):
         raise ValueError(f"unsupported sizes B={B} H={H} Tq={Tq} Tk={Tk}")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("the head dim of every kernel input must be "
@@ -214,11 +238,11 @@ def flash_forward_cuda(q, k, v, compute_dtype=torch.float32):
                                            compute_dtype)
     from multimodal_eeg_fmri_tpu_torch.ops._kernels import library
 
-    kd = kernel_head_dim(D)
+    kd = _launch_head_dim(D)
     q, k, v = (pad_head_dim(t, kd) for t in (q, k, v))
     out = torch.empty((B, H, Tq, kd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    err = library().mmef_flash_fwd(
+    err = _entry(library(), "mmef_flash_fwd", kd)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, H, Tq, Tk, kd, int(q.dtype == torch.bfloat16),
         int(compute_dtype == torch.bfloat16), 1.0 / math.sqrt(D),
@@ -246,11 +270,11 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
     _check_stats(lse, delta, B, H, Tq, q.device)
     from multimodal_eeg_fmri_tpu_torch.ops._kernels import library
 
-    kd = kernel_head_dim(D)
+    kd = _launch_head_dim(D)
     q, k, v, g = (pad_head_dim(t, kd) for t in (q, k, v, g))
     dk = torch.empty((B, H, Tk, kd), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, H, Tk, kd), dtype=v.dtype, device=v.device)
-    err = library().mmef_flash_bwd_dkv(
+    err = _entry(library(), "mmef_flash_bwd_dkv", kd)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, Tq, Tk, kd, int(q.dtype == torch.bfloat16),
@@ -271,10 +295,10 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
     _check_stats(lse, delta, B, H, Tq, q.device)
     from multimodal_eeg_fmri_tpu_torch.ops._kernels import library
 
-    kd = kernel_head_dim(D)
+    kd = _launch_head_dim(D)
     q, k, v, g = (pad_head_dim(t, kd) for t in (q, k, v, g))
     dq = torch.empty((B, H, Tq, kd), dtype=q.dtype, device=q.device)
-    err = library().mmef_flash_bwd_dq(
+    err = _entry(library(), "mmef_flash_bwd_dq", kd)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Tq, Tk, kd,
         int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),

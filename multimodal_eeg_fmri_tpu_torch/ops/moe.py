@@ -139,8 +139,8 @@ class MoEFFN(nn.Module):
         if mesh is not None or expert_axis is not None:
             raise NotImplementedError(
                 "MoEFFN's expert parallelism (mesh / expert_axis) is not "
-                "ported yet (ROADMAP.md, queue A item 7: parallel axes on "
-                "torch.distributed)")
+                "ported yet (ROADMAP.md, queue A item 7b: parameter "
+                "sharding)")
         E, ff = num_experts, dim_feedforward or 4 * d_model
         self.num_experts = E
         self.top_k = top_k

@@ -1,0 +1,234 @@
+"""Collectives over the axes of a mesh. Counterpart of
+``multimodal_eeg_fmri_tpu/parallel/collectives.py``.
+
+Each collective takes a tensor or a tree of them (dict, list, tuple), an
+axis name (or a tuple of them) and a ``Mesh`` (default: the active one,
+``with mesh:``), and runs over this rank's process group along that axis.
+``psum``, ``pmean``, ``all_gather`` and ``ppermute_shift`` are
+differentiable, and their backward is the transpose JAX takes:
+
+- ``psum``: ``psum`` of the cotangent (and ``pmean``: ``pmean``);
+- ``all_gather`` (tiled along ``axis``): the sum of the cotangents over the
+  group, sliced to this rank's block (a reduce-scatter of the sum, run as an
+  all-reduce and a slice, which gloo has and NCCL too);
+- ``ppermute_shift(+s)``: ``ppermute_shift(−s)``.
+
+``pmean_grads`` averages gradients (not differentiable): one all-reduce per
+dtype and device over a flat buffer.
+
+Transport: an NCCL group takes CUDA tensors as they are. A gloo group takes
+host tensors, so a CUDA tensor goes through pinned host memory here (copied
+to the host, reduced or sent there, copied back); ``staged_bytes()`` counts
+the bytes those copies move, both ways. Nothing else differs between the
+two backends. An axis of one rank with no process group (a layout-only mesh)
+returns its input; a group of one runs the collective.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from multimodal_eeg_fmri_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    AxisNames,
+    Mesh,
+    resolve_mesh,
+)
+
+_STAGED = {"bytes": 0}
+
+
+def staged_bytes() -> int:
+    """Bytes copied between a CUDA device and host memory for gloo groups
+    since the last ``reset_staged_bytes()``."""
+    return _STAGED["bytes"]
+
+
+def reset_staged_bytes() -> None:
+    _STAGED["bytes"] = 0
+
+
+def _flatten(tree) -> tuple:
+    """(leaves, rebuild) of a tensor or a dict/list/tuple of tensors."""
+    if torch.is_tensor(tree):
+        return [tree], lambda leaves: leaves[0]
+    if isinstance(tree, dict):
+        keys = list(tree)
+        return ([tree[k] for k in keys],
+                lambda leaves: dict(zip(keys, leaves)))
+    if isinstance(tree, (list, tuple)):
+        kind = type(tree)
+        return list(tree), lambda leaves: kind(leaves)
+    raise TypeError(f"expected a tensor or a dict/list/tuple of them, got "
+                    f"{type(tree)}")
+
+
+def _tree_map(fn: Callable, tree):
+    leaves, rebuild = _flatten(tree)
+    return rebuild([fn(t) for t in leaves])
+
+
+def _on_host(group) -> bool:
+    return dist.get_backend(group) == dist.Backend.GLOO
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    _STAGED["bytes"] += host.numel() * host.element_size()
+    return host
+
+
+def _to_device(host: torch.Tensor, device) -> torch.Tensor:
+    _STAGED["bytes"] += host.numel() * host.element_size()
+    return host.to(device, non_blocking=True)
+
+
+def _transport(x: torch.Tensor, group,
+               op: Callable[[torch.Tensor], Any]) -> torch.Tensor:
+    """Run ``op`` in place on a contiguous copy of ``x`` that the group's
+    backend takes, and return it on ``x``'s device."""
+    if x.is_cuda and _on_host(group):
+        host = _to_host(x)
+        op(host)
+        return _to_device(host, x.device)
+    y = x.contiguous().clone()
+    op(y)
+    return y
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    return _transport(x, group, lambda t: dist.all_reduce(t, group=group))
+
+
+def _all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    staged = x.is_cuda and _on_host(group)
+    src = _to_host(x) if staged else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    if staged:
+        parts = [_to_device(p, x.device) for p in parts]
+    return torch.cat(parts, axis)
+
+
+def _ppermute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    ranks = dist.get_process_group_ranks(group)
+    n = len(ranks)
+    if shift % n == 0:
+        return x.clone()
+    i = ranks.index(dist.get_rank())
+    dst, src = ranks[(i + shift) % n], ranks[(i - shift) % n]
+
+    def exchange(t):
+        recv = torch.empty_like(t)
+        ops = [dist.P2POp(dist.isend, t, dst, group),
+               dist.P2POp(dist.irecv, recv, src, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        t.copy_(recv)
+
+    return _transport(x, group, exchange)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis, ctx.size = group, axis, x.shape[axis]
+        return _all_gather(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = dist.get_process_group_ranks(ctx.group).index(dist.get_rank())
+        summed = _all_reduce(g, ctx.group)
+        return summed.narrow(ctx.axis, i * ctx.size, ctx.size), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _ppermute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, ctx.group, -ctx.shift), None, None
+
+
+def psum(x: Any, axis_name: AxisNames = DATA_AXIS,
+         mesh: Optional[Mesh] = None):
+    """Sum over the ranks of ``axis_name``; every rank gets the sum."""
+    group = resolve_mesh(mesh).group(axis_name)
+    if group is None:
+        return x
+    return _tree_map(lambda t: _PSum.apply(t, group), x)
+
+
+def pmean(x: Any, axis_name: AxisNames = DATA_AXIS,
+          mesh: Optional[Mesh] = None):
+    n = resolve_mesh(mesh).axis_size(axis_name)
+    return _tree_map(lambda t: t / n, psum(x, axis_name, mesh))
+
+
+def all_gather(x: Any, axis_name: AxisNames = DATA_AXIS, axis: int = 0,
+               mesh: Optional[Mesh] = None):
+    """The ranks' tensors concatenated along ``axis`` in rank order along
+    the mesh axis (JAX's ``all_gather(..., tiled=True)``)."""
+    group = resolve_mesh(mesh).group(axis_name)
+    if group is None:
+        return x
+    return _tree_map(lambda t: _AllGather.apply(t, group, axis), x)
+
+
+def ppermute_shift(x: Any, axis_name: str, shift: int = 1,
+                   mesh: Optional[Mesh] = None):
+    """Ring shift along a mesh axis: the value of index i moves to index
+    (i + shift) mod n. The leaves of a tree of one dtype and device go as
+    one message."""
+    group = resolve_mesh(mesh).group(axis_name)
+    if group is None:
+        return x
+    leaves, rebuild = _flatten(x)
+    if len({(t.dtype, t.device) for t in leaves}) != 1:
+        return rebuild([_PPermute.apply(t, group, shift) for t in leaves])
+    flat = _PPermute.apply(torch.cat([t.reshape(-1) for t in leaves]),
+                           group, shift)
+    parts = flat.split([t.numel() for t in leaves])
+    return rebuild([p.view(t.shape) for p, t in zip(parts, leaves)])
+
+
+@torch.no_grad()
+def pmean_grads(grads: Any, axis_name: AxisNames = DATA_AXIS,
+                mesh: Optional[Mesh] = None):
+    """The mean of each gradient over the ranks of ``axis_name`` (the
+    data-parallel all-reduce), one all-reduce per dtype and device."""
+    mesh = resolve_mesh(mesh)
+    group = mesh.group(axis_name)
+    if group is None:
+        return grads
+    n = mesh.axis_size(axis_name)
+    leaves, rebuild = _flatten(grads)
+    out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+    buckets = {}
+    for i, t in enumerate(leaves):
+        buckets.setdefault((t.dtype, t.device), []).append(i)
+    for idx in buckets.values():
+        flat = _all_reduce(torch.cat([leaves[i].reshape(-1) for i in idx]),
+                           group).div_(n)
+        for i, part in zip(idx, flat.split([leaves[i].numel()
+                                            for i in idx])):
+            out[i] = part.view(leaves[i].shape)
+    return rebuild(out)

@@ -1,0 +1,192 @@
+"""Device mesh over ``torch.distributed`` ranks. Counterpart of
+``multimodal_eeg_fmri_tpu/parallel/mesh.py``.
+
+A ``Mesh`` lays the ranks of the default process group out on named axes
+(an integer array of global ranks, one rank a device), and owns one process
+group per line of ranks along each axis: ``group(axis)`` is this rank's.
+The port is SPMD: every rank runs the same program on its own shard, and
+the collectives (``parallel/collectives.py``) name an axis where the JAX
+package's ``shard_map`` bodies name a mesh axis. Built in a process with no
+process group, a mesh is a layout only: axes of size 1 need no group, and a
+collective over a larger axis raises.
+
+``with mesh:`` makes a mesh the active one, for code that names an axis
+without holding a mesh (``attn_impl="ring_local"``, as the JAX package's
+body inside ``shard_map`` names the bound axis). A mesh is shared, not
+copied, by ``copy.deepcopy`` of the module that holds it.
+"""
+
+from __future__ import annotations
+
+import contextvars
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch.distributed as dist
+
+ENSEMBLE_AXIS = "ensemble"
+DATA_AXIS = "data"
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("mesh", default=None)
+
+AxisNames = Union[str, Sequence[str]]
+
+
+def world() -> Tuple[int, int]:
+    """(rank, world size) of the default process group; (0, 1) without
+    one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class Mesh:
+    """Ranks on named axes: ``ranks`` is an array of the global ranks
+    0..n-1, one array axis per name. ``shape`` maps each name to its size,
+    ``coords`` this rank's index along it. ``rank`` defaults to the process
+    group's own (0 without one); a mesh built for another rank than this
+    process's is a layout only."""
+
+    def __init__(self, ranks, axis_names: Sequence[str],
+                 rank: Optional[int] = None):
+        ranks = np.asarray(ranks, dtype=np.int64)
+        axis_names = tuple(axis_names)
+        if ranks.ndim != len(axis_names) or len(set(axis_names)) != ranks.ndim:
+            raise ValueError(f"{ranks.ndim}-D ranks need as many distinct "
+                             f"axis names, got {axis_names}")
+        if sorted(ranks.ravel().tolist()) != list(range(ranks.size)):
+            raise ValueError(f"the mesh must hold the ranks 0..{ranks.size - 1}"
+                             f" once each, got {ranks.ravel().tolist()}")
+        live = dist.is_available() and dist.is_initialized()
+        me, size = world()
+        self.ranks = ranks
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, ranks.shape))
+        self.rank = me if rank is None else int(rank)
+        at = np.argwhere(ranks == self.rank)
+        if not len(at):
+            raise ValueError(f"rank {self.rank} is not in the mesh")
+        self.coords = dict(zip(axis_names, (int(c) for c in at[0])))
+        self._groups = {}
+        self._tokens = []
+        if live and rank in (None, me):
+            if size != ranks.size:
+                raise ValueError(f"a mesh of {ranks.size} ranks in a world "
+                                 f"of {size}")
+            # every rank creates every group, in one order: new_group is
+            # collective over the default group
+            for i, name in enumerate(axis_names):
+                lines = np.moveaxis(ranks, i, -1).reshape(-1, ranks.shape[i])
+                for line in lines:
+                    g = dist.new_group(line.tolist())
+                    if self.rank in line:
+                        self._groups[name] = g
+
+    def _axes(self, axis_name: AxisNames) -> Tuple[str, ...]:
+        axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+        unknown = [a for a in axes if a not in self.shape]
+        if unknown:
+            raise ValueError(f"no mesh axis {unknown} in {self.axis_names}")
+        return axes
+
+    def axis_size(self, axis_name: AxisNames) -> int:
+        return int(np.prod([self.shape[a] for a in self._axes(axis_name)]))
+
+    def axis_index(self, axis_name: str) -> int:
+        return self.coords[self._axes(axis_name)[0]]
+
+    def group(self, axis_name: AxisNames):
+        """The process group of this rank's line along ``axis_name`` (one
+        axis, or every axis of the mesh: the world); None on a layout-only
+        mesh, where the axis must hold one rank."""
+        axes = self._axes(axis_name)
+        if not self._groups:
+            if self.axis_size(axes) == 1:
+                return None
+            raise RuntimeError(
+                f"mesh axis {axes} holds {self.axis_size(axes)} ranks but "
+                "the mesh has no process groups (initialize_distributed "
+                "before building it)")
+        if len(axes) == 1:
+            return self._groups[axes[0]]
+        if sorted(axes) == sorted(self.axis_names):
+            return dist.group.WORLD
+        raise NotImplementedError(
+            f"a collective over the axes {axes} of a mesh with axes "
+            f"{self.axis_names}: one axis or all of them")
+
+    def __enter__(self) -> "Mesh":
+        self._tokens.append(_ACTIVE.set(self))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _ACTIVE.reset(self._tokens.pop())
+
+    def __deepcopy__(self, memo) -> "Mesh":
+        return self
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, rank {self.rank} at {self.coords})")
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The mesh of the innermost ``with mesh:``, or None."""
+    return _ACTIVE.get()
+
+
+def resolve_mesh(mesh: Optional[Mesh]) -> Mesh:
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        raise ValueError("no mesh: pass mesh= or enter one with `with mesh:`")
+    return mesh
+
+
+@dataclass(frozen=True)
+class MeshPlan:
+    """A mesh plus the framework's canonical axis names."""
+
+    mesh: Mesh
+    ensemble_axis: str = ENSEMBLE_AXIS
+    data_axis: str = DATA_AXIS
+
+    @property
+    def n_ensemble(self) -> int:
+        return self.mesh.shape[self.ensemble_axis]
+
+    @property
+    def n_data(self) -> int:
+        return self.mesh.shape[self.data_axis]
+
+    @property
+    def n_devices(self) -> int:
+        return self.n_ensemble * self.n_data
+
+
+def mesh_sizes(n: int, ensemble: int = 0, data: int = 0) -> Tuple[int, int]:
+    """(ensemble, data) for ``n`` ranks; 0 infers a size: by default every
+    rank goes to the ensemble axis."""
+    if ensemble <= 0 and data <= 0:
+        ensemble, data = n, 1
+    elif ensemble <= 0:
+        if n % data:
+            raise ValueError(f"{n} devices not divisible by data={data}")
+        ensemble = n // data
+    elif data <= 0:
+        if n % ensemble:
+            raise ValueError(f"{n} devices not divisible by ensemble={ensemble}")
+        data = n // ensemble
+    if ensemble * data != n:
+        raise ValueError(f"mesh {ensemble}x{data} != {n} devices")
+    return ensemble, data
+
+
+def build_mesh(ensemble: int = 0, data: int = 0,
+               world_size: Optional[int] = None,
+               rank: Optional[int] = None) -> MeshPlan:
+    """A 2D (ensemble, data) mesh over the world's ranks in order
+    (``world_size`` defaults to the process group's)."""
+    n = world()[1] if world_size is None else world_size
+    ensemble, data = mesh_sizes(n, ensemble, data)
+    return MeshPlan(Mesh(np.arange(n).reshape(ensemble, data),
+                         (ENSEMBLE_AXIS, DATA_AXIS), rank=rank))

@@ -352,8 +352,8 @@ class EnsemblePredictor(_Serving):
         if plan is not None:
             raise NotImplementedError(
                 "EnsemblePredictor(plan=...) shards the member axis over a "
-                "mesh, which is not ported yet (ROADMAP.md queue A item 7, "
-                "parallel axes on torch.distributed)")
+                "mesh, which is not ported yet (ROADMAP.md queue A item 7c, "
+                "the ensemble and data axes)")
         if reduce not in ("mean_probs", "vote", "none"):
             raise ValueError(f"unknown reduce={reduce!r}")
         self.model = model.eval()

@@ -228,8 +228,8 @@ def run_cv(
     ``mesh_plan`` and ``aot_dir`` are not ported and raise."""
     if mesh_plan is not None:
         raise NotImplementedError(
-            "mesh_plan is not ported yet (ROADMAP.md, queue A item 7: "
-            "parallel axes on torch.distributed)")
+            "mesh_plan is not ported yet (ROADMAP.md, queue A item 7c: the "
+            "ensemble and data axes)")
     if aot_dir is not None:
         raise NotImplementedError(
             "aot_dir is not ported: core/aot.py (jax.export bundles) is "
@@ -339,8 +339,8 @@ def run_seed_sweep(
     """
     if mesh_plan is not None:
         raise NotImplementedError(
-            "mesh_plan is not ported yet (ROADMAP.md, queue A item 7: "
-            "parallel axes on torch.distributed)")
+            "mesh_plan is not ported yet (ROADMAP.md, queue A item 7c: the "
+            "ensemble and data axes)")
     validate_dataset(train_data, require_label=task == "classification",
                      num_classes=getattr(cfg, "num_classes", 2),
                      name="seed_sweep train_data")

@@ -34,6 +34,12 @@ The other options of the config, as in the JAX package:
 - ``resume_carry`` takes a result's ``carry`` (``FitCarry``), the whole
   training state, and continues from it: two runs of E₁ and E₂ epochs equal
   one of E₁+E₂.
+- A model that carries a mesh (``LongContextClassifier(attn_impl="ring",
+  mesh=...)``) trains SPMD: every rank calls ``fit`` with its shard of the
+  data (``parallel.input.shard_sequence``) and the same integer seed, and
+  each step averages every gradient over all the mesh's axes before
+  clipping (``TrainStep``). Params, the loss history and the metrics come
+  out the same on every rank.
 
 Where the JAX package initialises params inside ``fit``, the module passed
 in here carries its weights, the torch idiom: ``fit`` trains them in place
@@ -62,6 +68,7 @@ from multimodal_eeg_fmri_tpu_torch.ops.moe import (
     collect_aux_losses,
     total_aux_loss,
 )
+from multimodal_eeg_fmri_tpu_torch.parallel.collectives import pmean_grads
 from multimodal_eeg_fmri_tpu_torch.report.metrics import (
     binary_classification_metrics,
     regression_metrics,
@@ -196,6 +203,12 @@ class TrainStep:
             if cfg.loss == "label_smoothing":
                 lk.setdefault("smoothing", cfg.label_smoothing)
             self.loss_fn = make_loss_fn(cfg.loss, **lk)
+        # a model whose activations shard over a mesh (the ring route):
+        # its params are replicated, and each rank's backward gives its
+        # share of the gradient of the sum of the ranks' (equal) losses
+        # through the collectives' transposes, so the mean over every mesh
+        # axis is the gradient of the loss
+        self.mesh = getattr(model, "mesh", None)
         self.named_params = dict(model.named_parameters())
         self.params = list(self.named_params.values())
         # every parameter gets a gradient, zero where none flows (a frozen
@@ -284,14 +297,25 @@ class TrainStep:
             total = total + loss.detach()
         return total
 
+    def backward(self, batch: Tensors, class_weights=None) -> torch.Tensor:
+        """The batch's loss, with its gradient in the params' ``.grad``
+        (zeroed first): on a model with a mesh, the mean of the ranks'
+        gradients over every mesh axis."""
+        self.optimizer.zero_grad(set_to_none=False)
+        loss = self.objective(batch, class_weights)
+        if self.mesh is not None:
+            grads = [p.grad for p in self.params]
+            mean = pmean_grads(grads, self.mesh.axis_names, self.mesh)
+            torch._foreach_copy_(grads, mean)
+        return loss
+
     def __call__(self, batch, class_weights=None,
                  generator: Optional[torch.Generator] = None,
                  lr: Optional[float] = None,
                  wd: Optional[float] = None) -> torch.Tensor:
         if self.augment is not None:
             batch = self.augment(generator, batch)
-        self.optimizer.zero_grad(set_to_none=False)
-        loss = self.objective(batch, class_weights)
+        loss = self.backward(batch, class_weights)
         if self.cfg.grad_clip and self.cfg.grad_clip > 0:
             clip_by_global_norm_([p.grad for p in self.params],
                                  self.cfg.grad_clip)
@@ -434,8 +458,8 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
             "pass the selection set or use selection='train_loss'")
     if param_sharding is not None:
         raise NotImplementedError(
-            "param_sharding is not ported yet (ROADMAP.md, queue A item 7: "
-            "parallel axes on torch.distributed)")
+            "param_sharding is not ported yet (ROADMAP.md, queue A item 7b: "
+            "parameter sharding)")
     compute_dtype(cfg)
     metric_mode_max = cfg.selection != "train_loss"
     accum = max(int(cfg.grad_accum or 1), 1)

@@ -182,8 +182,8 @@ def run_hpo(
     raises."""
     if mesh_plan is not None:
         raise NotImplementedError(
-            "mesh_plan is not ported yet (ROADMAP.md, queue A item 7: "
-            "parallel axes on torch.distributed)")
+            "mesh_plan is not ported yet (ROADMAP.md, queue A item 7c: the "
+            "ensemble and data axes)")
     space = space or DEFAULT_SPACE
     trials = sample_trials(space, n_trials, seed)
 

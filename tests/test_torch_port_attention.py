@@ -156,6 +156,15 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.data.handler, "
             "multimodal_eeg_fmri_tpu_torch.train.hpo, "
             "multimodal_eeg_fmri_tpu_torch.pipelines, "
+            "multimodal_eeg_fmri_tpu_torch.parallel, "
+            "multimodal_eeg_fmri_tpu_torch.parallel.mesh, "
+            "multimodal_eeg_fmri_tpu_torch.parallel.collectives, "
+            "multimodal_eeg_fmri_tpu_torch.parallel.distributed, "
+            "multimodal_eeg_fmri_tpu_torch.parallel.input, "
+            "multimodal_eeg_fmri_tpu_torch.ops.ring_attention, "
+            "multimodal_eeg_fmri_tpu_torch.models.layers, "
+            "multimodal_eeg_fmri_tpu_torch.utils, "
+            "multimodal_eeg_fmri_tpu_torch.utils.tree, "
             "multimodal_eeg_fmri_tpu_torch.__main__\n"
             "from multimodal_eeg_fmri_tpu_torch.models import MODEL_REGISTRY\n"
             "from multimodal_eeg_fmri_tpu_torch.ops import _kernels\n"

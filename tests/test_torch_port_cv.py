@@ -299,7 +299,7 @@ def test_run_cv_folds_start_fresh_and_restore_the_generators():
 @pytest.mark.parametrize("what", ["mesh_plan", "aot_dir"])
 def test_unported_run_cv_options_raise(what):
     data = t_synthetic.synthetic_fmri(n_subjects=8, with_regression=False)
-    item = {"mesh_plan": "queue A item 7", "aot_dir": "queue A item 8"}[what]
+    item = {"mesh_plan": "queue A item 7c", "aot_dir": "queue A item 8"}[what]
     with pytest.raises(NotImplementedError, match=item):
         t_cv.run_cv(TFMRI(**FMRI, device="cpu"), TrainConfig(), data,
                     t_cv.loso_splits(data, TrainConfig()), **{what: "x"})

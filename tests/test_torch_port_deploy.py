@@ -330,7 +330,7 @@ def test_mixed_batch_stats_raise_naming_the_paths(members, tmp_path, source):
 
 def test_ensemble_plan_and_unknown_reduce_raise(members):
     model = port_model(members[0])
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(NotImplementedError, match="queue A item 7c"):
         EnsemblePredictor.from_modules([model], plan=object())
     with pytest.raises(ValueError, match="unknown reduce"):
         EnsemblePredictor.from_modules([model], reduce="max")

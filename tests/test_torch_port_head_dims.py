@@ -9,8 +9,13 @@ with the true scale, sliced back, equal the plain versions at d within 1e-6
 and backward, in f32 and bf16 storage; and the port's ``flash_attention``
 equals the JAX package's (its Pallas kernel in interpret mode, as its own
 tests run it, which pads to 128 lanes) at d = 24 and 48 within 2e-5, output
-and input gradients. The kernels themselves at these head dims are tested
-on the card (``test_torch_port_kernel.py``, marked ``cuda``).
+and input gradients. Past 128 the wrappers launch the CUDA-core kernels
+(``csrc/flash_wide.cu``) at the true head dim: the routing, and
+``flash_attention`` and ``flash_attention_lse`` at d = 160 and 256 against
+JAX's interpret mode (which pads to 256 lanes) within 2e-5, outputs, lse
+and the gradients with an lse cotangent. The kernels themselves at these
+head dims are tested on the card (``test_torch_port_kernel.py``, marked
+``cuda``).
 """
 
 import importlib
@@ -119,6 +124,67 @@ def test_flash_attention_matches_jax_interpret(d):
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out_p = port_attn.flash_attention(tq, tk, tv)
     (out_p * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out_p.detach().numpy(), np.asarray(out_j),
+                               atol=JAX_ATOL, rtol=0)
+    for name, t, gj in zip(("dq", "dk", "dv"), (tq, tk, tv), grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj),
+                                   atol=JAX_ATOL, rtol=0, err_msg=name)
+
+
+# --- head dims past 128: the CUDA-core kernels (csrc/flash_wide.cu) --------
+
+WIDE_DIMS = (160, 256)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_head_dim_goes_unpadded_to_the_cuda_core_kernels(d):
+    """Past 128 a wrapper launches at the true d through the ``*_wide``
+    entry points; past ``WIDE_MAX_HEAD_DIM`` it raises."""
+    assert port_attn._launch_head_dim(d) == d
+    assert port_attn._launch_head_dim(100) == 128
+
+    class Lib:
+        mmef_flash_fwd, mmef_flash_fwd_wide = "mma", "wide"
+
+    assert port_attn._entry(Lib, "mmef_flash_fwd", d) == "wide"
+    assert port_attn._entry(Lib, "mmef_flash_fwd", 128) == "mma"
+    with pytest.raises(ValueError, match="limit"):
+        port_attn._launch_head_dim(port_attn.WIDE_MAX_HEAD_DIM + 1)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("with_lse", [False, True],
+                         ids=["flash_attention", "flash_attention_lse"])
+def test_wide_head_dim_matches_jax_interpret(d, with_lse):
+    """``flash_attention`` and ``flash_attention_lse`` at d = 160 and 256
+    (the plain math on the CPU, the functions the wide kernels compute)
+    against the JAX package's, whose wrapper pads d to 256 lanes: output
+    (and lse) and the gradients of Σ out·g (+ Σ lse·g_lse) within 2e-5."""
+    r = np.random.default_rng(d + with_lse)
+    q, k, v, g = (r.standard_normal(s, dtype=np.float32) for s in
+                  ((2, 2, 70, d), (2, 2, 90, d), (2, 2, 90, d),
+                   (2, 2, 70, d)))
+    g_lse = r.standard_normal((2, 2, 70), dtype=np.float32)
+
+    def loss_j(q, k, v):
+        out, lse = jax_attn.flash_attention_lse(q, k, v, interpret=True)
+        total = jnp.sum(out * g) + (jnp.sum(lse * g_lse) if with_lse else 0)
+        return total, (out, lse)
+
+    (_, (out_j, lse_j)), grads_j = jax.value_and_grad(
+        loss_j, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    if with_lse:
+        out_p, lse_p = port_attn.flash_attention_lse(tq, tk, tv)
+        np.testing.assert_allclose(lse_p.detach().numpy(), np.asarray(lse_j),
+                                   atol=JAX_ATOL, rtol=0)
+        loss = ((out_p * torch.from_numpy(g)).sum()
+                + (lse_p * torch.from_numpy(g_lse)).sum())
+    else:
+        out_p = port_attn.flash_attention(tq, tk, tv)
+        loss = (out_p * torch.from_numpy(g)).sum()
+    loss.backward()
     np.testing.assert_allclose(out_p.detach().numpy(), np.asarray(out_j),
                                atol=JAX_ATOL, rtol=0)
     for name, t, gj in zip(("dq", "dk", "dv"), (tq, tk, tv), grads_j):

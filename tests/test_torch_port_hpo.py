@@ -80,7 +80,7 @@ def test_default_space_head_dims():
 
 
 def test_run_hpo_unported_options():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         t_hpo.run_hpo(None, TrainConfig(), {}, {}, mesh_plan=object())
     try:
         import optuna  # noqa: F401

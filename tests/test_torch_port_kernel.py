@@ -43,6 +43,7 @@ from multimodal_eeg_fmri_tpu_torch.data.streaming import (
 from multimodal_eeg_fmri_tpu_torch.ops import _kernels
 from multimodal_eeg_fmri_tpu_torch.ops import signal as S
 from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+    WIDE_MAX_HEAD_DIM,
     flash_attention,
     flash_attention_lse,
     flash_backward_cuda,
@@ -212,8 +213,8 @@ def test_kernel_wrapper_refuses(cuda_device, bad):
     err = {"mixed_dtype": TypeError, "dtype": TypeError}.get(bad, ValueError)
     if bad == "mixed_dtype":
         q = q.bfloat16()
-    elif bad == "head_dim":   # past the widest instance, 128
-        q, k, v = _qkv(cuda_device, 1, 1, 8, 8, 160)
+    elif bad == "head_dim":   # past the CUDA-core kernels' limit
+        q, k, v = _qkv(cuda_device, 1, 1, 8, 8, WIDE_MAX_HEAD_DIM + 1)
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     else:
@@ -265,6 +266,32 @@ def test_kernels_take_padded_head_dims(cuda_device, d, storage):
     to the next instance with the true scale 1/√d and slices back, so each
     holds against its plain version at d, at the gates above (bf16 storage:
     1e-2 forward, 2e-3 plus one bf16 ulp of the largest gradient)."""
+    _kernels_hold_at_head_dim(cuda_device, d, storage)
+
+
+WIDE_DIMS = (160, 256)          # past 128: the CUDA-core kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+def test_kernels_take_wide_head_dims(cuda_device, d, storage):
+    """K1, K2 and K3 past head dim 128, unpadded on the CUDA-core kernels
+    (``csrc/flash_wide.cu``), at the padded head dims' gates."""
+    _kernels_hold_at_head_dim(cuda_device, d, storage)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_kernels_wide_head_dims_bf16_operands(cuda_device, d):
+    """The bf16-operand mode past head dim 128, at its gates (1e-2
+    forward, 2e-3 gradients)."""
+    test_kernels_padded_head_dims_bf16_operands(cuda_device, d)
+
+
+def _kernels_hold_at_head_dim(cuda_device, d, storage):
+    """K1, K2 and K3 at head dim ``d`` against their plain versions, one
+    launch of each counted at d."""
     dtype = torch.float32 if storage == "f32" else torch.bfloat16
     q, k, v = (t.to(dtype) for t in _qkv(cuda_device, 2, 3, 200, 333, d))
     g = torch.from_numpy(np.random.default_rng(7).standard_normal(

@@ -19,7 +19,8 @@ widths (hidden 16-32, 1-2 layers, 2 heads, 4 experts, T ≤ 64):
   logits): the task loss within 6e-3 relative and the aux loss, from the
   f32 router, within 1e-4 relative;
 - a ``Predictor``'s logits within 1e-5 of the JAX package's;
-- the unported parallel options raising, naming queue A item 7.
+- ``expert_axis`` raising, naming queue A item 7b; the ring options
+  building (the ring itself: ``test_torch_port_ring_fit.py``).
 
 The JAX fits are module-scoped, compiled in parallel threads.
 """
@@ -411,5 +412,14 @@ def test_predictor_matches_jax():
     dict(attn_impl="ring"), dict(mesh=object()), dict(head_axis="model"),
     dict(expert_axis="expert"), dict(ring_chunk_impl="flash")])
 def test_parallel_options_name_queue_a_item_7(kw):
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        t_lc.LongContextClassifier(**kw, device="cpu")
+    """Expert parallelism still raises, naming its queue item (7b); the
+    sequence-parallel options build, and the ring route without a mesh
+    raises at its first forward."""
+    if "expert_axis" in kw:
+        with pytest.raises(NotImplementedError, match="queue A item 7b"):
+            t_lc.LongContextClassifier(**kw, device="cpu")
+        return
+    model = t_lc.LongContextClassifier(**kw, device="cpu")
+    if kw.get("attn_impl") == "ring":
+        with pytest.raises(ValueError, match="requires a mesh"):
+            model(erp=torch.zeros(1, 8, 18))

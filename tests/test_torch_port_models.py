@@ -314,8 +314,9 @@ def test_drop_path():
 @pytest.mark.parametrize("impl,kw,err", [
     ("flash", {"mask": True}, ValueError),
     ("flash", {"train": True}, ValueError),
-    ("ring", {}, NotImplementedError),
-    ("ring_local", {}, NotImplementedError),
+    # the ring routes need a mesh, and ring_local a ring size
+    ("ring", {}, ValueError),
+    ("ring_local", {}, ValueError),
 ])
 def test_mha_fences(impl, kw, err):
     mha = t_layers.MultiHeadAttention(32, 2, dropout=0.1, attn_impl=impl)

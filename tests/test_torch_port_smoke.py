@@ -1,8 +1,10 @@
-"""``chip_smoke.py``'s readers of compiler output, and its bound, on the CPU.
+"""``chip_smoke.py``'s readers of compiler output, its bound and its
+max-pool pinning, on the CPU.
 
 The script itself needs a GPU. These helpers parse text and do arithmetic,
 so they are held here to canned output in the formats of ``nvcc -Xptxas -v``
-and ``cuobjdump -sass``.
+and ``cuobjdump -sass``; the max-pool recorder is held to the encoders'
+pool on small tensors.
 """
 
 import pytest
@@ -243,3 +245,63 @@ def test_s1_bound_is_its_bytes_at_the_featurizer_shape():
 def test_device_time_per_call_survives_lost_launches(kernels, n, ms, count):
     got_ms, got_count = chip_smoke.per_call_device_ms(kernels, n)
     assert got_ms == pytest.approx(ms) and got_count == count
+
+
+def _pooled(x, pinned=None):
+    """``max_pool_time`` of the encoders under ``pooling_recorded``: the
+    output, the gradient of its sum and the recordings."""
+    from multimodal_eeg_fmri_tpu_torch.models import encoders
+
+    x = x.clone().requires_grad_(True)
+    with chip_smoke.pooling_recorded([], pinned) as calls:
+        out = encoders.max_pool_time(x, 2)
+    out.sum().backward()
+    return out.detach(), x.grad, calls
+
+
+def test_pooling_recorded_is_the_pool_and_restores_it():
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_eeg_fmri_tpu_torch.models import encoders
+
+    real = encoders.max_pool_time
+    x = torch.randn(3, 9, 4, generator=torch.Generator().manual_seed(0))
+    out, grad, calls = _pooled(x)
+    assert encoders.max_pool_time is real
+    want = x.clone().requires_grad_(True)
+    F.max_pool1d(want.transpose(1, 2), 2).transpose(1, 2).sum().backward()
+    assert torch.equal(out, real(x, 2)) and torch.equal(grad, want.grad)
+    (gap, idx), = calls
+    assert idx.shape == (3, 4, 4) and gap.shape == (3, 4, 4)
+    assert (gap > 0).all()
+
+
+def test_pinned_pool_takes_the_recorded_element_of_a_tie():
+    import torch
+
+    x = torch.zeros(1, 4, 1)
+    x[0, 1, 0] = 1.0                     # pair 0 no tie, pair 1 a tie
+    _, grad, mine = _pooled(x)
+    assert grad[0, :, 0].tolist() == [0.0, 1.0, 1.0, 0.0]
+    assert mine[0][0][0, 0].tolist() == [1.0, 0.0]
+    flipped = [(mine[0][0], mine[0][1].clone())]
+    flipped[0][1][0, 0, 1] = 3           # the tie broken the other way
+    out, grad, _ = _pooled(x, pinned=flipped)
+    assert out[0, :, 0].tolist() == [1.0, 0.0]
+    assert grad[0, :, 0].tolist() == [0.0, 1.0, 0.0, 1.0]
+    assert chip_smoke.print_pool_flips("", mine, flipped) == 1
+
+
+def test_pool_flip_at_a_pair_that_is_no_tie_fails():
+    import torch
+
+    x = torch.zeros(1, 4, 1)
+    x[0, 1, 0] = 1.0
+    _, _, mine = _pooled(x)
+    other = [(mine[0][0], mine[0][1].clone())]
+    other[0][1][0, 0, 0] = 0             # pair 0 (gap 1 of 1) chosen otherwise
+    with pytest.raises(SystemExit, match="no tie"):
+        chip_smoke.print_pool_flips("", mine, other)
+    with pytest.raises(SystemExit, match="pinned max-pool indices"):
+        _pooled(torch.zeros(2, 4, 1), pinned=mine)

@@ -504,6 +504,6 @@ def test_early_stopping_freezes_the_run(no_gate_dropout):
 
 @pytest.mark.parametrize("what", ["param_sharding"])
 def test_unported_fit_options_raise(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 7b"):
         t_fit.make_fit_fn(t_layers.MLP(4, (2,)), TrainConfig(),
                           eval_names=("val",), param_sharding=lambda p: p)

@@ -503,6 +503,6 @@ def test_fit_resumable_crash_and_resume_equal_one_run(tmp_path, async_save):
 
 def test_fit_resumable_param_sharding_raises(tmp_path):
     train, val = data()
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(NotImplementedError, match="queue A item 7b"):
         fit_resumable(_dropout_model(), TrainConfig(**FIT_KW), 0, train,
                       {"val": val}, tmp_path, param_sharding=lambda p: p)

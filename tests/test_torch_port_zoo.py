@@ -445,14 +445,18 @@ def test_registry_model_builds_on_the_gpu_unless_asked(name):
 
 
 @pytest.mark.parametrize("what,match", [
-    ("ring", "queue A item 7"), ("ring_local", "queue A item 7"),
-    ("moe_mesh", "queue A item 7"), ("moe_expert_axis", "queue A item 7")])
+    ("lc_ring_moe", "queue A item 7b"), ("lc_expert_axis", "queue A item 7b"),
+    ("moe_mesh", "queue A item 7b"), ("moe_expert_axis", "queue A item 7b")])
 def test_unported_guards_name_their_queue_item(what, match):
+    from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
+
     with pytest.raises(NotImplementedError, match=match):
         if what == "moe_mesh":
             t_moe.MoEFFN(32, 4, mesh=object(), device="cpu")
         elif what == "moe_expert_axis":
             t_moe.MoEFFN(32, 4, expert_axis="expert", device="cpu")
+        elif what == "lc_ring_moe":
+            LongContextClassifier(attn_impl="ring", num_experts=4,
+                                  device="cpu")
         else:
-            x = torch.zeros(1, 4, 32)
-            t_layers.MultiHeadAttention(32, 2, attn_impl=what)(x, x, x)
+            LongContextClassifier(expert_axis="expert", device="cpu")
