@@ -181,12 +181,24 @@ hpo-default-T512 runs ``run_hpo(build_trimodal, ...)`` over DEFAULT_SPACE,
 16 trials, on 66 synthetic subjects with matrix connectivity, every trial
 finishing and K1's launches by head dim held to the derived count. A
 ``pipelines`` JSON line holds the timings.
-K1-K3 past head dim 128 run on the CUDA cores (``csrc/flash_wide.cu``):
-the wide phase, after the bf16-storage checks, holds them against their
-plain versions at (8, 4, 512, d), d in (160, 256), in f32 and bf16
-storage and the bf16-operand mode, prints each instance's registers and
-spills from the build, and times them (the kernels line's
-``wide_head_dims``).
+Past head dim 128, K1 runs on the CUDA cores (``csrc/flash_wide.cu``);
+K2 and K3 run on the split tensor-core kernels (``csrc/flash_bwd_split.cu``,
+the head dim padded to the instance 192 or 256) up to 256 and on the CUDA
+cores past it. The build prints every instance's registers, spills, stack
+frame and HMMA count (a split instance that spills, keeps a stack frame or
+has no HMMA fails). The wide phase, after the bf16-storage checks, holds
+them against their plain versions at (8, 4, 512, d), d in (160, 192, 256,
+320), in f32 and bf16 storage and the bf16-operand mode, each launch
+counted at its C entry point and launch head dim, K2 and K3 bit for bit on
+a second call; it times them at d = 160, 256 and 320 beside the plain
+versions, the bound, SDPA and, at 160 and 256, the CUDA-core K2 and K3.
+lc-d256-T2048 takes one train step of ``LongContextClassifier(
+hidden_dim=512, num_heads=2)`` (head dim 256) on raw EEG (8, 2048, 18):
+2 launches each of the wide K1 and the split K2 and K3, the step gated
+against the einsum route and the CPU per tensor (``lc_step_gate``), both
+routes timed, and K1-K3 timed per call at (8, 2, 2048, 256). The kernels
+line lists the wide K1 and the split K2 and K3 as kernels of their own,
+and the CUDA-core K2 and K3 past 256 under K2 and K3.
 Last, sequence parallelism (the ring phase, after the pipelines phase:
 ``parallel/``, ``ops/ring_attention.py``): lc-ring-T8192 trains
 ``LongContextClassifier`` at its JAX defaults with ``attn_impl="ring"``,
@@ -361,12 +373,12 @@ def parse_ptxas(text: str, instance=kernel_instance) -> dict:
     return {k: (r, *frames.get(k, (0, 0, 0))) for k, r in regs.items()}
 
 
-def count_hmma(sass: str) -> dict:
+def count_hmma(sass: str, instance=kernel_instance) -> dict:
     """{instance: HMMA instructions} from the output of ``cuobjdump -sass``."""
     counts, current = {}, None
     for line in sass.splitlines():
         if m := re.search(r"Function : (\S+)", line):
-            current = kernel_instance(m[1])
+            current = instance(m[1])
             if current:
                 counts[current] = 0
         elif current and re.search(r"\bHMMA\b", line):
@@ -426,6 +438,15 @@ def build_and_inspect(_kernels) -> None:
     if len(wide) != 12:
         fail(f"expected 12 instances of the CUDA-core flash kernels, ptxas "
              f"listed {sorted(wide)}")
+    split = parse_ptxas("\n".join(outputs), split_instance)
+    split_hmma = count_hmma(sass, split_instance)
+    for inst in sorted(split):
+        regs, st, ld, frame = split[inst]
+        print(f"{inst[0]} D={inst[1]} {inst[2]} storage, {inst[3]} operands: "
+              f"{regs} registers, spill stores/loads {st}/{ld} bytes, stack "
+              f"frame {frame} bytes, {split_hmma.get(inst, 0)} HMMA")
+    if faults := split_faults(split, split_hmma):
+        fail("; ".join(faults))
     s1 = parse_ptxas("\n".join(outputs), s1_instance)
     for inst in sorted(s1):
         regs, st, ld, frame = s1[inst]
@@ -488,6 +509,26 @@ def tensor_core_faults(resources: dict, hmma: dict) -> list:
     if spilled := sorted(i for i in wanted
                          if i[1] == 32 and any(resources[i][1:3])):
         faults.append(f"spills at D=32 in {spilled}")
+    return faults
+
+
+def split_faults(resources: dict, hmma: dict) -> list:
+    """What is wrong with the build of K2 and K3 past head dim 128
+    (``csrc/flash_bwd_split.cu``), from ``parse_ptxas`` and ``count_hmma``
+    with ``split_instance``: an instance at D = 192 or 256 missing from
+    either, one with no HMMA instruction, or one that spills or keeps a
+    stack frame (the design splits the D-wide sums over the warps so that
+    no lane holds more than 64 of them)."""
+    wanted = {(k, d, s, o) for k in SPLIT_KERNELS for d in SPLIT_DIMS
+              for s in ("f32", "bf16") for o in ("f32", "bf16")}
+    if missing := sorted(wanted - (set(resources) & set(hmma))):
+        return [f"split instances missing from ptxas or SASS: {missing}"]
+    faults = []
+    if no_mma := sorted(i for i in wanted if hmma[i] == 0):
+        faults.append(f"no HMMA instruction in {no_mma}")
+    if local := sorted(i for i in wanted if any(resources[i][1:4])):
+        faults.append(f"split instances with spills or a stack frame: "
+                      f"{local}")
     return faults
 
 
@@ -3958,10 +3999,68 @@ RING_HISTORY_RTOL, RING_HISTORY_ATOL = 2e-4, 2e-5  # tests/test_long_context_tra
 RING_GRAD_RTOL = 3e-4             # per tensor of its largest (ROADMAP C8)
 RING_CHUNK_ROWS = 2               # the einsum-chunk ring's rows: (T/4)² f32 tiles
 RING_TIMED_STEPS = 5
-WIDE_DIMS = (160, 256)            # past 128: the CUDA-core kernels
+# past head dim 128: K1 on the CUDA cores (csrc/flash_wide.cu); K2 and K3
+# on the split tensor-core kernels (csrc/flash_bwd_split.cu) up to 256, the
+# head dim padded to an instance in SPLIT_DIMS, and on the CUDA cores past it
+WIDE_DIMS = (160, 256)            # timed, beside the CUDA-core K2 and K3
+WIDE_CHECK_DIMS = (160, 192, 256, 320)   # checked against the plain versions
 WIDE_SHAPE = (8, 4, 512)          # (B, H, T) of their checks and times
 WIDE_SYMBOL = re.compile(
     r"flash_wide_(fwd|bwd_dkv|bwd_dq)_kernelI(f|13__nv_bfloat16)Lb([01])E")
+SPLIT_DIMS = (192, 256)
+SPLIT_KERNELS = ("flash_bwd_dkv_split", "flash_bwd_dq_split")
+SPLIT_SYMBOL = re.compile(r"flash_bwd_(dkv|dq)_split_kernel"
+                          r"ILi(\d+)E(f|13__nv_bfloat16)Lb([01])E")
+SPLIT_SOURCE = "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_split.cu"
+WIDE_SOURCE = "multimodal_eeg_fmri_tpu_torch/csrc/flash_wide.cu"
+# lc-d256-T2048: LongContextClassifier at head dim 256 (2 layers, no MoE)
+LC_WIDE = dict(hidden_dim=512, num_heads=2)
+LC_WIDE_SHAPE = (BATCH, 2, LC_T, 256)   # (B, H, T, D) of its K1-K3 calls
+
+
+def split_instance(symbol: str):
+    """(kernel, D, storage, operands) of a split kernel's mangled symbol,
+    or None."""
+    m = SPLIT_SYMBOL.search(symbol)
+    if m is None:
+        return None
+    return (f"flash_bwd_{m[1]}_split", int(m[2]),
+            "f32" if m[3] == "f" else "bf16", "bf16" if m[4] == "1" else "f32")
+
+
+def wide_instances(d: int) -> dict:
+    """The C entry point and launch head dim ("<entry> D=<kd>") each of
+    K1, K2 and K3 takes at true head dim d past 128."""
+    bwd = (f"_split D={next(n for n in SPLIT_DIMS if d <= n)}"
+           if d <= SPLIT_DIMS[-1] else f"_wide D={d}")
+    return {"flash_fwd": f"mmef_flash_fwd_wide D={d}",
+            "flash_bwd_dkv": f"mmef_flash_bwd_dkv{bwd}",
+            "flash_bwd_dq": f"mmef_flash_bwd_dq{bwd}"}
+
+
+def cuda_core_backward(q, k, v, g, lse, delta) -> dict:
+    """{kernel: call} of the CUDA-core K2 and K3 (``flash_wide.cu``) on f32
+    (q, k, v, dO), launched by hand at the true head dim: the kernels that
+    the wrappers took past 128 before the split ones, timed beside them."""
+    from multimodal_eeg_fmri_tpu_torch.ops import _kernels
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import _stream, _strides
+
+    lib = _kernels.library()
+    B, H, tq, d = q.shape
+    tk = k.shape[2]
+    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+    args = (B, H, tq, tk, d, 0, 0, 1.0 / math.sqrt(d), _strides(q, k, v, g),
+            _stream(q))
+    ptrs = [t.data_ptr() for t in (q, k, v, g, lse, delta)]
+
+    def launched(err):
+        if err != 0:
+            fail(f"a CUDA-core backward kernel refused its launch: {err}")
+
+    return {"flash_bwd_dkv": lambda: launched(lib.mmef_flash_bwd_dkv_wide(
+                *ptrs, dk.data_ptr(), dv.data_ptr(), *args)),
+            "flash_bwd_dq": lambda: launched(lib.mmef_flash_bwd_dq_wide(
+                *ptrs, dq.data_ptr(), *args))}
 
 
 def wide_instance(symbol: str):
@@ -3975,12 +4074,14 @@ def wide_instance(symbol: str):
 
 
 def wide_phase(dev, card: str) -> dict:
-    """K1, K2 and K3 past head dim 128 (``csrc/flash_wide.cu``) against
-    their plain versions at (8, 4, 512, d), d in WIDE_DIMS: f32 storage at
-    the f32 gates, bf16 storage and the bf16-operand mode at theirs, one
-    launch of each counted at d; then their times beside the plain
-    versions', the bound and SDPA's. Returns the worst f32 errors and the
-    times by d."""
+    """K1, K2 and K3 past head dim 128 against their plain versions at
+    (8, 4, 512, d), d in WIDE_CHECK_DIMS: f32 storage at the f32 gates, bf16
+    storage and the bf16-operand mode at theirs, one launch of each counted
+    at d and at the instance ``wide_instances`` names, and K2 and K3 equal
+    bit for bit on a second call; then their times at WIDE_DIMS (device time
+    too) and at 320, beside the plain versions', the bound, SDPA's and, at
+    WIDE_DIMS, the CUDA-core K2 and K3's. Returns the worst f32 errors (K2
+    and K3 by route) and the times by d."""
     from multimodal_eeg_fmri_tpu_torch.ops.attention import (
         flash_bwd_dkv_cuda,
         flash_bwd_dkv_plain,
@@ -3990,13 +4091,15 @@ def wide_phase(dev, card: str) -> dict:
         flash_forward_cuda,
         flash_forward_plain,
         kernel_launches_by_head_dim,
+        kernel_launches_by_instance,
     )
 
     gen = torch.Generator(device=dev).manual_seed(160)
-    worst = dict.fromkeys(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
-                          0.0)
+    worst = dict.fromkeys(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                           *SPLIT_KERNELS), 0.0)
     out = {}
-    for d in WIDE_DIMS:
+    for d in WIDE_CHECK_DIMS:
+        split = "_split" if d <= SPLIT_DIMS[-1] else ""
         for storage, cdt in (("f32", torch.float32), ("bf16", torch.float32),
                              ("f32", torch.bfloat16)):
             dtype = torch.float32 if storage == "f32" else torch.bfloat16
@@ -4009,11 +4112,16 @@ def wide_phase(dev, card: str) -> dict:
             delta = flash_delta(out_p, g)
             dk_k, dv_k = flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta, cdt)
             dq_k = flash_bwd_dq_cuda(q, k, v, g, lse_p, delta, cdt)
+            by_d = {n: c.get(d, 0) for n, c in
+                    kernel_launches_by_head_dim().items()}
+            by_instance = kernel_launches_by_instance()
+            again = (*flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta, cdt),
+                     flash_bwd_dq_cuda(q, k, v, g, lse_p, delta, cdt))
             dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, g, lse_p, delta, cdt)
             dq_p = flash_bwd_dq_plain(q, k, v, g, lse_p, delta, cdt)
             torch.cuda.synchronize()
-            by_d = {n: c.get(d, 0) for n, c in
-                    kernel_launches_by_head_dim().items()}
+            repeats = all(torch.equal(a, b) for a, b in
+                          zip((dk_k, dv_k, dq_k), again))
             e_fwd = (out_k.float() - out_p.float()).abs().max().item()
             e_lse = (lse_k - lse_p).abs().max().item()
             e_dkv = max((dk_k.float() - dk_p.float()).abs().max().item(),
@@ -4032,26 +4140,116 @@ def wide_phase(dev, card: str) -> dict:
                 lim_dkv = lim_dq = GRAD_ATOL
             mode = (f"{storage} storage, "
                     f"{'bf16' if cdt == torch.bfloat16 else 'f32'} operands")
+            want = {n: {e: 1} for n, e in wide_instances(d).items()}
             print(f"(B,H,T,D)=({', '.join(map(str, WIDE_SHAPE))}, {d}) "
                   f"{mode}: max|dO|={e_fwd:.3e} (limit {lim_fwd:g}), "
                   f"max|dlse|={e_lse:.3e} (limit {lim_lse:g}), "
                   f"max|d(dK,dV)|={e_dkv:.3e} (limit {lim_dkv:.3e}), "
-                  f"max|d(dQ)|={e_dq:.3e} (limit {lim_dq:.3e}); launches at "
-                  f"D={d}: {by_d}")
-            if by_d != dict.fromkeys(by_d, 1):
-                fail(f"the D={d} kernels launched {by_d}, expected one each")
+                  f"max|d(dQ)|={e_dq:.3e} (limit {lim_dq:.3e}); K2 and K3 "
+                  f"bit for bit on a second call: {repeats}; launches at "
+                  f"D={d}: {by_d}, by instance {by_instance}")
+            if by_d != dict.fromkeys(by_d, 1) or by_instance != want:
+                fail(f"the D={d} kernels launched {by_instance}, expected "
+                     f"{want}")
             if not (e_fwd <= lim_fwd and e_lse <= lim_lse
                     and e_dkv <= lim_dkv and e_dq <= lim_dq):
                 fail(f"a D={d} kernel ({mode}) disagrees with its plain "
                      "version")
+            if not repeats:
+                fail(f"K2 or K3 at D={d} ({mode}) differs run to run")
             if storage == "f32" and cdt == torch.float32:
                 worst["flash_fwd"] = max(worst["flash_fwd"], e_fwd, e_lse)
-                worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e_dkv)
-                worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e_dq)
+                for name, e in (("flash_bwd_dkv", e_dkv),
+                                ("flash_bwd_dq", e_dq)):
+                    worst[name + split] = max(worst[name + split], e)
+    for d in (*WIDE_DIMS, WIDE_CHECK_DIMS[-1]):
         q, k, v, g = (torch.randn(*WIDE_SHAPE, d, device=dev, generator=gen)
                       for _ in range(4))
-        out[d] = kernel_call_times(q, k, v, g, "f32", card, iters=20, n=0)
+        timed_device = d in WIDE_DIMS
+        out[d] = kernel_call_times(q, k, v, g, "f32", card, iters=20,
+                                   n=20 if timed_device else 0)
+        if timed_device:
+            o, lse = flash_forward_cuda(q, k, v)
+            delta = flash_delta(o, g)
+            calls = cuda_core_backward(q, k, v, g, lse, delta)
+            qb, kb, vb, gb = (x.bfloat16() for x in (q, k, v, g))
+            for name, call in calls.items():
+                ms = cuda_ms(call, iters=5, warmup=1)
+                kern = {"flash_bwd_dkv": flash_bwd_dkv_cuda,
+                        "flash_bwd_dq": flash_bwd_dq_cuda}[name]
+                # the split kernel's other two modes, for their speed
+                ops_ms = cuda_ms(lambda: kern(q, k, v, g, lse, delta,
+                                              torch.bfloat16), iters=20)
+                st_ms = cuda_ms(lambda: kern(qb, kb, vb, gb, lse, delta),
+                                iters=20)
+                out[d][name].update(cuda_core_ms=ms, bf16_operands_ms=ops_ms,
+                                    bf16_storage_ms=st_ms)
+                print(f"{name} at (B,H,T,D)=({', '.join(map(str, WIDE_SHAPE))}"
+                      f", {d}): on the CUDA cores (flash_wide.cu) {ms:.4f} ms "
+                      f"per call, {ms / out[d][name]['ms']:.2f}x the split "
+                      f"kernel's; the split kernel with bf16 operands "
+                      f"{ops_ms:.4f} ms, in bf16 storage {st_ms:.4f} ms "
+                      f"{card}")
     return {"max_abs_err": worst, "times": out}
+
+
+def lc_wide_phase(dev, card: str) -> dict:
+    """lc-d256-T2048: one train step of ``LongContextClassifier(
+    hidden_dim=512, num_heads=2)`` (head dim 256, 2 layers, no MoE, flax's
+    initial weights from a seed) on raw EEG (8, 2048, 18) through
+    ``TrainStep``, its launches counted from 0 just before the step and read
+    just after: K1 on the CUDA cores, K2 and K3 on the split kernels at
+    D=256, once a layer each. Then the step against the einsum route and the
+    CPU through ``lc_step_gate`` (each gradient within STEP_GRAD_RTOL plus
+    ZOO_FLOOR_FACTOR times its tensor's card-vs-CPU gap on the einsum route:
+    ROADMAP C8), both routes' step times, and K1-K3 per call at the step's
+    shape LC_WIDE_SHAPE."""
+    from multimodal_eeg_fmri_tpu_torch import TrainConfig, init_weights
+    from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        kernel_launches_by_instance,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
+
+    base = init_weights(LongContextClassifier(**LC_WIDE, device=dev),
+                        torch.Generator().manual_seed(6))
+    layers = base.num_layers
+    batch = lc_cohort(BATCH, LC_T, 53, dev)
+    cfg = TrainConfig(batch_size=BATCH, learning_rate=1e-3,
+                      weight_decay=1e-5, grad_clip=1.0, loss="weighted_ce")
+    cw = torch.ones(2, device=dev)
+    step = TrainStep(copy.deepcopy(base), cfg)
+    reset_all_launches()
+    step(batch, cw)
+    torch.cuda.synchronize()
+    by_instance = kernel_launches_by_instance()
+    want = {n: {e: layers} for n, e in wide_instances(256).items()}
+    print(f"lc-d256-T{LC_T}: one train step of LongContextClassifier("
+          f"{', '.join(f'{k}={v}' for k, v in LC_WIDE.items())}), B={BATCH}: "
+          f"launches by instance {by_instance} (expected {want})")
+    if by_instance != want:
+        fail(f"lc-d256-T{LC_T} launched {by_instance}, expected {want}")
+    gate = lc_step_gate(base, batch, cfg, cw, dev, f"lc-d256-T{LC_T}: ",
+                        None)
+    if (gate["kernel"], gate["einsum"]) != (lc_expected(layers, 1, 0, 0),
+                                            lc_expected(0, 0, 0, 0)):
+        fail(f"lc-d256-T{LC_T}: the gated step launched {gate}")
+    einsum_step = TrainStep(einsum_route(copy.deepcopy(base)), cfg)
+    kernel_ms, einsum_ms = in_turns(
+        lambda: step_ms(step, batch, cw, iters=5),
+        lambda: step_ms(einsum_step, batch, cw, iters=5))
+    print(f"lc-d256-T{LC_T} train step: kernel route {kernel_ms:.3f} ms, "
+          f"einsum route {einsum_ms:.3f} ms {card}")
+    del step, einsum_step
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(256)
+    q, k, v, g = (torch.randn(*LC_WIDE_SHAPE, device=dev, generator=gen)
+                  for _ in range(4))
+    kernels = kernel_call_times(q, k, v, g, "f32", card, iters=10, n=10)
+    return {"launches": {n: sum(c.values()) for n, c in by_instance.items()},
+            "by_instance": by_instance,
+            "times": {"step_ms": kernel_ms, "einsum_step_ms": einsum_ms},
+            "kernels": kernels}
 
 
 def ring_cohort(n: int, T: int, seed: int) -> dict:
@@ -4624,10 +4822,18 @@ def main() -> None:
                           ("flash_bwd_dkv", e_dkv), ("flash_bwd_dq", e_dq)):
             worst_bf16[name] = max(worst_bf16[name], err)
 
-    phase(f"kernel vs plain version past head dim 128: K1, K2 and K3 on "
-          f"the CUDA cores (csrc/flash_wide.cu) at D={WIDE_DIMS}, f32 and "
-          f"bf16 storage and bf16 operands {card}")
+    phase(f"kernel vs plain version past head dim 128 at D="
+          f"{WIDE_CHECK_DIMS}: K1 on the CUDA cores (csrc/flash_wide.cu), K2 "
+          f"and K3 on the split tensor-core kernels (csrc/flash_bwd_split.cu)"
+          f" up to 256 and on the CUDA cores past it; f32 and bf16 storage "
+          f"and bf16 operands {card}")
     wide = wide_phase(dev, card)
+
+    phase(f"lc-d256-T{LC_T}: a train step of LongContextClassifier("
+          f"hidden_dim=512, num_heads=2) on the wide and split kernels "
+          f"{card}")
+    lc_wide = lc_wide_phase(dev, card)
+    print(json.dumps({"lc_d256": {**lc_wide["times"], "device": smi}}))
 
     phase("kernel vs plain version: S1, the biquad cascade (sosfilt), at "
           "the shapes of raw-featurize, raw-in-step, raw-e2e and stream")
@@ -5099,6 +5305,13 @@ def main() -> None:
                 "library_ms": t["library_ms"],
                 "library_device_ms": t["library_device_ms"]}
 
+    def wide_timings(d: int, name: str) -> dict:
+        t = wide["times"][d][name]
+        return {"shape": [*WIDE_SHAPE, d],
+                **timings({**t, "ops": t["bound_by"] == "operations"}),
+                **{k: t[k] for k in ("cuda_core_ms", "bf16_operands_ms",
+                                     "bf16_storage_ms") if k in t}}
+
     phase(f"cv: train/cv.py on the card {card}")
     cv = cv_phase(dev, card)
 
@@ -5192,14 +5405,13 @@ def main() -> None:
            if name == "flash_fwd" else {}),
         # each call at lc-moe-T2048's (8, 4, 2048, 16)
         f"lc_moe_T{LC_T}": lc["kernels"][name],
-        # past head dim 128, on the CUDA cores: the worst f32 error and
-        # each call at (8, 4, 512, d)
-        "wide_head_dims": {
+        # K2 and K3 past head dim 256, on the CUDA cores (flash_wide.cu):
+        # the worst f32 error and each call at (8, 4, 512, 320)
+        **({"cuda_core_past_256": {
+            "source": WIDE_SOURCE,
             "max_abs_err": wide["max_abs_err"][name],
-            **{f"D{d}": {"shape": [*WIDE_SHAPE, d], **timings({
-                **wide["times"][d][name],
-                "ops": wide["times"][d][name]["bound_by"] == "operations"})}
-               for d in WIDE_DIMS}},
+            "D320": wide_timings(WIDE_CHECK_DIMS[-1], name)}}
+           if name != "flash_fwd" else {}),
         # the largest lse cotangent that reached K2/K3 in the ring's step
         **({"ring_g_lse_max": ring["times"]["g_lse_max"]}
            if name != "flash_fwd" else {}),
@@ -5210,6 +5422,26 @@ def main() -> None:
                            padded_times[24][name]["bound_by"]
                            == "operations")}),
                        "d32_device_ms": padded_times[32][name]["device_ms"]},
+    } for name in names] + [{
+        # past head dim 128: K1 on the CUDA cores, K2 and K3 on the split
+        # kernels up to 256; lc-d256-T2048's step is their main path, its
+        # per-call times at the step's (8, 2, 2048, 256)
+        "name": f"{name}_wide" if name == "flash_fwd" else f"{name}_split",
+        "route": "cuda",
+        "source": WIDE_SOURCE if name == "flash_fwd" else SPLIT_SOURCE,
+        "replaces": replaces[name],
+        "launches": lc_wide["launches"][name],
+        "launches_by_path": {f"lc-d256-T{LC_T} step":
+                             lc_wide["launches"][name]},
+        "max_abs_err": wide["max_abs_err"][
+            name if name == "flash_fwd" else f"{name}_split"],
+        "shape": list(LC_WIDE_SHAPE),
+        **timings({**lc_wide["kernels"][name], "ops": (
+            lc_wide["kernels"][name]["bound_by"] == "operations")}),
+        # each call at (8, 4, 512, d), the CUDA-core K2 and K3 beside
+        **{f"D{d}": wide_timings(d, name) for d in WIDE_DIMS},
+        **({"D320": wide_timings(WIDE_CHECK_DIMS[-1], name)}
+           if name == "flash_fwd" else {}),
     } for name in names] + [{
         "name": "sosfilt",
         "route": "cuda",

@@ -102,12 +102,15 @@ def library() -> ctypes.CDLL:
     # q, k, v, dO, lse, delta, dQ, B, H, Tq, Tk, D, is_bf16, bf16_ops, scale
     lib.mmef_flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [f, strides, p]
     lib.mmef_flash_bwd_dq.restype = i
-    # the CUDA-core kernels past head dim 128 (flash_wide.cu) take the same
+    # the CUDA-core kernels past head dim 128 (flash_wide.cu) and the
+    # tensor-core backward up to 256 (flash_bwd_split.cu) take the same
     # arguments as the tensor-core ones
-    for name in ("mmef_flash_fwd", "mmef_flash_bwd_dkv", "mmef_flash_bwd_dq"):
-        wide = getattr(lib, f"{name}_wide")
-        wide.argtypes = getattr(lib, name).argtypes
-        wide.restype = i
+    for name in ("mmef_flash_fwd_wide", "mmef_flash_bwd_dkv_wide",
+                 "mmef_flash_bwd_dq_wide", "mmef_flash_bwd_dkv_split",
+                 "mmef_flash_bwd_dq_split"):
+        fn = getattr(lib, name)
+        fn.argtypes = getattr(lib, name.rsplit("_", 1)[0]).argtypes
+        fn.restype = i
     # x, y, zi, zf, coeffs (host), carry, scratch, G, S, T, M, L, stream
     lib.mmef_sosfilt.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.mmef_sosfilt.restype = i

@@ -7,11 +7,13 @@ and K3 (``csrc/flash_bwd.cu``), all built by ``ops/_kernels.py``, or raise;
 on a CPU tensor they run the plain PyTorch math of the same kernels, so the
 CPU tests check the formulas the kernels implement. Each kernel wrapper
 counts its launches by storage dtype in a dict attribute, ``launches``
-({"f32": n, "bf16": m}), and by true head dim in ``launches_by_head_dim``;
-``kernel_launches()`` and ``kernel_launches_by_head_dim()`` read the three
-kernels' counts. The forward is reached through the operator
-``mmef::flash_fwd``, which ``torch.func.vmap`` folds into one launch and
-``torch.export`` traces.
+({"f32": n, "bf16": m}), by true head dim in ``launches_by_head_dim``, and
+by the C entry point and launch head dim that ran in
+``launches_by_instance``; ``kernel_launches()``,
+``kernel_launches_by_head_dim()`` and ``kernel_launches_by_instance()``
+read the three kernels' counts. The forward is reached through the
+operator ``mmef::flash_fwd``, which ``torch.func.vmap`` folds into one
+launch and ``torch.export`` traces.
 
 The tensor-core kernels are built for the head dims in
 ``KERNEL_HEAD_DIMS``. A wrapper given another head dim d ≤ 128 zero-pads q,
@@ -20,9 +22,12 @@ slices its outputs back to d, as the JAX package's wrapper pads to 128
 lanes: the zero columns add nothing to Q·Kᵀ, give zero output and gradient
 columns, and leave Δ = rowsum(dO∘O) as it is. The padding stays inside the
 ``*_cuda`` wrappers, so the operators and everything above them see the
-true d. A head dim past 128 (up to ``WIDE_MAX_HEAD_DIM``) goes unpadded to
-the same functions on the CUDA cores (``csrc/flash_wide.cu``), counted as
-the launches of K1, K2 and K3.
+true d. Past 128, K2 and K3 pad d ≤ 256 the same way to the instances in
+``SPLIT_HEAD_DIMS``, tensor-core kernels that split the D-wide sums over
+their warps (``csrc/flash_bwd_split.cu``). The forward past 128, and the
+backward past 256 (up to ``WIDE_MAX_HEAD_DIM``), go unpadded to the same
+functions on the CUDA cores (``csrc/flash_wide.cu``). All count as the
+launches of K1, K2 and K3.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ import torch
 from torch._C import _functorch
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# K2 and K3 on the tensor cores past 128, the D-wide sums split over warps
+SPLIT_HEAD_DIMS = (192, 256)
+_SPLIT_KERNELS = ("mmef_flash_bwd_dkv", "mmef_flash_bwd_dq")
 # the CUDA-core kernels keep a warp's f32 rows of D in shared memory beside
 # two staged tiles: dK/dV's four rows of 12,448 fill the 227 KB of an SM
 WIDE_MAX_HEAD_DIM = 12448
@@ -50,20 +58,19 @@ def kernel_head_dim(d: int) -> int:
                      f"range 1..{KERNEL_HEAD_DIMS[-1]}")
 
 
-def _launch_head_dim(d: int) -> int:
-    """The head dim a kernel is launched at: the tensor-core instance's for
-    d ≤ 128, d itself on the CUDA-core kernels past it."""
-    if KERNEL_HEAD_DIMS[-1] < d <= WIDE_MAX_HEAD_DIM:
-        return d
+def _launch(name: str, d: int) -> Tuple[str, int]:
+    """(C entry point, launch head dim) of kernel ``name`` (its C entry
+    point's name) at true head dim d: the tensor-core instance for d ≤ 128,
+    and for K2 and K3 up to 256 (``_split``); the CUDA-core kernel at d
+    itself past that (``_wide``)."""
     if d > WIDE_MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} is past the flash kernels' limit "
                          f"{WIDE_MAX_HEAD_DIM}")
-    return kernel_head_dim(d)
-
-
-def _entry(lib, name: str, kd: int):
-    """The C entry point ``name`` for launch head dim ``kd``."""
-    return getattr(lib, name if kd <= KERNEL_HEAD_DIMS[-1] else f"{name}_wide")
+    if d <= KERNEL_HEAD_DIMS[-1]:
+        return name, kernel_head_dim(d)
+    if name in _SPLIT_KERNELS and d <= SPLIT_HEAD_DIMS[-1]:
+        return f"{name}_split", next(kd for kd in SPLIT_HEAD_DIMS if d <= kd)
+    return f"{name}_wide", d
 
 
 def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -196,7 +203,7 @@ def _check_kernel_inputs(name, q, k, v, compute_dtype, *extra):
             t.shape != q.shape for t in extra):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"{[tuple(t.shape) for t in extra]} disagree")
-    _launch_head_dim(D)
+    _launch("mmef_flash_fwd", D)
     # B·H runs on the grid's x axis (2^31 − 1 blocks), the 64-row tiles of
     # Tq and Tk on its y axis (65,535); past head dim 128, blocks of 1 to 4
     # rows
@@ -221,10 +228,13 @@ def _storage(t) -> str:
     return "bf16" if t.dtype == torch.bfloat16 else "f32"
 
 
-def _count(fn, q, d: int) -> None:
-    """One launch of ``fn``'s kernel on ``q``'s storage at head dim d."""
+def _count(fn, q, d: int, entry: str, kd: int) -> None:
+    """One launch of ``fn``'s kernel on ``q``'s storage at head dim d,
+    through C entry point ``entry`` at launch head dim ``kd``."""
     fn.launches[_storage(q)] += 1
     fn.launches_by_head_dim[d] = fn.launches_by_head_dim.get(d, 0) + 1
+    key = f"{entry} D={kd}"
+    fn.launches_by_instance[key] = fn.launches_by_instance.get(key, 0) + 1
 
 
 def _stream(t):
@@ -238,18 +248,18 @@ def flash_forward_cuda(q, k, v, compute_dtype=torch.float32):
                                            compute_dtype)
     from multimodal_eeg_fmri_tpu_torch.ops._kernels import library
 
-    kd = _launch_head_dim(D)
+    entry, kd = _launch("mmef_flash_fwd", D)
     q, k, v = (pad_head_dim(t, kd) for t in (q, k, v))
     out = torch.empty((B, H, Tq, kd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    err = _entry(library(), "mmef_flash_fwd", kd)(
+    err = getattr(library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, H, Tq, Tk, kd, int(q.dtype == torch.bfloat16),
         int(compute_dtype == torch.bfloat16), 1.0 / math.sqrt(D),
         _strides(q, k, v), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
-    _count(flash_forward_cuda, q, D)
+    _count(flash_forward_cuda, q, D, entry, kd)
     return out[..., :D], lse
 
 
@@ -270,11 +280,11 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
     _check_stats(lse, delta, B, H, Tq, q.device)
     from multimodal_eeg_fmri_tpu_torch.ops._kernels import library
 
-    kd = _launch_head_dim(D)
+    entry, kd = _launch("mmef_flash_bwd_dkv", D)
     q, k, v, g = (pad_head_dim(t, kd) for t in (q, k, v, g))
     dk = torch.empty((B, H, Tk, kd), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, H, Tk, kd), dtype=v.dtype, device=v.device)
-    err = _entry(library(), "mmef_flash_bwd_dkv", kd)(
+    err = getattr(library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, Tq, Tk, kd, int(q.dtype == torch.bfloat16),
@@ -283,7 +293,7 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: "
                            f"cudaError {err}")
-    _count(flash_bwd_dkv_cuda, q, D)
+    _count(flash_bwd_dkv_cuda, q, D, entry, kd)
     return dk[..., :D], dv[..., :D]
 
 
@@ -295,10 +305,10 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
     _check_stats(lse, delta, B, H, Tq, q.device)
     from multimodal_eeg_fmri_tpu_torch.ops._kernels import library
 
-    kd = _launch_head_dim(D)
+    entry, kd = _launch("mmef_flash_bwd_dq", D)
     q, k, v, g = (pad_head_dim(t, kd) for t in (q, k, v, g))
     dq = torch.empty((B, H, Tq, kd), dtype=q.dtype, device=q.device)
-    err = _entry(library(), "mmef_flash_bwd_dq", kd)(
+    err = getattr(library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Tq, Tk, kd,
         int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
@@ -306,7 +316,7 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, compute_dtype=torch.float32):
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: "
                            f"cudaError {err}")
-    _count(flash_bwd_dq_cuda, q, D)
+    _count(flash_bwd_dq_cuda, q, D, entry, kd)
     return dq[..., :D]
 
 
@@ -328,10 +338,19 @@ def kernel_launches_by_head_dim() -> dict:
             for k, fn in _KERNELS.items()}
 
 
+def kernel_launches_by_instance() -> dict:
+    """Launches of each flash kernel since the counts were last reset, by
+    the C entry point that ran and its launch head dim:
+    {kernel: {"<entry> D=<kd>": n}}."""
+    return {k: dict(sorted(fn.launches_by_instance.items()))
+            for k, fn in _KERNELS.items()}
+
+
 def reset_kernel_launches() -> None:
     for fn in _KERNELS.values():
         fn.launches = {"f32": 0, "bf16": 0}
         fn.launches_by_head_dim = {}
+        fn.launches_by_instance = {}
 
 
 reset_kernel_launches()

@@ -13,9 +13,18 @@ and input gradients. Past 128 the wrappers launch the CUDA-core kernels
 (``csrc/flash_wide.cu``) at the true head dim: the routing, and
 ``flash_attention`` and ``flash_attention_lse`` at d = 160 and 256 against
 JAX's interpret mode (which pads to 256 lanes) within 2e-5, outputs, lse
-and the gradients with an lse cotangent. The kernels themselves at these
-head dims are tested on the card (``test_torch_port_kernel.py``, marked
-``cuda``).
+and the gradients with an lse cotangent. K2 and K3 pad a head dim in
+(128, 256] to the split tensor-core instances 192 and 256
+(``csrc/flash_bwd_split.cu``) with the true scale, and take the CUDA-core
+kernels past 256: the routing, through a stand-in library that records
+the launch; the padded plain backward at d = 160 on its instance against
+the plain backward at d (1e-6, as above); and one train step of
+``LongContextClassifier(hidden_dim=512, num_heads=2)`` (D = 256) on the
+flash route against the JAX package's (its kernel in interpret mode), the
+loss within 1e-5 and every gradient within 1e-4 of the largest, as
+``test_torch_port_long_context.py`` holds the narrow models. The kernels
+themselves at these head dims are tested on the card
+(``test_torch_port_kernel.py``, marked ``cuda``).
 """
 
 import importlib
@@ -35,6 +44,8 @@ port_attn = importlib.import_module(
 torch.set_num_threads(1)
 
 PADDED = {8: 16, 12: 16, 24: 32, 48: 64}
+# K2 and K3 only, on the split tensor-core instances
+SPLIT_PADDED = {129: 192, 160: 192, 192: 192, 256: 256}
 PAD_ATOL = 1e-6
 JAX_ATOL = 2e-5
 
@@ -66,16 +77,17 @@ def test_head_dim_past_the_limit_raises(d):
         port_attn.kernel_head_dim(d)
 
 
-@pytest.mark.parametrize("d", sorted(PADDED))
+@pytest.mark.parametrize("d", sorted(PADDED) + [160])
 @pytest.mark.parametrize("storage", ["f32", "bf16"])
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32-operands", "bf16-operands"])
 def test_padded_plain_equals_plain(d, storage, compute_dtype):
     """What the wrappers give the kernels, computed by the plain versions:
     the forward and both backward halves at the padded width with the true
-    scale, sliced back to d, against the plain versions at d."""
+    scale, sliced back to d, against the plain versions at d (at d = 160
+    only K2 and K3 are padded, to 192; the forward runs at d)."""
     dtype = torch.float32 if storage == "f32" else torch.bfloat16
-    kd, scale = PADDED[d], 1.0 / math.sqrt(d)
+    kd, scale = {**PADDED, **SPLIT_PADDED}[d], 1.0 / math.sqrt(d)
     q, k, v, g = _inputs(d, dtype)
     pq, pk, pv, pg = (port_attn.pad_head_dim(t, kd) for t in (q, k, v, g))
 
@@ -138,18 +150,14 @@ WIDE_DIMS = (160, 256)
 
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_wide_head_dim_goes_unpadded_to_the_cuda_core_kernels(d):
-    """Past 128 a wrapper launches at the true d through the ``*_wide``
-    entry points; past ``WIDE_MAX_HEAD_DIM`` it raises."""
-    assert port_attn._launch_head_dim(d) == d
-    assert port_attn._launch_head_dim(100) == 128
-
-    class Lib:
-        mmef_flash_fwd, mmef_flash_fwd_wide = "mma", "wide"
-
-    assert port_attn._entry(Lib, "mmef_flash_fwd", d) == "wide"
-    assert port_attn._entry(Lib, "mmef_flash_fwd", 128) == "mma"
+    """Past 128 K1's wrapper launches at the true d through the ``_wide``
+    entry point (K2 and K3: ``test_backward_routes_by_head_dim``); past
+    ``WIDE_MAX_HEAD_DIM`` it raises."""
+    assert port_attn._launch("mmef_flash_fwd", d) == ("mmef_flash_fwd_wide",
+                                                      d)
+    assert port_attn._launch("mmef_flash_fwd", 100) == ("mmef_flash_fwd", 128)
     with pytest.raises(ValueError, match="limit"):
-        port_attn._launch_head_dim(port_attn.WIDE_MAX_HEAD_DIM + 1)
+        port_attn._launch("mmef_flash_fwd", port_attn.WIDE_MAX_HEAD_DIM + 1)
 
 
 @pytest.mark.parametrize("d", WIDE_DIMS)
@@ -190,3 +198,153 @@ def test_wide_head_dim_matches_jax_interpret(d, with_lse):
     for name, t, gj in zip(("dq", "dk", "dv"), (tq, tk, tv), grads_j):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj),
                                    atol=JAX_ATOL, rtol=0, err_msg=name)
+
+
+# --- K2 and K3 in (128, 256]: the split tensor-core kernels ----------------
+
+
+class _Library:
+    """A stand-in for the built library: each entry point records its
+    name and arguments and returns 0 (a launch that went through)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("mmef_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """The wrappers on CPU tensors with the device checks left out and the
+    library replaced by ``_Library``."""
+    lib = _Library()
+    kernels = importlib.import_module(
+        "multimodal_eeg_fmri_tpu_torch.ops._kernels")
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    check = port_attn._check_kernel_inputs
+
+    def on_cpu(name, q, *rest):
+        with monkeypatch.context() as m:
+            m.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+            return check(name, q, *rest)
+
+    monkeypatch.setattr(port_attn, "_check_kernel_inputs", on_cpu)
+    monkeypatch.setattr(port_attn, "_check_stats", lambda *a: None)
+    monkeypatch.setattr(port_attn, "_stream", lambda t: 0)
+    port_attn.reset_kernel_launches()
+    yield lib
+    port_attn.reset_kernel_launches()
+
+
+# (true head dim, entry-point suffix and launch head dim of K2 and K3)
+BACKWARD_ROUTES = [(129, "_split", 192), (160, "_split", 192),
+                   (192, "_split", 192), (256, "_split", 256),
+                   (257, "_wide", 257), (320, "_wide", 320)]
+
+
+@pytest.mark.parametrize("d,suffix,kd", BACKWARD_ROUTES)
+def test_backward_routes_by_head_dim(stand_in, d, suffix, kd):
+    """K2 and K3 at d in (128, 256] launch the split tensor-core entry
+    points at the padded head dim with the true scale 1/√d; past 256 the
+    CUDA-core ones at d. The counts record the entry point and launch head
+    dim, and the outputs come back at d."""
+    q, k, v, g = _inputs(d, torch.float32, tq=5, tk=7)
+    lse = torch.zeros(2, 2, 5)
+    dk, dv = port_attn.flash_bwd_dkv_cuda(q, k, v, g, lse, lse)
+    dq = port_attn.flash_bwd_dq_cuda(q, k, v, g, lse, lse)
+    assert dk.shape == dv.shape == k.shape and dq.shape == q.shape
+    names = [name for name, _ in stand_in.calls]
+    assert names == [f"mmef_flash_bwd_dkv{suffix}",
+                     f"mmef_flash_bwd_dq{suffix}"]
+    for name, args in stand_in.calls:
+        # ... B, H, Tq, Tk, D, is_bf16, bf16_ops, scale, strides, stream
+        B, H, tq, tk, launch_d, _, _, scale = args[-10:-2]
+        assert (B, H, tq, tk, launch_d) == (2, 2, 5, 7, kd), name
+        assert scale == pytest.approx(1.0 / math.sqrt(d), rel=1e-12)
+    assert port_attn.kernel_launches_by_instance() == {
+        "flash_fwd": {},
+        "flash_bwd_dkv": {f"mmef_flash_bwd_dkv{suffix} D={kd}": 1},
+        "flash_bwd_dq": {f"mmef_flash_bwd_dq{suffix} D={kd}": 1}}
+    assert port_attn.kernel_launches_by_head_dim()["flash_bwd_dq"] == {d: 1}
+
+
+@pytest.mark.parametrize("d", [160, 256])
+def test_forward_past_128_stays_on_the_cuda_cores(stand_in, d):
+    """K1 past 128 is not padded: the CUDA-core entry point at d."""
+    q, k, v, _ = _inputs(d, torch.float32, tq=5, tk=7)
+    out, lse = port_attn.flash_forward_cuda(q, k, v)
+    assert out.shape == q.shape and lse.shape == (2, 2, 5)
+    ((name, args),) = stand_in.calls
+    assert name == "mmef_flash_fwd_wide" and args[9] == d
+
+
+def test_backward_past_the_limit_raises(stand_in):
+    q, k, v, g = _inputs(port_attn.WIDE_MAX_HEAD_DIM + 1, torch.float32,
+                         B=1, H=1, tq=2, tk=2)
+    lse = torch.zeros(1, 1, 2)
+    for fn in (port_attn.flash_bwd_dkv_cuda, port_attn.flash_bwd_dq_cuda):
+        with pytest.raises(ValueError, match="limit"):
+            fn(q, k, v, g, lse, lse)
+    assert not stand_in.calls
+
+
+def test_long_context_d256_matches_jax(monkeypatch):
+    """One train step of ``LongContextClassifier(hidden_dim=512,
+    num_heads=2)``, head dim 256, one layer, on the flash route at T=40:
+    the port (K1-K3's plain versions on the CPU, the functions the wide
+    and split kernels compute) against the JAX package (its Pallas kernel
+    in interpret mode, which pads D to 256 lanes), from the same seeded
+    flax variables through ``load_flax_variables``. The weighted CE within
+    1e-5; every weight and input gradient within 1e-4 of the largest
+    (``test_torch_port_long_context.py``'s gates); the port's one forward
+    and one backward, and JAX's flash call, at D=256."""
+    from test_torch_port_long_context import (
+        _pair,
+        _weighted_ce_j,
+        _weighted_ce_t,
+    )
+    from test_torch_port_moe import _grads_close
+
+    from multimodal_eeg_fmri_tpu_torch import load_flax_variables
+    from multimodal_eeg_fmri_tpu_torch.models import long_context as t_lc
+
+    calls = {"jax": [], "port_fwd": [], "port_bwd": []}
+    jax_flash = jax_attn.flash_attention
+    port_fwd, port_bwd = port_attn._flash_forward, port_attn._flash_backward
+
+    def jax_interpret(q, *a, **kw):
+        calls["jax"].append(q.shape[-1])
+        return jax_flash(q, *a, interpret=True, **kw)
+
+    monkeypatch.setattr(jax_attn, "flash_attention", jax_interpret)
+    monkeypatch.setattr(port_attn, "_flash_forward", lambda q, *a: (
+        calls["port_fwd"].append(q.shape[-1]), port_fwd(q, *a))[1])
+    monkeypatch.setattr(port_attn, "_flash_backward", lambda q, *a: (
+        calls["port_bwd"].append(q.shape[-1]), port_bwd(q, *a))[1])
+    kw = dict(hidden_dim=512, num_layers=1, num_heads=2, attn_impl="flash")
+    B = 2
+    fmod, tmod, variables, inputs = _pair(kw, 40, B=B)
+
+    def loss_j(params, erp):
+        o = fmod.apply({"params": params}, erp=erp, train=True)
+        return _weighted_ce_j(o.logits, B)
+
+    loss_w, (gp, gx) = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1)))(
+        variables["params"], jnp.asarray(inputs["erp"]))
+    erp = torch.from_numpy(inputs["erp"]).requires_grad_()
+    loss_t = _weighted_ce_t(tmod.train()(erp=erp).logits, B)
+    loss_t.backward()
+    # JAX traces its flash call more than once; the port runs it once
+    assert set(calls.pop("jax")) == {256}
+    assert calls == {"port_fwd": [256], "port_bwd": [256]}
+    np.testing.assert_allclose(loss_t.item(), float(loss_w), atol=1e-5,
+                               rtol=0)
+    want = load_flax_variables(
+        t_lc.LongContextClassifier(**kw, device="cpu"),
+        jax.tree.map(np.asarray, gp)).state_dict()
+    got = {k: p.grad.numpy() for k, p in tmod.named_parameters()}
+    _grads_close({**got, "erp": erp.grad.numpy()},
+                 {**{k: want[k].numpy() for k in got}, "erp": gx})

@@ -18,6 +18,11 @@ same operands at the same places and differ only in the order of their f32
 sums (a rounding left out, such as dS unrounded before dS·K, moves dq by
 1e-3 or more); with bf16 storage as well, plus one bf16 ulp of the largest
 gradient, as both sides round their f32 result to bf16 on their own.
+Past head dim 128 (K1 on the CUDA cores; K2 and K3 on the split
+tensor-core kernels up to 256, on the CUDA cores past it) at the same gates,
+each launch counted at its C entry point and launch head dim, and K2 and
+K3 equal bit for bit on a second call (each block writes its rows once,
+its sums in a fixed order).
 S1 on either schedule within 2e-5 of its sequential plain version's largest
 |value| (on the sequential schedule it rounds each operation as the plain
 version does, so the two should agree exactly), and equal to
@@ -269,15 +274,19 @@ def test_kernels_take_padded_head_dims(cuda_device, d, storage):
     _kernels_hold_at_head_dim(cuda_device, d, storage)
 
 
-WIDE_DIMS = (160, 256)          # past 128: the CUDA-core kernels
+# past 128: K2 and K3 on the split tensor-core kernels up to 256 (160 and
+# 192 on the 192 instance), K1 and, at 320, K2 and K3 on the CUDA cores
+WIDE_DIMS = (160, 192, 256, 320)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("storage", ["f32", "bf16"])
 def test_kernels_take_wide_head_dims(cuda_device, d, storage):
-    """K1, K2 and K3 past head dim 128, unpadded on the CUDA-core kernels
-    (``csrc/flash_wide.cu``), at the padded head dims' gates."""
+    """K1, K2 and K3 past head dim 128 at the padded head dims' gates: K1
+    unpadded on the CUDA cores (``csrc/flash_wide.cu``); K2 and K3 padded
+    to the split tensor-core instances (``csrc/flash_bwd_split.cu``) up to
+    256, unpadded on the CUDA cores past it."""
     _kernels_hold_at_head_dim(cuda_device, d, storage)
 
 
@@ -289,15 +298,33 @@ def test_kernels_wide_head_dims_bf16_operands(cuda_device, d):
     test_kernels_padded_head_dims_bf16_operands(cuda_device, d)
 
 
+def _instances(d):
+    """The C entry point and launch head dim each wrapper takes at d."""
+    if d <= 128:
+        kd = next(n for n in (16, 32, 64, 128) if d <= n)
+        return {fn: f"{name} D={kd}" for fn, name in (
+            (flash_forward_cuda, "mmef_flash_fwd"),
+            (flash_bwd_dkv_cuda, "mmef_flash_bwd_dkv"),
+            (flash_bwd_dq_cuda, "mmef_flash_bwd_dq"))}
+    bwd = (f"_split D={192 if d <= 192 else 256}" if d <= 256
+           else f"_wide D={d}")
+    return {flash_forward_cuda: f"mmef_flash_fwd_wide D={d}",
+            flash_bwd_dkv_cuda: f"mmef_flash_bwd_dkv{bwd}",
+            flash_bwd_dq_cuda: f"mmef_flash_bwd_dq{bwd}"}
+
+
 def _kernels_hold_at_head_dim(cuda_device, d, storage):
     """K1, K2 and K3 at head dim ``d`` against their plain versions, one
-    launch of each counted at d."""
+    launch of each counted at d and at the instance ``_instances`` names;
+    the backward kernels give the same bits on a second call."""
     dtype = torch.float32 if storage == "f32" else torch.bfloat16
     q, k, v = (t.to(dtype) for t in _qkv(cuda_device, 2, 3, 200, 333, d))
     g = torch.from_numpy(np.random.default_rng(7).standard_normal(
         q.shape, dtype=np.float32)).to(cuda_device, dtype)
-    before = {fn: fn.launches_by_head_dim.get(d, 0) for fn in (
-        flash_forward_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)}
+    instances = _instances(d)
+    before = {fn: (fn.launches_by_head_dim.get(d, 0),
+                   fn.launches_by_instance.get(instances[fn], 0))
+              for fn in instances}
     out_k, lse_k = flash_forward_cuda(q, k, v)
     out_p, lse_p = flash_forward_plain(q, k, v)
     delta = flash_delta(out_p, g)
@@ -306,8 +333,14 @@ def _kernels_hold_at_head_dim(cuda_device, d, storage):
     want = (*flash_bwd_dkv_plain(q, k, v, g, lse_p, delta),
             flash_bwd_dq_plain(q, k, v, g, lse_p, delta))
     torch.cuda.synchronize()
-    assert {fn: fn.launches_by_head_dim[d] - n
-            for fn, n in before.items()} == dict.fromkeys(before, 1)
+    assert {fn: (fn.launches_by_head_dim[d] - n,
+                 fn.launches_by_instance[instances[fn]] - i)
+            for fn, (n, i) in before.items()} == dict.fromkeys(before,
+                                                               (1, 1))
+    again = (*flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta),
+             flash_bwd_dq_cuda(q, k, v, g, lse_p, delta))
+    for a, b, name in zip(got, again, ("dk", "dv", "dq")):
+        assert torch.equal(a, b), f"{name} at d={d} differs run to run"
     assert out_k.shape == q.shape and out_k.dtype == dtype
     atol = 2e-5 if storage == "f32" else 1e-2
     torch.testing.assert_close(out_k.float(), out_p.float(), atol=atol,

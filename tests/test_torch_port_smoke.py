@@ -305,3 +305,77 @@ def test_pool_flip_at_a_pair_that_is_no_tie_fails():
         chip_smoke.print_pool_flips("", mine, other)
     with pytest.raises(SystemExit, match="pinned max-pool indices"):
         _pooled(torch.zeros(2, 4, 1), pinned=mine)
+
+
+# the split K2 and K3 past head dim 128 (csrc/flash_bwd_split.cu), as nvcc
+# mangles them: a kernel of one Params argument
+SPLIT_DKV = ("_ZN51_GLOBAL__N__a97f168f_18_flash_bwd_split_cu_04c0686e26flash_"
+             "bwd_dkv_split_kernelILi256EfLb0EEEvNS_6ParamsE")
+SPLIT_DQ = ("_ZN51_GLOBAL__N__a97f168f_18_flash_bwd_split_cu_04c0686e25flash_"
+            "bwd_dq_split_kernelILi192E13__nv_bfloat16Lb1EEEvNS_6ParamsE")
+
+
+@pytest.mark.parametrize("symbol,instance", [
+    (SPLIT_DKV, ("flash_bwd_dkv_split", 256, "f32", "f32")),
+    (SPLIT_DQ, ("flash_bwd_dq_split", 192, "bf16", "bf16")),
+    (DKV, None),
+])
+def test_split_instance_reads_mangled_symbols(symbol, instance):
+    assert chip_smoke.split_instance(symbol) == instance
+    if instance is not None:
+        assert chip_smoke.kernel_instance(symbol) is None
+
+
+def test_split_instances_in_ptxas_and_sass():
+    text = f"""ptxas info    : Compiling entry function '{SPLIT_DKV}' for 'sm_90a'
+ptxas info    : Function properties for {SPLIT_DKV}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 178 registers, used 1 barriers, 528 bytes cmem[0]
+"""
+    sass = f"""\t\tFunction : {SPLIT_DKV}
+        /*1230*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+"""
+    inst = ("flash_bwd_dkv_split", 256, "f32", "f32")
+    assert chip_smoke.parse_ptxas(text + PTXAS, chip_smoke.split_instance) == {
+        inst: (178, 0, 0, 0)}
+    assert chip_smoke.count_hmma(sass + SASS, chip_smoke.split_instance) == {
+        inst: 1}
+
+
+def _split_build():
+    instances = [(k, d, s, o) for k in chip_smoke.SPLIT_KERNELS
+                 for d in chip_smoke.SPLIT_DIMS for s in ("f32", "bf16")
+                 for o in ("f32", "bf16")]
+    return {i: (178, 0, 0, 0) for i in instances}, dict.fromkeys(instances, 8)
+
+
+def test_split_gate_passes_a_full_build():
+    assert chip_smoke.split_faults(*_split_build()) == []
+
+
+@pytest.mark.parametrize("fault", ["missing", "no HMMA", "spill", "stack"])
+def test_split_gate_names_the_faulty_instance(fault):
+    """No split instance may be missing, lack HMMA, spill or keep a stack
+    frame."""
+    resources, hmma = _split_build()
+    inst = ("flash_bwd_dq_split", 192, "bf16", "f32")
+    if fault == "missing":
+        del resources[inst]
+    elif fault == "no HMMA":
+        hmma[inst] = 0
+    else:
+        resources[inst] = ((255, 8, 8, 0) if fault == "spill"
+                           else (200, 0, 0, 16))
+    faults = chip_smoke.split_faults(resources, hmma)
+    assert len(faults) == 1 and str(inst) in faults[0]
+
+
+@pytest.mark.parametrize("d,bwd", [(160, "_split D=192"),
+                                   (192, "_split D=192"),
+                                   (256, "_split D=256"),
+                                   (320, "_wide D=320")])
+def test_wide_instances_name_the_route_of_each_head_dim(d, bwd):
+    assert chip_smoke.wide_instances(d) == {
+        "flash_fwd": f"mmef_flash_fwd_wide D={d}",
+        "flash_bwd_dkv": f"mmef_flash_bwd_dkv{bwd}",
+        "flash_bwd_dq": f"mmef_flash_bwd_dq{bwd}"}
