@@ -181,24 +181,26 @@ hpo-default-T512 runs ``run_hpo(build_trimodal, ...)`` over DEFAULT_SPACE,
 16 trials, on 66 synthetic subjects with matrix connectivity, every trial
 finishing and K1's launches by head dim held to the derived count. A
 ``pipelines`` JSON line holds the timings.
-Past head dim 128, K1 runs on the CUDA cores (``csrc/flash_wide.cu``);
-K2 and K3 run on the split tensor-core kernels (``csrc/flash_bwd_split.cu``,
-the head dim padded to the instance 192 or 256) up to 256 and on the CUDA
-cores past it. The build prints every instance's registers, spills, stack
-frame and HMMA count (a split instance that spills, keeps a stack frame or
-has no HMMA fails). The wide phase, after the bf16-storage checks, holds
-them against their plain versions at (8, 4, 512, d), d in (160, 192, 256,
-320), in f32 and bf16 storage and the bf16-operand mode, each launch
-counted at its C entry point and launch head dim, K2 and K3 bit for bit on
-a second call; it times them at d = 160, 256 and 320 beside the plain
-versions, the bound, SDPA and, at 160 and 256, the CUDA-core K2 and K3.
-lc-d256-T2048 takes one train step of ``LongContextClassifier(
-hidden_dim=512, num_heads=2)`` (head dim 256) on raw EEG (8, 2048, 18):
-2 launches each of the wide K1 and the split K2 and K3, the step gated
-against the einsum route and the CPU per tensor (``lc_step_gate``), both
-routes timed, and K1-K3 timed per call at (8, 2, 2048, 256). The kernels
-line lists the wide K1 and the split K2 and K3 as kernels of their own,
-and the CUDA-core K2 and K3 past 256 under K2 and K3.
+Past head dim 128, K1, K2 and K3 run on the split tensor-core kernels
+(``csrc/flash_fwd_split.cu``, ``csrc/flash_bwd_split.cu``, the head dim
+padded to the instance 192 or 256) up to 256 and on the CUDA cores
+(``csrc/flash_wide.cu``) past it. The build prints every instance's
+registers, spills, stack frame and HMMA count (a split instance that is
+missing, spills, keeps a stack frame or has no HMMA fails). The wide phase,
+after the bf16-storage checks, holds them against their plain versions at
+(8, 4, 512, d), d in (160, 192, 256, 320), in f32 and bf16 storage and the
+bf16-operand mode, each launch counted at its C entry point and launch head
+dim, each kernel bit for bit on a second call; it times them at d = 160,
+256 and 320 beside the plain versions, the bound, SDPA and, at 160 and 256,
+the CUDA-core K1, K2 and K3 launched by hand. lc-d256-T2048 takes one train
+step of ``LongContextClassifier(hidden_dim=512, num_heads=2)`` (head dim
+256) on raw EEG (8, 2048, 18): 2 launches each of the split K1, K2 and K3,
+the step gated against the einsum route and the CPU per tensor
+(``lc_step_gate``), both routes timed, and K1-K3 timed per call at
+(8, 2, 2048, 256), K1 beside the CUDA-core K1. The split K1 must beat the
+CUDA-core K1 by events at each shape where both are timed. The kernels
+line lists the split K1, K2 and K3 as kernels of their own, and the
+CUDA-core kernels past 256 under K1, K2 and K3.
 Last, sequence parallelism (the ring phase, after the pipelines phase:
 ``parallel/``, ``ops/ring_attention.py``): lc-ring-T8192 trains
 ``LongContextClassifier`` at its JAX defaults with ``attn_impl="ring"``,
@@ -513,12 +515,12 @@ def tensor_core_faults(resources: dict, hmma: dict) -> list:
 
 
 def split_faults(resources: dict, hmma: dict) -> list:
-    """What is wrong with the build of K2 and K3 past head dim 128
-    (``csrc/flash_bwd_split.cu``), from ``parse_ptxas`` and ``count_hmma``
-    with ``split_instance``: an instance at D = 192 or 256 missing from
-    either, one with no HMMA instruction, or one that spills or keeps a
-    stack frame (the design splits the D-wide sums over the warps so that
-    no lane holds more than 64 of them)."""
+    """What is wrong with the build of K1, K2 and K3 past head dim 128
+    (``csrc/flash_fwd_split.cu``, ``csrc/flash_bwd_split.cu``), from
+    ``parse_ptxas`` and ``count_hmma`` with ``split_instance``: an instance
+    at D = 192 or 256 missing from either, one with no HMMA instruction, or
+    one that spills or keeps a stack frame (the design splits the D-wide
+    sums over the warps so that no lane holds more than 64 of them)."""
     wanted = {(k, d, s, o) for k in SPLIT_KERNELS for d in SPLIT_DIMS
               for s in ("f32", "bf16") for o in ("f32", "bf16")}
     if missing := sorted(wanted - (set(resources) & set(hmma))):
@@ -3999,19 +4001,24 @@ RING_HISTORY_RTOL, RING_HISTORY_ATOL = 2e-4, 2e-5  # tests/test_long_context_tra
 RING_GRAD_RTOL = 3e-4             # per tensor of its largest (ROADMAP C8)
 RING_CHUNK_ROWS = 2               # the einsum-chunk ring's rows: (T/4)² f32 tiles
 RING_TIMED_STEPS = 5
-# past head dim 128: K1 on the CUDA cores (csrc/flash_wide.cu); K2 and K3
-# on the split tensor-core kernels (csrc/flash_bwd_split.cu) up to 256, the
-# head dim padded to an instance in SPLIT_DIMS, and on the CUDA cores past it
-WIDE_DIMS = (160, 256)            # timed, beside the CUDA-core K2 and K3
+# past head dim 128: K1, K2 and K3 on the split tensor-core kernels
+# (csrc/flash_fwd_split.cu, csrc/flash_bwd_split.cu) up to 256, the head dim
+# padded to an instance in SPLIT_DIMS, and on the CUDA cores
+# (csrc/flash_wide.cu) past it
+WIDE_DIMS = (160, 256)            # timed, beside the CUDA-core K1, K2 and K3
 WIDE_CHECK_DIMS = (160, 192, 256, 320)   # checked against the plain versions
 WIDE_SHAPE = (8, 4, 512)          # (B, H, T) of their checks and times
 WIDE_SYMBOL = re.compile(
     r"flash_wide_(fwd|bwd_dkv|bwd_dq)_kernelI(f|13__nv_bfloat16)Lb([01])E")
 SPLIT_DIMS = (192, 256)
-SPLIT_KERNELS = ("flash_bwd_dkv_split", "flash_bwd_dq_split")
-SPLIT_SYMBOL = re.compile(r"flash_bwd_(dkv|dq)_split_kernel"
+SPLIT_KERNELS = ("flash_fwd_split", "flash_bwd_dkv_split",
+                 "flash_bwd_dq_split")
+SPLIT_SYMBOL = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_split_kernel"
                           r"ILi(\d+)E(f|13__nv_bfloat16)Lb([01])E")
-SPLIT_SOURCE = "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_split.cu"
+SPLIT_SOURCES = {
+    "flash_fwd": "multimodal_eeg_fmri_tpu_torch/csrc/flash_fwd_split.cu",
+    "flash_bwd_dkv": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_split.cu",
+    "flash_bwd_dq": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_split.cu"}
 WIDE_SOURCE = "multimodal_eeg_fmri_tpu_torch/csrc/flash_wide.cu"
 # lc-d256-T2048: LongContextClassifier at head dim 256 (2 layers, no MoE)
 LC_WIDE = dict(hidden_dim=512, num_heads=2)
@@ -4024,43 +4031,62 @@ def split_instance(symbol: str):
     m = SPLIT_SYMBOL.search(symbol)
     if m is None:
         return None
-    return (f"flash_bwd_{m[1]}_split", int(m[2]),
+    return (f"flash_{m[1]}_split", int(m[2]),
             "f32" if m[3] == "f" else "bf16", "bf16" if m[4] == "1" else "f32")
 
 
 def wide_instances(d: int) -> dict:
     """The C entry point and launch head dim ("<entry> D=<kd>") each of
     K1, K2 and K3 takes at true head dim d past 128."""
-    bwd = (f"_split D={next(n for n in SPLIT_DIMS if d <= n)}"
-           if d <= SPLIT_DIMS[-1] else f"_wide D={d}")
-    return {"flash_fwd": f"mmef_flash_fwd_wide D={d}",
-            "flash_bwd_dkv": f"mmef_flash_bwd_dkv{bwd}",
-            "flash_bwd_dq": f"mmef_flash_bwd_dq{bwd}"}
+    route = (f"_split D={next(n for n in SPLIT_DIMS if d <= n)}"
+             if d <= SPLIT_DIMS[-1] else f"_wide D={d}")
+    return {"flash_fwd": f"mmef_flash_fwd{route}",
+            "flash_bwd_dkv": f"mmef_flash_bwd_dkv{route}",
+            "flash_bwd_dq": f"mmef_flash_bwd_dq{route}"}
 
 
-def cuda_core_backward(q, k, v, g, lse, delta) -> dict:
-    """{kernel: call} of the CUDA-core K2 and K3 (``flash_wide.cu``) on f32
-    (q, k, v, dO), launched by hand at the true head dim: the kernels that
-    the wrappers took past 128 before the split ones, timed beside them."""
+def cuda_core_calls(q, k, v, g, lse, delta) -> dict:
+    """{kernel: call} of the CUDA-core K1, K2 and K3 (``flash_wide.cu``) on
+    f32 (q, k, v, dO), launched by hand at the true head dim: the kernels
+    that the wrappers took past 128 before the split ones, timed beside
+    them."""
     from multimodal_eeg_fmri_tpu_torch.ops import _kernels
     from multimodal_eeg_fmri_tpu_torch.ops.attention import _stream, _strides
 
     lib = _kernels.library()
     B, H, tq, d = q.shape
     tk = k.shape[2]
-    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
-    args = (B, H, tq, tk, d, 0, 0, 1.0 / math.sqrt(d), _strides(q, k, v, g),
-            _stream(q))
+    o, dk, dv, dq = (torch.empty_like(t) for t in (q, k, v, q))
+    o_lse = torch.empty_like(lse)
+    args = (B, H, tq, tk, d, 0, 0, 1.0 / math.sqrt(d))
     ptrs = [t.data_ptr() for t in (q, k, v, g, lse, delta)]
+    fwd_strides, bwd_strides = _strides(q, k, v), _strides(q, k, v, g)
 
     def launched(err):
         if err != 0:
-            fail(f"a CUDA-core backward kernel refused its launch: {err}")
+            fail(f"a CUDA-core flash kernel refused its launch: {err}")
 
-    return {"flash_bwd_dkv": lambda: launched(lib.mmef_flash_bwd_dkv_wide(
-                *ptrs, dk.data_ptr(), dv.data_ptr(), *args)),
+    return {"flash_fwd": lambda: launched(lib.mmef_flash_fwd_wide(
+                *ptrs[:3], o.data_ptr(), o_lse.data_ptr(), *args,
+                fwd_strides, _stream(q))),
+            "flash_bwd_dkv": lambda: launched(lib.mmef_flash_bwd_dkv_wide(
+                *ptrs, dk.data_ptr(), dv.data_ptr(), *args, bwd_strides,
+                _stream(q))),
             "flash_bwd_dq": lambda: launched(lib.mmef_flash_bwd_dq_wide(
-                *ptrs, dq.data_ptr(), *args))}
+                *ptrs, dq.data_ptr(), *args, bwd_strides, _stream(q)))}
+
+
+def cuda_core_gate(name: str, shape, split_ms: float, core_ms: float,
+                   card: str) -> None:
+    """Print the split kernel's time beside the CUDA-core kernel's, timed
+    in the same run, and fail where the split one is not the faster."""
+    print(f"{name} at (B,H,T,D)={tuple(shape)}: on the CUDA cores "
+          f"(flash_wide.cu) {core_ms:.4f} ms per call, "
+          f"{core_ms / split_ms:.2f}x the split kernel's {split_ms:.4f} ms "
+          f"{card}")
+    if not split_ms < core_ms:
+        fail(f"the split {name} is not faster than the CUDA-core one at "
+             f"{tuple(shape)}")
 
 
 def wide_instance(symbol: str):
@@ -4077,11 +4103,11 @@ def wide_phase(dev, card: str) -> dict:
     """K1, K2 and K3 past head dim 128 against their plain versions at
     (8, 4, 512, d), d in WIDE_CHECK_DIMS: f32 storage at the f32 gates, bf16
     storage and the bf16-operand mode at theirs, one launch of each counted
-    at d and at the instance ``wide_instances`` names, and K2 and K3 equal
+    at d and at the instance ``wide_instances`` names, and each kernel equal
     bit for bit on a second call; then their times at WIDE_DIMS (device time
     too) and at 320, beside the plain versions', the bound, SDPA's and, at
-    WIDE_DIMS, the CUDA-core K2 and K3's. Returns the worst f32 errors (K2
-    and K3 by route) and the times by d."""
+    WIDE_DIMS, the CUDA-core K1, K2 and K3's (``cuda_core_gate``). Returns
+    the worst f32 errors by kernel and route and the times by d."""
     from multimodal_eeg_fmri_tpu_torch.ops.attention import (
         flash_bwd_dkv_cuda,
         flash_bwd_dkv_plain,
@@ -4095,8 +4121,7 @@ def wide_phase(dev, card: str) -> dict:
     )
 
     gen = torch.Generator(device=dev).manual_seed(160)
-    worst = dict.fromkeys(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
-                           *SPLIT_KERNELS), 0.0)
+    worst = dict.fromkeys((*MMA_KERNELS, *SPLIT_KERNELS), 0.0)
     out = {}
     for d in WIDE_CHECK_DIMS:
         split = "_split" if d <= SPLIT_DIMS[-1] else ""
@@ -4115,13 +4140,14 @@ def wide_phase(dev, card: str) -> dict:
             by_d = {n: c.get(d, 0) for n, c in
                     kernel_launches_by_head_dim().items()}
             by_instance = kernel_launches_by_instance()
-            again = (*flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta, cdt),
+            again = (*flash_forward_cuda(q, k, v, cdt),
+                     *flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta, cdt),
                      flash_bwd_dq_cuda(q, k, v, g, lse_p, delta, cdt))
             dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, g, lse_p, delta, cdt)
             dq_p = flash_bwd_dq_plain(q, k, v, g, lse_p, delta, cdt)
             torch.cuda.synchronize()
             repeats = all(torch.equal(a, b) for a, b in
-                          zip((dk_k, dv_k, dq_k), again))
+                          zip((out_k, lse_k, dk_k, dv_k, dq_k), again))
             e_fwd = (out_k.float() - out_p.float()).abs().max().item()
             e_lse = (lse_k - lse_p).abs().max().item()
             e_dkv = max((dk_k.float() - dk_p.float()).abs().max().item(),
@@ -4145,8 +4171,8 @@ def wide_phase(dev, card: str) -> dict:
                   f"{mode}: max|dO|={e_fwd:.3e} (limit {lim_fwd:g}), "
                   f"max|dlse|={e_lse:.3e} (limit {lim_lse:g}), "
                   f"max|d(dK,dV)|={e_dkv:.3e} (limit {lim_dkv:.3e}), "
-                  f"max|d(dQ)|={e_dq:.3e} (limit {lim_dq:.3e}); K2 and K3 "
-                  f"bit for bit on a second call: {repeats}; launches at "
+                  f"max|d(dQ)|={e_dq:.3e} (limit {lim_dq:.3e}); K1, K2 and "
+                  f"K3 bit for bit on a second call: {repeats}; launches at "
                   f"D={d}: {by_d}, by instance {by_instance}")
             if by_d != dict.fromkeys(by_d, 1) or by_instance != want:
                 fail(f"the D={d} kernels launched {by_instance}, expected "
@@ -4156,10 +4182,10 @@ def wide_phase(dev, card: str) -> dict:
                 fail(f"a D={d} kernel ({mode}) disagrees with its plain "
                      "version")
             if not repeats:
-                fail(f"K2 or K3 at D={d} ({mode}) differs run to run")
+                fail(f"K1, K2 or K3 at D={d} ({mode}) differs run to run")
             if storage == "f32" and cdt == torch.float32:
-                worst["flash_fwd"] = max(worst["flash_fwd"], e_fwd, e_lse)
-                for name, e in (("flash_bwd_dkv", e_dkv),
+                for name, e in (("flash_fwd", max(e_fwd, e_lse)),
+                                ("flash_bwd_dkv", e_dkv),
                                 ("flash_bwd_dq", e_dq)):
                     worst[name + split] = max(worst[name + split], e)
     for d in (*WIDE_DIMS, WIDE_CHECK_DIMS[-1]):
@@ -4171,25 +4197,31 @@ def wide_phase(dev, card: str) -> dict:
         if timed_device:
             o, lse = flash_forward_cuda(q, k, v)
             delta = flash_delta(o, g)
-            calls = cuda_core_backward(q, k, v, g, lse, delta)
             qb, kb, vb, gb = (x.bfloat16() for x in (q, k, v, g))
+            # the split kernels' other two modes, for their speed
+            modes = {
+                "flash_fwd": (
+                    lambda: flash_forward_cuda(q, k, v, torch.bfloat16),
+                    lambda: flash_forward_cuda(qb, kb, vb)),
+                "flash_bwd_dkv": (
+                    lambda: flash_bwd_dkv_cuda(q, k, v, g, lse, delta,
+                                               torch.bfloat16),
+                    lambda: flash_bwd_dkv_cuda(qb, kb, vb, gb, lse, delta)),
+                "flash_bwd_dq": (
+                    lambda: flash_bwd_dq_cuda(q, k, v, g, lse, delta,
+                                              torch.bfloat16),
+                    lambda: flash_bwd_dq_cuda(qb, kb, vb, gb, lse, delta))}
+            calls = cuda_core_calls(q, k, v, g, lse, delta)
             for name, call in calls.items():
                 ms = cuda_ms(call, iters=5, warmup=1)
-                kern = {"flash_bwd_dkv": flash_bwd_dkv_cuda,
-                        "flash_bwd_dq": flash_bwd_dq_cuda}[name]
-                # the split kernel's other two modes, for their speed
-                ops_ms = cuda_ms(lambda: kern(q, k, v, g, lse, delta,
-                                              torch.bfloat16), iters=20)
-                st_ms = cuda_ms(lambda: kern(qb, kb, vb, gb, lse, delta),
-                                iters=20)
+                ops_ms, st_ms = (cuda_ms(f, iters=20) for f in modes[name])
                 out[d][name].update(cuda_core_ms=ms, bf16_operands_ms=ops_ms,
                                     bf16_storage_ms=st_ms)
-                print(f"{name} at (B,H,T,D)=({', '.join(map(str, WIDE_SHAPE))}"
-                      f", {d}): on the CUDA cores (flash_wide.cu) {ms:.4f} ms "
-                      f"per call, {ms / out[d][name]['ms']:.2f}x the split "
-                      f"kernel's; the split kernel with bf16 operands "
-                      f"{ops_ms:.4f} ms, in bf16 storage {st_ms:.4f} ms "
-                      f"{card}")
+                print(f"{name} at (B,H,T,D)={(*WIDE_SHAPE, d)}, split: bf16 "
+                      f"operands {ops_ms:.4f} ms, bf16 storage {st_ms:.4f} "
+                      f"ms {card}")
+                cuda_core_gate(name, (*WIDE_SHAPE, d), out[d][name]["ms"],
+                               ms, card)
     return {"max_abs_err": worst, "times": out}
 
 
@@ -4198,15 +4230,19 @@ def lc_wide_phase(dev, card: str) -> dict:
     hidden_dim=512, num_heads=2)`` (head dim 256, 2 layers, no MoE, flax's
     initial weights from a seed) on raw EEG (8, 2048, 18) through
     ``TrainStep``, its launches counted from 0 just before the step and read
-    just after: K1 on the CUDA cores, K2 and K3 on the split kernels at
-    D=256, once a layer each. Then the step against the einsum route and the
-    CPU through ``lc_step_gate`` (each gradient within STEP_GRAD_RTOL plus
+    just after: K1, K2 and K3 on the split kernels at D=256, once a layer
+    each. Then the step against the einsum route and the CPU through
+    ``lc_step_gate`` (each gradient within STEP_GRAD_RTOL plus
     ZOO_FLOOR_FACTOR times its tensor's card-vs-CPU gap on the einsum route:
     ROADMAP C8), both routes' step times, and K1-K3 per call at the step's
-    shape LC_WIDE_SHAPE."""
+    shape LC_WIDE_SHAPE, K1 held there to its plain version at
+    KERNEL_ATOL and timed beside the CUDA-core K1 (``cuda_core_gate``)."""
     from multimodal_eeg_fmri_tpu_torch import TrainConfig, init_weights
     from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
     from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        flash_delta,
+        flash_forward_cuda,
+        flash_forward_plain,
         kernel_launches_by_instance,
     )
     from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
@@ -4246,6 +4282,21 @@ def lc_wide_phase(dev, card: str) -> dict:
     q, k, v, g = (torch.randn(*LC_WIDE_SHAPE, device=dev, generator=gen)
                   for _ in range(4))
     kernels = kernel_call_times(q, k, v, g, "f32", card, iters=10, n=10)
+    o, lse = flash_forward_cuda(q, k, v)
+    o_p, lse_p = flash_forward_plain(q, k, v)
+    err = max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item())
+    kernels["flash_fwd"]["max_abs_err"] = err
+    print(f"flash_fwd at (B,H,T,D)={LC_WIDE_SHAPE}: max|dO|, max|dlse| "
+          f"against the plain version {err:.3e} (limit {KERNEL_ATOL:g})")
+    if not err <= KERNEL_ATOL:
+        fail(f"K1 at {LC_WIDE_SHAPE} disagrees with its plain version")
+    del o_p, lse_p
+    core_ms = cuda_ms(cuda_core_calls(q, k, v, g, lse,
+                                      flash_delta(o, g))["flash_fwd"],
+                      iters=5, warmup=1)
+    kernels["flash_fwd"]["cuda_core_ms"] = core_ms
+    cuda_core_gate("flash_fwd", LC_WIDE_SHAPE, kernels["flash_fwd"]["ms"],
+                   core_ms, card)
     return {"launches": {n: sum(c.values()) for n, c in by_instance.items()},
             "by_instance": by_instance,
             "times": {"step_ms": kernel_ms, "einsum_step_ms": einsum_ms},
@@ -4823,15 +4874,14 @@ def main() -> None:
             worst_bf16[name] = max(worst_bf16[name], err)
 
     phase(f"kernel vs plain version past head dim 128 at D="
-          f"{WIDE_CHECK_DIMS}: K1 on the CUDA cores (csrc/flash_wide.cu), K2 "
-          f"and K3 on the split tensor-core kernels (csrc/flash_bwd_split.cu)"
-          f" up to 256 and on the CUDA cores past it; f32 and bf16 storage "
-          f"and bf16 operands {card}")
+          f"{WIDE_CHECK_DIMS}: K1, K2 and K3 on the split tensor-core kernels"
+          f" (csrc/flash_fwd_split.cu, csrc/flash_bwd_split.cu) up to 256 and"
+          f" on the CUDA cores (csrc/flash_wide.cu) past it; f32 and bf16 "
+          f"storage and bf16 operands {card}")
     wide = wide_phase(dev, card)
 
     phase(f"lc-d256-T{LC_T}: a train step of LongContextClassifier("
-          f"hidden_dim=512, num_heads=2) on the wide and split kernels "
-          f"{card}")
+          f"hidden_dim=512, num_heads=2) on the split kernels {card}")
     lc_wide = lc_wide_phase(dev, card)
     print(json.dumps({"lc_d256": {**lc_wide["times"], "device": smi}}))
 
@@ -5405,13 +5455,13 @@ def main() -> None:
            if name == "flash_fwd" else {}),
         # each call at lc-moe-T2048's (8, 4, 2048, 16)
         f"lc_moe_T{LC_T}": lc["kernels"][name],
-        # K2 and K3 past head dim 256, on the CUDA cores (flash_wide.cu):
-        # the worst f32 error and each call at (8, 4, 512, 320)
-        **({"cuda_core_past_256": {
+        # K1, K2 and K3 past head dim 256, on the CUDA cores
+        # (flash_wide.cu): the worst f32 error and each call at
+        # (8, 4, 512, 320)
+        "cuda_core_past_256": {
             "source": WIDE_SOURCE,
             "max_abs_err": wide["max_abs_err"][name],
-            "D320": wide_timings(WIDE_CHECK_DIMS[-1], name)}}
-           if name != "flash_fwd" else {}),
+            "D320": wide_timings(WIDE_CHECK_DIMS[-1], name)},
         # the largest lse cotangent that reached K2/K3 in the ring's step
         **({"ring_g_lse_max": ring["times"]["g_lse_max"]}
            if name != "flash_fwd" else {}),
@@ -5423,25 +5473,25 @@ def main() -> None:
                            == "operations")}),
                        "d32_device_ms": padded_times[32][name]["device_ms"]},
     } for name in names] + [{
-        # past head dim 128: K1 on the CUDA cores, K2 and K3 on the split
-        # kernels up to 256; lc-d256-T2048's step is their main path, its
-        # per-call times at the step's (8, 2, 2048, 256)
-        "name": f"{name}_wide" if name == "flash_fwd" else f"{name}_split",
+        # past head dim 128: K1, K2 and K3 on the split kernels up to 256;
+        # lc-d256-T2048's step is their main path, its per-call times at
+        # the step's (8, 2, 2048, 256), K1 beside the CUDA-core K1
+        "name": f"{name}_split",
         "route": "cuda",
-        "source": WIDE_SOURCE if name == "flash_fwd" else SPLIT_SOURCE,
+        "source": SPLIT_SOURCES[name],
         "replaces": replaces[name],
         "launches": lc_wide["launches"][name],
         "launches_by_path": {f"lc-d256-T{LC_T} step":
                              lc_wide["launches"][name]},
-        "max_abs_err": wide["max_abs_err"][
-            name if name == "flash_fwd" else f"{name}_split"],
+        "max_abs_err": max(wide["max_abs_err"][f"{name}_split"],
+                           lc_wide["kernels"][name].get("max_abs_err", 0.0)),
         "shape": list(LC_WIDE_SHAPE),
         **timings({**lc_wide["kernels"][name], "ops": (
             lc_wide["kernels"][name]["bound_by"] == "operations")}),
-        # each call at (8, 4, 512, d), the CUDA-core K2 and K3 beside
-        **{f"D{d}": wide_timings(d, name) for d in WIDE_DIMS},
-        **({"D320": wide_timings(WIDE_CHECK_DIMS[-1], name)}
+        **({"cuda_core_ms": lc_wide["kernels"][name]["cuda_core_ms"]}
            if name == "flash_fwd" else {}),
+        # each call at (8, 4, 512, d), the CUDA-core kernel beside
+        **{f"D{d}": wide_timings(d, name) for d in WIDE_DIMS},
     } for name in names] + [{
         "name": "sosfilt",
         "route": "cuda",

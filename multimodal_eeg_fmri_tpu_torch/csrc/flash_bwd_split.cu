@@ -92,27 +92,6 @@ constexpr size_t smem_bytes() {
         + sizeof(T) * (size_t)(2 * BR + 4 * BS) * pitch<D, T>();
 }
 
-// The A chunk c (CH deep) of rows [16 m, 16 m + 16) of a tile written in
-// fragment order: the float4 of n-tile j at ((m NT + j) 32 + lane) 4 holds
-// what lane `lane` had in its accumulator of fragment (m, j), so a_from_acc
-// reads the chunk's depth in key_of order.
-template <bool BF16>
-__device__ __forceinline__ AFrag<BF16> a_from_frags(const float* tile, int m, int c) {
-    constexpr int PER = chunk<BF16>() / 8;
-    const int lane = threadIdx.x & 31;
-    float acc[PER][4];
-#pragma unroll
-    for (int h = 0; h < PER; ++h) {
-        const float4 x = *reinterpret_cast<const float4*>(
-            tile + ((m * NT + c * PER + h) * 32 + lane) * 4);
-        acc[h][0] = x.x;
-        acc[h][1] = x.y;
-        acc[h][2] = x.z;
-        acc[h][3] = x.w;
-    }
-    return a_from_acc<BF16>(acc);
-}
-
 // K2 (DKV) and K3 in one body. "Owned" rows are the block's (keys in K2,
 // queries in K3), "streamed" rows the loop's tiles. The score products are
 // X1 = owned1 streamed1^T and X2 = owned2 streamed2^T: S^T = K Q^T and
@@ -277,8 +256,8 @@ __device__ __forceinline__ void bwd_split(const Params& p) {
             AFrag<BF16_OPS> da[MT], pa[DKV ? MT : 1];
 #pragma unroll
             for (int mm = 0; mm < MT; ++mm) {
-                da[mm] = a_from_frags<BF16_OPS>(sDS, mm, c);
-                if constexpr (DKV) pa[mm] = a_from_frags<BF16_OPS>(sP, mm, c);
+                da[mm] = a_from_frags<BF16_OPS, NT>(sDS, mm, c);
+                if constexpr (DKV) pa[mm] = a_from_frags<BF16_OPS, NT>(sP, mm, c);
             }
 #pragma unroll
             for (int jo = 0; jo < NO; ++jo) {

@@ -1,4 +1,5 @@
-// Tensor-core pieces shared by the flash kernels (flash_fwd.cu, flash_bwd.cu):
+// Tensor-core pieces shared by the flash kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_fwd_split.cu, flash_bwd_split.cu):
 // warp-level mma.sync fragments, the 3xTF32 split, and cp.async tile staging.
 //
 // One warp computes C (16 x 8, f32) += A (16 x depth) * B (depth x 8) in
@@ -151,6 +152,29 @@ __device__ __forceinline__ AFrag<BF16> a_from_acc(const float (*c)[4]) {
                                    c[1][0], c[1][1], c[1][2], c[1][3]}});
     else
         return a_from_vals<BF16>({{c[0][0], c[0][2], c[0][1], c[0][3]}});
+}
+
+// The A chunk c (chunk<BF16>() deep) of rows [16 m, 16 m + 16) of a tile of
+// NT 8-column blocks written in fragment order: the float4 at
+// ((m NT + j) 32 + lane) 4 holds what lane `lane` had in its accumulator of
+// fragment (m, j), so a_from_acc reads the chunk's depth in key_of order.
+// The split kernels hand P (and dS) from the warps that form them to every
+// warp this way.
+template <bool BF16, int NT>
+__device__ __forceinline__ AFrag<BF16> a_from_frags(const float* tile, int m, int c) {
+    constexpr int PER = chunk<BF16>() / 8;
+    const int lane = threadIdx.x & 31;
+    float acc[PER][4];
+#pragma unroll
+    for (int h = 0; h < PER; ++h) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            tile + ((m * NT + c * PER + h) * 32 + lane) * 4);
+        acc[h][0] = x.x;
+        acc[h][1] = x.y;
+        acc[h][2] = x.z;
+        acc[h][3] = x.w;
+    }
+    return a_from_acc<BF16>(acc);
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1,

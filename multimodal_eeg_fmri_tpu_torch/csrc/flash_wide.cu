@@ -7,7 +7,9 @@
 // Pallas kernels they replace (`multimodal_eeg_fmri_tpu/ops/attention.py`,
 // pallas_call at :248, :311 and :339) pad D to the next multiple of 128 and
 // so take any D. These three kernels compute the same functions at any D
-// above 128 (the true D, unpadded):
+// above 128 (the true D, unpadded); the wrappers send them head dims past
+// 256, and those in (128, 256] to the tensor-core kernels of
+// flash_fwd_split.cu and flash_bwd_split.cu:
 // - mmef_flash_fwd_wide (K1's function): O = softmax(Q K^T * scale) V and
 //   lse, by online softmax (running max m, sum l, accumulator) over key tiles;
 // - mmef_flash_bwd_dq_wide (K3's): dQ = dS K * scale;

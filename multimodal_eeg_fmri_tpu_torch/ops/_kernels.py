@@ -103,11 +103,11 @@ def library() -> ctypes.CDLL:
     lib.mmef_flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [f, strides, p]
     lib.mmef_flash_bwd_dq.restype = i
     # the CUDA-core kernels past head dim 128 (flash_wide.cu) and the
-    # tensor-core backward up to 256 (flash_bwd_split.cu) take the same
-    # arguments as the tensor-core ones
+    # tensor-core ones up to 256 (flash_fwd_split.cu, flash_bwd_split.cu)
+    # take the same arguments as the tensor-core ones up to 128
     for name in ("mmef_flash_fwd_wide", "mmef_flash_bwd_dkv_wide",
-                 "mmef_flash_bwd_dq_wide", "mmef_flash_bwd_dkv_split",
-                 "mmef_flash_bwd_dq_split"):
+                 "mmef_flash_bwd_dq_wide", "mmef_flash_fwd_split",
+                 "mmef_flash_bwd_dkv_split", "mmef_flash_bwd_dq_split"):
         fn = getattr(lib, name)
         fn.argtypes = getattr(lib, name.rsplit("_", 1)[0]).argtypes
         fn.restype = i

@@ -22,10 +22,10 @@ slices its outputs back to d, as the JAX package's wrapper pads to 128
 lanes: the zero columns add nothing to Q·Kᵀ, give zero output and gradient
 columns, and leave Δ = rowsum(dO∘O) as it is. The padding stays inside the
 ``*_cuda`` wrappers, so the operators and everything above them see the
-true d. Past 128, K2 and K3 pad d ≤ 256 the same way to the instances in
-``SPLIT_HEAD_DIMS``, tensor-core kernels that split the D-wide sums over
-their warps (``csrc/flash_bwd_split.cu``). The forward past 128, and the
-backward past 256 (up to ``WIDE_MAX_HEAD_DIM``), go unpadded to the same
+true d. Past 128, K1, K2 and K3 pad d ≤ 256 the same way to the instances
+in ``SPLIT_HEAD_DIMS``, tensor-core kernels that split the D-wide sums over
+their warps (``csrc/flash_fwd_split.cu``, ``csrc/flash_bwd_split.cu``).
+Past 256 (up to ``WIDE_MAX_HEAD_DIM``) they go unpadded to the same
 functions on the CUDA cores (``csrc/flash_wide.cu``). All count as the
 launches of K1, K2 and K3.
 """
@@ -40,9 +40,8 @@ import torch
 from torch._C import _functorch
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-# K2 and K3 on the tensor cores past 128, the D-wide sums split over warps
+# K1-K3 on the tensor cores past 128, the D-wide sums split over warps
 SPLIT_HEAD_DIMS = (192, 256)
-_SPLIT_KERNELS = ("mmef_flash_bwd_dkv", "mmef_flash_bwd_dq")
 # the CUDA-core kernels keep a warp's f32 rows of D in shared memory beside
 # two staged tiles: dK/dV's four rows of 12,448 fill the 227 KB of an SM
 WIDE_MAX_HEAD_DIM = 12448
@@ -60,15 +59,15 @@ def kernel_head_dim(d: int) -> int:
 
 def _launch(name: str, d: int) -> Tuple[str, int]:
     """(C entry point, launch head dim) of kernel ``name`` (its C entry
-    point's name) at true head dim d: the tensor-core instance for d ≤ 128,
-    and for K2 and K3 up to 256 (``_split``); the CUDA-core kernel at d
-    itself past that (``_wide``)."""
+    point's name) at true head dim d: the tensor-core instance for d ≤ 128
+    and, past it, up to 256 (``_split``); the CUDA-core kernel at d itself
+    past that (``_wide``)."""
     if d > WIDE_MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} is past the flash kernels' limit "
                          f"{WIDE_MAX_HEAD_DIM}")
     if d <= KERNEL_HEAD_DIMS[-1]:
         return name, kernel_head_dim(d)
-    if name in _SPLIT_KERNELS and d <= SPLIT_HEAD_DIMS[-1]:
+    if d <= SPLIT_HEAD_DIMS[-1]:
         return f"{name}_split", next(kd for kd in SPLIT_HEAD_DIMS if d <= kd)
     return f"{name}_wide", d
 
@@ -204,10 +203,12 @@ def _check_kernel_inputs(name, q, k, v, compute_dtype, *extra):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"{[tuple(t.shape) for t in extra]} disagree")
     _launch("mmef_flash_fwd", D)
-    # B·H runs on the grid's x axis (2^31 − 1 blocks), the 64-row tiles of
-    # Tq and Tk on its y axis (65,535); past head dim 128, blocks of 1 to 4
-    # rows
-    rows_per_block = 64 if D <= KERNEL_HEAD_DIMS[-1] else 1
+    # B·H runs on the grid's x axis (2^31 − 1 blocks), the row tiles of Tq
+    # (K1, K3) or Tk (K2) on its y axis (65,535): 64 rows a block up to head
+    # dim 128; up to 256, 64 in K1 and 32 in K2 and K3, the smaller taken
+    # for all three; 1 to 8 past it
+    rows_per_block = (64 if D <= KERNEL_HEAD_DIMS[-1]
+                      else 32 if D <= SPLIT_HEAD_DIMS[-1] else 1)
     if (min(B, H, Tq, Tk) < 1 or B * H > 2**31 - 1
             or max(Tq, Tk) > 65535 * rows_per_block):
         raise ValueError(f"unsupported sizes B={B} H={H} Tq={Tq} Tk={Tk}")

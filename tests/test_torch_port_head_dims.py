@@ -9,22 +9,26 @@ with the true scale, sliced back, equal the plain versions at d within 1e-6
 and backward, in f32 and bf16 storage; and the port's ``flash_attention``
 equals the JAX package's (its Pallas kernel in interpret mode, as its own
 tests run it, which pads to 128 lanes) at d = 24 and 48 within 2e-5, output
-and input gradients. Past 128 the wrappers launch the CUDA-core kernels
-(``csrc/flash_wide.cu``) at the true head dim: the routing, and
-``flash_attention`` and ``flash_attention_lse`` at d = 160 and 256 against
-JAX's interpret mode (which pads to 256 lanes) within 2e-5, outputs, lse
-and the gradients with an lse cotangent. K2 and K3 pad a head dim in
-(128, 256] to the split tensor-core instances 192 and 256
-(``csrc/flash_bwd_split.cu``) with the true scale, and take the CUDA-core
-kernels past 256: the routing, through a stand-in library that records
-the launch; the padded plain backward at d = 160 on its instance against
-the plain backward at d (1e-6, as above); and one train step of
-``LongContextClassifier(hidden_dim=512, num_heads=2)`` (D = 256) on the
-flash route against the JAX package's (its kernel in interpret mode), the
-loss within 1e-5 and every gradient within 1e-4 of the largest, as
-``test_torch_port_long_context.py`` holds the narrow models. The kernels
-themselves at these head dims are tested on the card
-(``test_torch_port_kernel.py``, marked ``cuda``).
+and input gradients. Past 128, K1, K2 and K3 pad a head dim in (128, 256]
+to the split tensor-core instances 192 and 256 (``csrc/flash_fwd_split.cu``,
+``csrc/flash_bwd_split.cu``) with the true scale, and take the CUDA-core
+kernels (``csrc/flash_wide.cu``) at the true head dim past 256: the
+routing, through a stand-in library that records the launch; the padded
+plain forward and backward at d = 129, 160 and 224 on their instance
+against the plain versions at d (1e-6, as above); ``flash_attention`` and
+``flash_attention_lse`` at d = 160 and 256 against JAX's interpret mode
+(which pads to 256 lanes) within 2e-5 in f32, outputs, lse and the
+gradients with an lse cotangent; in the bf16-operand mode against JAX's
+``compute_dtype=bfloat16`` within 2e-3 (outputs, lse) and 1e-3 (gradients),
+and in bf16 storage against JAX's program compiled without excess
+precision, at most 0.1% of the bf16 outputs and gradients differing, the
+gates ``test_torch_port_attention.py`` and ``test_torch_port_backward.py``
+set at D ≤ 128; and one train step of ``LongContextClassifier(
+hidden_dim=512, num_heads=2)`` (D = 256) on the flash route against the JAX
+package's (its kernel in interpret mode), the loss within 1e-5 and every
+gradient within 1e-4 of the largest, as ``test_torch_port_long_context.py``
+holds the narrow models. The kernels themselves at these head dims are
+tested on the card (``test_torch_port_kernel.py``, marked ``cuda``).
 """
 
 import importlib
@@ -44,10 +48,15 @@ port_attn = importlib.import_module(
 torch.set_num_threads(1)
 
 PADDED = {8: 16, 12: 16, 24: 32, 48: 64}
-# K2 and K3 only, on the split tensor-core instances
-SPLIT_PADDED = {129: 192, 160: 192, 192: 192, 256: 256}
+# past 128: K1, K2 and K3 on the split tensor-core instances
+SPLIT_PADDED = {129: 192, 160: 192, 192: 192, 224: 256, 256: 256}
 PAD_ATOL = 1e-6
 JAX_ATOL = 2e-5
+# the bf16-operand mode against JAX's: outputs and lse, and gradients
+# (test_torch_port_attention.py, test_torch_port_backward.py)
+JAX_BF16_ATOL, JAX_BF16_GRAD_ATOL = 2e-3, 1e-3
+# bf16 storage against JAX's: the share of bf16 elements that may differ
+JAX_BF16_STORAGE_DIFFER = 1e-3
 
 
 def _inputs(d, dtype, B=2, H=2, tq=70, tk=90, seed=0):
@@ -77,15 +86,16 @@ def test_head_dim_past_the_limit_raises(d):
         port_attn.kernel_head_dim(d)
 
 
-@pytest.mark.parametrize("d", sorted(PADDED) + [160])
+@pytest.mark.parametrize("d", sorted(PADDED) + [129, 160, 224])
 @pytest.mark.parametrize("storage", ["f32", "bf16"])
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32-operands", "bf16-operands"])
 def test_padded_plain_equals_plain(d, storage, compute_dtype):
     """What the wrappers give the kernels, computed by the plain versions:
     the forward and both backward halves at the padded width with the true
-    scale, sliced back to d, against the plain versions at d (at d = 160
-    only K2 and K3 are padded, to 192; the forward runs at d)."""
+    scale, sliced back to d, against the plain versions at d (past 128 all
+    three are padded to the split instances: 129 and 160 to 192, 224 to
+    256)."""
     dtype = torch.float32 if storage == "f32" else torch.bfloat16
     kd, scale = {**PADDED, **SPLIT_PADDED}[d], 1.0 / math.sqrt(d)
     q, k, v, g = _inputs(d, dtype)
@@ -143,14 +153,16 @@ def test_flash_attention_matches_jax_interpret(d):
                                    atol=JAX_ATOL, rtol=0, err_msg=name)
 
 
-# --- head dims past 128: the CUDA-core kernels (csrc/flash_wide.cu) --------
+# --- head dims past 128: the split kernels up to 256, then the CUDA cores --
 
 WIDE_DIMS = (160, 256)
+# past 256: the CUDA-core kernels (csrc/flash_wide.cu) at the true head dim
+CUDA_CORE_DIMS = (257, 320)
 
 
-@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("d", CUDA_CORE_DIMS)
 def test_wide_head_dim_goes_unpadded_to_the_cuda_core_kernels(d):
-    """Past 128 K1's wrapper launches at the true d through the ``_wide``
+    """Past 256 K1's wrapper launches at the true d through the ``_wide``
     entry point (K2 and K3: ``test_backward_routes_by_head_dim``); past
     ``WIDE_MAX_HEAD_DIM`` it raises."""
     assert port_attn._launch("mmef_flash_fwd", d) == ("mmef_flash_fwd_wide",
@@ -165,7 +177,7 @@ def test_wide_head_dim_goes_unpadded_to_the_cuda_core_kernels(d):
                          ids=["flash_attention", "flash_attention_lse"])
 def test_wide_head_dim_matches_jax_interpret(d, with_lse):
     """``flash_attention`` and ``flash_attention_lse`` at d = 160 and 256
-    (the plain math on the CPU, the functions the wide kernels compute)
+    (the plain math on the CPU, the functions the split kernels compute)
     against the JAX package's, whose wrapper pads d to 256 lanes: output
     (and lse) and the gradients of Σ out·g (+ Σ lse·g_lse) within 2e-5."""
     r = np.random.default_rng(d + with_lse)
@@ -200,7 +212,82 @@ def test_wide_head_dim_matches_jax_interpret(d, with_lse):
                                    atol=JAX_ATOL, rtol=0, err_msg=name)
 
 
-# --- K2 and K3 in (128, 256]: the split tensor-core kernels ----------------
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("with_lse", [False, True],
+                         ids=["flash_attention", "flash_attention_lse"])
+def test_wide_head_dim_bf16_operands_match_jax(d, with_lse):
+    """The bf16-operand mode at d = 160 and 256 on both sides
+    (``compute_dtype=bfloat16``: q, k, p, v, dO and dS rounded to bf16
+    before their products, every sum in f32): output and lse within 2e-3,
+    the gradients of Σ out·g (+ Σ lse·g_lse) within 1e-3."""
+    r = np.random.default_rng(10 * d + with_lse)
+    q, k, v, g = (r.standard_normal(s, dtype=np.float32) for s in
+                  ((2, 2, 70, d), (2, 2, 90, d), (2, 2, 90, d),
+                   (2, 2, 70, d)))
+    g_lse = r.standard_normal((2, 2, 70), dtype=np.float32)
+
+    def loss_j(q, k, v):
+        out, lse = jax_attn.flash_attention_lse(q, k, v, interpret=True,
+                                                compute_dtype=jnp.bfloat16)
+        total = jnp.sum(out * g) + (jnp.sum(lse * g_lse) if with_lse else 0)
+        return total, (out, lse)
+
+    (_, (out_j, lse_j)), grads_j = jax.value_and_grad(
+        loss_j, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out_p, lse_p = port_attn.flash_attention_lse(tq, tk, tv,
+                                                 compute_dtype=torch.bfloat16)
+    loss = (out_p * torch.from_numpy(g)).sum()
+    if with_lse:
+        loss = loss + (lse_p * torch.from_numpy(g_lse)).sum()
+    loss.backward()
+    np.testing.assert_allclose(out_p.detach().numpy(), np.asarray(out_j),
+                               atol=JAX_BF16_ATOL, rtol=0)
+    np.testing.assert_allclose(lse_p.detach().numpy(), np.asarray(lse_j),
+                               atol=JAX_BF16_ATOL, rtol=0)
+    for name, t, gj in zip(("dq", "dk", "dv"), (tq, tk, tv), grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj),
+                                   atol=JAX_BF16_GRAD_ATOL, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_head_dim_bf16_storage_matches_jax(d):
+    """bf16 q, k, v and dO with f32 operands at d = 160 and 256, the
+    mixed-precision fit's flash layers, against the JAX package's program
+    compiled without excess precision: the bf16 output and gradients equal
+    element by element but for at most 0.1% of them, and lse (f32) within
+    2e-5."""
+    r = np.random.default_rng(d + 7)
+    q, k, v, g = (jnp.asarray(r.standard_normal(s, dtype=np.float32))
+                  .astype(jnp.bfloat16) for s in
+                  ((2, 2, 70, d), (2, 2, 90, d), (2, 2, 90, d),
+                   (2, 2, 70, d)))
+
+    def run(q, k, v, g):
+        (out, lse), vjp = jax.vjp(lambda q, k, v: jax_attn.flash_attention_lse(
+            q, k, v, interpret=True), q, k, v)
+        return out, lse, vjp((g, jnp.zeros_like(lse)))
+
+    out_j, lse_j, grads_j = jax.jit(run).lower(q, k, v, g).compile(
+        compiler_options={"xla_allow_excess_precision": False})(q, k, v, g)
+    leaves = [torch.tensor(np.asarray(x.astype(jnp.float32))).bfloat16()
+              for x in (q, k, v, g)]
+    qkv = [x.requires_grad_() for x in leaves[:3]]
+    out_p, lse_p = port_attn.flash_attention_lse(*qkv)
+    grads_p = torch.autograd.grad(out_p, qkv, leaves[3])
+    np.testing.assert_allclose(lse_p.detach().numpy(), np.asarray(lse_j),
+                               atol=JAX_ATOL, rtol=0)
+    for a, b, name in zip((out_p, *grads_p), (out_j, *grads_j),
+                          ("out", "dq", "dk", "dv")):
+        assert a.dtype == torch.bfloat16, name
+        differ = (a.detach().float().numpy()
+                  != np.asarray(b.astype(jnp.float32)))
+        assert differ.mean() <= JAX_BF16_STORAGE_DIFFER, (name, differ.mean())
+
+
+# --- K1, K2 and K3 in (128, 256]: the split tensor-core kernels ------------
 
 
 class _Library:
@@ -239,13 +326,13 @@ def stand_in(monkeypatch):
     port_attn.reset_kernel_launches()
 
 
-# (true head dim, entry-point suffix and launch head dim of K2 and K3)
-BACKWARD_ROUTES = [(129, "_split", 192), (160, "_split", 192),
-                   (192, "_split", 192), (256, "_split", 256),
-                   (257, "_wide", 257), (320, "_wide", 320)]
+# (true head dim, entry-point suffix and launch head dim of K1, K2 and K3)
+WIDE_ROUTES = [(129, "_split", 192), (160, "_split", 192),
+               (192, "_split", 192), (256, "_split", 256),
+               (257, "_wide", 257), (320, "_wide", 320)]
 
 
-@pytest.mark.parametrize("d,suffix,kd", BACKWARD_ROUTES)
+@pytest.mark.parametrize("d,suffix,kd", WIDE_ROUTES)
 def test_backward_routes_by_head_dim(stand_in, d, suffix, kd):
     """K2 and K3 at d in (128, 256] launch the split tensor-core entry
     points at the padded head dim with the true scale 1/√d; past 256 the
@@ -271,14 +358,38 @@ def test_backward_routes_by_head_dim(stand_in, d, suffix, kd):
     assert port_attn.kernel_launches_by_head_dim()["flash_bwd_dq"] == {d: 1}
 
 
-@pytest.mark.parametrize("d", [160, 256])
-def test_forward_past_128_stays_on_the_cuda_cores(stand_in, d):
-    """K1 past 128 is not padded: the CUDA-core entry point at d."""
-    q, k, v, _ = _inputs(d, torch.float32, tq=5, tk=7)
-    out, lse = port_attn.flash_forward_cuda(q, k, v)
-    assert out.shape == q.shape and lse.shape == (2, 2, 5)
+@pytest.mark.parametrize("d,suffix,kd", WIDE_ROUTES)
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32_ops", "bf16_ops"])
+def test_forward_routes_by_head_dim(stand_in, d, suffix, kd, storage,
+                                    compute_dtype):
+    """K1 at d in (128, 256] launches the split tensor-core entry point on
+    q, k, v zero-padded to its instance, with the true scale 1/√d; past 256
+    the CUDA-core one at d, unpadded. The operand mode reaches the kernel
+    as its bf16_ops flag. The counts record the storage, the true head dim
+    and the entry point at its launch head dim, and the outputs come back
+    at d."""
+    dtype = torch.float32 if storage == "f32" else torch.bfloat16
+    q, k, v, _ = _inputs(d, dtype, tq=5, tk=7)
+    out, lse = port_attn.flash_forward_cuda(q, k, v, compute_dtype)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert lse.shape == (2, 2, 5) and lse.dtype == torch.float32
     ((name, args),) = stand_in.calls
-    assert name == "mmef_flash_fwd_wide" and args[9] == d
+    assert name == f"mmef_flash_fwd{suffix}"
+    # q, k, v, O, lse, B, H, Tq, Tk, D, is_bf16, bf16_ops, scale, strides,
+    # stream
+    assert args[5:12] == (2, 2, 5, 7, kd, int(storage == "bf16"),
+                          int(compute_dtype == torch.bfloat16))
+    assert args[12] == pytest.approx(1.0 / math.sqrt(d), rel=1e-12)
+    # the strides the kernel reads are those of the padded (contiguous)
+    # inputs at kd, or of the caller's at d
+    assert list(args[13])[:3] == [2 * 5 * kd, 5 * kd, kd]
+    assert port_attn.kernel_launches_by_instance()["flash_fwd"] == {
+        f"mmef_flash_fwd{suffix} D={kd}": 1}
+    assert port_attn.kernel_launches_by_head_dim()["flash_fwd"] == {d: 1}
+    assert port_attn.kernel_launches()["flash_fwd"] == {
+        "f32": int(storage == "f32"), "bf16": int(storage == "bf16")}
 
 
 def test_backward_past_the_limit_raises(stand_in):

@@ -18,11 +18,11 @@ same operands at the same places and differ only in the order of their f32
 sums (a rounding left out, such as dS unrounded before dS·K, moves dq by
 1e-3 or more); with bf16 storage as well, plus one bf16 ulp of the largest
 gradient, as both sides round their f32 result to bf16 on their own.
-Past head dim 128 (K1 on the CUDA cores; K2 and K3 on the split
-tensor-core kernels up to 256, on the CUDA cores past it) at the same gates,
-each launch counted at its C entry point and launch head dim, and K2 and
-K3 equal bit for bit on a second call (each block writes its rows once,
-its sums in a fixed order).
+Past head dim 128 (K1, K2 and K3 on the split tensor-core kernels up to
+256, on the CUDA cores past it) at the same gates, each launch counted at
+its C entry point and launch head dim, and K1, K2 and K3 equal bit for bit
+on a second call (each block writes its rows once, its sums in a fixed
+order).
 S1 on either schedule within 2e-5 of its sequential plain version's largest
 |value| (on the sequential schedule it rounds each operation as the plain
 version does, so the two should agree exactly), and equal to
@@ -274,8 +274,8 @@ def test_kernels_take_padded_head_dims(cuda_device, d, storage):
     _kernels_hold_at_head_dim(cuda_device, d, storage)
 
 
-# past 128: K2 and K3 on the split tensor-core kernels up to 256 (160 and
-# 192 on the 192 instance), K1 and, at 320, K2 and K3 on the CUDA cores
+# past 128: K1, K2 and K3 on the split tensor-core kernels up to 256 (160
+# and 192 on the 192 instance), on the CUDA cores at 320
 WIDE_DIMS = (160, 192, 256, 320)
 
 
@@ -283,10 +283,10 @@ WIDE_DIMS = (160, 192, 256, 320)
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("storage", ["f32", "bf16"])
 def test_kernels_take_wide_head_dims(cuda_device, d, storage):
-    """K1, K2 and K3 past head dim 128 at the padded head dims' gates: K1
-    unpadded on the CUDA cores (``csrc/flash_wide.cu``); K2 and K3 padded
-    to the split tensor-core instances (``csrc/flash_bwd_split.cu``) up to
-    256, unpadded on the CUDA cores past it."""
+    """K1, K2 and K3 past head dim 128 at the padded head dims' gates:
+    padded to the split tensor-core instances (``csrc/flash_fwd_split.cu``,
+    ``csrc/flash_bwd_split.cu``) up to 256, unpadded on the CUDA cores
+    (``csrc/flash_wide.cu``) past it."""
     _kernels_hold_at_head_dim(cuda_device, d, storage)
 
 
@@ -306,17 +306,17 @@ def _instances(d):
             (flash_forward_cuda, "mmef_flash_fwd"),
             (flash_bwd_dkv_cuda, "mmef_flash_bwd_dkv"),
             (flash_bwd_dq_cuda, "mmef_flash_bwd_dq"))}
-    bwd = (f"_split D={192 if d <= 192 else 256}" if d <= 256
-           else f"_wide D={d}")
-    return {flash_forward_cuda: f"mmef_flash_fwd_wide D={d}",
-            flash_bwd_dkv_cuda: f"mmef_flash_bwd_dkv{bwd}",
-            flash_bwd_dq_cuda: f"mmef_flash_bwd_dq{bwd}"}
+    route = (f"_split D={192 if d <= 192 else 256}" if d <= 256
+             else f"_wide D={d}")
+    return {flash_forward_cuda: f"mmef_flash_fwd{route}",
+            flash_bwd_dkv_cuda: f"mmef_flash_bwd_dkv{route}",
+            flash_bwd_dq_cuda: f"mmef_flash_bwd_dq{route}"}
 
 
 def _kernels_hold_at_head_dim(cuda_device, d, storage):
     """K1, K2 and K3 at head dim ``d`` against their plain versions, one
     launch of each counted at d and at the instance ``_instances`` names;
-    the backward kernels give the same bits on a second call."""
+    each kernel gives the same bits on a second call."""
     dtype = torch.float32 if storage == "f32" else torch.bfloat16
     q, k, v = (t.to(dtype) for t in _qkv(cuda_device, 2, 3, 200, 333, d))
     g = torch.from_numpy(np.random.default_rng(7).standard_normal(
@@ -339,7 +339,9 @@ def _kernels_hold_at_head_dim(cuda_device, d, storage):
                                                                (1, 1))
     again = (*flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta),
              flash_bwd_dq_cuda(q, k, v, g, lse_p, delta))
-    for a, b, name in zip(got, again, ("dk", "dv", "dq")):
+    for a, b, name in zip((out_k, lse_k, *got),
+                          (*flash_forward_cuda(q, k, v), *again),
+                          ("out", "lse", "dk", "dv", "dq")):
         assert torch.equal(a, b), f"{name} at d={d} differs run to run"
     assert out_k.shape == q.shape and out_k.dtype == dtype
     atol = 2e-5 if storage == "f32" else 1e-2
@@ -363,10 +365,13 @@ def _kernels_hold_at_head_dim(cuda_device, d, storage):
 @pytest.mark.parametrize("d", PADDED_DIMS)
 def test_kernels_padded_head_dims_bf16_operands(cuda_device, d):
     """The bf16-operand mode of K1-K3 at a padded head dim, at its gates
-    (1e-2 forward, 2e-3 gradients)."""
+    (1e-2 forward, 2e-3 gradients); K1 gives the same bits on a second
+    call."""
     q, k, v, out, lse, g = _backward_inputs(cuda_device, (2, 2, 130, 200, d),
                                             torch.bfloat16)
     out_k, lse_k = flash_forward_cuda(q, k, v, torch.bfloat16)
+    again = flash_forward_cuda(q, k, v, torch.bfloat16)
+    assert torch.equal(out_k, again[0]) and torch.equal(lse_k, again[1])
     torch.testing.assert_close(out_k, out, atol=1e-2, rtol=0)
     torch.testing.assert_close(lse_k, lse, atol=1e-2, rtol=0)
     got = flash_backward_cuda(q, k, v, out, lse, g, None, torch.bfloat16)
@@ -583,13 +588,16 @@ def _misaligned(x, how):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 256])
 @pytest.mark.parametrize("how", ["base", "stride", "both"])
 @pytest.mark.parametrize("dtype,atol,grad_atol",
                          [(torch.float32, 2e-5, 2e-4),
                           (torch.bfloat16, 1e-2, 5e-2)])
 def test_kernels_take_misaligned_views(cuda_device, how, dtype, atol,
-                                       grad_atol):
-    q, k, v = (t.to(dtype) for t in _qkv(cuda_device, 2, 2, 130, 200, 32))
+                                       grad_atol, d):
+    """At d = 32 the tensor-core kernels up to 128; at 256 the split ones,
+    which take the view as it is (no padding copy at an instance)."""
+    q, k, v = (t.to(dtype) for t in _qkv(cuda_device, 2, 2, 130, 200, d))
     g = torch.from_numpy(np.random.default_rng(5).standard_normal(
         q.shape, dtype=np.float32)).to(cuda_device, dtype)
     mq, mk, mv, mg = (_misaligned(t, how) for t in (q, k, v, g))

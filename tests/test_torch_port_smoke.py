@@ -307,18 +307,27 @@ def test_pool_flip_at_a_pair_that_is_no_tie_fails():
         _pooled(torch.zeros(2, 4, 1), pinned=mine)
 
 
-# the split K2 and K3 past head dim 128 (csrc/flash_bwd_split.cu), as nvcc
-# mangles them: a kernel of one Params argument
+# the split K1, K2 and K3 past head dim 128 (csrc/flash_fwd_split.cu,
+# csrc/flash_bwd_split.cu), as nvcc mangles them: a kernel of one Params
+# argument
 SPLIT_DKV = ("_ZN51_GLOBAL__N__a97f168f_18_flash_bwd_split_cu_04c0686e26flash_"
              "bwd_dkv_split_kernelILi256EfLb0EEEvNS_6ParamsE")
 SPLIT_DQ = ("_ZN51_GLOBAL__N__a97f168f_18_flash_bwd_split_cu_04c0686e25flash_"
             "bwd_dq_split_kernelILi192E13__nv_bfloat16Lb1EEEvNS_6ParamsE")
+SPLIT_FWD = ("_ZN51_GLOBAL__N__aa792df0_18_flash_fwd_split_cu_c33b2bdc22flash_"
+             "fwd_split_kernelILi256EfLb0EEEvNS_6ParamsE")
+SPLIT_FWD_BF16 = ("_ZN51_GLOBAL__N__aa792df0_18_flash_fwd_split_cu_c33b2bdc22"
+                  "flash_fwd_split_kernelILi192E13__nv_bfloat16Lb1EEEvNS_"
+                  "6ParamsE")
 
 
 @pytest.mark.parametrize("symbol,instance", [
     (SPLIT_DKV, ("flash_bwd_dkv_split", 256, "f32", "f32")),
     (SPLIT_DQ, ("flash_bwd_dq_split", 192, "bf16", "bf16")),
+    (SPLIT_FWD, ("flash_fwd_split", 256, "f32", "f32")),
+    (SPLIT_FWD_BF16, ("flash_fwd_split", 192, "bf16", "bf16")),
     (DKV, None),
+    (FWD, None),
 ])
 def test_split_instance_reads_mangled_symbols(symbol, instance):
     assert chip_smoke.split_instance(symbol) == instance
@@ -340,6 +349,33 @@ ptxas info    : Used 178 registers, used 1 barriers, 528 bytes cmem[0]
         inst: (178, 0, 0, 0)}
     assert chip_smoke.count_hmma(sass + SASS, chip_smoke.split_instance) == {
         inst: 1}
+
+
+def test_forward_split_instances_in_ptxas_and_sass():
+    """K1's split instances are read from ptxas and SASS beside K2's, and
+    not as the tensor-core K1 up to 128."""
+    text = f"""ptxas info    : Compiling entry function '{SPLIT_FWD}' for 'sm_90a'
+ptxas info    : Function properties for {SPLIT_FWD}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 228 registers, used 1 barriers, 528 bytes cmem[0]
+ptxas info    : Compiling entry function '{SPLIT_DKV}' for 'sm_90a'
+ptxas info    : Function properties for {SPLIT_DKV}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 178 registers, used 1 barriers, 528 bytes cmem[0]
+"""
+    sass = f"""\t\tFunction : {SPLIT_FWD}
+        /*1230*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*1240*/                   HMMA.1688.F32.TF32 R4, R8, R14, R4 ;
+\t\tFunction : {SPLIT_DKV}
+        /*1230*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+"""
+    fwd = ("flash_fwd_split", 256, "f32", "f32")
+    dkv = ("flash_bwd_dkv_split", 256, "f32", "f32")
+    assert chip_smoke.parse_ptxas(text, chip_smoke.split_instance) == {
+        fwd: (228, 0, 0, 0), dkv: (178, 0, 0, 0)}
+    assert chip_smoke.count_hmma(sass, chip_smoke.split_instance) == {
+        fwd: 2, dkv: 1}
+    assert chip_smoke.parse_ptxas(text) == {}
 
 
 def _split_build():
@@ -370,12 +406,41 @@ def test_split_gate_names_the_faulty_instance(fault):
     assert len(faults) == 1 and str(inst) in faults[0]
 
 
-@pytest.mark.parametrize("d,bwd", [(160, "_split D=192"),
-                                   (192, "_split D=192"),
-                                   (256, "_split D=256"),
-                                   (320, "_wide D=320")])
-def test_wide_instances_name_the_route_of_each_head_dim(d, bwd):
+@pytest.mark.parametrize("d,route", [(160, "_split D=192"),
+                                     (192, "_split D=192"),
+                                     (256, "_split D=256"),
+                                     (320, "_wide D=320")])
+def test_wide_instances_name_the_route_of_each_head_dim(d, route):
+    """K1, K2 and K3 take one route at each head dim past 128: the split
+    kernels at the padded instance up to 256, the CUDA-core ones at d past
+    it."""
     assert chip_smoke.wide_instances(d) == {
-        "flash_fwd": f"mmef_flash_fwd_wide D={d}",
-        "flash_bwd_dkv": f"mmef_flash_bwd_dkv{bwd}",
-        "flash_bwd_dq": f"mmef_flash_bwd_dq{bwd}"}
+        "flash_fwd": f"mmef_flash_fwd{route}",
+        "flash_bwd_dkv": f"mmef_flash_bwd_dkv{route}",
+        "flash_bwd_dq": f"mmef_flash_bwd_dq{route}"}
+
+
+def test_split_gate_wants_the_forward_instances():
+    """A build whose split K1 instances are missing fails, naming all
+    eight (D 192 and 256, f32 and bf16 storage, f32 and bf16 operands)."""
+    resources, hmma = _split_build()
+    forward = sorted(i for i in resources if i[0] == "flash_fwd_split")
+    assert len(forward) == 8
+    for inst in forward:
+        del resources[inst], hmma[inst]
+    (fault,) = chip_smoke.split_faults(resources, hmma)
+    assert all(str(inst) in fault for inst in forward)
+
+
+@pytest.mark.parametrize("fault", ["no HMMA", "spill", "stack"])
+def test_split_gate_names_a_faulty_forward_instance(fault):
+    """A split K1 instance with no HMMA, a spill or a stack frame fails."""
+    resources, hmma = _split_build()
+    inst = ("flash_fwd_split", 256, "f32", "bf16")
+    if fault == "no HMMA":
+        hmma[inst] = 0
+    else:
+        resources[inst] = ((255, 8, 8, 0) if fault == "spill"
+                           else (200, 0, 0, 16))
+    faults = chip_smoke.split_faults(resources, hmma)
+    assert len(faults) == 1 and str(inst) in faults[0]
