@@ -183,24 +183,27 @@ finishing and K1's launches by head dim held to the derived count. A
 ``pipelines`` JSON line holds the timings.
 Past head dim 128, K1, K2 and K3 run on the split tensor-core kernels
 (``csrc/flash_fwd_split.cu``, ``csrc/flash_bwd_split.cu``, the head dim
-padded to the instance 192 or 256) up to 256 and on the CUDA cores
-(``csrc/flash_wide.cu``) past it. The build prints every instance's
-registers, spills, stack frame and HMMA count (a split instance that is
-missing, spills, keeps a stack frame or has no HMMA fails). The wide phase,
-after the bf16-storage checks, holds them against their plain versions at
-(8, 4, 512, d), d in (160, 192, 256, 320), in f32 and bf16 storage and the
-bf16-operand mode, each launch counted at its C entry point and launch head
-dim, each kernel bit for bit on a second call; it times them at d = 160,
-256 and 320 beside the plain versions, the bound, SDPA and, at 160 and 256,
-the CUDA-core K1, K2 and K3 launched by hand. lc-d256-T2048 takes one train
-step of ``LongContextClassifier(hidden_dim=512, num_heads=2)`` (head dim
-256) on raw EEG (8, 2048, 18): 2 launches each of the split K1, K2 and K3,
-the step gated against the einsum route and the CPU per tensor
-(``lc_step_gate``), both routes timed, and K1-K3 timed per call at
-(8, 2, 2048, 256), K1 beside the CUDA-core K1. The split K1 must beat the
-CUDA-core K1 by events at each shape where both are timed. The kernels
-line lists the split K1, K2 and K3 as kernels of their own, and the
-CUDA-core kernels past 256 under K1, K2 and K3.
+padded to the instance 192 or 256) up to 256; past it K1 runs on the CUDA
+cores (``csrc/flash_wide.cu``) and K2 and K3 on the deep tensor-core
+kernels (``csrc/flash_bwd_deep.cu``, the head dim padded to a multiple of
+64). The build prints every instance's registers, spills, stack frame and
+HMMA count (a split or deep instance that is missing, spills, keeps a
+stack frame or has no HMMA fails). The wide phase, after the bf16-storage
+checks, holds them against their plain versions at (8, 4, 512, d), d in
+(160, 192, 256, 257, 320, 384, 512), in f32 and bf16 storage and the
+bf16-operand mode, each launch counted at its C entry point and launch
+head dim, each kernel bit for bit on a second call; it times them at d =
+160, 256, 320 and 512 in the three modes, beside the plain versions, the
+bound and SDPA, and the deep K2 and K3 at 320 beside the CUDA-core
+kernels' last times. lc-d256-T2048 and lc-d512-T2048 each take one train
+step of ``LongContextClassifier(hidden_dim=512)`` with 2 heads (head dim
+256) or 1 (head dim 512) on raw EEG (8, 2048, 18): 2 launches each of K1,
+K2 and K3 (the split kernels at 256; the CUDA-core K1 and the deep K2 and
+K3 at 512), the step gated against the einsum route and the CPU per
+tensor (``lc_step_gate``), both routes timed, and K1-K3 timed per call at
+the step's (8, 2, 2048, 256) or (8, 1, 2048, 512). The kernels line lists
+the split K1, K2 and K3, and the CUDA-core K1 and the deep K2 and K3, as
+kernels of their own.
 Last, sequence parallelism (the ring phase, after the pipelines phase:
 ``parallel/``, ``ops/ring_attention.py``): lc-ring-T8192 trains
 ``LongContextClassifier`` at its JAX defaults with ``attn_impl="ring"``,
@@ -406,6 +409,8 @@ def build_and_inspect(_kernels) -> None:
     """Build the library, with ``-Xptxas -v`` compiles of the same sources
     running beside the build; print every instance's registers, spills and
     HMMA count, and fail where ``tensor_core_faults`` finds a fault."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import DEEP_CHUNK
+
     nvcc = _kernels.find_nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -437,9 +442,19 @@ def build_and_inspect(_kernels) -> None:
         print(f"{inst[0]} (any D past 128) {inst[1]} storage, {inst[2]} "
               f"operands: {regs} registers, spill stores/loads {st}/{ld} "
               f"bytes, stack frame {frame} bytes")
-    if len(wide) != 12:
-        fail(f"expected 12 instances of the CUDA-core flash kernels, ptxas "
-             f"listed {sorted(wide)}")
+    if len(wide) != 4:
+        fail(f"expected the 4 instances of the CUDA-core K1, ptxas listed "
+             f"{sorted(wide)}")
+    deep = parse_ptxas("\n".join(outputs), deep_instance)
+    deep_hmma = count_hmma(sass, deep_instance)
+    for inst in sorted(deep):
+        regs, st, ld, frame = deep[inst]
+        print(f"{inst[0]} (any D past 256, padded to {DEEP_CHUNK}) {inst[1]} "
+              f"storage, {inst[2]} operands: {regs} registers, spill "
+              f"stores/loads {st}/{ld} bytes, stack frame {frame} bytes, "
+              f"{deep_hmma.get(inst, 0)} HMMA")
+    if faults := instance_faults(DEEP_INSTANCES, deep, deep_hmma, "deep"):
+        fail("; ".join(faults))
     split = parse_ptxas("\n".join(outputs), split_instance)
     split_hmma = count_hmma(sass, split_instance)
     for inst in sorted(split):
@@ -447,7 +462,8 @@ def build_and_inspect(_kernels) -> None:
         print(f"{inst[0]} D={inst[1]} {inst[2]} storage, {inst[3]} operands: "
               f"{regs} registers, spill stores/loads {st}/{ld} bytes, stack "
               f"frame {frame} bytes, {split_hmma.get(inst, 0)} HMMA")
-    if faults := split_faults(split, split_hmma):
+    if faults := instance_faults(SPLIT_INSTANCES, split, split_hmma,
+                                 "split"):
         fail("; ".join(faults))
     s1 = parse_ptxas("\n".join(outputs), s1_instance)
     for inst in sorted(s1):
@@ -514,22 +530,22 @@ def tensor_core_faults(resources: dict, hmma: dict) -> list:
     return faults
 
 
-def split_faults(resources: dict, hmma: dict) -> list:
-    """What is wrong with the build of K1, K2 and K3 past head dim 128
-    (``csrc/flash_fwd_split.cu``, ``csrc/flash_bwd_split.cu``), from
-    ``parse_ptxas`` and ``count_hmma`` with ``split_instance``: an instance
-    at D = 192 or 256 missing from either, one with no HMMA instruction, or
-    one that spills or keeps a stack frame (the design splits the D-wide
-    sums over the warps so that no lane holds more than 64 of them)."""
-    wanted = {(k, d, s, o) for k in SPLIT_KERNELS for d in SPLIT_DIMS
-              for s in ("f32", "bf16") for o in ("f32", "bf16")}
+def instance_faults(wanted: set, resources: dict, hmma: dict,
+                    label: str) -> list:
+    """What is wrong with the build of the ``label`` instances ``wanted``
+    (``SPLIT_INSTANCES``: K1-K3 in (128, 256]; ``DEEP_INSTANCES``: K2 and
+    K3 past 256), from ``parse_ptxas`` and ``count_hmma`` with their
+    symbol reader: an instance missing from either, one with no HMMA
+    instruction, or one that spills or keeps a stack frame (both designs
+    bound each lane's D-wide sums whatever the head dim: at most 64 in the
+    split kernels, 128 in the deep K2 and 64 in the deep K3)."""
     if missing := sorted(wanted - (set(resources) & set(hmma))):
-        return [f"split instances missing from ptxas or SASS: {missing}"]
+        return [f"{label} instances missing from ptxas or SASS: {missing}"]
     faults = []
     if no_mma := sorted(i for i in wanted if hmma[i] == 0):
         faults.append(f"no HMMA instruction in {no_mma}")
     if local := sorted(i for i in wanted if any(resources[i][1:4])):
-        faults.append(f"split instances with spills or a stack frame: "
+        faults.append(f"{label} instances with spills or a stack frame: "
                       f"{local}")
     return faults
 
@@ -592,7 +608,10 @@ def device_profile(fn, n: int = 50, attempts: int = 3) -> tuple:
     trace of a short window can lose a launch or two at its start (48 of 50
     recorded, on the H100), which a plain sum over ``n`` would count as a
     shorter call, and now and then comes back with no device event at all:
-    it is then taken again, up to ``attempts`` times."""
+    it is then taken again, up to ``attempts`` times. Where every trace
+    comes back empty (seen on the H100 late in a run: the CPU ops recorded
+    and no kernel, the ops' names printed), the device time is not
+    measured: (None, None), which the callers print as "not measured"."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -609,14 +628,17 @@ def device_profile(fn, n: int = 50, attempts: int = 3) -> tuple:
         if ms > 0:
             return ms, kernels
         free, total = torch.cuda.mem_get_info()
+        ops = sorted(e.key for e in prof.key_averages())
         print(f"profile: no device time in a trace of {n} calls "
-              f"({len(prof.key_averages())} ops; device memory free "
+              f"({len(ops)} ops: {', '.join(ops[:8])}; device memory free "
               f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB, reserved "
               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB); taken "
               "again after emptying the allocator's cache")
         torch.cuda.empty_cache()
         time.sleep(1.0)
-    fail("the profiler recorded no device time")
+    print(f"profile: no device time in {attempts} traces; the device time "
+          "is not measured here")
+    return None, None
 
 
 def per_call_device_ms(kernels: list, n: int) -> tuple:
@@ -628,9 +650,17 @@ def per_call_device_ms(kernels: list, n: int) -> tuple:
             sum(k for k, _ in per_call))
 
 
-def device_ms(fn, n: int = 50) -> float:
-    """Mean device time of one call (``device_profile``)."""
+def device_ms(fn, n: int = 50):
+    """Mean device time of one call (``device_profile``), or None where
+    the profiler recorded no kernel."""
     return device_profile(fn, n)[0]
+
+
+def share(num, den, spec: str = ".1%") -> str:
+    """num / den formatted by ``spec``, or "not measured" where either is
+    None (a device time the profiler did not record)."""
+    return ("not measured" if num is None or den is None
+            else format(num / den, spec))
 
 
 def profile_calls(fn, label: str, card: str, n: int = 5,
@@ -992,10 +1022,11 @@ def s1_phase(dev, card: str) -> dict:
         seq_dev, seq_kernels = device_profile(kern(T))
         rule_dev, rule_kernels = device_profile(kern(None))
         b_ms, by = s1_bound_ms(T, M, n_sections, True, zf)
-        print(f"S1 {name}: sequential {seq_ms:.4f} ms (device {seq_dev:.4f} "
-              f"ms, {seq_kernels:g} kernels), rule's L={L} {rule_ms:.4f} ms "
-              f"(device {rule_dev:.4f} ms, {rule_kernels:g} kernels): "
-              f"{seq_dev / rule_dev:.2f}x by device time; bound "
+        print(f"S1 {name}: sequential {seq_ms:.4f} ms (device "
+              f"{_ms(seq_dev)}, {seq_kernels} kernels), rule's L={L} "
+              f"{rule_ms:.4f} ms (device {_ms(rule_dev)}, {rule_kernels} "
+              f"kernels): {share(seq_dev, rule_dev, '.2f')}x by device time; "
+              f"bound "
               f"{b_ms:.5f} ms ({by}); chain floor sequential "
               f"{s1_chain_ms(T, T, n_sections, clock):.4f} ms, rule's "
               f"{s1_chain_ms(T, L, n_sections, clock):.4f} ms ({OP_CYCLES} "
@@ -1012,8 +1043,8 @@ def s1_phase(dev, card: str) -> dict:
         if L < T or name == "raw-in-step pass":   # where the rule chose
             sweep = {c: (device_ms(kern(c), n=20), cuda_ms(kern(c), iters=50))
                      for c in S1_SWEEP if c < T}
-            print(f"S1 {name}: by chunk length, device ms / events ms "
-                  + ", ".join(f"{c}: {d:.4f} / {e:.4f}"
+            print(f"S1 {name}: by chunk length, device / events "
+                  + ", ".join(f"{c}: {_ms(d)} / {e:.4f} ms"
                               for c, (d, e) in sweep.items())
                   + f" (rule's {L}) {card}")
         if plain_timed:
@@ -3267,9 +3298,9 @@ def serve_gate_folded_k1(dev, card: str) -> dict:
     dev_ms = device_ms(lambda: flash_forward_cuda(*folded))
     lib_ms = cuda_ms(lambda: sdpa(*folded))
     b_ms, by = bound_ms("flash_fwd", K * BATCH, H, T_SERVE, T_SERVE, d)
-    print(f"flash_fwd {shape} f32: kernel {ms:.4f} ms (device {dev_ms:.4f} "
-          f"ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
-          f"library (SDPA forward) {lib_ms:.4f} ms per call {card}")
+    print(f"flash_fwd {shape} f32: kernel {ms:.4f} ms (device "
+          f"{_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({by}), library (SDPA forward) {lib_ms:.4f} ms per call {card}")
     return {"shape": list(shape), "max_abs_err": err, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": by, "library_ms": lib_ms}
@@ -4003,16 +4034,31 @@ RING_CHUNK_ROWS = 2               # the einsum-chunk ring's rows: (T/4)² f32 ti
 RING_TIMED_STEPS = 5
 # past head dim 128: K1, K2 and K3 on the split tensor-core kernels
 # (csrc/flash_fwd_split.cu, csrc/flash_bwd_split.cu) up to 256, the head dim
-# padded to an instance in SPLIT_DIMS, and on the CUDA cores
-# (csrc/flash_wide.cu) past it
-WIDE_DIMS = (160, 256)            # timed, beside the CUDA-core K1, K2 and K3
-WIDE_CHECK_DIMS = (160, 192, 256, 320)   # checked against the plain versions
+# padded to an instance in SPLIT_DIMS; past it K1 on the CUDA cores
+# (csrc/flash_wide.cu) and K2, K3 on the deep tensor-core kernels
+# (csrc/flash_bwd_deep.cu), the head dim padded to a multiple of 64; the
+# port's ops/attention.py:_launch decides which
+WIDE_DIMS = (160, 256)            # timed on the split kernels
+DEEP_DIMS = (320, 512)            # timed past 256
+# checked against the plain versions
+WIDE_CHECK_DIMS = (160, 192, 256, 257, 320, 384, 512)
 WIDE_SHAPE = (8, 4, 512)          # (B, H, T) of their checks and times
-WIDE_SYMBOL = re.compile(
-    r"flash_wide_(fwd|bwd_dkv|bwd_dq)_kernelI(f|13__nv_bfloat16)Lb([01])E")
+WIDE_SYMBOL = re.compile(r"flash_wide_fwd_kernelI(f|13__nv_bfloat16)Lb([01])E")
+DEEP_KERNELS = ("flash_bwd_dkv_deep", "flash_bwd_dq_deep")
+DEEP_INSTANCES = {(k, s, o) for k in DEEP_KERNELS for s in ("f32", "bf16")
+                  for o in ("f32", "bf16")}
+DEEP_SYMBOL = re.compile(r"flash_(bwd_dkv|bwd_dq)_deep_kernel"
+                         r"I(f|13__nv_bfloat16)Lb([01])E")
+DEEP_SOURCE = "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_deep.cu"
+# the CUDA-core K2 and K3 that the deep kernels replaced, their last times
+# per call at (8, 4, 512, 320) in f32 storage (PERF.md §6): printed beside
+# the deep kernels' at that shape
+CUDA_CORE_BWD_MS = {"flash_bwd_dkv": 6.4599, "flash_bwd_dq": 5.3623}
 SPLIT_DIMS = (192, 256)
 SPLIT_KERNELS = ("flash_fwd_split", "flash_bwd_dkv_split",
                  "flash_bwd_dq_split")
+SPLIT_INSTANCES = {(k, d, s, o) for k in SPLIT_KERNELS for d in SPLIT_DIMS
+                   for s in ("f32", "bf16") for o in ("f32", "bf16")}
 SPLIT_SYMBOL = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_split_kernel"
                           r"ILi(\d+)E(f|13__nv_bfloat16)Lb([01])E")
 SPLIT_SOURCES = {
@@ -4020,9 +4066,12 @@ SPLIT_SOURCES = {
     "flash_bwd_dkv": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_split.cu",
     "flash_bwd_dq": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_split.cu"}
 WIDE_SOURCE = "multimodal_eeg_fmri_tpu_torch/csrc/flash_wide.cu"
-# lc-d256-T2048: LongContextClassifier at head dim 256 (2 layers, no MoE)
+# lc-d256-T2048 and lc-d512-T2048: LongContextClassifier at head dims 256
+# and 512 (2 layers, no MoE), and the (B, H, T, D) of their K1-K3 calls
 LC_WIDE = dict(hidden_dim=512, num_heads=2)
-LC_WIDE_SHAPE = (BATCH, 2, LC_T, 256)   # (B, H, T, D) of its K1-K3 calls
+LC_WIDE_SHAPE = (BATCH, 2, LC_T, 256)
+LC_DEEP = dict(hidden_dim=512, num_heads=1)
+LC_DEEP_SHAPE = (BATCH, 1, LC_T, 512)
 
 
 def split_instance(symbol: str):
@@ -4037,65 +4086,41 @@ def split_instance(symbol: str):
 
 def wide_instances(d: int) -> dict:
     """The C entry point and launch head dim ("<entry> D=<kd>") each of
-    K1, K2 and K3 takes at true head dim d past 128."""
-    route = (f"_split D={next(n for n in SPLIT_DIMS if d <= n)}"
-             if d <= SPLIT_DIMS[-1] else f"_wide D={d}")
-    return {"flash_fwd": f"mmef_flash_fwd{route}",
-            "flash_bwd_dkv": f"mmef_flash_bwd_dkv{route}",
-            "flash_bwd_dq": f"mmef_flash_bwd_dq{route}"}
+    K1, K2 and K3 takes at true head dim d, as the port's wrappers choose
+    them (``ops/attention.py:_launch``) and count them
+    (``kernel_launches_by_instance``)."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import _launch
+
+    return {n: "{} D={}".format(*_launch(f"mmef_{n}", d))
+            for n in MMA_KERNELS}
 
 
-def cuda_core_calls(q, k, v, g, lse, delta) -> dict:
-    """{kernel: call} of the CUDA-core K1, K2 and K3 (``flash_wide.cu``) on
-    f32 (q, k, v, dO), launched by hand at the true head dim: the kernels
-    that the wrappers took past 128 before the split ones, timed beside
-    them."""
-    from multimodal_eeg_fmri_tpu_torch.ops import _kernels
-    from multimodal_eeg_fmri_tpu_torch.ops.attention import _stream, _strides
-
-    lib = _kernels.library()
-    B, H, tq, d = q.shape
-    tk = k.shape[2]
-    o, dk, dv, dq = (torch.empty_like(t) for t in (q, k, v, q))
-    o_lse = torch.empty_like(lse)
-    args = (B, H, tq, tk, d, 0, 0, 1.0 / math.sqrt(d))
-    ptrs = [t.data_ptr() for t in (q, k, v, g, lse, delta)]
-    fwd_strides, bwd_strides = _strides(q, k, v), _strides(q, k, v, g)
-
-    def launched(err):
-        if err != 0:
-            fail(f"a CUDA-core flash kernel refused its launch: {err}")
-
-    return {"flash_fwd": lambda: launched(lib.mmef_flash_fwd_wide(
-                *ptrs[:3], o.data_ptr(), o_lse.data_ptr(), *args,
-                fwd_strides, _stream(q))),
-            "flash_bwd_dkv": lambda: launched(lib.mmef_flash_bwd_dkv_wide(
-                *ptrs, dk.data_ptr(), dv.data_ptr(), *args, bwd_strides,
-                _stream(q))),
-            "flash_bwd_dq": lambda: launched(lib.mmef_flash_bwd_dq_wide(
-                *ptrs, dq.data_ptr(), *args, bwd_strides, _stream(q)))}
-
-
-def cuda_core_gate(name: str, shape, split_ms: float, core_ms: float,
-                   card: str) -> None:
-    """Print the split kernel's time beside the CUDA-core kernel's, timed
-    in the same run, and fail where the split one is not the faster."""
-    print(f"{name} at (B,H,T,D)={tuple(shape)}: on the CUDA cores "
-          f"(flash_wide.cu) {core_ms:.4f} ms per call, "
-          f"{core_ms / split_ms:.2f}x the split kernel's {split_ms:.4f} ms "
-          f"{card}")
-    if not split_ms < core_ms:
-        fail(f"the split {name} is not faster than the CUDA-core one at "
-             f"{tuple(shape)}")
+def wide_route(name: str, d: int) -> str:
+    """The name of the kernel that runs K1, K2 or K3 (``name``) at head
+    dim d: its C entry point's, without the ``mmef_`` prefix (past 128
+    ``<name>_split`` up to 256, then ``flash_fwd_wide`` and
+    ``<name>_deep``)."""
+    return wide_instances(d)[name].split(" ")[0].removeprefix("mmef_")
 
 
 def wide_instance(symbol: str):
-    """(kernel, storage, operands) of a CUDA-core flash kernel's mangled
-    symbol, or None."""
+    """(kernel, storage, operands) of the CUDA-core K1's mangled symbol,
+    or None."""
     m = WIDE_SYMBOL.search(symbol)
     if m is None:
         return None
-    return (f"flash_wide_{m[1]}", "f32" if m[2] == "f" else "bf16",
+    return ("flash_fwd_wide", "f32" if m[1] == "f" else "bf16",
+            "bf16" if m[2] == "1" else "f32")
+
+
+def deep_instance(symbol: str):
+    """(kernel, storage, operands) of a deep K2 or K3 kernel's mangled
+    symbol (``csrc/flash_bwd_deep.cu``: one instance a mode serves every
+    head dim), or None."""
+    m = DEEP_SYMBOL.search(symbol)
+    if m is None:
+        return None
+    return (f"flash_{m[1]}_deep", "f32" if m[2] == "f" else "bf16",
             "bf16" if m[3] == "1" else "f32")
 
 
@@ -4104,10 +4129,12 @@ def wide_phase(dev, card: str) -> dict:
     (8, 4, 512, d), d in WIDE_CHECK_DIMS: f32 storage at the f32 gates, bf16
     storage and the bf16-operand mode at theirs, one launch of each counted
     at d and at the instance ``wide_instances`` names, and each kernel equal
-    bit for bit on a second call; then their times at WIDE_DIMS (device time
-    too) and at 320, beside the plain versions', the bound, SDPA's and, at
-    WIDE_DIMS, the CUDA-core K1, K2 and K3's (``cuda_core_gate``). Returns
-    the worst f32 errors by kernel and route and the times by d."""
+    bit for bit on a second call; then their times at WIDE_DIMS (the split
+    kernels) and DEEP_DIMS (the CUDA-core K1, the deep K2 and K3), events
+    and device time, beside the plain versions', the bound and SDPA's, and
+    in the other two modes; at 320 the deep K2 and K3 beside the CUDA-core
+    kernels' last times (CUDA_CORE_BWD_MS). Returns the worst f32 errors by
+    kernel and route and the times by d."""
     from multimodal_eeg_fmri_tpu_torch.ops.attention import (
         flash_bwd_dkv_cuda,
         flash_bwd_dkv_plain,
@@ -4121,10 +4148,10 @@ def wide_phase(dev, card: str) -> dict:
     )
 
     gen = torch.Generator(device=dev).manual_seed(160)
-    worst = dict.fromkeys((*MMA_KERNELS, *SPLIT_KERNELS), 0.0)
+    worst = {wide_route(n, d): 0.0 for n in MMA_KERNELS
+             for d in (SPLIT_DIMS[-1], WIDE_CHECK_DIMS[-1])}
     out = {}
     for d in WIDE_CHECK_DIMS:
-        split = "_split" if d <= SPLIT_DIMS[-1] else ""
         for storage, cdt in (("f32", torch.float32), ("bf16", torch.float32),
                              ("f32", torch.bfloat16)):
             dtype = torch.float32 if storage == "f32" else torch.bfloat16
@@ -4187,59 +4214,66 @@ def wide_phase(dev, card: str) -> dict:
                 for name, e in (("flash_fwd", max(e_fwd, e_lse)),
                                 ("flash_bwd_dkv", e_dkv),
                                 ("flash_bwd_dq", e_dq)):
-                    worst[name + split] = max(worst[name + split], e)
-    for d in (*WIDE_DIMS, WIDE_CHECK_DIMS[-1]):
+                    route = wide_route(name, d)
+                    worst[route] = max(worst[route], e)
+    for d in (*WIDE_DIMS, *DEEP_DIMS):
         q, k, v, g = (torch.randn(*WIDE_SHAPE, d, device=dev, generator=gen)
                       for _ in range(4))
-        timed_device = d in WIDE_DIMS
-        out[d] = kernel_call_times(q, k, v, g, "f32", card, iters=20,
-                                   n=20 if timed_device else 0)
-        if timed_device:
-            o, lse = flash_forward_cuda(q, k, v)
-            delta = flash_delta(o, g)
-            qb, kb, vb, gb = (x.bfloat16() for x in (q, k, v, g))
-            # the split kernels' other two modes, for their speed
-            modes = {
-                "flash_fwd": (
-                    lambda: flash_forward_cuda(q, k, v, torch.bfloat16),
-                    lambda: flash_forward_cuda(qb, kb, vb)),
-                "flash_bwd_dkv": (
-                    lambda: flash_bwd_dkv_cuda(q, k, v, g, lse, delta,
-                                               torch.bfloat16),
-                    lambda: flash_bwd_dkv_cuda(qb, kb, vb, gb, lse, delta)),
-                "flash_bwd_dq": (
-                    lambda: flash_bwd_dq_cuda(q, k, v, g, lse, delta,
-                                              torch.bfloat16),
-                    lambda: flash_bwd_dq_cuda(qb, kb, vb, gb, lse, delta))}
-            calls = cuda_core_calls(q, k, v, g, lse, delta)
-            for name, call in calls.items():
-                ms = cuda_ms(call, iters=5, warmup=1)
-                ops_ms, st_ms = (cuda_ms(f, iters=20) for f in modes[name])
-                out[d][name].update(cuda_core_ms=ms, bf16_operands_ms=ops_ms,
-                                    bf16_storage_ms=st_ms)
-                print(f"{name} at (B,H,T,D)={(*WIDE_SHAPE, d)}, split: bf16 "
-                      f"operands {ops_ms:.4f} ms, bf16 storage {st_ms:.4f} "
-                      f"ms {card}")
-                cuda_core_gate(name, (*WIDE_SHAPE, d), out[d][name]["ms"],
-                               ms, card)
+        out[d] = kernel_call_times(q, k, v, g, "f32", card, iters=20, n=20)
+        o, lse = flash_forward_cuda(q, k, v)
+        delta = flash_delta(o, g)
+        qb, kb, vb, gb = (x.bfloat16() for x in (q, k, v, g))
+        # the other two modes, for their speed
+        modes = {
+            "flash_fwd": (
+                lambda: flash_forward_cuda(q, k, v, torch.bfloat16),
+                lambda: flash_forward_cuda(qb, kb, vb)),
+            "flash_bwd_dkv": (
+                lambda: flash_bwd_dkv_cuda(q, k, v, g, lse, delta,
+                                           torch.bfloat16),
+                lambda: flash_bwd_dkv_cuda(qb, kb, vb, gb, lse, delta)),
+            "flash_bwd_dq": (
+                lambda: flash_bwd_dq_cuda(q, k, v, g, lse, delta,
+                                          torch.bfloat16),
+                lambda: flash_bwd_dq_cuda(qb, kb, vb, gb, lse, delta))}
+        for name, (ops_fn, st_fn) in modes.items():
+            ops_ms, st_ms = (cuda_ms(f, iters=20) for f in (ops_fn, st_fn))
+            t = out[d][name]
+            t.update(bf16_operands_ms=ops_ms, bf16_storage_ms=st_ms)
+            print(f"{wide_route(name, d)} at (B,H,T,D)={(*WIDE_SHAPE, d)}: "
+                  f"{share(t['bound_ms'], t['device_ms'])} of its bound by "
+                  f"device time; bf16 operands {ops_ms:.4f} ms, bf16 storage "
+                  f"{st_ms:.4f} ms {card}")
+            if d == DEEP_DIMS[0] and name in CUDA_CORE_BWD_MS:
+                core = CUDA_CORE_BWD_MS[name]
+                print(f"{wide_route(name, d)} at (B,H,T,D)="
+                      f"{(*WIDE_SHAPE, d)}: {t['ms']:.4f} ms per call, "
+                      f"{t['ms'] / core:.3f}x the CUDA-core kernel's "
+                      f"{core} ms (PERF.md) {card}")
     return {"max_abs_err": worst, "times": out}
 
 
-def lc_wide_phase(dev, card: str) -> dict:
-    """lc-d256-T2048: one train step of ``LongContextClassifier(
-    hidden_dim=512, num_heads=2)`` (head dim 256, 2 layers, no MoE, flax's
-    initial weights from a seed) on raw EEG (8, 2048, 18) through
-    ``TrainStep``, its launches counted from 0 just before the step and read
-    just after: K1, K2 and K3 on the split kernels at D=256, once a layer
-    each. Then the step against the einsum route and the CPU through
+def lc_wide_phase(dev, card: str, kw: dict = LC_WIDE,
+                  shape: tuple = LC_WIDE_SHAPE) -> dict:
+    """lc-d<D>-T2048: one train step of ``LongContextClassifier(**kw)``
+    (head dim D = ``shape[3]``, 2 layers, no MoE, flax's initial weights
+    from a seed) on raw EEG (8, 2048, 18) through ``TrainStep``, its
+    launches counted from 0 just before the step and read just after: K1,
+    K2 and K3 once a layer each at the instances ``wide_instances`` names
+    (the split kernels at D=256; the CUDA-core K1 and the deep K2 and K3 at
+    D=512). Then the step against the einsum route and the CPU through
     ``lc_step_gate`` (each gradient within STEP_GRAD_RTOL plus
     ZOO_FLOOR_FACTOR times its tensor's card-vs-CPU gap on the einsum route:
     ROADMAP C8), both routes' step times, and K1-K3 per call at the step's
-    shape LC_WIDE_SHAPE, K1 held there to its plain version at
-    KERNEL_ATOL and timed beside the CUDA-core K1 (``cuda_core_gate``)."""
+    shape, each held there to its plain version on the same inputs: K1 at
+    KERNEL_ATOL, K2 (dK, dV) and K3 (dQ) at GRAD_ATOL."""
     from multimodal_eeg_fmri_tpu_torch import TrainConfig, init_weights
     from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
     from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dkv_plain,
+        flash_bwd_dq_cuda,
+        flash_bwd_dq_plain,
         flash_delta,
         flash_forward_cuda,
         flash_forward_plain,
@@ -4247,7 +4281,9 @@ def lc_wide_phase(dev, card: str) -> dict:
     )
     from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
 
-    base = init_weights(LongContextClassifier(**LC_WIDE, device=dev),
+    d = shape[3]
+    label = f"lc-d{d}-T{LC_T}"
+    base = init_weights(LongContextClassifier(**kw, device=dev),
                         torch.Generator().manual_seed(6))
     layers = base.num_layers
     batch = lc_cohort(BATCH, LC_T, 53, dev)
@@ -4259,44 +4295,53 @@ def lc_wide_phase(dev, card: str) -> dict:
     step(batch, cw)
     torch.cuda.synchronize()
     by_instance = kernel_launches_by_instance()
-    want = {n: {e: layers} for n, e in wide_instances(256).items()}
-    print(f"lc-d256-T{LC_T}: one train step of LongContextClassifier("
-          f"{', '.join(f'{k}={v}' for k, v in LC_WIDE.items())}), B={BATCH}: "
+    want = {n: {e: layers} for n, e in wide_instances(d).items()}
+    print(f"{label}: one train step of LongContextClassifier("
+          f"{', '.join(f'{k}={v}' for k, v in kw.items())}), B={BATCH}: "
           f"launches by instance {by_instance} (expected {want})")
     if by_instance != want:
-        fail(f"lc-d256-T{LC_T} launched {by_instance}, expected {want}")
-    gate = lc_step_gate(base, batch, cfg, cw, dev, f"lc-d256-T{LC_T}: ",
-                        None)
+        fail(f"{label} launched {by_instance}, expected {want}")
+    gate = lc_step_gate(base, batch, cfg, cw, dev, f"{label}: ", None)
     if (gate["kernel"], gate["einsum"]) != (lc_expected(layers, 1, 0, 0),
                                             lc_expected(0, 0, 0, 0)):
-        fail(f"lc-d256-T{LC_T}: the gated step launched {gate}")
+        fail(f"{label}: the gated step launched {gate}")
     einsum_step = TrainStep(einsum_route(copy.deepcopy(base)), cfg)
     kernel_ms, einsum_ms = in_turns(
         lambda: step_ms(step, batch, cw, iters=5),
         lambda: step_ms(einsum_step, batch, cw, iters=5))
-    print(f"lc-d256-T{LC_T} train step: kernel route {kernel_ms:.3f} ms, "
-          f"einsum route {einsum_ms:.3f} ms {card}")
+    print(f"{label} train step: kernel route {kernel_ms:.3f} ms, einsum "
+          f"route {einsum_ms:.3f} ms {card}")
     del step, einsum_step
     torch.cuda.empty_cache()
-    gen = torch.Generator(device=dev).manual_seed(256)
-    q, k, v, g = (torch.randn(*LC_WIDE_SHAPE, device=dev, generator=gen)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v, g = (torch.randn(*shape, device=dev, generator=gen)
                   for _ in range(4))
     kernels = kernel_call_times(q, k, v, g, "f32", card, iters=10, n=10)
     o, lse = flash_forward_cuda(q, k, v)
     o_p, lse_p = flash_forward_plain(q, k, v)
     err = max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item())
     kernels["flash_fwd"]["max_abs_err"] = err
-    print(f"flash_fwd at (B,H,T,D)={LC_WIDE_SHAPE}: max|dO|, max|dlse| "
-          f"against the plain version {err:.3e} (limit {KERNEL_ATOL:g})")
+    print(f"{wide_route('flash_fwd', d)} at (B,H,T,D)={shape}: max|dO|, "
+          f"max|dlse| against the plain version {err:.3e} (limit "
+          f"{KERNEL_ATOL:g})")
     if not err <= KERNEL_ATOL:
-        fail(f"K1 at {LC_WIDE_SHAPE} disagrees with its plain version")
-    del o_p, lse_p
-    core_ms = cuda_ms(cuda_core_calls(q, k, v, g, lse,
-                                      flash_delta(o, g))["flash_fwd"],
-                      iters=5, warmup=1)
-    kernels["flash_fwd"]["cuda_core_ms"] = core_ms
-    cuda_core_gate("flash_fwd", LC_WIDE_SHAPE, kernels["flash_fwd"]["ms"],
-                   core_ms, card)
+        fail(f"K1 at {shape} disagrees with its plain version")
+    delta = flash_delta(o, g)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta)
+    dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, g, lse, delta)
+    dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta)
+    dq_p = flash_bwd_dq_plain(q, k, v, g, lse, delta)
+    for name, what, pairs in (
+            ("flash_bwd_dkv", "max|d(dK)|, max|d(dV)|",
+             ((dk, dk_p), (dv, dv_p))),
+            ("flash_bwd_dq", "max|d(dQ)|", ((dq, dq_p),))):
+        err = max((a - b).abs().max().item() for a, b in pairs)
+        kernels[name]["max_abs_err"] = err
+        print(f"{wide_route(name, d)} at (B,H,T,D)={shape}: {what} against "
+              f"the plain version {err:.3e} (limit {GRAD_ATOL:g})")
+        if not err <= GRAD_ATOL:
+            fail(f"{wide_route(name, d)} at {shape} disagrees with its "
+                 "plain version")
     return {"launches": {n: sum(c.values()) for n, c in by_instance.items()},
             "by_instance": by_instance,
             "times": {"step_ms": kernel_ms, "einsum_step_ms": einsum_ms},
@@ -4875,15 +4920,22 @@ def main() -> None:
 
     phase(f"kernel vs plain version past head dim 128 at D="
           f"{WIDE_CHECK_DIMS}: K1, K2 and K3 on the split tensor-core kernels"
-          f" (csrc/flash_fwd_split.cu, csrc/flash_bwd_split.cu) up to 256 and"
-          f" on the CUDA cores (csrc/flash_wide.cu) past it; f32 and bf16 "
-          f"storage and bf16 operands {card}")
+          f" (csrc/flash_fwd_split.cu, csrc/flash_bwd_split.cu) up to 256; "
+          f"past it K1 on the CUDA cores (csrc/flash_wide.cu), K2 and K3 on "
+          f"the deep tensor-core kernels (csrc/flash_bwd_deep.cu); f32 and "
+          f"bf16 storage and bf16 operands {card}")
     wide = wide_phase(dev, card)
 
     phase(f"lc-d256-T{LC_T}: a train step of LongContextClassifier("
           f"hidden_dim=512, num_heads=2) on the split kernels {card}")
     lc_wide = lc_wide_phase(dev, card)
     print(json.dumps({"lc_d256": {**lc_wide["times"], "device": smi}}))
+
+    phase(f"lc-d512-T{LC_T}: a train step of LongContextClassifier("
+          f"hidden_dim=512, num_heads=1), K1 on the CUDA cores and K2, K3 on "
+          f"the deep kernels {card}")
+    lc_deep = lc_wide_phase(dev, card, LC_DEEP, LC_DEEP_SHAPE)
+    print(json.dumps({"lc_d512": {**lc_deep["times"], "device": smi}}))
 
     phase("kernel vs plain version: S1, the biquad cascade (sosfilt), at "
           "the shapes of raw-featurize, raw-in-step, raw-e2e and stream")
@@ -5318,7 +5370,9 @@ def main() -> None:
         for name, t in kernel_call_times(q, k, v, g, storage, card).items():
             for key in ("ms", "device_ms", "plain_ms", "bound_ms",
                         "library_ms", "library_device_ms"):
-                per_step[name, storage][key] += 2 * t[key]
+                was, now = per_step[name, storage][key], t[key]
+                per_step[name, storage][key] = (
+                    None if was is None or now is None else was + 2 * now)
             per_step[name, storage]["ops"] += 2 * (t["bound_by"]
                                                    == "operations")
 
@@ -5331,7 +5385,7 @@ def main() -> None:
     for storage in ("f32", "bf16"):
         print(f"per train step, {storage} storage (2 layers at T=256, 2 at "
               f"T=512): " + "; ".join(
-                  f"{k} {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms "
+                  f"{k} {v['ms']:.4f} ms, device {_ms(v['device_ms'])} "
                   f"(bound {v['bound_ms']:.4f})"
                   for (k, st), v in per_step.items() if st == storage))
 
@@ -5343,10 +5397,11 @@ def main() -> None:
                                   generator=gen) for _ in range(4))
         padded_times[d] = kernel_call_times(q, k, v, g, "f32", card)
     for name, t in padded_times[PAD_TIMING_SHAPE[3]].items():
+        d32 = padded_times[32][name]["device_ms"]
         print(f"{name}: D={PAD_TIMING_SHAPE[3]} padded to 32 takes "
-              f"{t['device_ms'] / padded_times[32][name]['device_ms']:.3f}x "
-              f"the device time of D=32; {t['bound_ms'] / t['device_ms']:.1%}"
-              f" of the bound of D={PAD_TIMING_SHAPE[3]}'s own work {card}")
+              f"{share(t['device_ms'], d32, '.3f')}x the device time of "
+              f"D=32; {share(t['bound_ms'], t['device_ms'])} of the bound of "
+              f"D={PAD_TIMING_SHAPE[3]}'s own work {card}")
 
     def timings(t: dict) -> dict:
         return {"ms": t["ms"], "device_ms": t["device_ms"],
@@ -5359,8 +5414,7 @@ def main() -> None:
         t = wide["times"][d][name]
         return {"shape": [*WIDE_SHAPE, d],
                 **timings({**t, "ops": t["bound_by"] == "operations"}),
-                **{k: t[k] for k in ("cuda_core_ms", "bf16_operands_ms",
-                                     "bf16_storage_ms") if k in t}}
+                **{k: t[k] for k in ("bf16_operands_ms", "bf16_storage_ms")}}
 
     phase(f"cv: train/cv.py on the card {card}")
     cv = cv_phase(dev, card)
@@ -5455,13 +5509,6 @@ def main() -> None:
            if name == "flash_fwd" else {}),
         # each call at lc-moe-T2048's (8, 4, 2048, 16)
         f"lc_moe_T{LC_T}": lc["kernels"][name],
-        # K1, K2 and K3 past head dim 256, on the CUDA cores
-        # (flash_wide.cu): the worst f32 error and each call at
-        # (8, 4, 512, 320)
-        "cuda_core_past_256": {
-            "source": WIDE_SOURCE,
-            "max_abs_err": wide["max_abs_err"][name],
-            "D320": wide_timings(WIDE_CHECK_DIMS[-1], name)},
         # the largest lse cotangent that reached K2/K3 in the ring's step
         **({"ring_g_lse_max": ring["times"]["g_lse_max"]}
            if name != "flash_fwd" else {}),
@@ -5484,14 +5531,30 @@ def main() -> None:
         "launches_by_path": {f"lc-d256-T{LC_T} step":
                              lc_wide["launches"][name]},
         "max_abs_err": max(wide["max_abs_err"][f"{name}_split"],
-                           lc_wide["kernels"][name].get("max_abs_err", 0.0)),
+                           lc_wide["kernels"][name]["max_abs_err"]),
         "shape": list(LC_WIDE_SHAPE),
         **timings({**lc_wide["kernels"][name], "ops": (
             lc_wide["kernels"][name]["bound_by"] == "operations")}),
-        **({"cuda_core_ms": lc_wide["kernels"][name]["cuda_core_ms"]}
-           if name == "flash_fwd" else {}),
-        # each call at (8, 4, 512, d), the CUDA-core kernel beside
+        # each call at (8, 4, 512, d)
         **{f"D{d}": wide_timings(d, name) for d in WIDE_DIMS},
+    } for name in names] + [{
+        # past head dim 256: K1 on the CUDA cores, K2 and K3 on the deep
+        # tensor-core kernels; lc-d512-T2048's step is their main path, its
+        # per-call times at the step's (8, 1, 2048, 512)
+        "name": wide_route(name, LC_DEEP_SHAPE[3]),
+        "route": "cuda",
+        "source": WIDE_SOURCE if name == "flash_fwd" else DEEP_SOURCE,
+        "replaces": replaces[name],
+        "launches": lc_deep["launches"][name],
+        "launches_by_path": {f"lc-d512-T{LC_T} step":
+                             lc_deep["launches"][name]},
+        "max_abs_err": max(wide["max_abs_err"][wide_route(name, 512)],
+                           lc_deep["kernels"][name]["max_abs_err"]),
+        "shape": list(LC_DEEP_SHAPE),
+        **timings({**lc_deep["kernels"][name], "ops": (
+            lc_deep["kernels"][name]["bound_by"] == "operations")}),
+        # each call at (8, 4, 512, d)
+        **{f"D{d}": wide_timings(d, name) for d in DEEP_DIMS},
     } for name in names] + [{
         "name": "sosfilt",
         "route": "cuda",

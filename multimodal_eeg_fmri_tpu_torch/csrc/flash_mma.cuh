@@ -1,5 +1,5 @@
 // Tensor-core pieces shared by the flash kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_fwd_split.cu, flash_bwd_split.cu):
+// flash_fwd_split.cu, flash_bwd_split.cu, flash_bwd_deep.cu):
 // warp-level mma.sync fragments, the 3xTF32 split, and cp.async tile staging.
 //
 // One warp computes C (16 x 8, f32) += A (16 x depth) * B (depth x 8) in
@@ -158,8 +158,8 @@ __device__ __forceinline__ AFrag<BF16> a_from_acc(const float (*c)[4]) {
 // NT 8-column blocks written in fragment order: the float4 at
 // ((m NT + j) 32 + lane) 4 holds what lane `lane` had in its accumulator of
 // fragment (m, j), so a_from_acc reads the chunk's depth in key_of order.
-// The split kernels hand P (and dS) from the warps that form them to every
-// warp this way.
+// The split and deep kernels hand P (and dS) from the warps that form them
+// to every warp this way.
 template <bool BF16, int NT>
 __device__ __forceinline__ AFrag<BF16> a_from_frags(const float* tile, int m, int c) {
     constexpr int PER = chunk<BF16>() / 8;

@@ -102,12 +102,13 @@ def library() -> ctypes.CDLL:
     # q, k, v, dO, lse, delta, dQ, B, H, Tq, Tk, D, is_bf16, bf16_ops, scale
     lib.mmef_flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [f, strides, p]
     lib.mmef_flash_bwd_dq.restype = i
-    # the CUDA-core kernels past head dim 128 (flash_wide.cu) and the
-    # tensor-core ones up to 256 (flash_fwd_split.cu, flash_bwd_split.cu)
-    # take the same arguments as the tensor-core ones up to 128
-    for name in ("mmef_flash_fwd_wide", "mmef_flash_bwd_dkv_wide",
-                 "mmef_flash_bwd_dq_wide", "mmef_flash_fwd_split",
-                 "mmef_flash_bwd_dkv_split", "mmef_flash_bwd_dq_split"):
+    # the kernels past head dim 128 take the same arguments as the
+    # tensor-core ones up to 128: up to 256 the split kernels
+    # (flash_fwd_split.cu, flash_bwd_split.cu), past it K1 on the CUDA cores
+    # (flash_wide.cu) and K2, K3 on the tensor cores (flash_bwd_deep.cu)
+    for name in ("mmef_flash_fwd_split", "mmef_flash_bwd_dkv_split",
+                 "mmef_flash_bwd_dq_split", "mmef_flash_fwd_wide",
+                 "mmef_flash_bwd_dkv_deep", "mmef_flash_bwd_dq_deep"):
         fn = getattr(lib, name)
         fn.argtypes = getattr(lib, name.rsplit("_", 1)[0]).argtypes
         fn.restype = i

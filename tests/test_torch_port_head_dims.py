@@ -11,19 +11,24 @@ equals the JAX package's (its Pallas kernel in interpret mode, as its own
 tests run it, which pads to 128 lanes) at d = 24 and 48 within 2e-5, output
 and input gradients. Past 128, K1, K2 and K3 pad a head dim in (128, 256]
 to the split tensor-core instances 192 and 256 (``csrc/flash_fwd_split.cu``,
-``csrc/flash_bwd_split.cu``) with the true scale, and take the CUDA-core
-kernels (``csrc/flash_wide.cu``) at the true head dim past 256: the
-routing, through a stand-in library that records the launch; the padded
-plain forward and backward at d = 129, 160 and 224 on their instance
-against the plain versions at d (1e-6, as above); ``flash_attention`` and
-``flash_attention_lse`` at d = 160 and 256 against JAX's interpret mode
-(which pads to 256 lanes) within 2e-5 in f32, outputs, lse and the
+``csrc/flash_bwd_split.cu``) with the true scale; past 256, K1 takes the
+CUDA-core kernel (``csrc/flash_wide.cu``) at the true head dim, and K2 and
+K3 the deep tensor-core kernels (``csrc/flash_bwd_deep.cu``) at the head
+dim zero-padded to a multiple of 64, with the true scale: the routing,
+through a stand-in library that records the launch; the padded plain
+forward and backward at d = 129, 160 and 224 on their instance, and the
+padded plain backward at d = 257, 300 and 320, against the plain versions
+at d (1e-6, as above); ``flash_attention`` and ``flash_attention_lse`` at
+d = 160, 256, 320 and 512 against JAX's interpret mode (which pads to a
+multiple of 128 lanes) within 2e-5 in f32, outputs, lse and the
 gradients with an lse cotangent; in the bf16-operand mode against JAX's
 ``compute_dtype=bfloat16`` within 2e-3 (outputs, lse) and 1e-3 (gradients),
-and in bf16 storage against JAX's program compiled without excess
-precision, at most 0.1% of the bf16 outputs and gradients differing, the
+and in bf16 storage at d = 160, 256 and 320 against JAX's program compiled
+without excess precision, at most 0.1% of the bf16 outputs and gradients
+differing, the
 gates ``test_torch_port_attention.py`` and ``test_torch_port_backward.py``
-set at D ≤ 128; and one train step of ``LongContextClassifier(
+set at D ≤ 128, and at 512 the output, lse and dV so and every element of
+the output and gradients within one bf16 ulp of float64; and one train step of ``LongContextClassifier(
 hidden_dim=512, num_heads=2)`` (D = 256) on the flash route against the JAX
 package's (its kernel in interpret mode), the loss within 1e-5 and every
 gradient within 1e-4 of the largest, as ``test_torch_port_long_context.py``
@@ -50,6 +55,8 @@ torch.set_num_threads(1)
 PADDED = {8: 16, 12: 16, 24: 32, 48: 64}
 # past 128: K1, K2 and K3 on the split tensor-core instances
 SPLIT_PADDED = {129: 192, 160: 192, 192: 192, 224: 256, 256: 256}
+# past 256: K2 and K3 on the deep kernels, d padded to a multiple of 64
+DEEP_PADDED = {257: 320, 300: 320, 320: 320, 512: 512, 1000: 1024}
 PAD_ATOL = 1e-6
 JAX_ATOL = 2e-5
 # the bf16-operand mode against JAX's: outputs and lse, and gradients
@@ -110,6 +117,15 @@ def test_padded_plain_equals_plain(d, storage, compute_dtype):
     np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), atol=PAD_ATOL,
                                rtol=0)
 
+    _padded_backward_equals_plain(q, k, v, g, out, lse, kd, compute_dtype)
+
+
+def _padded_backward_equals_plain(q, k, v, g, out, lse, kd, compute_dtype):
+    """Both backward halves' plain versions at head dim ``kd`` (q, k, v
+    and dO zero-padded) with the true scale, sliced back to d, against the
+    plain versions at d, within PAD_ATOL; the padded columns stay zero."""
+    d, scale = q.shape[-1], 1.0 / math.sqrt(q.shape[-1])
+    pq, pk, pv, pg = (port_attn.pad_head_dim(t, kd) for t in (q, k, v, g))
     delta = port_attn.flash_delta(out, g)
     dk, dv = port_attn.flash_bwd_dkv_plain(q, k, v, g, lse, delta,
                                            compute_dtype)
@@ -120,10 +136,28 @@ def test_padded_plain_equals_plain(d, storage, compute_dtype):
                                         compute_dtype, scale=scale)
     for name, got, want in (("dk", dk_p, dk), ("dv", dv_p, dv),
                             ("dq", dq_p, dq)):
+        assert got.shape[-1] == kd, name
         assert not got[..., d:].float().any(), name
         np.testing.assert_allclose(got[..., :d].float().numpy(),
                                    want.float().numpy(), atol=PAD_ATOL,
                                    rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [257, 300, 320])
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32-operands", "bf16-operands"])
+def test_deep_padded_plain_equals_plain(d, storage, compute_dtype):
+    """What the backward wrappers give the deep kernels past 256, computed
+    by the plain versions: both halves at d padded to a multiple of 64 with
+    the true scale, sliced back to d, against the plain versions at d (K1
+    past 256 runs unpadded)."""
+    dtype = torch.float32 if storage == "f32" else torch.bfloat16
+    q, k, v, g = _inputs(d, dtype)
+    out, lse = port_attn.flash_forward_plain(q, k, v, compute_dtype)
+    kd = port_attn._launch("mmef_flash_bwd_dq", d)[1]
+    assert kd == DEEP_PADDED[d]
+    _padded_backward_equals_plain(q, k, v, g, out, lse, kd, compute_dtype)
 
 
 @pytest.mark.parametrize("d", [24, 48])
@@ -153,38 +187,49 @@ def test_flash_attention_matches_jax_interpret(d):
                                    atol=JAX_ATOL, rtol=0, err_msg=name)
 
 
-# --- head dims past 128: the split kernels up to 256, then the CUDA cores --
+# --- head dims past 128: the split kernels up to 256, then K1 on the CUDA
+# cores and K2, K3 on the deep tensor-core kernels
 
-WIDE_DIMS = (160, 256)
-# past 256: the CUDA-core kernels (csrc/flash_wide.cu) at the true head dim
+WIDE_DIMS = (160, 256, 320, 512)
+# past 256: the CUDA-core K1 (csrc/flash_wide.cu) at the true head dim
 CUDA_CORE_DIMS = (257, 320)
 
 
 @pytest.mark.parametrize("d", CUDA_CORE_DIMS)
 def test_wide_head_dim_goes_unpadded_to_the_cuda_core_kernels(d):
     """Past 256 K1's wrapper launches at the true d through the ``_wide``
-    entry point (K2 and K3: ``test_backward_routes_by_head_dim``); past
-    ``WIDE_MAX_HEAD_DIM`` it raises."""
+    entry point (K2 and K3 take the ``_deep`` ones:
+    ``test_backward_routes_by_head_dim``); past ``WIDE_MAX_HEAD_DIM`` it
+    raises."""
     assert port_attn._launch("mmef_flash_fwd", d) == ("mmef_flash_fwd_wide",
                                                       d)
     assert port_attn._launch("mmef_flash_fwd", 100) == ("mmef_flash_fwd", 128)
-    with pytest.raises(ValueError, match="limit"):
-        port_attn._launch("mmef_flash_fwd", port_attn.WIDE_MAX_HEAD_DIM + 1)
+    for name in ("mmef_flash_fwd", "mmef_flash_bwd_dkv", "mmef_flash_bwd_dq"):
+        with pytest.raises(ValueError, match="limit"):
+            port_attn._launch(name, port_attn.WIDE_MAX_HEAD_DIM + 1)
+
+
+def _wide_sizes(d):
+    """(B, H, Tq, Tk) of the JAX parity tests at head dim d: past 256 one
+    batch row and fewer rows, so that the interpret-mode runs stay small."""
+    return (2, 2, 70, 90) if d <= 256 else (1, 2, 40, 70)
 
 
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("with_lse", [False, True],
                          ids=["flash_attention", "flash_attention_lse"])
 def test_wide_head_dim_matches_jax_interpret(d, with_lse):
-    """``flash_attention`` and ``flash_attention_lse`` at d = 160 and 256
-    (the plain math on the CPU, the functions the split kernels compute)
-    against the JAX package's, whose wrapper pads d to 256 lanes: output
+    """``flash_attention`` and ``flash_attention_lse`` at d = 160, 256, 320
+    and 512 (the plain math on the CPU, the functions the split kernels and,
+    past 256, the CUDA-core K1 and the deep K2 and K3 compute) against the
+    JAX package's, whose wrapper pads d to a multiple of 128 lanes: output
     (and lse) and the gradients of Σ out·g (+ Σ lse·g_lse) within 2e-5."""
     r = np.random.default_rng(d + with_lse)
+    B, H, tq, tk = _wide_sizes(d)
     q, k, v, g = (r.standard_normal(s, dtype=np.float32) for s in
-                  ((2, 2, 70, d), (2, 2, 90, d), (2, 2, 90, d),
-                   (2, 2, 70, d)))
-    g_lse = r.standard_normal((2, 2, 70), dtype=np.float32)
+                  ((B, H, tq, d), (B, H, tk, d), (B, H, tk, d),
+                   (B, H, tq, d)))
+    g_lse = r.standard_normal((B, H, tq), dtype=np.float32)
 
     def loss_j(q, k, v):
         out, lse = jax_attn.flash_attention_lse(q, k, v, interpret=True)
@@ -216,15 +261,16 @@ def test_wide_head_dim_matches_jax_interpret(d, with_lse):
 @pytest.mark.parametrize("with_lse", [False, True],
                          ids=["flash_attention", "flash_attention_lse"])
 def test_wide_head_dim_bf16_operands_match_jax(d, with_lse):
-    """The bf16-operand mode at d = 160 and 256 on both sides
+    """The bf16-operand mode at d = 160, 256, 320 and 512 on both sides
     (``compute_dtype=bfloat16``: q, k, p, v, dO and dS rounded to bf16
     before their products, every sum in f32): output and lse within 2e-3,
     the gradients of Σ out·g (+ Σ lse·g_lse) within 1e-3."""
     r = np.random.default_rng(10 * d + with_lse)
+    B, H, tq, tk = _wide_sizes(d)
     q, k, v, g = (r.standard_normal(s, dtype=np.float32) for s in
-                  ((2, 2, 70, d), (2, 2, 90, d), (2, 2, 90, d),
-                   (2, 2, 70, d)))
-    g_lse = r.standard_normal((2, 2, 70), dtype=np.float32)
+                  ((B, H, tq, d), (B, H, tk, d), (B, H, tk, d),
+                   (B, H, tq, d)))
+    g_lse = r.standard_normal((B, H, tq), dtype=np.float32)
 
     def loss_j(q, k, v):
         out, lse = jax_attn.flash_attention_lse(q, k, v, interpret=True,
@@ -252,18 +298,30 @@ def test_wide_head_dim_bf16_operands_match_jax(d, with_lse):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("d", WIDE_DIMS)
+# bf16 storage against JAX's element by element up to 320. At 512 both
+# packages round Δ = rowsum(dO ⊙ O) to bf16 from outputs that differ by one
+# bf16 ulp on 0.07% of their elements: where that moves a row's Δ across a
+# rounding boundary (1 or 2 rows of 80 at seeds 519 and 2), P ⊙ Δ moves the
+# row's dQ and every column of dK (0.14-0.31% of dQ's elements, 0.69-2.2%
+# of dK's). Given its own Δ, each package's dQ and dK lie within 0.53 bf16
+# ulp of float64 everywhere; so at 512 the port is held to JAX on the
+# output, lse and dV, and to float64 (test below).
+BF16_STORAGE_DIMS = (160, 256, 320)
+
+
+@pytest.mark.parametrize("d", BF16_STORAGE_DIMS)
 def test_wide_head_dim_bf16_storage_matches_jax(d):
-    """bf16 q, k, v and dO with f32 operands at d = 160 and 256, the
+    """bf16 q, k, v and dO with f32 operands at d = 160, 256 and 320, the
     mixed-precision fit's flash layers, against the JAX package's program
     compiled without excess precision: the bf16 output and gradients equal
     element by element but for at most 0.1% of them, and lse (f32) within
     2e-5."""
     r = np.random.default_rng(d + 7)
+    B, H, tq, tk = _wide_sizes(d)
     q, k, v, g = (jnp.asarray(r.standard_normal(s, dtype=np.float32))
                   .astype(jnp.bfloat16) for s in
-                  ((2, 2, 70, d), (2, 2, 90, d), (2, 2, 90, d),
-                   (2, 2, 70, d)))
+                  ((B, H, tq, d), (B, H, tk, d), (B, H, tk, d),
+                   (B, H, tq, d)))
 
     def run(q, k, v, g):
         (out, lse), vjp = jax.vjp(lambda q, k, v: jax_attn.flash_attention_lse(
@@ -285,6 +343,65 @@ def test_wide_head_dim_bf16_storage_matches_jax(d):
         differ = (a.detach().float().numpy()
                   != np.asarray(b.astype(jnp.float32)))
         assert differ.mean() <= JAX_BF16_STORAGE_DIFFER, (name, differ.mean())
+
+
+def _bf16_ulps(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """|x − ref| in bf16 ulps of ref's elements (2^(⌊log2|ref|⌋ − 7)), an
+    ulp no finer than that of 2^-12 of ref's largest |element|."""
+    mag = ref.abs().clamp_min(ref.abs().max() * 2.0 ** -12)
+    return (x.double() - ref).abs() / torch.exp2(torch.floor(torch.log2(mag))
+                                                 - 7)
+
+
+def test_wide_head_dim_bf16_storage_at_512_against_float64():
+    """bf16 storage at d = 512 (``BF16_STORAGE_DIMS`` says why not against
+    JAX element by element): the output and dV equal JAX's but for at most
+    0.1% of their elements, lse within 2e-5; the port's Δ within one bf16
+    ulp of the float64 sum of its bf16 products dO ⊙ O (the rounding both
+    packages make); and the port's output, dQ, dK and dV, every element,
+    within one bf16 ulp of the float64 result from the same bf16 inputs,
+    the backward's from the port's Δ."""
+    d = 512
+    r = np.random.default_rng(d + 7)
+    B, H, tq, tk = _wide_sizes(d)
+    q, k, v, g = (jnp.asarray(r.standard_normal(s, dtype=np.float32))
+                  .astype(jnp.bfloat16) for s in
+                  ((B, H, tq, d), (B, H, tk, d), (B, H, tk, d),
+                   (B, H, tq, d)))
+
+    def run(q, k, v, g):
+        (out, lse), vjp = jax.vjp(lambda q, k, v: jax_attn.flash_attention_lse(
+            q, k, v, interpret=True), q, k, v)
+        return out, lse, vjp((g, jnp.zeros_like(lse)))
+
+    out_j, lse_j, grads_j = jax.jit(run).lower(q, k, v, g).compile(
+        compiler_options={"xla_allow_excess_precision": False})(q, k, v, g)
+    leaves = [torch.tensor(np.asarray(x.astype(jnp.float32))).bfloat16()
+              for x in (q, k, v, g)]
+    qkv = [x.clone().requires_grad_() for x in leaves[:3]]
+    out_p, lse_p = port_attn.flash_attention_lse(*qkv)
+    grads_p = torch.autograd.grad(out_p, qkv, leaves[3])
+    out_p = out_p.detach()
+    np.testing.assert_allclose(lse_p.detach().numpy(), np.asarray(lse_j),
+                               atol=JAX_ATOL, rtol=0)
+    for a, b, name in ((out_p, out_j, "out"), (grads_p[2], grads_j[2], "dv")):
+        differ = a.float().numpy() != np.asarray(b.astype(jnp.float32))
+        assert differ.mean() <= JAX_BF16_STORAGE_DIFFER, (name, differ.mean())
+
+    Q, K, V, G = (x.double() for x in leaves)
+    scale = 1.0 / math.sqrt(d)
+    p = torch.softmax(Q @ K.transpose(-1, -2) * scale, dim=-1)
+    delta = port_attn.flash_delta(out_p, leaves[3]).double()
+    delta_64 = (leaves[3] * out_p).double().sum(-1)
+    assert _bf16_ulps(delta, delta_64).max() <= 1.0
+    ds = p * (G @ V.transpose(-1, -2) - delta[..., None])
+    refs = (p @ V, ds @ K * scale, ds.transpose(-1, -2) @ Q * scale,
+            p.transpose(-1, -2) @ G)
+    for a, ref, name in zip((out_p, *grads_p), refs,
+                            ("out", "dq", "dk", "dv")):
+        assert a.dtype == torch.bfloat16, name
+        assert _bf16_ulps(a, ref).max() <= 1.0, (
+            name, _bf16_ulps(a, ref).max().item())
 
 
 # --- K1, K2 and K3 in (128, 256]: the split tensor-core kernels ------------
@@ -326,18 +443,24 @@ def stand_in(monkeypatch):
     port_attn.reset_kernel_launches()
 
 
-# (true head dim, entry-point suffix and launch head dim of K1, K2 and K3)
-WIDE_ROUTES = [(129, "_split", 192), (160, "_split", 192),
-               (192, "_split", 192), (256, "_split", 256),
-               (257, "_wide", 257), (320, "_wide", 320)]
+# (true head dim, entry-point suffix and launch head dim): K1, K2 and K3
+# share the split instances up to 256; past it K1 runs on the CUDA cores at
+# d, K2 and K3 on the deep tensor-core kernels at d padded to 64
+SPLIT_ROUTES = [(129, "_split", 192), (160, "_split", 192),
+                (192, "_split", 192), (256, "_split", 256)]
+FORWARD_ROUTES = SPLIT_ROUTES + [(d, "_wide", d) for d in (257, 320, 512,
+                                                           1000)]
+BACKWARD_ROUTES = SPLIT_ROUTES + [(d, "_deep", kd) for d, kd in
+                                  sorted(DEEP_PADDED.items())]
 
 
-@pytest.mark.parametrize("d,suffix,kd", WIDE_ROUTES)
+@pytest.mark.parametrize("d,suffix,kd", BACKWARD_ROUTES)
 def test_backward_routes_by_head_dim(stand_in, d, suffix, kd):
     """K2 and K3 at d in (128, 256] launch the split tensor-core entry
     points at the padded head dim with the true scale 1/√d; past 256 the
-    CUDA-core ones at d. The counts record the entry point and launch head
-    dim, and the outputs come back at d."""
+    deep tensor-core ones at d padded to a multiple of 64, with the true
+    scale. The counts record the entry point and launch head dim, and the
+    outputs come back at d."""
     q, k, v, g = _inputs(d, torch.float32, tq=5, tk=7)
     lse = torch.zeros(2, 2, 5)
     dk, dv = port_attn.flash_bwd_dkv_cuda(q, k, v, g, lse, lse)
@@ -351,6 +474,8 @@ def test_backward_routes_by_head_dim(stand_in, d, suffix, kd):
         B, H, tq, tk, launch_d, _, _, scale = args[-10:-2]
         assert (B, H, tq, tk, launch_d) == (2, 2, 5, 7, kd), name
         assert scale == pytest.approx(1.0 / math.sqrt(d), rel=1e-12)
+        # q's strides: the padded (contiguous) input's at kd
+        assert list(args[-2])[:3] == [2 * 5 * kd, 5 * kd, kd], name
     assert port_attn.kernel_launches_by_instance() == {
         "flash_fwd": {},
         "flash_bwd_dkv": {f"mmef_flash_bwd_dkv{suffix} D={kd}": 1},
@@ -358,7 +483,7 @@ def test_backward_routes_by_head_dim(stand_in, d, suffix, kd):
     assert port_attn.kernel_launches_by_head_dim()["flash_bwd_dq"] == {d: 1}
 
 
-@pytest.mark.parametrize("d,suffix,kd", WIDE_ROUTES)
+@pytest.mark.parametrize("d,suffix,kd", FORWARD_ROUTES)
 @pytest.mark.parametrize("storage", ["f32", "bf16"])
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32_ops", "bf16_ops"])
@@ -390,6 +515,22 @@ def test_forward_routes_by_head_dim(stand_in, d, suffix, kd, storage,
     assert port_attn.kernel_launches_by_head_dim()["flash_fwd"] == {d: 1}
     assert port_attn.kernel_launches()["flash_fwd"] == {
         "f32": int(storage == "f32"), "bf16": int(storage == "bf16")}
+
+
+def test_grid_rows_past_256(stand_in):
+    """Past 256 the deep K2 and K3 take 32 rows a block on the grid's y
+    axis, so 70,000 rows launch; K1's CUDA-core kernel may take one row a
+    block, so its wrapper refuses them. Zero-stride views: no 70,000-row
+    tensor is made."""
+    q = torch.zeros(1, 1, 1, 320).expand(1, 1, 70000, 320)
+    lse = torch.zeros(1, 1, 70000)
+    dk, dv = port_attn.flash_bwd_dkv_cuda(q, q, q, q, lse, lse)
+    dq = port_attn.flash_bwd_dq_cuda(q, q, q, q, lse, lse)
+    assert dk.shape == dv.shape == dq.shape == q.shape
+    assert [name for name, _ in stand_in.calls] == [
+        "mmef_flash_bwd_dkv_deep", "mmef_flash_bwd_dq_deep"]
+    with pytest.raises(ValueError, match="unsupported sizes"):
+        port_attn.flash_forward_cuda(q, q, q)
 
 
 def test_backward_past_the_limit_raises(stand_in):

@@ -19,10 +19,10 @@ sums (a rounding left out, such as dS unrounded before dS·K, moves dq by
 1e-3 or more); with bf16 storage as well, plus one bf16 ulp of the largest
 gradient, as both sides round their f32 result to bf16 on their own.
 Past head dim 128 (K1, K2 and K3 on the split tensor-core kernels up to
-256, on the CUDA cores past it) at the same gates, each launch counted at
-its C entry point and launch head dim, and K1, K2 and K3 equal bit for bit
-on a second call (each block writes its rows once, its sums in a fixed
-order).
+256; past it K1 on the CUDA cores and K2, K3 on the deep tensor-core
+kernels) at the same gates, each launch counted at its C entry point and
+launch head dim, and K1, K2 and K3 equal bit for bit on a second call
+(each block writes its rows once, its sums in a fixed order).
 S1 on either schedule within 2e-5 of its sequential plain version's largest
 |value| (on the sequential schedule it rounds each operation as the plain
 version does, so the two should agree exactly), and equal to
@@ -49,6 +49,7 @@ from multimodal_eeg_fmri_tpu_torch.ops import _kernels
 from multimodal_eeg_fmri_tpu_torch.ops import signal as S
 from multimodal_eeg_fmri_tpu_torch.ops.attention import (
     WIDE_MAX_HEAD_DIM,
+    _launch,
     flash_attention,
     flash_attention_lse,
     flash_backward_cuda,
@@ -275,8 +276,10 @@ def test_kernels_take_padded_head_dims(cuda_device, d, storage):
 
 
 # past 128: K1, K2 and K3 on the split tensor-core kernels up to 256 (160
-# and 192 on the 192 instance), on the CUDA cores at 320
-WIDE_DIMS = (160, 192, 256, 320)
+# and 192 on the 192 instance); past it K1 on the CUDA cores at d, K2 and K3
+# on the deep tensor-core kernels at d padded to a multiple of 64 (257 to
+# 320; 1024 in two column slices)
+WIDE_DIMS = (160, 192, 256, 257, 320, 384, 512, 1024)
 
 
 @pytest.mark.cuda
@@ -285,8 +288,9 @@ WIDE_DIMS = (160, 192, 256, 320)
 def test_kernels_take_wide_head_dims(cuda_device, d, storage):
     """K1, K2 and K3 past head dim 128 at the padded head dims' gates:
     padded to the split tensor-core instances (``csrc/flash_fwd_split.cu``,
-    ``csrc/flash_bwd_split.cu``) up to 256, unpadded on the CUDA cores
-    (``csrc/flash_wide.cu``) past it."""
+    ``csrc/flash_bwd_split.cu``) up to 256; past it K1 unpadded on the CUDA
+    cores (``csrc/flash_wide.cu``), K2 and K3 padded to a multiple of 64 on
+    the deep tensor-core kernels (``csrc/flash_bwd_deep.cu``)."""
     _kernels_hold_at_head_dim(cuda_device, d, storage)
 
 
@@ -294,23 +298,29 @@ def test_kernels_take_wide_head_dims(cuda_device, d, storage):
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_kernels_wide_head_dims_bf16_operands(cuda_device, d):
     """The bf16-operand mode past head dim 128, at its gates (1e-2
-    forward, 2e-3 gradients)."""
+    forward, 2e-3 gradients); K2 and K3 give the same bits on a second
+    call."""
     test_kernels_padded_head_dims_bf16_operands(cuda_device, d)
+    q, k, v, out, lse, g = _backward_inputs(cuda_device, (2, 2, 130, 200, d),
+                                            torch.bfloat16)
+    delta = flash_delta(out, g)
+    first = (*flash_bwd_dkv_cuda(q, k, v, g, lse, delta, torch.bfloat16),
+             flash_bwd_dq_cuda(q, k, v, g, lse, delta, torch.bfloat16))
+    again = (*flash_bwd_dkv_cuda(q, k, v, g, lse, delta, torch.bfloat16),
+             flash_bwd_dq_cuda(q, k, v, g, lse, delta, torch.bfloat16))
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, again, ("dk", "dv", "dq")):
+        assert torch.equal(a, b), f"{name} at d={d} differs run to run"
 
 
 def _instances(d):
-    """The C entry point and launch head dim each wrapper takes at d."""
-    if d <= 128:
-        kd = next(n for n in (16, 32, 64, 128) if d <= n)
-        return {fn: f"{name} D={kd}" for fn, name in (
-            (flash_forward_cuda, "mmef_flash_fwd"),
-            (flash_bwd_dkv_cuda, "mmef_flash_bwd_dkv"),
-            (flash_bwd_dq_cuda, "mmef_flash_bwd_dq"))}
-    route = (f"_split D={192 if d <= 192 else 256}" if d <= 256
-             else f"_wide D={d}")
-    return {flash_forward_cuda: f"mmef_flash_fwd{route}",
-            flash_bwd_dkv_cuda: f"mmef_flash_bwd_dkv{route}",
-            flash_bwd_dq_cuda: f"mmef_flash_bwd_dq{route}"}
+    """The C entry point and launch head dim each wrapper takes at d, as
+    ``_launch`` routes it (its choices are tested on the CPU,
+    ``test_torch_port_head_dims.py``)."""
+    return {fn: "{} D={}".format(*_launch(name, d)) for fn, name in (
+        (flash_forward_cuda, "mmef_flash_fwd"),
+        (flash_bwd_dkv_cuda, "mmef_flash_bwd_dkv"),
+        (flash_bwd_dq_cuda, "mmef_flash_bwd_dq"))}
 
 
 def _kernels_hold_at_head_dim(cuda_device, d, storage):
@@ -588,15 +598,16 @@ def _misaligned(x, how):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("d", [32, 256, 320])
 @pytest.mark.parametrize("how", ["base", "stride", "both"])
 @pytest.mark.parametrize("dtype,atol,grad_atol",
                          [(torch.float32, 2e-5, 2e-4),
                           (torch.bfloat16, 1e-2, 5e-2)])
 def test_kernels_take_misaligned_views(cuda_device, how, dtype, atol,
                                        grad_atol, d):
-    """At d = 32 the tensor-core kernels up to 128; at 256 the split ones,
-    which take the view as it is (no padding copy at an instance)."""
+    """At d = 32 the tensor-core kernels up to 128; at 256 the split ones
+    and at 320 the CUDA-core K1 and the deep K2 and K3, which take the view
+    as it is (no padding copy at an instance or a multiple of 64)."""
     q, k, v = (t.to(dtype) for t in _qkv(cuda_device, 2, 2, 130, 200, d))
     g = torch.from_numpy(np.random.default_rng(5).standard_normal(
         q.shape, dtype=np.float32)).to(cuda_device, dtype)

@@ -247,6 +247,33 @@ def test_device_time_per_call_survives_lost_launches(kernels, n, ms, count):
     assert got_ms == pytest.approx(ms) and got_count == count
 
 
+def test_device_profile_reports_an_empty_trace_as_not_measured(
+        monkeypatch, capsys):
+    """Where every trace comes back without a kernel (here: no card), the
+    device time is not measured: (None, None), no other clock in its place,
+    and the callers print "not measured" for it and for the ratios it
+    enters."""
+    import torch
+
+    monkeypatch.setattr(chip_smoke.time, "sleep", lambda s: None)
+    for name, value in (("synchronize", lambda: None),
+                        ("empty_cache", lambda: None),
+                        ("mem_get_info", lambda: (1, 2)),
+                        ("memory_reserved", lambda: 0)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    calls = []
+    assert chip_smoke.device_profile(lambda: calls.append(1), n=2,
+                                     attempts=2) == (None, None)
+    assert len(calls) == 3 + 2 * 2
+    out = capsys.readouterr().out
+    assert out.count("no device time in a trace") == 2
+    assert "not measured" in out
+    assert chip_smoke._ms(None) == "not measured"
+    assert chip_smoke.share(0.1, None) == "not measured"
+    assert chip_smoke.share(None, 2.0, ".3f") == "not measured"
+    assert chip_smoke.share(0.1, 0.4) == "25.0%"
+
+
 def _pooled(x, pinned=None):
     """``max_pool_time`` of the encoders under ``pooling_recorded``: the
     output, the gradient of its sum and the recordings."""
@@ -385,8 +412,15 @@ def _split_build():
     return {i: (178, 0, 0, 0) for i in instances}, dict.fromkeys(instances, 8)
 
 
+def _gate(kind, resources, hmma):
+    """``instance_faults`` with the split or the deep instances."""
+    wanted = {"split": chip_smoke.SPLIT_INSTANCES,
+              "deep": chip_smoke.DEEP_INSTANCES}[kind]
+    return chip_smoke.instance_faults(wanted, resources, hmma, kind)
+
+
 def test_split_gate_passes_a_full_build():
-    assert chip_smoke.split_faults(*_split_build()) == []
+    assert _gate("split", *_split_build()) == []
 
 
 @pytest.mark.parametrize("fault", ["missing", "no HMMA", "spill", "stack"])
@@ -402,22 +436,106 @@ def test_split_gate_names_the_faulty_instance(fault):
     else:
         resources[inst] = ((255, 8, 8, 0) if fault == "spill"
                            else (200, 0, 0, 16))
-    faults = chip_smoke.split_faults(resources, hmma)
+    faults = _gate("split", resources, hmma)
     assert len(faults) == 1 and str(inst) in faults[0]
+
+
+# past 256, K2 and K3's route at each head dim: the deep kernels at d padded
+# to a multiple of 64
+DEEP_ROUTES = {257: "_deep D=320", 320: "_deep D=320", 512: "_deep D=512",
+               1000: "_deep D=1024"}
 
 
 @pytest.mark.parametrize("d,route", [(160, "_split D=192"),
                                      (192, "_split D=192"),
                                      (256, "_split D=256"),
-                                     (320, "_wide D=320")])
+                                     (320, "_wide D=320"),
+                                     (257, "_wide D=257"),
+                                     (512, "_wide D=512"),
+                                     (1000, "_wide D=1000")])
 def test_wide_instances_name_the_route_of_each_head_dim(d, route):
     """K1, K2 and K3 take one route at each head dim past 128: the split
-    kernels at the padded instance up to 256, the CUDA-core ones at d past
-    it."""
+    kernels at the padded instance up to 256 (``route``); past it K1 the
+    CUDA-core kernel at d (``route``), K2 and K3 the deep tensor-core
+    kernels at d padded to a multiple of 64."""
+    bwd = DEEP_ROUTES.get(d, route)
     assert chip_smoke.wide_instances(d) == {
         "flash_fwd": f"mmef_flash_fwd{route}",
-        "flash_bwd_dkv": f"mmef_flash_bwd_dkv{route}",
-        "flash_bwd_dq": f"mmef_flash_bwd_dq{route}"}
+        "flash_bwd_dkv": f"mmef_flash_bwd_dkv{bwd}",
+        "flash_bwd_dq": f"mmef_flash_bwd_dq{bwd}"}
+    for name, entry in chip_smoke.wide_instances(d).items():
+        kernel = chip_smoke.wide_route(name, d)
+        assert kernel.endswith(entry.split(" ")[0].rsplit("_", 1)[1])
+
+
+# the CUDA-core K1 and the deep K2 and K3 past head dim 256
+# (csrc/flash_wide.cu, csrc/flash_bwd_deep.cu), as nvcc mangles them
+WIDE_FWD = ("_ZN12_GLOBAL__N_121flash_wide_fwd_kernelI13__nv_bfloat16Lb1EEEvPKT_"
+            "S4_S4_PS2_Pfiiiiillllllllllf")
+DEEP_DKV = ("_ZN51_GLOBAL__N__0c1d2e3f_17_flash_bwd_deep_cu_4a5b6c7d25flash_"
+            "bwd_dkv_deep_kernelIfLb0EEEvNS_6ParamsE")
+DEEP_DQ = ("_ZN51_GLOBAL__N__0c1d2e3f_17_flash_bwd_deep_cu_4a5b6c7d24flash_"
+           "bwd_dq_deep_kernelI13__nv_bfloat16Lb1EEEvNS_6ParamsE")
+
+
+@pytest.mark.parametrize("symbol,wide,deep", [
+    (WIDE_FWD, ("flash_fwd_wide", "bf16", "bf16"), None),
+    (DEEP_DKV, None, ("flash_bwd_dkv_deep", "f32", "f32")),
+    (DEEP_DQ, None, ("flash_bwd_dq_deep", "bf16", "bf16")),
+    (SPLIT_DKV, None, None),
+    (DKV, None, None),
+])
+def test_wide_and_deep_instances_read_mangled_symbols(symbol, wide, deep):
+    """The CUDA-core K1 and the deep K2 and K3 are told apart from each
+    other and from the split and D ≤ 128 kernels."""
+    assert chip_smoke.wide_instance(symbol) == wide
+    assert chip_smoke.deep_instance(symbol) == deep
+    if wide or deep:
+        assert chip_smoke.kernel_instance(symbol) is None
+        assert chip_smoke.split_instance(symbol) is None
+
+
+def test_deep_instances_in_ptxas_and_sass():
+    text = f"""ptxas info    : Compiling entry function '{DEEP_DKV}' for 'sm_90a'
+ptxas info    : Function properties for {DEEP_DKV}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 214 registers, used 1 barriers, 520 bytes cmem[0]
+"""
+    sass = f"""\t\tFunction : {DEEP_DKV}
+        /*1230*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+"""
+    inst = ("flash_bwd_dkv_deep", "f32", "f32")
+    assert chip_smoke.parse_ptxas(text + PTXAS, chip_smoke.deep_instance) == {
+        inst: (214, 0, 0, 0)}
+    assert chip_smoke.count_hmma(sass + SASS, chip_smoke.deep_instance) == {
+        inst: 1}
+
+
+def _deep_build():
+    instances = sorted(chip_smoke.DEEP_INSTANCES)
+    assert len(instances) == 8
+    return {i: (190, 0, 0, 0) for i in instances}, dict.fromkeys(instances, 8)
+
+
+def test_deep_gate_passes_a_full_build():
+    assert _gate("deep", *_deep_build()) == []
+
+
+@pytest.mark.parametrize("fault", ["missing", "no HMMA", "spill", "stack"])
+def test_deep_gate_names_the_faulty_instance(fault):
+    """No deep instance may be missing, lack HMMA, spill or keep a stack
+    frame."""
+    resources, hmma = _deep_build()
+    inst = ("flash_bwd_dq_deep", "bf16", "f32")
+    if fault == "missing":
+        del resources[inst]
+    elif fault == "no HMMA":
+        hmma[inst] = 0
+    else:
+        resources[inst] = ((255, 8, 8, 0) if fault == "spill"
+                           else (200, 0, 0, 16))
+    faults = _gate("deep", resources, hmma)
+    assert len(faults) == 1 and str(inst) in faults[0]
 
 
 def test_split_gate_wants_the_forward_instances():
@@ -428,7 +546,7 @@ def test_split_gate_wants_the_forward_instances():
     assert len(forward) == 8
     for inst in forward:
         del resources[inst], hmma[inst]
-    (fault,) = chip_smoke.split_faults(resources, hmma)
+    (fault,) = _gate("split", resources, hmma)
     assert all(str(inst) in fault for inst in forward)
 
 
@@ -442,5 +560,5 @@ def test_split_gate_names_a_faulty_forward_instance(fault):
     else:
         resources[inst] = ((255, 8, 8, 0) if fault == "spill"
                            else (200, 0, 0, 16))
-    faults = chip_smoke.split_faults(resources, hmma)
+    faults = _gate("split", resources, hmma)
     assert len(faults) == 1 and str(inst) in faults[0]
