@@ -183,27 +183,27 @@ finishing and K1's launches by head dim held to the derived count. A
 ``pipelines`` JSON line holds the timings.
 Past head dim 128, K1, K2 and K3 run on the split tensor-core kernels
 (``csrc/flash_fwd_split.cu``, ``csrc/flash_bwd_split.cu``, the head dim
-padded to the instance 192 or 256) up to 256; past it K1 runs on the CUDA
-cores (``csrc/flash_wide.cu``) and K2 and K3 on the deep tensor-core
-kernels (``csrc/flash_bwd_deep.cu``, the head dim padded to a multiple of
-64). The build prints every instance's registers, spills, stack frame and
-HMMA count (a split or deep instance that is missing, spills, keeps a
-stack frame or has no HMMA fails). The wide phase, after the bf16-storage
-checks, holds them against their plain versions at (8, 4, 512, d), d in
-(160, 192, 256, 257, 320, 384, 512), in f32 and bf16 storage and the
+padded to the instance 192 or 256) up to 256; past it on the deep
+tensor-core kernels (``csrc/flash_fwd_deep.cu``, ``csrc/flash_bwd_deep.cu``,
+the head dim padded to a multiple of 64). The build prints every instance's
+registers, spills, stack frame and HMMA count (a split or deep instance
+that is missing, spills, keeps a stack frame or has no HMMA fails). The
+wide phase, after the bf16-storage checks, holds them against their plain
+versions at (8, 4, 512, d), d in (160, 192, 256, 257, 320, 384, 512, 576;
+576 in two column slices of 256 and 320), in f32 and bf16 storage and the
 bf16-operand mode, each launch counted at its C entry point and launch
 head dim, each kernel bit for bit on a second call; it times them at d =
 160, 256, 320 and 512 in the three modes, beside the plain versions, the
-bound and SDPA, and the deep K2 and K3 at 320 beside the CUDA-core
-kernels' last times. lc-d256-T2048 and lc-d512-T2048 each take one train
-step of ``LongContextClassifier(hidden_dim=512)`` with 2 heads (head dim
-256) or 1 (head dim 512) on raw EEG (8, 2048, 18): 2 launches each of K1,
-K2 and K3 (the split kernels at 256; the CUDA-core K1 and the deep K2 and
-K3 at 512), the step gated against the einsum route and the CPU per
-tensor (``lc_step_gate``), both routes timed, and K1-K3 timed per call at
-the step's (8, 2, 2048, 256) or (8, 1, 2048, 512). The kernels line lists
-the split K1, K2 and K3, and the CUDA-core K1 and the deep K2 and K3, as
-kernels of their own.
+bound and SDPA, and the deep K1, K2 and K3 at 320 beside the last times of
+the CUDA-core kernels they replaced. lc-d256-T2048 and lc-d512-T2048 each
+take one train step of ``LongContextClassifier(hidden_dim=512)`` with 2
+heads (head dim 256) or 1 (head dim 512) on raw EEG (8, 2048, 18): 2
+launches each of K1, K2 and K3 (the split kernels at 256, the deep ones at
+512), the step gated against the einsum route and the CPU per tensor
+(``lc_step_gate``), both routes timed, and K1-K3 timed per call at the
+step's (8, 2, 2048, 256) or (8, 1, 2048, 512) in the three modes. The
+kernels line lists the split and the deep K1, K2 and K3 as kernels of
+their own.
 Last, sequence parallelism (the ring phase, after the pipelines phase:
 ``parallel/``, ``ops/ring_attention.py``): lc-ring-T8192 trains
 ``LongContextClassifier`` at its JAX defaults with ``attn_impl="ring"``,
@@ -436,15 +436,6 @@ def build_and_inspect(_kernels) -> None:
               f"{hmma.get(inst, 0)} HMMA")
     if faults := tensor_core_faults(resources, hmma):
         fail("; ".join(faults))
-    wide = parse_ptxas("\n".join(outputs), wide_instance)
-    for inst in sorted(wide):
-        regs, st, ld, frame = wide[inst]
-        print(f"{inst[0]} (any D past 128) {inst[1]} storage, {inst[2]} "
-              f"operands: {regs} registers, spill stores/loads {st}/{ld} "
-              f"bytes, stack frame {frame} bytes")
-    if len(wide) != 4:
-        fail(f"expected the 4 instances of the CUDA-core K1, ptxas listed "
-             f"{sorted(wide)}")
     deep = parse_ptxas("\n".join(outputs), deep_instance)
     deep_hmma = count_hmma(sass, deep_instance)
     for inst in sorted(deep):
@@ -533,12 +524,12 @@ def tensor_core_faults(resources: dict, hmma: dict) -> list:
 def instance_faults(wanted: set, resources: dict, hmma: dict,
                     label: str) -> list:
     """What is wrong with the build of the ``label`` instances ``wanted``
-    (``SPLIT_INSTANCES``: K1-K3 in (128, 256]; ``DEEP_INSTANCES``: K2 and
-    K3 past 256), from ``parse_ptxas`` and ``count_hmma`` with their
-    symbol reader: an instance missing from either, one with no HMMA
-    instruction, or one that spills or keeps a stack frame (both designs
-    bound each lane's D-wide sums whatever the head dim: at most 64 in the
-    split kernels, 128 in the deep K2 and 64 in the deep K3)."""
+    (``SPLIT_INSTANCES``: K1-K3 in (128, 256]; ``DEEP_INSTANCES``: K1-K3
+    past 256), from ``parse_ptxas`` and ``count_hmma`` with their symbol
+    reader: an instance missing from either, one with no HMMA instruction,
+    or one that spills or keeps a stack frame (both designs bound each
+    lane's D-wide sums whatever the head dim: at most 64 in the split
+    kernels, 128 in the deep K1 and K2 and 64 in the deep K3)."""
     if missing := sorted(wanted - (set(resources) & set(hmma))):
         return [f"{label} instances missing from ptxas or SASS: {missing}"]
     faults = []
@@ -4034,26 +4025,30 @@ RING_CHUNK_ROWS = 2               # the einsum-chunk ring's rows: (T/4)² f32 ti
 RING_TIMED_STEPS = 5
 # past head dim 128: K1, K2 and K3 on the split tensor-core kernels
 # (csrc/flash_fwd_split.cu, csrc/flash_bwd_split.cu) up to 256, the head dim
-# padded to an instance in SPLIT_DIMS; past it K1 on the CUDA cores
-# (csrc/flash_wide.cu) and K2, K3 on the deep tensor-core kernels
-# (csrc/flash_bwd_deep.cu), the head dim padded to a multiple of 64; the
-# port's ops/attention.py:_launch decides which
+# padded to an instance in SPLIT_DIMS; past it on the deep tensor-core
+# kernels (csrc/flash_fwd_deep.cu, csrc/flash_bwd_deep.cu), the head dim
+# padded to a multiple of 64; the port's ops/attention.py:_launch decides
+# which
 WIDE_DIMS = (160, 256)            # timed on the split kernels
 DEEP_DIMS = (320, 512)            # timed past 256
-# checked against the plain versions
-WIDE_CHECK_DIMS = (160, 192, 256, 257, 320, 384, 512)
+# checked against the plain versions; 576 (9 chunks of 64) in two uneven
+# column slices on the grid's z axis
+WIDE_CHECK_DIMS = (160, 192, 256, 257, 320, 384, 512, 576)
 WIDE_SHAPE = (8, 4, 512)          # (B, H, T) of their checks and times
-WIDE_SYMBOL = re.compile(r"flash_wide_fwd_kernelI(f|13__nv_bfloat16)Lb([01])E")
-DEEP_KERNELS = ("flash_bwd_dkv_deep", "flash_bwd_dq_deep")
+DEEP_KERNELS = ("flash_fwd_deep", "flash_bwd_dkv_deep", "flash_bwd_dq_deep")
 DEEP_INSTANCES = {(k, s, o) for k in DEEP_KERNELS for s in ("f32", "bf16")
                   for o in ("f32", "bf16")}
-DEEP_SYMBOL = re.compile(r"flash_(bwd_dkv|bwd_dq)_deep_kernel"
+DEEP_SYMBOL = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_deep_kernel"
                          r"I(f|13__nv_bfloat16)Lb([01])E")
-DEEP_SOURCE = "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_deep.cu"
-# the CUDA-core K2 and K3 that the deep kernels replaced, their last times
-# per call at (8, 4, 512, 320) in f32 storage (PERF.md §6): printed beside
-# the deep kernels' at that shape
-CUDA_CORE_BWD_MS = {"flash_bwd_dkv": 6.4599, "flash_bwd_dq": 5.3623}
+DEEP_SOURCES = {
+    "flash_fwd": "multimodal_eeg_fmri_tpu_torch/csrc/flash_fwd_deep.cu",
+    "flash_bwd_dkv": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_deep.cu",
+    "flash_bwd_dq": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_deep.cu"}
+# the CUDA-core K1, K2 and K3 that the deep kernels replaced, their last
+# times per call at (8, 4, 512, 320) in f32 storage (PERF.md §6): printed
+# beside the deep kernels' at that shape
+CUDA_CORE_MS = {"flash_fwd": 2.9073, "flash_bwd_dkv": 6.4599,
+                "flash_bwd_dq": 5.3623}
 SPLIT_DIMS = (192, 256)
 SPLIT_KERNELS = ("flash_fwd_split", "flash_bwd_dkv_split",
                  "flash_bwd_dq_split")
@@ -4065,7 +4060,6 @@ SPLIT_SOURCES = {
     "flash_fwd": "multimodal_eeg_fmri_tpu_torch/csrc/flash_fwd_split.cu",
     "flash_bwd_dkv": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_split.cu",
     "flash_bwd_dq": "multimodal_eeg_fmri_tpu_torch/csrc/flash_bwd_split.cu"}
-WIDE_SOURCE = "multimodal_eeg_fmri_tpu_torch/csrc/flash_wide.cu"
 # lc-d256-T2048 and lc-d512-T2048: LongContextClassifier at head dims 256
 # and 512 (2 layers, no MoE), and the (B, H, T, D) of their K1-K3 calls
 LC_WIDE = dict(hidden_dim=512, num_heads=2)
@@ -4098,25 +4092,14 @@ def wide_instances(d: int) -> dict:
 def wide_route(name: str, d: int) -> str:
     """The name of the kernel that runs K1, K2 or K3 (``name``) at head
     dim d: its C entry point's, without the ``mmef_`` prefix (past 128
-    ``<name>_split`` up to 256, then ``flash_fwd_wide`` and
-    ``<name>_deep``)."""
+    ``<name>_split`` up to 256, then ``<name>_deep``)."""
     return wide_instances(d)[name].split(" ")[0].removeprefix("mmef_")
 
 
-def wide_instance(symbol: str):
-    """(kernel, storage, operands) of the CUDA-core K1's mangled symbol,
-    or None."""
-    m = WIDE_SYMBOL.search(symbol)
-    if m is None:
-        return None
-    return ("flash_fwd_wide", "f32" if m[1] == "f" else "bf16",
-            "bf16" if m[2] == "1" else "f32")
-
-
 def deep_instance(symbol: str):
-    """(kernel, storage, operands) of a deep K2 or K3 kernel's mangled
-    symbol (``csrc/flash_bwd_deep.cu``: one instance a mode serves every
-    head dim), or None."""
+    """(kernel, storage, operands) of a deep K1, K2 or K3 kernel's mangled
+    symbol (``csrc/flash_fwd_deep.cu``, ``csrc/flash_bwd_deep.cu``: one
+    instance a mode serves every head dim), or None."""
     m = DEEP_SYMBOL.search(symbol)
     if m is None:
         return None
@@ -4130,10 +4113,10 @@ def wide_phase(dev, card: str) -> dict:
     storage and the bf16-operand mode at theirs, one launch of each counted
     at d and at the instance ``wide_instances`` names, and each kernel equal
     bit for bit on a second call; then their times at WIDE_DIMS (the split
-    kernels) and DEEP_DIMS (the CUDA-core K1, the deep K2 and K3), events
-    and device time, beside the plain versions', the bound and SDPA's, and
-    in the other two modes; at 320 the deep K2 and K3 beside the CUDA-core
-    kernels' last times (CUDA_CORE_BWD_MS). Returns the worst f32 errors by
+    kernels) and DEEP_DIMS (the deep kernels), events and device time,
+    beside the plain versions', the bound and SDPA's, and in the other two
+    modes; at 320 the deep kernels beside the last times of the CUDA-core
+    kernels they replaced (CUDA_CORE_MS). Returns the worst f32 errors by
     kernel and route and the times by d."""
     from multimodal_eeg_fmri_tpu_torch.ops.attention import (
         flash_bwd_dkv_cuda,
@@ -4220,37 +4203,54 @@ def wide_phase(dev, card: str) -> dict:
         q, k, v, g = (torch.randn(*WIDE_SHAPE, d, device=dev, generator=gen)
                       for _ in range(4))
         out[d] = kernel_call_times(q, k, v, g, "f32", card, iters=20, n=20)
-        o, lse = flash_forward_cuda(q, k, v)
-        delta = flash_delta(o, g)
-        qb, kb, vb, gb = (x.bfloat16() for x in (q, k, v, g))
-        # the other two modes, for their speed
-        modes = {
-            "flash_fwd": (
-                lambda: flash_forward_cuda(q, k, v, torch.bfloat16),
-                lambda: flash_forward_cuda(qb, kb, vb)),
-            "flash_bwd_dkv": (
-                lambda: flash_bwd_dkv_cuda(q, k, v, g, lse, delta,
-                                           torch.bfloat16),
-                lambda: flash_bwd_dkv_cuda(qb, kb, vb, gb, lse, delta)),
-            "flash_bwd_dq": (
-                lambda: flash_bwd_dq_cuda(q, k, v, g, lse, delta,
-                                          torch.bfloat16),
-                lambda: flash_bwd_dq_cuda(qb, kb, vb, gb, lse, delta))}
-        for name, (ops_fn, st_fn) in modes.items():
-            ops_ms, st_ms = (cuda_ms(f, iters=20) for f in (ops_fn, st_fn))
-            t = out[d][name]
-            t.update(bf16_operands_ms=ops_ms, bf16_storage_ms=st_ms)
+        bf16_mode_times(q, k, v, g, out[d], card, iters=20)
+        if d != DEEP_DIMS[0]:
+            continue
+        for name, t in out[d].items():
+            core = CUDA_CORE_MS[name]
             print(f"{wide_route(name, d)} at (B,H,T,D)={(*WIDE_SHAPE, d)}: "
-                  f"{share(t['bound_ms'], t['device_ms'])} of its bound by "
-                  f"device time; bf16 operands {ops_ms:.4f} ms, bf16 storage "
-                  f"{st_ms:.4f} ms {card}")
-            if d == DEEP_DIMS[0] and name in CUDA_CORE_BWD_MS:
-                core = CUDA_CORE_BWD_MS[name]
-                print(f"{wide_route(name, d)} at (B,H,T,D)="
-                      f"{(*WIDE_SHAPE, d)}: {t['ms']:.4f} ms per call, "
-                      f"{t['ms'] / core:.3f}x the CUDA-core kernel's "
-                      f"{core} ms (PERF.md) {card}")
+                  f"{t['ms']:.4f} ms per call, {t['ms'] / core:.3f}x the "
+                  f"CUDA-core kernel's {core} ms (PERF.md) {card}")
     return {"max_abs_err": worst, "times": out}
+
+
+def bf16_mode_times(q, k, v, g, times: dict, card: str,
+                    iters: int) -> None:
+    """K1, K2 and K3 on the f32 (q, k, v) with cotangent g in the other
+    two modes, bf16 operands and bf16 storage, for their speed: CUDA events
+    around ``iters`` calls, added to each kernel's entry of ``times``
+    (``kernel_call_times``' result on the same inputs) and printed beside
+    its f32 share of the bound."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_delta,
+        flash_forward_cuda,
+    )
+
+    o, lse = flash_forward_cuda(q, k, v)
+    delta = flash_delta(o, g)
+    qb, kb, vb, gb = (x.bfloat16() for x in (q, k, v, g))
+    modes = {
+        "flash_fwd": (
+            lambda: flash_forward_cuda(q, k, v, torch.bfloat16),
+            lambda: flash_forward_cuda(qb, kb, vb)),
+        "flash_bwd_dkv": (
+            lambda: flash_bwd_dkv_cuda(q, k, v, g, lse, delta,
+                                       torch.bfloat16),
+            lambda: flash_bwd_dkv_cuda(qb, kb, vb, gb, lse, delta)),
+        "flash_bwd_dq": (
+            lambda: flash_bwd_dq_cuda(q, k, v, g, lse, delta,
+                                      torch.bfloat16),
+            lambda: flash_bwd_dq_cuda(qb, kb, vb, gb, lse, delta))}
+    for name, (ops_fn, st_fn) in modes.items():
+        ops_ms, st_ms = (cuda_ms(f, iters=iters) for f in (ops_fn, st_fn))
+        t = times[name]
+        t.update(bf16_operands_ms=ops_ms, bf16_storage_ms=st_ms)
+        print(f"{wide_route(name, q.shape[3])} at (B,H,T,D)="
+              f"{tuple(q.shape)}: {share(t['bound_ms'], t['device_ms'])} of "
+              f"its bound by device time; bf16 operands {ops_ms:.4f} ms, "
+              f"bf16 storage {st_ms:.4f} ms {card}")
 
 
 def lc_wide_phase(dev, card: str, kw: dict = LC_WIDE,
@@ -4260,13 +4260,14 @@ def lc_wide_phase(dev, card: str, kw: dict = LC_WIDE,
     from a seed) on raw EEG (8, 2048, 18) through ``TrainStep``, its
     launches counted from 0 just before the step and read just after: K1,
     K2 and K3 once a layer each at the instances ``wide_instances`` names
-    (the split kernels at D=256; the CUDA-core K1 and the deep K2 and K3 at
-    D=512). Then the step against the einsum route and the CPU through
-    ``lc_step_gate`` (each gradient within STEP_GRAD_RTOL plus
+    (the split kernels at D=256, the deep ones at D=512). Then the step
+    against the einsum route and the CPU through ``lc_step_gate`` (each
+    gradient within STEP_GRAD_RTOL plus
     ZOO_FLOOR_FACTOR times its tensor's card-vs-CPU gap on the einsum route:
     ROADMAP C8), both routes' step times, and K1-K3 per call at the step's
-    shape, each held there to its plain version on the same inputs: K1 at
-    KERNEL_ATOL, K2 (dK, dV) and K3 (dQ) at GRAD_ATOL."""
+    shape in the three modes, each held there to its plain version on the
+    same inputs: K1 at KERNEL_ATOL, K2 (dK, dV) and K3 (dQ) at
+    GRAD_ATOL."""
     from multimodal_eeg_fmri_tpu_torch import TrainConfig, init_weights
     from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
     from multimodal_eeg_fmri_tpu_torch.ops.attention import (
@@ -4317,6 +4318,7 @@ def lc_wide_phase(dev, card: str, kw: dict = LC_WIDE,
     q, k, v, g = (torch.randn(*shape, device=dev, generator=gen)
                   for _ in range(4))
     kernels = kernel_call_times(q, k, v, g, "f32", card, iters=10, n=10)
+    bf16_mode_times(q, k, v, g, kernels, card, iters=10)
     o, lse = flash_forward_cuda(q, k, v)
     o_p, lse_p = flash_forward_plain(q, k, v)
     err = max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item())
@@ -4921,8 +4923,8 @@ def main() -> None:
     phase(f"kernel vs plain version past head dim 128 at D="
           f"{WIDE_CHECK_DIMS}: K1, K2 and K3 on the split tensor-core kernels"
           f" (csrc/flash_fwd_split.cu, csrc/flash_bwd_split.cu) up to 256; "
-          f"past it K1 on the CUDA cores (csrc/flash_wide.cu), K2 and K3 on "
-          f"the deep tensor-core kernels (csrc/flash_bwd_deep.cu); f32 and "
+          f"past it on the deep tensor-core kernels (csrc/flash_fwd_deep.cu, "
+          f"csrc/flash_bwd_deep.cu); f32 and "
           f"bf16 storage and bf16 operands {card}")
     wide = wide_phase(dev, card)
 
@@ -4932,8 +4934,7 @@ def main() -> None:
     print(json.dumps({"lc_d256": {**lc_wide["times"], "device": smi}}))
 
     phase(f"lc-d512-T{LC_T}: a train step of LongContextClassifier("
-          f"hidden_dim=512, num_heads=1), K1 on the CUDA cores and K2, K3 on "
-          f"the deep kernels {card}")
+          f"hidden_dim=512, num_heads=1) on the deep kernels {card}")
     lc_deep = lc_wide_phase(dev, card, LC_DEEP, LC_DEEP_SHAPE)
     print(json.dumps({"lc_d512": {**lc_deep["times"], "device": smi}}))
 
@@ -5522,7 +5523,7 @@ def main() -> None:
     } for name in names] + [{
         # past head dim 128: K1, K2 and K3 on the split kernels up to 256;
         # lc-d256-T2048's step is their main path, its per-call times at
-        # the step's (8, 2, 2048, 256), K1 beside the CUDA-core K1
+        # the step's (8, 2, 2048, 256)
         "name": f"{name}_split",
         "route": "cuda",
         "source": SPLIT_SOURCES[name],
@@ -5535,15 +5536,17 @@ def main() -> None:
         "shape": list(LC_WIDE_SHAPE),
         **timings({**lc_wide["kernels"][name], "ops": (
             lc_wide["kernels"][name]["bound_by"] == "operations")}),
+        **{k: lc_wide["kernels"][name][k]
+           for k in ("bf16_operands_ms", "bf16_storage_ms")},
         # each call at (8, 4, 512, d)
         **{f"D{d}": wide_timings(d, name) for d in WIDE_DIMS},
     } for name in names] + [{
-        # past head dim 256: K1 on the CUDA cores, K2 and K3 on the deep
-        # tensor-core kernels; lc-d512-T2048's step is their main path, its
-        # per-call times at the step's (8, 1, 2048, 512)
+        # past head dim 256: K1, K2 and K3 on the deep tensor-core kernels;
+        # lc-d512-T2048's step is their main path, its per-call times at the
+        # step's (8, 1, 2048, 512)
         "name": wide_route(name, LC_DEEP_SHAPE[3]),
         "route": "cuda",
-        "source": WIDE_SOURCE if name == "flash_fwd" else DEEP_SOURCE,
+        "source": DEEP_SOURCES[name],
         "replaces": replaces[name],
         "launches": lc_deep["launches"][name],
         "launches_by_path": {f"lc-d512-T{LC_T} step":
@@ -5553,6 +5556,8 @@ def main() -> None:
         "shape": list(LC_DEEP_SHAPE),
         **timings({**lc_deep["kernels"][name], "ops": (
             lc_deep["kernels"][name]["bound_by"] == "operations")}),
+        **{k: lc_deep["kernels"][name][k]
+           for k in ("bf16_operands_ms", "bf16_storage_ms")},
         # each call at (8, 4, 512, d)
         **{f"D{d}": wide_timings(d, name) for d in DEEP_DIMS},
     } for name in names] + [{

@@ -17,8 +17,8 @@
 // of every D-wide output in its registers (K2 spills already at D = 128),
 // and their 64-row tiles of four D-wide operands outgrow shared memory.
 // The wrapper zero-pads a head dim in (128, 256] to the instance 192 or 256
-// and passes the true scale 1/sqrt(d) (ops/attention.py); past 256 the
-// CUDA-core kernels of flash_wide.cu still run.
+// and passes the true scale 1/sqrt(d) (ops/attention.py); past 256
+// flash_bwd_deep.cu runs.
 //
 // Design (8 warps, a block per (b*h on grid x, 32 owned rows on y)):
 // - The owned side stays in shared memory: K and V rows in K2, Q and dO rows

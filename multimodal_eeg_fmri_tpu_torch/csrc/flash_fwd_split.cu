@@ -18,8 +18,8 @@
 // and its 64-row tiles of three D-wide operands outgrow shared memory. The
 // wrapper zero-pads a head dim in (128, 256] to the instance 192 or 256 and
 // passes the true scale 1/sqrt(d) (ops/attention.py): the zero columns add
-// nothing to Q K^T and give zero output columns. Past 256 the CUDA-core
-// kernel of flash_wide.cu still runs.
+// nothing to Q K^T and give zero output columns. Past 256
+// flash_fwd_deep.cu runs.
 //
 // Design (8 warps, a block per (b*h on grid x, 64 owned query rows on y)),
 // the structure of flash_bwd_split.cu's K3 with the online softmax added:

@@ -1,5 +1,5 @@
 // Tensor-core pieces shared by the flash kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_fwd_split.cu, flash_bwd_split.cu, flash_bwd_deep.cu):
+// flash_fwd_split.cu, flash_bwd_split.cu, flash_fwd_deep.cu, flash_bwd_deep.cu):
 // warp-level mma.sync fragments, the 3xTF32 split, and cp.async tile staging.
 //
 // One warp computes C (16 x 8, f32) += A (16 x depth) * B (depth x 8) in

@@ -25,12 +25,11 @@ columns, and leave Δ = rowsum(dO∘O) as it is. The padding stays inside the
 true d. Past 128, K1, K2 and K3 pad d ≤ 256 the same way to the instances
 in ``SPLIT_HEAD_DIMS``, tensor-core kernels that split the D-wide sums over
 their warps (``csrc/flash_fwd_split.cu``, ``csrc/flash_bwd_split.cu``).
-Past 256 (up to ``WIDE_MAX_HEAD_DIM``) K2 and K3 pad d to a multiple of
+Past 256 (up to ``WIDE_MAX_HEAD_DIM``) all three pad d to a multiple of
 ``DEEP_CHUNK`` for tensor-core kernels that sum the scores over column
 chunks and split the D-wide outputs into column slices
-(``csrc/flash_bwd_deep.cu``), and K1 goes unpadded to the same function on
-the CUDA cores (``csrc/flash_wide.cu``). All count as the launches of K1,
-K2 and K3.
+(``csrc/flash_fwd_deep.cu``, ``csrc/flash_bwd_deep.cu``). All count as the
+launches of K1, K2 and K3.
 """
 
 from __future__ import annotations
@@ -45,13 +44,14 @@ from torch._C import _functorch
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 # K1-K3 on the tensor cores past 128, the D-wide sums split over warps
 SPLIT_HEAD_DIMS = (192, 256)
-# K2 and K3 past 256 take any multiple of this (their column chunk), the
-# head dim zero-padded to one
+# K1, K2 and K3 past 256 take any multiple of this (their column chunk),
+# the head dim zero-padded to one
 DEEP_CHUNK = 64
-# the largest head dim the kernels take: where the CUDA-core dK/dV kernel's
-# four f32 rows of D filled an SM's 227 KB. K1 past 256 keeps two rows of D
-# a warp in shared memory beside a staged tile (about 26,900 fit); K2 and
-# K3 past 256 keep nothing of width D
+# the largest head dim the wrappers take. No kernel keeps a row of width D:
+# past 256 they stage 64-column chunks and give each block on the grid's z
+# axis a slice of 512 output columns, so only gridDim.z (65,535 slices)
+# bounds them. The value is a choice, kept as it was so that no head dim
+# changes routing; the JAX package takes any D (ROADMAP).
 WIDE_MAX_HEAD_DIM = 12448
 
 
@@ -68,9 +68,8 @@ def kernel_head_dim(d: int) -> int:
 def _launch(name: str, d: int) -> Tuple[str, int]:
     """(C entry point, launch head dim) of kernel ``name`` (its C entry
     point's name) at true head dim d: the tensor-core instance for d ≤ 128
-    and, past it, up to 256 (``_split``); past that, K1 on the CUDA cores
-    at d itself (``_wide``), K2 and K3 on the tensor cores at d padded to
-    a multiple of ``DEEP_CHUNK`` (``_deep``)."""
+    and, past it, up to 256 (``_split``); past that, the tensor-core kernel
+    at d padded to a multiple of ``DEEP_CHUNK`` (``_deep``)."""
     if d > WIDE_MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} is past the flash kernels' limit "
                          f"{WIDE_MAX_HEAD_DIM}")
@@ -78,8 +77,6 @@ def _launch(name: str, d: int) -> Tuple[str, int]:
         return name, kernel_head_dim(d)
     if d <= SPLIT_HEAD_DIMS[-1]:
         return f"{name}_split", next(kd for kd in SPLIT_HEAD_DIMS if d <= kd)
-    if name == "mmef_flash_fwd":
-        return f"{name}_wide", d
     return f"{name}_deep", -(-d // DEEP_CHUNK) * DEEP_CHUNK
 
 
@@ -216,15 +213,9 @@ def _check_kernel_inputs(name, q, k, v, compute_dtype, *extra):
     _launch("mmef_flash_fwd", D)
     # B·H runs on the grid's x axis (2^31 − 1 blocks), the row tiles of Tq
     # (K1, K3) or Tk (K2) on its y axis (65,535): 64 rows a block up to head
-    # dim 128; up to 256, 64 in K1 and 32 in K2 and K3, the smaller taken
-    # for all three; past it, 1 to 8 in K1 (1 taken) and 32 in K2 and K3
-    # (their column slices on the z axis)
-    if D <= KERNEL_HEAD_DIMS[-1]:
-        rows_per_block = 64
-    elif D <= SPLIT_HEAD_DIMS[-1] or name != "flash_forward_cuda":
-        rows_per_block = 32
-    else:
-        rows_per_block = 1
+    # dim 128; past it 64 in K1 and 32 in K2 and K3, the smaller taken for
+    # all three (past 256 their column slices run on the z axis)
+    rows_per_block = 64 if D <= KERNEL_HEAD_DIMS[-1] else 32
     if (min(B, H, Tq, Tk) < 1 or B * H > 2**31 - 1
             or max(Tq, Tk) > 65535 * rows_per_block):
         raise ValueError(f"unsupported sizes B={B} H={H} Tq={Tq} Tk={Tk}")

@@ -11,14 +11,13 @@ equals the JAX package's (its Pallas kernel in interpret mode, as its own
 tests run it, which pads to 128 lanes) at d = 24 and 48 within 2e-5, output
 and input gradients. Past 128, K1, K2 and K3 pad a head dim in (128, 256]
 to the split tensor-core instances 192 and 256 (``csrc/flash_fwd_split.cu``,
-``csrc/flash_bwd_split.cu``) with the true scale; past 256, K1 takes the
-CUDA-core kernel (``csrc/flash_wide.cu``) at the true head dim, and K2 and
-K3 the deep tensor-core kernels (``csrc/flash_bwd_deep.cu``) at the head
-dim zero-padded to a multiple of 64, with the true scale: the routing,
-through a stand-in library that records the launch; the padded plain
-forward and backward at d = 129, 160 and 224 on their instance, and the
-padded plain backward at d = 257, 300 and 320, against the plain versions
-at d (1e-6, as above); ``flash_attention`` and ``flash_attention_lse`` at
+``csrc/flash_bwd_split.cu``) with the true scale; past 256 all three take
+the deep tensor-core kernels (``csrc/flash_fwd_deep.cu``,
+``csrc/flash_bwd_deep.cu``) at the head dim zero-padded to a multiple of
+64, with the true scale: the routing, through a stand-in library that
+records the launch; the padded plain forward and backward at d = 129, 160
+and 224 on their instance and at d = 257, 300 and 320 padded to 320,
+against the plain versions at d (1e-6, as above); ``flash_attention`` and ``flash_attention_lse`` at
 d = 160, 256, 320 and 512 against JAX's interpret mode (which pads to a
 multiple of 128 lanes) within 2e-5 in f32, outputs, lse and the
 gradients with an lse cotangent; in the bf16-operand mode against JAX's
@@ -104,10 +103,19 @@ def test_padded_plain_equals_plain(d, storage, compute_dtype):
     three are padded to the split instances: 129 and 160 to 192, 224 to
     256)."""
     dtype = torch.float32 if storage == "f32" else torch.bfloat16
-    kd, scale = {**PADDED, **SPLIT_PADDED}[d], 1.0 / math.sqrt(d)
+    kd = {**PADDED, **SPLIT_PADDED}[d]
     q, k, v, g = _inputs(d, dtype)
-    pq, pk, pv, pg = (port_attn.pad_head_dim(t, kd) for t in (q, k, v, g))
+    out, lse = _padded_forward_equals_plain(q, k, v, kd, compute_dtype)
+    _padded_backward_equals_plain(q, k, v, g, out, lse, kd, compute_dtype)
 
+
+def _padded_forward_equals_plain(q, k, v, kd, compute_dtype):
+    """The forward's plain version at head dim ``kd`` (q, k, v zero-padded)
+    with the true scale, sliced back to d, against the plain version at d,
+    within PAD_ATOL; the padded columns stay zero. Returns the plain
+    version's (out, lse) at d."""
+    d, scale = q.shape[-1], 1.0 / math.sqrt(q.shape[-1])
+    pq, pk, pv = (port_attn.pad_head_dim(t, kd) for t in (q, k, v))
     out, lse = port_attn.flash_forward_plain(q, k, v, compute_dtype)
     out_p, lse_p = port_attn.flash_forward_plain(pq, pk, pv, compute_dtype,
                                                  scale=scale)
@@ -116,8 +124,7 @@ def test_padded_plain_equals_plain(d, storage, compute_dtype):
                                out.float().numpy(), atol=PAD_ATOL, rtol=0)
     np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), atol=PAD_ATOL,
                                rtol=0)
-
-    _padded_backward_equals_plain(q, k, v, g, out, lse, kd, compute_dtype)
+    return out, lse
 
 
 def _padded_backward_equals_plain(q, k, v, g, out, lse, kd, compute_dtype):
@@ -148,15 +155,15 @@ def _padded_backward_equals_plain(q, k, v, g, out, lse, kd, compute_dtype):
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32-operands", "bf16-operands"])
 def test_deep_padded_plain_equals_plain(d, storage, compute_dtype):
-    """What the backward wrappers give the deep kernels past 256, computed
-    by the plain versions: both halves at d padded to a multiple of 64 with
-    the true scale, sliced back to d, against the plain versions at d (K1
-    past 256 runs unpadded)."""
+    """What the wrappers give the deep kernels past 256, computed by the
+    plain versions: the forward and both backward halves at d padded to a
+    multiple of 64 with the true scale, sliced back to d, against the plain
+    versions at d."""
     dtype = torch.float32 if storage == "f32" else torch.bfloat16
     q, k, v, g = _inputs(d, dtype)
-    out, lse = port_attn.flash_forward_plain(q, k, v, compute_dtype)
-    kd = port_attn._launch("mmef_flash_bwd_dq", d)[1]
-    assert kd == DEEP_PADDED[d]
+    kd = port_attn._launch("mmef_flash_fwd", d)[1]
+    assert kd == port_attn._launch("mmef_flash_bwd_dq", d)[1] == DEEP_PADDED[d]
+    out, lse = _padded_forward_equals_plain(q, k, v, kd, compute_dtype)
     _padded_backward_equals_plain(q, k, v, g, out, lse, kd, compute_dtype)
 
 
@@ -187,22 +194,22 @@ def test_flash_attention_matches_jax_interpret(d):
                                    atol=JAX_ATOL, rtol=0, err_msg=name)
 
 
-# --- head dims past 128: the split kernels up to 256, then K1 on the CUDA
-# cores and K2, K3 on the deep tensor-core kernels
+# --- head dims past 128: the split kernels up to 256, then the deep
+# tensor-core kernels
 
 WIDE_DIMS = (160, 256, 320, 512)
-# past 256: the CUDA-core K1 (csrc/flash_wide.cu) at the true head dim
-CUDA_CORE_DIMS = (257, 320)
+# past 256: K1 on the deep kernel (csrc/flash_fwd_deep.cu), d padded
+DEEP_FORWARD_DIMS = (257, 320)
 
 
-@pytest.mark.parametrize("d", CUDA_CORE_DIMS)
-def test_wide_head_dim_goes_unpadded_to_the_cuda_core_kernels(d):
-    """Past 256 K1's wrapper launches at the true d through the ``_wide``
-    entry point (K2 and K3 take the ``_deep`` ones:
-    ``test_backward_routes_by_head_dim``); past ``WIDE_MAX_HEAD_DIM`` it
-    raises."""
-    assert port_attn._launch("mmef_flash_fwd", d) == ("mmef_flash_fwd_wide",
-                                                      d)
+@pytest.mark.parametrize("d", DEEP_FORWARD_DIMS)
+def test_wide_head_dim_goes_padded_to_the_deep_kernel(d):
+    """Past 256 K1's wrapper launches through the ``_deep`` entry point at
+    d padded to a multiple of 64, as K2 and K3 do
+    (``test_backward_routes_by_head_dim``); past ``WIDE_MAX_HEAD_DIM`` all
+    three raise."""
+    assert port_attn._launch("mmef_flash_fwd", d) == ("mmef_flash_fwd_deep",
+                                                      DEEP_PADDED[d])
     assert port_attn._launch("mmef_flash_fwd", 100) == ("mmef_flash_fwd", 128)
     for name in ("mmef_flash_fwd", "mmef_flash_bwd_dkv", "mmef_flash_bwd_dq"):
         with pytest.raises(ValueError, match="limit"):
@@ -221,7 +228,7 @@ def _wide_sizes(d):
 def test_wide_head_dim_matches_jax_interpret(d, with_lse):
     """``flash_attention`` and ``flash_attention_lse`` at d = 160, 256, 320
     and 512 (the plain math on the CPU, the functions the split kernels and,
-    past 256, the CUDA-core K1 and the deep K2 and K3 compute) against the
+    past 256, the deep kernels compute) against the
     JAX package's, whose wrapper pads d to a multiple of 128 lanes: output
     (and lse) and the gradients of Σ out·g (+ Σ lse·g_lse) within 2e-5."""
     r = np.random.default_rng(d + with_lse)
@@ -444,12 +451,12 @@ def stand_in(monkeypatch):
 
 
 # (true head dim, entry-point suffix and launch head dim): K1, K2 and K3
-# share the split instances up to 256; past it K1 runs on the CUDA cores at
-# d, K2 and K3 on the deep tensor-core kernels at d padded to 64
+# share the split instances up to 256 and the deep tensor-core kernels past
+# it, at d padded to a multiple of 64
 SPLIT_ROUTES = [(129, "_split", 192), (160, "_split", 192),
                 (192, "_split", 192), (256, "_split", 256)]
-FORWARD_ROUTES = SPLIT_ROUTES + [(d, "_wide", d) for d in (257, 320, 512,
-                                                           1000)]
+FORWARD_ROUTES = SPLIT_ROUTES + [(d, "_deep", kd) for d, kd in
+                                 sorted(DEEP_PADDED.items()) if d != 300]
 BACKWARD_ROUTES = SPLIT_ROUTES + [(d, "_deep", kd) for d, kd in
                                   sorted(DEEP_PADDED.items())]
 
@@ -491,7 +498,8 @@ def test_forward_routes_by_head_dim(stand_in, d, suffix, kd, storage,
                                     compute_dtype):
     """K1 at d in (128, 256] launches the split tensor-core entry point on
     q, k, v zero-padded to its instance, with the true scale 1/√d; past 256
-    the CUDA-core one at d, unpadded. The operand mode reaches the kernel
+    the deep one on q, k, v zero-padded to a multiple of 64, with the true
+    scale. The operand mode reaches the kernel
     as its bf16_ops flag. The counts record the storage, the true head dim
     and the entry point at its launch head dim, and the outputs come back
     at d."""
@@ -508,7 +516,7 @@ def test_forward_routes_by_head_dim(stand_in, d, suffix, kd, storage,
                           int(compute_dtype == torch.bfloat16))
     assert args[12] == pytest.approx(1.0 / math.sqrt(d), rel=1e-12)
     # the strides the kernel reads are those of the padded (contiguous)
-    # inputs at kd, or of the caller's at d
+    # inputs at kd
     assert list(args[13])[:3] == [2 * 5 * kd, 5 * kd, kd]
     assert port_attn.kernel_launches_by_instance()["flash_fwd"] == {
         f"mmef_flash_fwd{suffix} D={kd}": 1}
@@ -518,19 +526,23 @@ def test_forward_routes_by_head_dim(stand_in, d, suffix, kd, storage,
 
 
 def test_grid_rows_past_256(stand_in):
-    """Past 256 the deep K2 and K3 take 32 rows a block on the grid's y
-    axis, so 70,000 rows launch; K1's CUDA-core kernel may take one row a
-    block, so its wrapper refuses them. Zero-stride views: no 70,000-row
-    tensor is made."""
+    """Past 256 the deep K1 takes 64 rows a block on the grid's y axis, K2
+    and K3 32, and the wrappers hold all three to the smaller: 70,000 rows
+    launch, 65,535 × 32 + 1 are refused. Zero-stride views: no input of
+    70,000 rows is made."""
     q = torch.zeros(1, 1, 1, 320).expand(1, 1, 70000, 320)
     lse = torch.zeros(1, 1, 70000)
+    out, lse_k = port_attn.flash_forward_cuda(q, q, q)
     dk, dv = port_attn.flash_bwd_dkv_cuda(q, q, q, q, lse, lse)
     dq = port_attn.flash_bwd_dq_cuda(q, q, q, q, lse, lse)
-    assert dk.shape == dv.shape == dq.shape == q.shape
+    assert out.shape == dk.shape == dv.shape == dq.shape == q.shape
+    assert lse_k.shape == lse.shape
     assert [name for name, _ in stand_in.calls] == [
-        "mmef_flash_bwd_dkv_deep", "mmef_flash_bwd_dq_deep"]
+        "mmef_flash_fwd_deep", "mmef_flash_bwd_dkv_deep",
+        "mmef_flash_bwd_dq_deep"]
+    too_many = torch.zeros(1, 1, 1, 320).expand(1, 1, 65535 * 32 + 1, 320)
     with pytest.raises(ValueError, match="unsupported sizes"):
-        port_attn.flash_forward_cuda(q, q, q)
+        port_attn.flash_forward_cuda(too_many, q, q)
 
 
 def test_backward_past_the_limit_raises(stand_in):
@@ -546,8 +558,8 @@ def test_backward_past_the_limit_raises(stand_in):
 def test_long_context_d256_matches_jax(monkeypatch):
     """One train step of ``LongContextClassifier(hidden_dim=512,
     num_heads=2)``, head dim 256, one layer, on the flash route at T=40:
-    the port (K1-K3's plain versions on the CPU, the functions the wide
-    and split kernels compute) against the JAX package (its Pallas kernel
+    the port (K1-K3's plain versions on the CPU, the functions the split
+    kernels compute) against the JAX package (its Pallas kernel
     in interpret mode, which pads D to 256 lanes), from the same seeded
     flax variables through ``load_flax_variables``. The weighted CE within
     1e-5; every weight and input gradient within 1e-4 of the largest

@@ -19,8 +19,7 @@ sums (a rounding left out, such as dS unrounded before dS·K, moves dq by
 1e-3 or more); with bf16 storage as well, plus one bf16 ulp of the largest
 gradient, as both sides round their f32 result to bf16 on their own.
 Past head dim 128 (K1, K2 and K3 on the split tensor-core kernels up to
-256; past it K1 on the CUDA cores and K2, K3 on the deep tensor-core
-kernels) at the same gates, each launch counted at its C entry point and
+256, on the deep tensor-core kernels past it) at the same gates, each launch counted at its C entry point and
 launch head dim, and K1, K2 and K3 equal bit for bit on a second call
 (each block writes its rows once, its sums in a fixed order).
 S1 on either schedule within 2e-5 of its sequential plain version's largest
@@ -219,7 +218,7 @@ def test_kernel_wrapper_refuses(cuda_device, bad):
     err = {"mixed_dtype": TypeError, "dtype": TypeError}.get(bad, ValueError)
     if bad == "mixed_dtype":
         q = q.bfloat16()
-    elif bad == "head_dim":   # past the CUDA-core kernels' limit
+    elif bad == "head_dim":   # past the wrappers' limit
         q, k, v = _qkv(cuda_device, 1, 1, 8, 8, WIDE_MAX_HEAD_DIM + 1)
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
@@ -276,10 +275,10 @@ def test_kernels_take_padded_head_dims(cuda_device, d, storage):
 
 
 # past 128: K1, K2 and K3 on the split tensor-core kernels up to 256 (160
-# and 192 on the 192 instance); past it K1 on the CUDA cores at d, K2 and K3
-# on the deep tensor-core kernels at d padded to a multiple of 64 (257 to
-# 320; 1024 in two column slices)
-WIDE_DIMS = (160, 192, 256, 257, 320, 384, 512, 1024)
+# and 192 on the 192 instance); past it on the deep tensor-core kernels at
+# d padded to a multiple of 64 (257 to 320; 576 in two uneven column slices
+# of 4 and 5 chunks, 1024 in two of 8)
+WIDE_DIMS = (160, 192, 256, 257, 320, 384, 512, 576, 1024)
 
 
 @pytest.mark.cuda
@@ -288,9 +287,9 @@ WIDE_DIMS = (160, 192, 256, 257, 320, 384, 512, 1024)
 def test_kernels_take_wide_head_dims(cuda_device, d, storage):
     """K1, K2 and K3 past head dim 128 at the padded head dims' gates:
     padded to the split tensor-core instances (``csrc/flash_fwd_split.cu``,
-    ``csrc/flash_bwd_split.cu``) up to 256; past it K1 unpadded on the CUDA
-    cores (``csrc/flash_wide.cu``), K2 and K3 padded to a multiple of 64 on
-    the deep tensor-core kernels (``csrc/flash_bwd_deep.cu``)."""
+    ``csrc/flash_bwd_split.cu``) up to 256; past it padded to a multiple of
+    64 on the deep tensor-core kernels (``csrc/flash_fwd_deep.cu``,
+    ``csrc/flash_bwd_deep.cu``)."""
     _kernels_hold_at_head_dim(cuda_device, d, storage)
 
 
@@ -408,6 +407,19 @@ def test_kernels_launch_past_the_grid_y_limit(cuda_device):
     for a, b, name in zip(got, want, ("dq", "dk", "dv")):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=0,
                                    msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_deep_forward_takes_70000_query_rows(cuda_device):
+    """70,000 query rows at d = 320, more than the grid's y axis takes
+    blocks (65,535): the deep K1 runs 64 rows a block (1,094 blocks), so it
+    launches and agrees with its plain version."""
+    q, k, v = _qkv(cuda_device, 1, 1, 70000, 64, 320)
+    out_k, lse_k = flash_forward_cuda(q, k, v)
+    out_p, lse_p = flash_forward_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out_k, out_p, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse_k, lse_p, atol=2e-5, rtol=0)
 
 
 @pytest.mark.cuda
@@ -606,7 +618,7 @@ def _misaligned(x, how):
 def test_kernels_take_misaligned_views(cuda_device, how, dtype, atol,
                                        grad_atol, d):
     """At d = 32 the tensor-core kernels up to 128; at 256 the split ones
-    and at 320 the CUDA-core K1 and the deep K2 and K3, which take the view
+    and at 320 the deep ones, which take the view
     as it is (no padding copy at an instance or a multiple of 64)."""
     q, k, v = (t.to(dtype) for t in _qkv(cuda_device, 2, 2, 130, 200, d))
     g = torch.from_numpy(np.random.default_rng(5).standard_normal(

@@ -440,57 +440,48 @@ def test_split_gate_names_the_faulty_instance(fault):
     assert len(faults) == 1 and str(inst) in faults[0]
 
 
-# past 256, K2 and K3's route at each head dim: the deep kernels at d padded
-# to a multiple of 64
-DEEP_ROUTES = {257: "_deep D=320", 320: "_deep D=320", 512: "_deep D=512",
-               1000: "_deep D=1024"}
-
-
 @pytest.mark.parametrize("d,route", [(160, "_split D=192"),
                                      (192, "_split D=192"),
                                      (256, "_split D=256"),
-                                     (320, "_wide D=320"),
-                                     (257, "_wide D=257"),
-                                     (512, "_wide D=512"),
-                                     (1000, "_wide D=1000")])
+                                     (320, "_deep D=320"),
+                                     (257, "_deep D=320"),
+                                     (512, "_deep D=512"),
+                                     (1000, "_deep D=1024")])
 def test_wide_instances_name_the_route_of_each_head_dim(d, route):
     """K1, K2 and K3 take one route at each head dim past 128: the split
-    kernels at the padded instance up to 256 (``route``); past it K1 the
-    CUDA-core kernel at d (``route``), K2 and K3 the deep tensor-core
-    kernels at d padded to a multiple of 64."""
-    bwd = DEEP_ROUTES.get(d, route)
+    kernels at the padded instance up to 256, the deep tensor-core kernels
+    at d padded to a multiple of 64 past it (``route``)."""
     assert chip_smoke.wide_instances(d) == {
         "flash_fwd": f"mmef_flash_fwd{route}",
-        "flash_bwd_dkv": f"mmef_flash_bwd_dkv{bwd}",
-        "flash_bwd_dq": f"mmef_flash_bwd_dq{bwd}"}
+        "flash_bwd_dkv": f"mmef_flash_bwd_dkv{route}",
+        "flash_bwd_dq": f"mmef_flash_bwd_dq{route}"}
     for name, entry in chip_smoke.wide_instances(d).items():
         kernel = chip_smoke.wide_route(name, d)
         assert kernel.endswith(entry.split(" ")[0].rsplit("_", 1)[1])
 
 
-# the CUDA-core K1 and the deep K2 and K3 past head dim 256
-# (csrc/flash_wide.cu, csrc/flash_bwd_deep.cu), as nvcc mangles them
-WIDE_FWD = ("_ZN12_GLOBAL__N_121flash_wide_fwd_kernelI13__nv_bfloat16Lb1EEEvPKT_"
-            "S4_S4_PS2_Pfiiiiillllllllllf")
+# the deep K1, K2 and K3 past head dim 256 (csrc/flash_fwd_deep.cu,
+# csrc/flash_bwd_deep.cu), as nvcc mangles them
+DEEP_FWD = ("_ZN51_GLOBAL__N__0c1d2e3f_17_flash_fwd_deep_cu_4a5b6c7d21flash_"
+            "fwd_deep_kernelI13__nv_bfloat16Lb1EEEvNS_6ParamsE")
 DEEP_DKV = ("_ZN51_GLOBAL__N__0c1d2e3f_17_flash_bwd_deep_cu_4a5b6c7d25flash_"
             "bwd_dkv_deep_kernelIfLb0EEEvNS_6ParamsE")
 DEEP_DQ = ("_ZN51_GLOBAL__N__0c1d2e3f_17_flash_bwd_deep_cu_4a5b6c7d24flash_"
            "bwd_dq_deep_kernelI13__nv_bfloat16Lb1EEEvNS_6ParamsE")
 
 
-@pytest.mark.parametrize("symbol,wide,deep", [
-    (WIDE_FWD, ("flash_fwd_wide", "bf16", "bf16"), None),
-    (DEEP_DKV, None, ("flash_bwd_dkv_deep", "f32", "f32")),
-    (DEEP_DQ, None, ("flash_bwd_dq_deep", "bf16", "bf16")),
-    (SPLIT_DKV, None, None),
-    (DKV, None, None),
+@pytest.mark.parametrize("symbol,deep", [
+    (DEEP_FWD, ("flash_fwd_deep", "bf16", "bf16")),
+    (DEEP_DKV, ("flash_bwd_dkv_deep", "f32", "f32")),
+    (DEEP_DQ, ("flash_bwd_dq_deep", "bf16", "bf16")),
+    (SPLIT_DKV, None),
+    (DKV, None),
 ])
-def test_wide_and_deep_instances_read_mangled_symbols(symbol, wide, deep):
-    """The CUDA-core K1 and the deep K2 and K3 are told apart from each
-    other and from the split and D ≤ 128 kernels."""
-    assert chip_smoke.wide_instance(symbol) == wide
+def test_wide_and_deep_instances_read_mangled_symbols(symbol, deep):
+    """The deep K1, K2 and K3 are told apart from each other and from the
+    split and D ≤ 128 kernels."""
     assert chip_smoke.deep_instance(symbol) == deep
-    if wide or deep:
+    if deep:
         assert chip_smoke.kernel_instance(symbol) is None
         assert chip_smoke.split_instance(symbol) is None
 
@@ -513,7 +504,7 @@ ptxas info    : Used 214 registers, used 1 barriers, 520 bytes cmem[0]
 
 def _deep_build():
     instances = sorted(chip_smoke.DEEP_INSTANCES)
-    assert len(instances) == 8
+    assert len(instances) == 12
     return {i: (190, 0, 0, 0) for i in instances}, dict.fromkeys(instances, 8)
 
 
@@ -530,6 +521,32 @@ def test_deep_gate_names_the_faulty_instance(fault):
     if fault == "missing":
         del resources[inst]
     elif fault == "no HMMA":
+        hmma[inst] = 0
+    else:
+        resources[inst] = ((255, 8, 8, 0) if fault == "spill"
+                           else (200, 0, 0, 16))
+    faults = _gate("deep", resources, hmma)
+    assert len(faults) == 1 and str(inst) in faults[0]
+
+
+def test_deep_gate_wants_the_forward_instances():
+    """A build whose deep K1 instances are missing fails, naming all four
+    (f32 and bf16 storage, f32 and bf16 operands)."""
+    resources, hmma = _deep_build()
+    forward = sorted(i for i in resources if i[0] == "flash_fwd_deep")
+    assert len(forward) == 4
+    for inst in forward:
+        del resources[inst], hmma[inst]
+    (fault,) = _gate("deep", resources, hmma)
+    assert all(str(inst) in fault for inst in forward)
+
+
+@pytest.mark.parametrize("fault", ["no HMMA", "spill", "stack"])
+def test_deep_gate_names_a_faulty_forward_instance(fault):
+    """A deep K1 instance with no HMMA, a spill or a stack frame fails."""
+    resources, hmma = _deep_build()
+    inst = ("flash_fwd_deep", "f32", "f32")
+    if fault == "no HMMA":
         hmma[inst] = 0
     else:
         resources[inst] = ((255, 8, 8, 0) if fault == "spill"
