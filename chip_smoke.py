@@ -61,7 +61,7 @@ holds the SHA-256 of the splits of the three split front-ends on its
 cohorts to the constant the JAX package's sklearn splits give
 (``tests/test_torch_port_splits.py`` recomputes it). cv-eeg-kfold-T512
 runs ``run_cv`` on TriModalFusionNetV4 at EEGConfig's widths with dropout
-0 over 66 subjects in 5 stratified-group folds, 3 epochs: the K1-K3
+0 over 66 subjects in 5 stratified-group folds, 2 epochs: the K1-K3
 launches must equal the counts derived from the padded fold length, the
 steps and the evaluations; gate a holds ``run_cv`` to a hand loop of
 ``make_fit_fn`` over the same fold arrays, generators and initial weights,
@@ -224,6 +224,26 @@ largest printed. lc-ring-heads takes one step on a (seq 2 × model 2) mesh
 of the same world against the same references; a world of one over NCCL
 gives the single-device flash logits within 2e-5. A ``ring`` JSON line
 holds the times.
+The same world then runs the pipeline and parameter sharding (queue A
+items 7a and 7b), each against a single-device run of the port from the
+same weights made before the world starts, each rank's K1-K3 launches
+held exactly, every rank's gradients equal, each phase's start time, step
+ms a rank, bytes staged a step, AdamW state bytes and peak bytes printed:
+pipe-T2048 (``PipelinedLongContextClassifier`` at its defaults, stage
+axis 4, n_micro 4, raw EEG (8, 2048, 18), 16 subjects and 8 validation
+rows): a 2-epoch fit's history within rtol 2e-4, atol 2e-5 of the
+twin's, one step's gradient per tensor within 3e-4 of its largest, and the
+fit at dropout 0.1 against the twin's at 0.1 and unequal to dropout 0's;
+pipe-ring-T4096 (stage 2 × seq 2, the ring's flash chunk, T_local 2048):
+one step against the 2-layer twin; tp-fsdp-T512 (``MultimodalEndToEnd(
+dropout=0.0)`` at its defaults, batch 8, T = 512): one step under TP on
+(data 2 × model 2), FSDP on data 4 and FSDP×TP, the loss within 1e-5 and
+the gradients within 1e-4 of their largest (``step_gate``); ep-T2048
+(lc-moe-T2048's model, one step on (data 2 × expert 2), then its MoE
+blocks on a ring of 4 with the flash chunk): the tokens routed otherwise
+than on the single device printed, and with any the gate held on a run
+that takes the single device's expert choices (C8). A ``parallel`` JSON
+line holds their times; the kernels line lists their launches.
 Any failed phase raises, so the exit code is not 0 and the final line is
 not printed.
 There is no CPU mode: without a GPU the script fails at once.
@@ -1399,7 +1419,7 @@ def stream_phase(dev, card: str) -> dict:
 # --- the cross-validation slice: train/cv.py on the card ---------------------
 
 CV_EEG_N, CV_FMRI_N = 66, 32      # the cohorts of the JAX package's defaults
-CV_EPOCHS, CV_FMRI_EPOCHS, CV_LOSO_EPOCHS, CV_SEEDS = 3, 5, 2, 4
+CV_EPOCHS, CV_FMRI_EPOCHS, CV_LOSO_EPOCHS, CV_SEEDS = 2, 5, 2, 4
 CV_ATOL = 1e-4                    # a whole fit, route against route
 REPORT_ATOL = 1e-5                # the clinical report, card against CPU
 EEG_KEYS, FMRI_KEYS = ("erp", "pw", "conn"), ("activation", "connectivity")
@@ -4423,10 +4443,12 @@ def ring_step_ms(model, batch: dict, cfg, dev) -> float:
     return 1e3 * (time.perf_counter() - t0) / RING_TIMED_STEPS
 
 
-def ring_worker(rank: int, world: int, one_card_each: bool) -> dict:
+def ring_worker(rank: int, world: int, one_card_each: bool, start: float,
+                refs: dict) -> dict:
     """One rank of the 4-rank world: the lc-ring-T8192 fit and step, the
     einsum-chunk ring against the flash-chunk ring, and lc-ring-heads'
-    step on a (seq 2 × model 2) mesh of the same world. Returns the rank's
+    step on a (seq 2 × model 2) mesh of the same world; then the pipeline
+    and parameter-sharding cases (``parallel_cases``). Returns the rank's
     results in host memory."""
     from multimodal_eeg_fmri_tpu_torch import make_fit_fn
     from multimodal_eeg_fmri_tpu_torch.parallel import (
@@ -4494,6 +4516,9 @@ def ring_worker(rank: int, world: int, one_card_each: bool) -> dict:
     heads = Mesh(np.arange(world).reshape(RING_HEADS_MESH), ("seq", "model"))
     out["heads"] = step_grads(ring_model(dev, heads, heads="model"),
                               shard_sequence(batch, heads, "seq"), cfg, dev)
+    del model, fit, result
+    torch.cuda.empty_cache()
+    out["parallel"] = parallel_cases(rank, world, dev, start, refs)
     return out
 
 
@@ -4520,6 +4545,557 @@ def ring_one_worker(rank: int, world: int) -> dict:
             "backend": str(torch.distributed.get_backend(group)),
             "staged": collectives.staged_bytes(),
             "step": step_grads(ring_model(dev, mesh), batch, cfg, dev)}
+
+
+# --- pipeline and parameter sharding (queue A items 7a and 7b), in the
+# ring phase's world ---------------------------------------------------------
+
+PP_T, PP_STAGES, PP_COHORT, PP_VAL, PP_EPOCHS = 2048, 4, 16, 8, 2
+PP_DROPOUT, PP_SEED, PP_TORCH_SEED = 0.1, 7, 11
+PP_RING_T, PP_RING_MESH = 4096, (2, 2)     # (stage, seq), T_local 2048
+# tp-fsdp-T512: (mesh shape, axis names) of each layout of the main model
+SHARD_MESHES = {"tp": ((2, 2), ("data", "model")),
+                "fsdp": ((4,), ("data",)),
+                "fsdp_tp": ((2, 2), ("data", "model"))}
+SHARD_SEED = 1
+EP_MESH = (2, 2)                           # (data, expert)
+PAR_TIMED_STEPS = 3
+
+
+def world_phase(rank: int, start: float, name: str) -> float:
+    """A phase of the world begins: rank 0 prints it, at the script's
+    clock (``start`` is the script's start on the wall clock); returns the
+    time."""
+    at = time.time() - start
+    if rank == 0:
+        print(f"== {name} (at {at:.1f} s, rank 0 of the world)", flush=True)
+    return at
+
+
+def pp_twin(dev, layers: int, dropout: float = 0.0):
+    """The sequential twin of ``PipelinedLongContextClassifier`` at its JAX
+    defaults (hidden 64, 4 heads, patch 1), the weights from PP_SEED."""
+    from multimodal_eeg_fmri_tpu_torch import init_weights
+    from multimodal_eeg_fmri_tpu_torch.models import (
+        PipelinedLongContextClassifier,
+    )
+
+    return init_weights(PipelinedLongContextClassifier(
+        num_layers=layers, dropout=dropout, device=dev),
+        torch.Generator().manual_seed(PP_SEED))
+
+
+def pp_rank(dev, mesh, layers: int, dropout: float = 0.0, seq: bool = False):
+    """This rank's stage of the pipelined classifier, from the twin's
+    weights (``parallel.layout.local_tree``)."""
+    from multimodal_eeg_fmri_tpu_torch.models import (
+        PipelinedLongContextClassifier,
+    )
+    from multimodal_eeg_fmri_tpu_torch.parallel.layout import local_tree
+
+    model = PipelinedLongContextClassifier(
+        mesh=mesh, dropout=dropout, seq_axis="seq" if seq else None,
+        ring_chunk_impl="flash", device=dev)
+    model.load_state_dict(local_tree(model, pp_twin(dev, layers,
+                                                    dropout).state_dict()))
+    return model
+
+
+def pp_setup():
+    """(train cohort, validation rows, the step's batch, config)."""
+    from multimodal_eeg_fmri_tpu_torch import TrainConfig
+
+    cohort = ring_cohort(PP_COHORT, PP_T, 70)
+    val = ring_cohort(PP_VAL, PP_T, 71)
+    cfg = TrainConfig(batch_size=BATCH, num_epochs=PP_EPOCHS,
+                      learning_rate=1e-3, weight_decay=1e-5, grad_clip=1.0,
+                      loss="weighted_ce", selection="val")
+    return cohort, val, {k: v[:BATCH] for k, v in cohort.items()}, cfg
+
+
+def pp_fit(model, cohort: dict, val: dict, cfg, dev) -> dict:
+    """A fit from seed 0, the default generator seeded PP_TORCH_SEED
+    first: its history, launches, bytes staged and seconds."""
+    from multimodal_eeg_fmri_tpu_torch import make_fit_fn
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        reset_staged_bytes,
+        staged_bytes,
+    )
+
+    torch.manual_seed(PP_TORCH_SEED)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    reset_staged_bytes()
+    t0 = time.perf_counter()
+    res = make_fit_fn(model, cfg, eval_names=("val",))(
+        0, on_device(cohort, dev), {"val": on_device(val, dev)},
+        torch.ones(2, device=dev))
+    torch.cuda.synchronize()
+    return {"history": {k: v.cpu() for k, v in res.history.items()},
+            "launches": total_launches(), "staged": staged_bytes(),
+            "s": time.perf_counter() - t0}
+
+
+def full_grads(model) -> dict:
+    """Every parameter's gradient, gathered to the full tensor by the
+    twin's or the unsharded model's name (collective), in host memory."""
+    from multimodal_eeg_fmri_tpu_torch.parallel.layout import full_tree
+
+    grads = full_tree(model, {k: p.grad for k, p in
+                              model.named_parameters()})
+    return {k: g.double().cpu() for k, g in grads.items()}
+
+
+def par_step(model, batch: dict, cfg, dev, hook=None, pinned=None,
+             pool_pinned=None) -> dict:
+    """One ``TrainStep.backward`` of ``model`` on the global ``batch``
+    (each rank runs its share): the loss, the full gradient, the launches
+    and the bytes staged, and the MoE layers' expert choices and the
+    encoders' max-pool choices it made; with ``pinned`` / ``pool_pinned``
+    the layers take those choices instead."""
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        reset_staged_bytes,
+        staged_bytes,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
+
+    if hook is not None:
+        hook(model)
+    step = TrainStep(model, cfg)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    reset_staged_bytes()
+    with routing_recorded([], pinned) as calls, pooling_recorded(
+            [], pool_pinned) as pools:
+        loss = step.backward(on_device(batch, dev), torch.ones(2, device=dev))
+    torch.cuda.synchronize()
+    return {"loss": loss.item(), "grads": full_grads(model),
+            "launches": total_launches(), "staged": staged_bytes(),
+            "choices": [(p.cpu(), i.cpu()) for p, i in calls],
+            "pools": pools}
+
+
+def par_step_ms(model, batch: dict, cfg, dev) -> tuple:
+    """(ms of one whole ``TrainStep`` by the host's clock over
+    PAR_TIMED_STEPS synchronised steps after one warm-up, AdamW's state in
+    bytes on this rank, the peak bytes this process allocated)."""
+    from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
+
+    step = TrainStep(model, cfg)
+    b, cw = on_device(batch, dev), torch.ones(2, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(b, cw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED_STEPS):
+        step(b, cw)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / PAR_TIMED_STEPS
+    opt = sum(t.numel() * t.element_size()
+              for st in step.optimizer.state.values()
+              for k, t in st.items() if k != "step")
+    return ms, opt, torch.cuda.max_memory_allocated(dev)
+
+
+def e2e_model(dev):
+    """``MultimodalEndToEnd(dropout=0.0)`` at its defaults from
+    SHARD_SEED, the fusion gates' fixed dropout off (rows on other ranks
+    would draw other masks)."""
+    from multimodal_eeg_fmri_tpu_torch import MultimodalEndToEnd, init_weights
+    from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
+
+    model = init_weights(MultimodalEndToEnd(dropout=0.0, device=dev),
+                         torch.Generator().manual_seed(SHARD_SEED))
+    for m in model.modules():
+        if isinstance(m, LearnedFusion):
+            m.gate_dropout = 0.0
+    return model
+
+
+def shard_batch_setup():
+    """(the train-e2e step's batch, in host memory, and its config)."""
+    from multimodal_eeg_fmri_tpu_torch import TrainConfig
+
+    data = request(BATCH, T_SERVE, seed=40)
+    data["label"] = np.arange(BATCH, dtype=np.int64) % 2
+    data["weight"] = np.ones(BATCH, np.float32)
+    cfg = TrainConfig(batch_size=BATCH, learning_rate=5e-5,
+                      weight_decay=1e-5, grad_clip=1.0, loss="weighted_ce")
+    return data, cfg
+
+
+def local_choices(choices: list, shape: tuple, rows=None, time_=None
+                  ) -> list:
+    """This rank's tokens' share of the single-device run's expert choices
+    (per MoE call (sorted probabilities, indices) over B·T tokens in (B, T)
+    row-major order): the rows ``rows`` and the time slice ``time_``."""
+    B, T = shape
+    out = []
+    for p, i in choices:
+        cut = []
+        for t in (p, i):
+            t = t.view(B, T, -1)
+            if rows is not None:
+                t = t[rows]
+            if time_ is not None:
+                t = t[:, time_]
+            cut.append(t.reshape(-1, t.shape[-1]))
+        out.append(tuple(cut))
+    return out
+
+
+def count_flips(mine: list, want: list) -> int:
+    """Tokens whose expert choices differ from the single-device run's."""
+    return sum(int((i != w[1].to(i.device)).any(-1).sum())
+               for (_, i), w in zip(mine, want, strict=True))
+
+
+def parallel_cases(rank: int, world: int, dev, start: float,
+                   refs: dict) -> dict:
+    """pipe-T2048, pipe-ring-T4096, tp-fsdp-T512 and ep-T2048 on this rank
+    of the ring phase's world (``refs``: the single-device run's expert
+    choices of the ep step). Returns the rank's results in host memory."""
+    from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        Mesh,
+        ep_param_constraint,
+        fsdp_param_constraint,
+        shard_sequence,
+        tp_param_constraint,
+    )
+    from multimodal_eeg_fmri_tpu_torch.parallel.layout import local_tree
+
+    out = {}
+    cohort, val, batch, cfg = pp_setup()
+    mesh = Mesh(np.arange(world), ("stage",))
+    at = world_phase(rank, start, f"pipe-T{PP_T}: PipelinedLongContextClassi"
+                     f"fier over a stage axis of {PP_STAGES}, n_micro "
+                     f"{PP_STAGES}: a {PP_EPOCHS}-epoch fit, one step, the "
+                     f"fit at dropout {PP_DROPOUT}")
+    pipe = {"at": at, "fit": pp_fit(pp_rank(dev, mesh, PP_STAGES), cohort,
+                                    val, cfg, dev),
+            "step": par_step(pp_rank(dev, mesh, PP_STAGES), batch, cfg,
+                             dev)}
+    pipe["ms"] = par_step_ms(pp_rank(dev, mesh, PP_STAGES), batch, cfg, dev)
+    pipe["dropout"] = pp_fit(pp_rank(dev, mesh, PP_STAGES, PP_DROPOUT),
+                             cohort, val, cfg, dev)["history"]
+    out["pipe"] = pipe
+
+    ring_cohort_ = ring_cohort(BATCH, PP_RING_T, 72)
+    mesh = Mesh(np.arange(world).reshape(PP_RING_MESH), ("stage", "seq"))
+    at = world_phase(rank, start, f"pipe-ring-T{PP_RING_T}: the pipelined "
+                     f"classifier on a (stage, seq) mesh {PP_RING_MESH}, the "
+                     "ring's flash chunk, T_local "
+                     f"{PP_RING_T // PP_RING_MESH[1]}: one step")
+    local = shard_sequence(ring_cohort_, mesh, "seq")
+    pr = par_step(pp_rank(dev, mesh, PP_RING_MESH[0], seq=True), local, cfg,
+                  dev)
+    pr["at"] = at
+    pr["ms"] = par_step_ms(pp_rank(dev, mesh, PP_RING_MESH[0], seq=True),
+                           local, cfg, dev)
+    out["pipe_ring"] = pr
+
+    data, scfg = shard_batch_setup()
+    out["shard"] = {}
+    for name, (shape, names) in SHARD_MESHES.items():
+        mesh = Mesh(np.arange(world).reshape(shape), names)
+        hook = {"tp": lambda m=mesh: tp_param_constraint(m),
+                "fsdp": lambda m=mesh: fsdp_param_constraint(m),
+                "fsdp_tp": lambda m=mesh: fsdp_param_constraint(
+                    m, tp=True)}[name]()
+        at = world_phase(rank, start, f"tp-fsdp-T{T_SERVE} {name}: Multimodal"
+                         f"EndToEnd(dropout=0.0) defaults, batch {BATCH}, on "
+                         f"{dict(zip(names, shape))}: one step")
+        n_data = mesh.shape["data"]
+        d = mesh.axis_index("data")
+        rows = slice(d * BATCH // n_data, (d + 1) * BATCH // n_data)
+        want = [(g[rows], i[rows]) for g, i in refs["shard_pools"]]
+        res = par_step(e2e_model(dev), data, scfg, dev, hook)
+        res["want_pools"] = want
+        res["pinned"] = par_step(e2e_model(dev), data, scfg, dev, hook,
+                                 pool_pinned=want)
+        model = e2e_model(dev)
+        hook(model)
+        res["ms"] = par_step_ms(model, data, scfg, dev)
+        res["at"] = at
+        res["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in model.parameters())
+        out["shard"][name] = res
+
+    lc_cohort = ring_cohort(BATCH, LC_T, 73)
+    mesh = Mesh(np.arange(world).reshape(EP_MESH), ("data", "expert"))
+    at = world_phase(rank, start, f"ep-T{LC_T}: LongContextClassifier with "
+                     f"{LC_EXPERTS} experts, top-{LC_TOP_K}, on (data, expert)"
+                     f" {EP_MESH}: one step; then its MoE blocks on a ring of "
+                     f"{world} (the flash chunk)")
+
+    def ep_model():
+        m = LongContextClassifier(num_experts=LC_EXPERTS, moe_top_k=LC_TOP_K,
+                                  mesh=mesh, expert_axis="expert", device=dev)
+        m.load_state_dict(lc_model(dev).state_dict())
+        return m
+
+    d = mesh.axis_index("data")
+    rows = slice(d * BATCH // EP_MESH[0], (d + 1) * BATCH // EP_MESH[0])
+    want = local_choices(refs["ep"], (BATCH, LC_T), rows=rows)
+    ep = par_step(ep_model(), lc_cohort, cfg, dev, ep_param_constraint(mesh))
+    ep["flips"] = count_flips(ep.pop("choices"), want)
+    ep["pinned"] = par_step(ep_model(), lc_cohort, cfg, dev,
+                            ep_param_constraint(mesh), want)
+    ep["pinned"].pop("choices")
+    model = ep_model()
+    ep_param_constraint(mesh)(model)
+    ep["ms"] = par_step_ms(model, lc_cohort, cfg, dev)
+    ep["at"] = at
+    out["ep"] = ep
+
+    mesh = Mesh(np.arange(world), ("seq",))
+
+    def ring_moe():
+        m = LongContextClassifier(num_experts=LC_EXPERTS, moe_top_k=LC_TOP_K,
+                                  attn_impl="ring", mesh=mesh,
+                                  seq_axis="seq", ring_chunk_impl="flash",
+                                  device=dev)
+        m.load_state_dict(local_tree(m, lc_model(dev).state_dict()))
+        return m
+
+    q, n = mesh.axis_index("seq"), LC_T // world
+    want = local_choices(refs["ep"], (BATCH, LC_T),
+                         time_=slice(q * n, (q + 1) * n))
+    local = shard_sequence(lc_cohort, mesh, "seq")
+    rm = par_step(ring_moe(), local, cfg, dev)
+    rm["flips"] = count_flips(rm.pop("choices"), want)
+    rm["pinned"] = par_step(ring_moe(), local, cfg, dev, pinned=want)
+    rm["pinned"].pop("choices")
+    rm["ms"] = par_step_ms(ring_moe(), local, cfg, dev)
+    out["ring_moe"] = rm
+    return out
+
+
+def parallel_references(dev, card: str) -> dict:
+    """The single-device runs the pipeline and sharding phases are gated
+    against, from the same weights, on the kernel route: the twin's fits
+    (dropout 0 and PP_DROPOUT) and step at T=2048, the 2-layer twin's step
+    at T=4096, MultimodalEndToEnd's step at T=512 and the MoE classifier's
+    step at T=2048 (with its expert choices)."""
+    phase(f"pipe-T{PP_T}, pipe-ring-T{PP_RING_T}, tp-fsdp-T{T_SERVE}, ep-T"
+          f"{LC_T}: the single-device references on {dev} {card}")
+    cohort, val, batch, cfg = pp_setup()
+    refs = {"pipe": {"fit": pp_fit(pp_twin(dev, PP_STAGES), cohort, val, cfg,
+                                   dev),
+                     "step": par_step(pp_twin(dev, PP_STAGES), batch, cfg,
+                                      dev),
+                     "ms": par_step_ms(pp_twin(dev, PP_STAGES), batch, cfg,
+                                       dev),
+                     "dropout": pp_fit(pp_twin(dev, PP_STAGES, PP_DROPOUT),
+                                       cohort, val, cfg, dev)["history"]}}
+    ring_batch = ring_cohort(BATCH, PP_RING_T, 72)
+    refs["pipe_ring"] = par_step(pp_twin(dev, PP_RING_MESH[0]), ring_batch,
+                                 cfg, dev)
+    refs["pipe_ring"]["ms"] = par_step_ms(pp_twin(dev, PP_RING_MESH[0]),
+                                          ring_batch, cfg, dev)
+    data, scfg = shard_batch_setup()
+    refs["shard"] = par_step(e2e_model(dev), data, scfg, dev)
+    refs["shard"]["ms"] = par_step_ms(e2e_model(dev), data, scfg, dev)
+    lc_cohort = ring_cohort(BATCH, LC_T, 73)
+    refs["ep"] = par_step(lc_model(dev), lc_cohort, cfg, dev)
+    refs["ep"]["ms"] = par_step_ms(lc_model(dev), lc_cohort, cfg, dev)
+    for name in ("pipe", "pipe_ring", "shard", "ep"):
+        r = refs[name].get("step", refs[name])
+        print(f"{name}: single-device step loss {r['loss']:.7f}, launches "
+              f"{r['launches']}, {refs[name]['ms'][0]:.2f} ms a step, AdamW "
+              f"state {refs[name]['ms'][1]} bytes, peak "
+              f"{refs[name]['ms'][2]} bytes {card}")
+    torch.cuda.empty_cache()
+    return refs
+
+
+def par_launch_gate(what: str, ranks: list, key, want: dict) -> None:
+    """Every rank's K1-K3 launches of ``key(rank)`` equal ``want``."""
+    got = [key(r) for r in ranks]
+    print(f"{what}launches by rank {got} (expected {want} each)")
+    if any(g != want for g in got):
+        fail(f"{what}launched {got}, expected {want}")
+
+
+def par_equal_gate(what: str, ranks: list, key) -> None:
+    """Every rank's tensors of ``key(rank)`` equal rank 0's."""
+    first = key(ranks[0])
+    for r, res in enumerate(ranks):
+        for k, v in key(res).items():
+            if not torch.equal(v, first[k]):
+                fail(f"{what}rank {r}'s {k} differs from rank 0's")
+
+
+def par_print(what: str, ranks: list, key, card: str) -> dict:
+    """Print each rank's step ms, bytes staged a step, AdamW state bytes
+    and peak bytes; returns them."""
+    t = {"at_s": key(ranks[0]).get("at"),
+         "staged_bytes_per_step": [key(r)["staged"] for r in ranks],
+         "step_ms": [key(r)["ms"][0] for r in ranks],
+         "adamw_state_bytes": [key(r)["ms"][1] for r in ranks],
+         "peak_bytes": [key(r)["ms"][2] for r in ranks]}
+    print(f"{what}a train step {', '.join(f'{m:.2f}' for m in t['step_ms'])}"
+          f" ms by rank; bytes staged through host memory a step "
+          f"{t['staged_bytes_per_step']}; AdamW state bytes "
+          f"{t['adamw_state_bytes']}; peak bytes allocated "
+          f"{t['peak_bytes']} {card}")
+    return t
+
+
+def moe_gate(what: str, ranks: list, name: str, ref: dict, noisy: set
+             ) -> dict:
+    """The MoE step against the single-device step: the tokens routed
+    otherwise printed; with any, the gate holds the run that took the
+    single-device run's expert choices (C8)."""
+    flips = [r[name]["flips"] for r in ranks]
+    print(f"{what}tokens routed otherwise than on the single device, by "
+          f"rank: {flips}")
+    run = (lambda r: r[name]["pinned"]) if sum(flips) else (
+        lambda r: r[name])
+    if sum(flips):
+        print(f"{what}gated on the run with the single-device expert "
+              "choices")
+    par_equal_gate(what, ranks, lambda r: run(r)["grads"])
+    r0 = run(ranks[0])
+    worst = ring_grad_gate(what, r0["loss"], r0["grads"],
+                           {"the single device": (ref["loss"],
+                                                  ref["grads"])}, noisy)
+    return {"flips": flips, "grad_gap": worst["the single device"]}
+
+
+def parallel_gates(ranks: list, refs: dict, card: str) -> dict:
+    """The gates of the pipeline and sharding phases on every rank's
+    results, against the single-device references."""
+    times, launches = {}, {}
+    pp = PP_STAGES  # n_micro
+    steps = PP_EPOCHS * (PP_COHORT // BATCH)
+    want_fit = {"flash_fwd": pp * (steps + PP_EPOCHS),
+                "flash_bwd_dkv": pp * steps, "flash_bwd_dq": pp * steps}
+    want_step = dict.fromkeys(want_fit, pp)
+    what = f"pipe-T{PP_T}: "
+    par_launch_gate(what + "fit ", ranks, lambda r: r["pipe"]["fit"][
+        "launches"], want_fit)
+    par_launch_gate(what + "step ", ranks, lambda r: r["pipe"]["step"][
+        "launches"], want_step)
+    par_equal_gate(what, ranks, lambda r: r["pipe"]["fit"]["history"])
+    par_equal_gate(what + "dropout ", ranks, lambda r: r["pipe"]["dropout"])
+    noisy_pp = {k for k in refs["pipe"]["step"]["grads"]
+                if k.endswith("k_proj.bias")}
+    for hist_name, ref_hist, key in (
+            ("dropout 0", refs["pipe"]["fit"]["history"],
+             lambda r: r["pipe"]["fit"]["history"]),
+            (f"dropout {PP_DROPOUT}", refs["pipe"]["dropout"],
+             lambda r: r["pipe"]["dropout"])):
+        a = key(ranks[0])["train_loss"].double().numpy()
+        b = ref_hist["train_loss"].double().numpy()
+        gap = np.abs(a - b)
+        limit = RING_HISTORY_ATOL + RING_HISTORY_RTOL * np.abs(b)
+        print(f"{what}gate a, {hist_name}: train loss {a} vs the twin's {b}: "
+              f"|d| {gap.max():.3e} (limit {RING_HISTORY_ATOL:g} + "
+              f"{RING_HISTORY_RTOL:g}·|b|); every rank's history equal")
+        if not np.all(gap <= limit):
+            fail(f"{what}the pipelined fit ({hist_name}) disagrees with the "
+                 "twin's")
+    d_drop = np.abs(ranks[0]["pipe"]["dropout"]["train_loss"].double().numpy()
+                    - ranks[0]["pipe"]["fit"]["history"]["train_loss"]
+                    .double().numpy()).max()
+    print(f"{what}the dropout {PP_DROPOUT} history against dropout 0's: "
+          f"max|d| {d_drop:.3e} (must exceed {RING_HISTORY_ATOL:g})")
+    if not d_drop > RING_HISTORY_ATOL:
+        fail(f"{what}dropout left the history as it was")
+    s0 = ranks[0]["pipe"]["step"]
+    par_equal_gate(what + "step ", ranks, lambda r: r["pipe"]["step"][
+        "grads"])
+    pipe_gap = ring_grad_gate(what + "gate b: the step ", s0["loss"],
+                              s0["grads"], {"the twin": (
+                                  refs["pipe"]["step"]["loss"],
+                                  refs["pipe"]["step"]["grads"])}, noisy_pp)
+    times["pipe"] = {
+        **par_print(what, ranks, lambda r: {**r["pipe"]["step"],
+                                            "ms": r["pipe"]["ms"],
+                                            "at": r["pipe"]["at"]}, card),
+        "fit_s": [r["pipe"]["fit"]["s"] for r in ranks],
+        "fit_staged_bytes": [r["pipe"]["fit"]["staged"] for r in ranks],
+        "twin_step_ms": refs["pipe"]["ms"][0],
+        "twin_fit_s": refs["pipe"]["fit"]["s"],
+        "grad_gap": pipe_gap["the twin"]}
+    launches[f"pipe-T{PP_T} fit, per rank"] = ranks[0]["pipe"]["fit"][
+        "launches"]
+    launches[f"pipe-T{PP_T} step, per rank"] = s0["launches"]
+
+    what = f"pipe-ring-T{PP_RING_T}: "
+    hops = PP_RING_MESH[0] * PP_RING_MESH[1]   # n_micro × ring size
+    par_launch_gate(what, ranks, lambda r: r["pipe_ring"]["launches"],
+                    dict.fromkeys(want_fit, hops))
+    par_equal_gate(what, ranks, lambda r: r["pipe_ring"]["grads"])
+    r0 = ranks[0]["pipe_ring"]
+    gap = ring_grad_gate(what + "the step ", r0["loss"], r0["grads"],
+                         {"the twin": (refs["pipe_ring"]["loss"],
+                                       refs["pipe_ring"]["grads"])},
+                         {k for k in refs["pipe_ring"]["grads"]
+                          if k.endswith("k_proj.bias")})
+    times["pipe_ring"] = {**par_print(what, ranks,
+                                      lambda r: r["pipe_ring"], card),
+                          "twin_step_ms": refs["pipe_ring"]["ms"][0],
+                          "grad_gap": gap["the twin"]}
+    launches[f"pipe-ring-T{PP_RING_T} step, per rank"] = r0["launches"]
+
+    noisy = cancelled_biases(e2e_model("cpu"))
+    for name in SHARD_MESHES:
+        what = f"tp-fsdp-T{T_SERVE} {name}: "
+        par_launch_gate(what, ranks, lambda r: r["shard"][name]["launches"],
+                        dict.fromkeys(want_fit, 4))
+        # the ERP encoder's max-pool picks a pair's larger element; rows
+        # convolved in another batch round otherwise, and a near tie may
+        # flip (C8): the gate then holds the run with the single device's
+        # choices
+        flips = sum(print_pool_flips(f"{what}rank {r}, ", res["shard"][name][
+            "pools"], res["shard"][name]["want_pools"])
+            for r, res in enumerate(ranks))
+        run = ((lambda r: r["shard"][name]["pinned"]) if flips
+               else (lambda r: r["shard"][name]))
+        if flips:
+            print(f"{what}gated on the run with the single device's max-pool "
+                  "choices")
+        par_equal_gate(what, ranks, lambda r: run(r)["grads"])
+        r0 = run(ranks[0])
+        gaps = {k: rel_gap(r0["grads"][k], g)
+                for k, g in refs["shard"]["grads"].items() if k not in noisy}
+        print(f"{what}the five largest gradient gaps: " + ", ".join(
+            f"{k} {gaps[k]:.3e}" for k in sorted(gaps, key=gaps.get)[-5:]))
+        step_gate(what, {"kernel": r0["loss"],
+                         "single-device": refs["shard"]["loss"]},
+                  {"kernel": r0["grads"],
+                   "single-device": refs["shard"]["grads"]}, noisy)
+        times[f"shard_{name}"] = {
+            **par_print(what, ranks, lambda r: r["shard"][name], card),
+            "param_bytes": [r["shard"][name]["param_bytes"] for r in ranks],
+            "pool_flips": flips,
+            "single_step_ms": refs["shard"]["ms"][0],
+            "single_adamw_state_bytes": refs["shard"]["ms"][1],
+            "single_peak_bytes": refs["shard"]["ms"][2]}
+        launches[f"tp-fsdp-T{T_SERVE} {name} step, per rank"] = r0[
+            "launches"]
+
+    noisy_lc = {k for k in refs["ep"]["grads"] if k.endswith("k_proj.bias")}
+    what = f"ep-T{LC_T}: "
+    par_launch_gate(what, ranks, lambda r: r["ep"]["launches"],
+                    dict.fromkeys(want_fit, 2))
+    times["ep"] = {**moe_gate(what, ranks, "ep", refs["ep"], noisy_lc),
+                   **par_print(what, ranks, lambda r: r["ep"], card),
+                   "single_step_ms": refs["ep"]["ms"][0]}
+    launches[f"ep-T{LC_T} step, per rank"] = ranks[0]["ep"]["launches"]
+    what = f"ep-ring-T{LC_T}: "
+    par_launch_gate(what, ranks, lambda r: r["ring_moe"]["launches"],
+                    dict.fromkeys(want_fit, 2 * RING_SEQ))
+    times["ring_moe"] = {**moe_gate(what, ranks, "ring_moe", refs["ep"],
+                                    noisy_lc),
+                         **par_print(what, ranks, lambda r: r["ring_moe"],
+                                     card)}
+    launches[f"ep-ring-T{LC_T} step, per rank"] = ranks[0]["ring_moe"][
+        "launches"]
+    return {"times": times, "launches": launches}
 
 
 def ring_grad_gate(what: str, loss: float, grads: dict, refs: dict,
@@ -4611,6 +5187,7 @@ def ring_phase(dev, card: str) -> dict:
     del single, fit, res
     torch.cuda.empty_cache()
 
+    par_refs = parallel_references(dev, card)
     cards = torch.cuda.device_count()
     one_card_each = cards >= RING_SEQ
     backend = "nccl" if one_card_each else "gloo"
@@ -4619,9 +5196,13 @@ def ring_phase(dev, card: str) -> dict:
           f"ring_chunk_impl='flash') over a seq axis of {RING_SEQ}, T_local "
           f"{RING_T // RING_SEQ}: {RING_SEQ} ranks on {backend}, {per_card} "
           f"rank(s) a card; then lc-ring-heads on a {RING_HEADS_MESH} "
-          "(seq, model) mesh of the same world")
+          "(seq, model) mesh of the same world, and the pipeline and "
+          "parameter-sharding phases")
     t0 = time.perf_counter()
-    ranks = spawn_local_world(ring_worker, RING_SEQ, one_card_each,
+    start = time.time() - (time.perf_counter() - T_START)
+    ranks = spawn_local_world(ring_worker, RING_SEQ, one_card_each, start,
+                              {"ep": par_refs["ep"]["choices"],
+                               "shard_pools": par_refs["shard"]["pools"]},
                               backend=backend)
     world_s = time.perf_counter() - t0
     r0 = ranks[0]
@@ -4707,6 +5288,8 @@ def ring_phase(dev, card: str) -> dict:
         f"lc-ring-heads {RING_HEADS_MESH} (seq, model): the ring's step ",
         r0["heads"][0], r0["heads"][1], refs, noisy)
 
+    par = parallel_gates([r["parallel"] for r in ranks], par_refs, card)
+
     phase("a world of one over NCCL: the ring of one against the "
           "single-device flash route")
     one = spawn_local_world(ring_one_worker, 1, backend="nccl")[0]
@@ -4742,7 +5325,8 @@ def ring_phase(dev, card: str) -> dict:
           f"card) {card}")
     return {"launches": {"fit": r0["fit_launches"], "step": r0["step"][2],
                          "heads": r0["heads"][2], "one": one["launches"]},
-            "times": times}
+            "par_launches": par["launches"], "times": times,
+            "parallel": par["times"]}
 
 
 def main() -> None:
@@ -5453,6 +6037,7 @@ def main() -> None:
     reset_all_launches()
     ring = ring_phase(dev, card)
     print(json.dumps({"ring": {**ring["times"], "device": smi}}))
+    print(json.dumps({"parallel": {**ring["parallel"], "device": smi}}))
 
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     print(json.dumps({"kernels": [{
@@ -5497,7 +6082,10 @@ def main() -> None:
                              "lc-ring-heads step, per rank":
                                  ring["launches"]["heads"][name],
                              "ring-nccl-world-1 eval forward":
-                                 ring["launches"]["one"][name]},
+                                 ring["launches"]["one"][name],
+                             # the pipeline and sharding phases, each rank's
+                             **{path: n[name] for path, n in
+                                ring["par_launches"].items()}},
         "max_abs_err": worst[name],
         **timings(per_step[name, "f32"]),
         # the mixed-precision fit's launches by storage, and the

@@ -38,8 +38,11 @@ from multimodal_eeg_fmri_tpu_torch.models.fusion import (
     HybridFusion,
     LearnedFusion,
 )
-from multimodal_eeg_fmri_tpu_torch.models.layers import MultiHeadAttention
+from multimodal_eeg_fmri_tpu_torch.models.long_context import (
+    PipelinedLongContextClassifier,
+)
 from multimodal_eeg_fmri_tpu_torch.ops.moe import MoEFFN
+from multimodal_eeg_fmri_tpu_torch.parallel.layout import flax_layout
 from multimodal_eeg_fmri_tpu_torch.train.fit import FitCarry
 
 # flax's truncated_normal initialisers divide by this: the std of a unit
@@ -60,11 +63,16 @@ class _Loader:
         self.used: set = set()
         self.filled: set = set()
 
-    def take(self, tree: Mapping, key: str, path: str) -> np.ndarray:
-        if tree is None or key not in tree:
-            raise ValueError(f"flax variables have no leaf {path}/{key}")
-        self.used.add(f"{path}/{key}")
-        return np.asarray(tree[key])
+    def take(self, tree: Optional[Mapping], path: Tuple[str, ...],
+             root: str) -> np.ndarray:
+        node = tree
+        for key in path:
+            if not isinstance(node, Mapping) or key not in node:
+                raise ValueError(f"flax variables have no leaf "
+                                 f"{root}/{'/'.join(path)}")
+            node = node[key]
+        self.used.add(f"{root}/{'/'.join(path)}")
+        return np.asarray(node)
 
     def put(self, tensor: torch.Tensor, value: np.ndarray, name: str):
         if tuple(value.shape) != tuple(tensor.shape):
@@ -74,50 +82,48 @@ class _Loader:
             tensor.copy_(torch.from_numpy(np.array(value)))
         self.filled.add(name)
 
-    def fill(self, module: nn.Module, p: Optional[Mapping],
-             s: Optional[Mapping], ppath: str, spath: str, name: str):
-        def take_p(key):
-            return self.take(p, key, ppath)
 
-        if isinstance(module, nn.Linear):
-            k = take_p("kernel").reshape(module.in_features,
-                                         module.out_features)
-            self.put(module.weight, k.T, f"{name}weight")
-            if module.bias is not None:  # flax's Dense(use_bias=False)
-                self.put(module.bias, take_p("bias").reshape(-1),
-                         f"{name}bias")
-            return
-        if isinstance(module, nn.Conv1d):
-            # flax (K, Cin, Cout) → torch (Cout, Cin, K)
-            self.put(module.weight, take_p("kernel").transpose(2, 1, 0),
-                     f"{name}weight")
-            self.put(module.bias, take_p("bias"), f"{name}bias")
-            return
-        if isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
-            self.put(module.weight, take_p("scale"), f"{name}weight")
-            self.put(module.bias, take_p("bias"), f"{name}bias")
-            if isinstance(module, nn.BatchNorm1d):
-                self.put(module.running_mean, self.take(s, "mean", spath),
-                         f"{name}running_mean")
-                self.put(module.running_var, self.take(s, "var", spath),
-                         f"{name}running_var")
-            return
-        for key, param in module.named_parameters(recurse=False):
-            self.put(param, take_p(key), f"{name}{key}")
-        for key, child in module.named_children():
-            if not child.state_dict():  # dropout, pooling: nothing to fill
-                continue
-            self.fill(child, None if p is None else p.get(key),
-                      None if s is None else s.get(key),
-                      f"{ppath}/{key}", f"{spath}/{key}", f"{name}{key}.")
+def _batch_norms(module: nn.Module):
+    """(state-dict prefix, flax path, BatchNorm) of each BatchNorm, whose
+    running statistics flax keeps in ``batch_stats`` as ``mean``/``var``."""
+    for name, m in module.named_modules():
+        if isinstance(m, nn.BatchNorm1d):
+            yield (f"{name}." if name else "",
+                   tuple(name.split(".")) if name else (), m)
+
+
+def _unstacked(module: nn.Module, params: Mapping) -> Mapping:
+    """``params`` with a ``PipelinedLongContextClassifier``'s stacked
+    ``blocks`` (leading axis: the layer) cut into the layers the module
+    holds: all of them in the twin, its own on a stage rank."""
+    if not isinstance(module, PipelinedLongContextClassifier):
+        return params
+
+    def layer(tree, i):
+        return {k: layer(v, i) if isinstance(v, Mapping) else
+                np.asarray(v)[i] for k, v in tree.items()}
+
+    return {**params, "blocks": {k: layer(params["blocks"], int(k))
+                                 for k in module.blocks}}
 
 
 def load_flax_variables(module: nn.Module, params: Mapping,
                         batch_stats: Optional[Mapping] = None) -> nn.Module:
     """Fill ``module``'s parameters and buffers from flax ``params`` and
-    ``batch_stats``; returns the module."""
+    ``batch_stats``; returns the module. A pipelined classifier takes the
+    JAX package's stacked ``blocks``: the twin every layer, a stage rank
+    its own."""
+    params = _unstacked(module, params)
     loader = _Loader()
-    loader.fill(module, params, batch_stats, "params", "batch_stats", "")
+    for name, leaf in flax_layout(module).items():
+        loader.put(module.get_parameter(name),
+                   leaf.port_array(loader.take(params, leaf.path, "params")),
+                   name)
+    for prefix, path, bn in _batch_norms(module):
+        for key, buf in (("mean", "running_mean"), ("var", "running_var")):
+            loader.put(getattr(bn, buf),
+                       loader.take(batch_stats, path + (key,), "batch_stats"),
+                       prefix + buf)
     unused = (_leaves(params, "params")
               | _leaves(batch_stats or {}, "batch_stats")) - loader.used
     if unused:
@@ -129,55 +135,25 @@ def load_flax_variables(module: nn.Module, params: Mapping,
     return module
 
 
-def _flax_kernel(parent: Optional[nn.Module], key: str,
-                 linear: nn.Linear) -> np.ndarray:
-    """A ``Linear``'s weight as flax's kernel: (in, out), but for the
-    multi-head projections, which flax keeps as ``DenseGeneral`` kernels
-    (d, H, hd) for q/k/v and (H, hd, d) for the output."""
-    kernel = linear.weight.detach().cpu().numpy().T
-    if isinstance(parent, MultiHeadAttention):
-        heads = (parent.num_heads, parent.head_dim)
-        shape = ((*heads, kernel.shape[1]) if key == "out_proj"
-                 else (kernel.shape[0], *heads))
-        return kernel.reshape(shape)
-    return kernel
-
-
-def _flax_trees(module: nn.Module, parent: Optional[nn.Module] = None,
-                key: str = "") -> Tuple[dict, dict]:
+def _flax_trees(module: nn.Module) -> Tuple[dict, dict]:
     """(params, batch_stats) of ``module`` in flax layout; the inverse of
-    ``_Loader.fill``."""
+    ``load_flax_variables``."""
     def host(t):
-        return t.detach().cpu().numpy().copy()
+        return t.detach().cpu().numpy()
 
-    if isinstance(module, nn.Linear):
-        p = {"kernel": _flax_kernel(parent, key, module)}
-        if module.bias is not None:
-            p["bias"] = host(module.bias)
-            if isinstance(parent, MultiHeadAttention) and key != "out_proj":
-                p["bias"] = p["bias"].reshape(parent.num_heads,
-                                              parent.head_dim)
-        return p, {}
-    if isinstance(module, nn.Conv1d):
-        return {"kernel": host(module.weight).transpose(2, 1, 0),
-                "bias": host(module.bias)}, {}
-    if isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
-        p = {"scale": host(module.weight), "bias": host(module.bias)}
-        if isinstance(module, nn.BatchNorm1d):
-            return p, {"mean": host(module.running_mean),
-                       "var": host(module.running_var)}
-        return p, {}
-    p = {k: host(v) for k, v in module.named_parameters(recurse=False)}
-    s = {}
-    for name, child in module.named_children():
-        if not child.state_dict():  # dropout, pooling: nothing to take
-            continue
-        cp, cs = _flax_trees(child, module, name)
-        if cp:
-            p[name] = cp
-        if cs:
-            s[name] = cs
-    return p, s
+    def put(tree, path, value):
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = np.array(value)
+
+    params, stats = {}, {}
+    for name, leaf in flax_layout(module).items():
+        put(params, leaf.path,
+            leaf.flax_array(host(module.get_parameter(name))))
+    for _, path, bn in _batch_norms(module):
+        put(stats, path + ("mean",), host(bn.running_mean))
+        put(stats, path + ("var",), host(bn.running_var))
+    return params, stats
 
 
 def flax_variables_from_module(module: nn.Module) -> dict:
@@ -186,6 +162,19 @@ def flax_variables_from_module(module: nn.Module) -> dict:
     JAX counterpart's ``init`` would give for these weights, so that
     ``core.quantize.save_quantized`` writes the JAX package's payload."""
     params, stats = _flax_trees(module)
+    if isinstance(module, PipelinedLongContextClassifier):
+        if module.mesh is not None:
+            raise ValueError(
+                "flax_variables_from_module takes the sequential twin: load "
+                "a stage rank's full_state_dict() into one")
+        layers = [params["blocks"][str(i)] for i in range(module.num_layers)]
+
+        def stack(trees):
+            return {k: stack([t[k] for t in trees])
+                    if isinstance(trees[0][k], dict) else
+                    np.stack([t[k] for t in trees]) for k in trees[0]}
+
+        params["blocks"] = stack(layers)
     return {"params": params, "batch_stats": stats}
 
 

@@ -1,9 +1,8 @@
 """The model zoo, mirroring ``multimodal_eeg_fmri_tpu.models``.
 
 ``MODEL_REGISTRY`` maps the JAX package's registry names to the port's
-classes, every one of them. ``PipelinedLongContextClassifier``, which the
-JAX package exports beside them, waits for the pipeline (ROADMAP.md,
-queue A item 7a).
+classes, every one of them; ``PipelinedLongContextClassifier`` is
+exported beside them, as the JAX package exports it.
 """
 
 from multimodal_eeg_fmri_tpu_torch.models.bridge import BridgeFusionNet
@@ -23,6 +22,7 @@ from multimodal_eeg_fmri_tpu_torch.models.fmri import (
 )
 from multimodal_eeg_fmri_tpu_torch.models.long_context import (
     LongContextClassifier,
+    PipelinedLongContextClassifier,
 )
 from multimodal_eeg_fmri_tpu_torch.models.multimodal import MultimodalEndToEnd
 
@@ -52,6 +52,7 @@ __all__ = [
     "ModelOutput",
     "MultimodalEndToEnd",
     "PWOnlyNet",
+    "PipelinedLongContextClassifier",
     "SmartFusionNetV4",
     "TriModalFusionNetGNN",
     "TriModalFusionNetV4",

@@ -55,19 +55,23 @@ class TriModalFusionNetV4(nn.Module):
     """ERP + PW + CONN tri-modal net with cross-modal attention and learned
     fusion. With ``num_experts`` > 0 the ERP and PW temporal transformers
     take Mixture-of-Experts FFNs (``ops.moe.MoEFFN``, top-``moe_top_k``),
-    whose load-balance loss ``fit`` adds in training. Builds on the GPU
-    unless ``device`` says otherwise."""
+    whose load-balance loss ``fit`` adds in training; ``mesh`` and
+    ``expert_axis`` shard their experts (expert parallelism,
+    ``parallel.expert``), the batch over the mesh's ``data`` axis. Builds
+    on the GPU unless ``device`` says otherwise."""
 
     def __init__(self, hidden_dim: int = 128, num_classes: int = 2,
                  dropout: float = 0.3, num_transformer_layers: int = 2,
                  num_heads: int = 4, erp_channels: int = 18,
                  pw_channels: int = 75, conn_features: int = 459,
-                 device="cuda", num_experts: int = 0, moe_top_k: int = 1):
+                 device="cuda", num_experts: int = 0, moe_top_k: int = 1,
+                 mesh=None, expert_axis: Optional[str] = None):
         super().__init__()
         device = model_device(device)
+        self.mesh = mesh
         _v4_encoders(self, erp_channels, pw_channels, hidden_dim,
                      num_transformer_layers, num_heads, dropout, device,
-                     num_experts, moe_top_k)
+                     num_experts, moe_top_k, mesh, expert_axis)
         self.conn_encoder = ConnMLPEncoder(conn_features, hidden_dim, dropout,
                                            device)
         self.cross_attn = MultiHeadAttention(hidden_dim, num_heads, dropout,
@@ -96,8 +100,10 @@ def _trimodal(net: nn.Module, erp, pw, conn) -> ModelOutput:
 
 def _v4_encoders(net: nn.Module, erp_channels, pw_channels, hidden_dim,
                  num_transformer_layers, num_heads, dropout, device,
-                 num_experts: int = 0, moe_top_k: int = 1) -> None:
-    moe = dict(num_experts=num_experts, moe_top_k=moe_top_k)
+                 num_experts: int = 0, moe_top_k: int = 1, mesh=None,
+                 expert_axis: Optional[str] = None) -> None:
+    moe = dict(num_experts=num_experts, moe_top_k=moe_top_k, mesh=mesh,
+               expert_axis=expert_axis)
     net.erp_encoder = ERPEncoder(erp_channels, hidden_dim,
                                  num_transformer_layers, num_heads, dropout,
                                  device, **moe)

@@ -10,6 +10,7 @@ widths as defaults.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,12 +56,13 @@ def max_pool_time(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 class ERPEncoder(nn.Module):
     """CNN + temporal-transformer ERP encoder (V4 'enhanced'); with
     ``num_experts`` > 0 each transformer block's FFN is a Mixture of
-    Experts."""
+    Experts, sharded over ``expert_axis`` of ``mesh`` where given."""
 
     def __init__(self, in_channels: int = 18, hidden_dim: int = 128,
                  num_transformer_layers: int = 2, num_heads: int = 4,
                  dropout: float = 0.3, device=None,
-                 num_experts: int = 0, moe_top_k: int = 1):
+                 num_experts: int = 0, moe_top_k: int = 1, mesh=None,
+                 expert_axis: Optional[str] = None):
         super().__init__()
         self.dropout = dropout
         self.conv1 = ConvBNBlock(in_channels, 64, 7, dropout, device)
@@ -71,7 +73,8 @@ class ERPEncoder(nn.Module):
         for i in range(num_transformer_layers):
             self.add_module(f"transformer_{i}", TransformerBlock(
                 hidden_dim, num_heads, dropout=dropout, num_experts=num_experts,
-                moe_top_k=moe_top_k, device=device))
+                moe_top_k=moe_top_k, device=device, mesh=mesh,
+                expert_axis=expert_axis))
         self.proj = Dense(hidden_dim, hidden_dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,7 +126,8 @@ class PowerEncoder(nn.Module):
     def __init__(self, in_channels: int = 75, hidden_dim: int = 128,
                  num_transformer_layers: int = 2, num_heads: int = 4,
                  dropout: float = 0.3, device=None,
-                 num_experts: int = 0, moe_top_k: int = 1):
+                 num_experts: int = 0, moe_top_k: int = 1, mesh=None,
+                 expert_axis: Optional[str] = None):
         super().__init__()
         self.dropout = dropout
         self.multiscale = MultiScaleConv(in_channels, 64, device)
@@ -133,7 +137,8 @@ class PowerEncoder(nn.Module):
         for i in range(num_transformer_layers):
             self.add_module(f"transformer_{i}", TransformerBlock(
                 hidden_dim, num_heads, dropout=dropout, num_experts=num_experts,
-                moe_top_k=moe_top_k, device=device))
+                moe_top_k=moe_top_k, device=device, mesh=mesh,
+                expert_axis=expert_axis))
         self.proj = Dense(hidden_dim, hidden_dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,8 @@ from torch import nn
 
 from multimodal_eeg_fmri_tpu_torch.data.arrays import model_device
 from multimodal_eeg_fmri_tpu_torch.ops.moe import MoEFFN
+from multimodal_eeg_fmri_tpu_torch.parallel.collectives import psum
+from multimodal_eeg_fmri_tpu_torch.parallel.mesh import current_batch_axis
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -40,10 +42,17 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 class Dense(nn.Linear):
     """``nn.Linear`` as flax's ``Dense`` computes it: the product, then the
-    bias as an op of its own."""
+    bias as an op of its own. A row-parallel projection of tensor
+    parallelism (``reduce_axis`` = (mesh, axis), set by
+    ``parallel.tensor``) sums its product over the axis before the bias."""
+
+    reduce_axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.linear(x, self.weight)
+        if self.reduce_axis is not None:
+            mesh, axis = self.reduce_axis
+            y = psum(y, axis, mesh)
         return y if self.bias is None else y + self.bias
 
 
@@ -84,7 +93,11 @@ class BatchNorm(nn.BatchNorm1d):
     (``nn.BatchNorm1d`` would put the unbiased variance into
     ``running_var``.) Eval mode is ``nn.BatchNorm1d``'s, on the running
     statistics. The buffer names are torch's, so that
-    ``convert.load_flax_variables`` maps ``batch_stats`` one to one."""
+    ``convert.load_flax_variables`` maps ``batch_stats`` one to one.
+
+    Inside ``parallel.mesh.batch_sharded`` (the batch's rows sharded over a
+    mesh axis) the statistics are the whole batch's: the sums of x and x²
+    are summed over the axis, as GSPMD reduces them."""
 
     def __init__(self, num_features: int, device=None):
         super().__init__(num_features, eps=1e-5, momentum=0.01, device=device)
@@ -95,8 +108,17 @@ class BatchNorm(nn.BatchNorm1d):
         axes = [0, *range(2, x.dim())]
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
-        mean = xf.mean(axes)
-        var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+        sharded = current_batch_axis()
+        if sharded is None:
+            mean = xf.mean(axes)
+            sq = (xf * xf).mean(axes)
+        else:
+            mesh, axis = sharded
+            count = (x.numel() // x.shape[1]) * mesh.shape[axis]
+            sums = psum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]),
+                        axis, mesh) / count
+            mean, sq = sums[0], sums[1]
+        var = (sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             self.running_mean.mul_(0.99).add_(0.01 * mean)
             self.running_var.mul_(0.99).add_(0.01 * var)
@@ -137,7 +159,14 @@ class MultiHeadAttention(nn.Module):
     "ring_local" runs the ring body over ``seq_axis`` of ``mesh`` or of the
     active mesh (``with mesh:``), whose size must be ``ring_size``.
     ``ring_chunk_impl`` is each hop's attention ("einsum" or "flash", the
-    kernels). The probabilities are None on the flash and ring routes."""
+    kernels). The probabilities are None on the flash and ring routes.
+
+    Under tensor parallelism (``parallel.tensor``) the projections hold this
+    rank's slice of the heads: the attention runs on those heads, and
+    ``out_proj`` sums its product over the axis; ``head_reduce`` (mesh,
+    axis) averages the probabilities over every head."""
+
+    head_reduce = None
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
                  flash_min_len: int = 256, attn_impl: str = "auto",
@@ -168,9 +197,12 @@ class MultiHeadAttention(nn.Module):
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        B, Tq, d_model = query.shape
-        heads = (self.num_heads, self.head_dim)
-        q = self.q_proj(query).view(B, Tq, *heads)
+        B, Tq, _ = query.shape
+        q = self.q_proj(query)
+        # the heads this rank holds (a slice of them under tensor
+        # parallelism)
+        heads = (q.shape[-1] // self.head_dim, self.head_dim)
+        q = q.view(B, Tq, *heads)
         k = self.k_proj(key).view(B, key.shape[1], *heads)
         v = self.v_proj(value).view(B, value.shape[1], *heads)
 
@@ -215,8 +247,13 @@ class MultiHeadAttention(nn.Module):
             probs = F.dropout(probs, self.dropout, self.training)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
             # torch returns attention averaged over heads
-            mean_probs = probs.mean(dim=1)
-        out = self.out_proj(out.reshape(B, Tq, d_model))
+            if self.head_reduce is None:
+                mean_probs = probs.mean(dim=1)
+            else:
+                mesh, axis = self.head_reduce
+                mean_probs = psum(probs.sum(dim=1), axis,
+                                  mesh) / self.num_heads
+        out = self.out_proj(out.reshape(B, Tq, heads[0] * heads[1]))
         return out, mean_probs
 
     def _ring(self, impl: str, q, k, v) -> torch.Tensor:
@@ -263,7 +300,9 @@ class TransformerBlock(nn.Module):
     (``ops.moe.MoEFFN``, top-``moe_top_k`` routing), which has none.
     ``attn_impl``, ``flash_compute_dtype`` and the ring's ``mesh``,
     ``seq_axis``, ``head_axis``, ``ring_size`` and ``ring_chunk_impl`` go to
-    the attention."""
+    the attention. ``mesh`` and ``expert_axis`` go to the MoE FFN (expert
+    parallelism), and on the ring route (``attn_impl="ring"``) so does
+    ``seq_axis``: the experts route the tokens of the whole sequence."""
 
     def __init__(self, d_model: int, num_heads: int = 4,
                  dim_feedforward: int = 0, dropout: float = 0.1,
@@ -275,7 +314,8 @@ class TransformerBlock(nn.Module):
                  mesh=None, seq_axis: str = "seq",
                  head_axis: Optional[str] = None,
                  ring_size: Optional[int] = None,
-                 ring_chunk_impl: str = "einsum"):
+                 ring_chunk_impl: str = "einsum",
+                 expert_axis: Optional[str] = None):
         super().__init__()
         ff = dim_feedforward or 4 * d_model
         self.dropout = dropout
@@ -289,7 +329,9 @@ class TransformerBlock(nn.Module):
         if num_experts > 0:
             self.moe = MoEFFN(d_model, num_experts, dim_feedforward,
                               moe_top_k, moe_capacity_factor, moe_aux_weight,
-                              device=device)
+                              mesh=mesh, expert_axis=expert_axis,
+                              seq_axis=seq_axis if attn_impl == "ring"
+                              else None, device=device)
         else:
             self.ffn1 = Dense(d_model, ff, device=device)
             self.ffn2 = Dense(ff, d_model, device=device)

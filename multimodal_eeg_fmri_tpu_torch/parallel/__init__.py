@@ -3,11 +3,15 @@ Counterpart of ``multimodal_eeg_fmri_tpu/parallel``: ``mesh`` lays the
 ranks out on named axes with one process group per axis line,
 ``collectives`` holds the differentiable collectives over those axes,
 ``distributed`` the process start-up (and a local world for tests and
-smoke runs), ``input`` each rank's shard of host arrays.
+smoke runs), ``input`` each rank's shard of host arrays, ``pipeline`` the
+stage axis, ``tensor``, ``fsdp`` and ``expert`` the parameter layouts (on
+``layout``'s machinery).
 
-Not ported yet (ROADMAP.md, queue A): the pipeline (item 7a), tensor,
-FSDP and expert parallelism (item 7b), and ``ensemble_vmap`` with the
-ensemble and data axes' callers (item 7c, item 8)."""
+Not ported yet (ROADMAP.md, queue A item 7c): the sharding helpers
+``replicated``, ``batch_sharding``, ``ensemble_sharding`` and
+``shard_batch`` with the ensemble and data axes' callers (``run_cv``,
+``run_seed_sweep``, ``run_hpo``, ``EnsemblePredictor(plan=)``);
+``ensemble_vmap`` is dropped (item 8)."""
 
 from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
     all_gather,
@@ -34,29 +38,69 @@ from multimodal_eeg_fmri_tpu_torch.parallel.mesh import (
     ENSEMBLE_AXIS,
     Mesh,
     MeshPlan,
+    batch_sharded,
     build_mesh,
     current_mesh,
+)
+from multimodal_eeg_fmri_tpu_torch.parallel.tensor import (
+    TPPlan,
+    build_tp_mesh,
+    shard_params_tp,
+    tp_param_constraint,
+    tp_param_specs,
+)
+from multimodal_eeg_fmri_tpu_torch.parallel.fsdp import (
+    fsdp_param_constraint,
+    fsdp_param_specs,
+    shard_params_fsdp,
+)
+from multimodal_eeg_fmri_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    shard_stage_params,
+)
+from multimodal_eeg_fmri_tpu_torch.parallel.expert import (
+    EPPlan,
+    build_ep_mesh,
+    ep_param_constraint,
+    ep_param_specs,
+    shard_params_ep,
 )
 
 __all__ = [
     "DATA_AXIS",
     "ENSEMBLE_AXIS",
+    "EPPlan",
     "Mesh",
     "MeshPlan",
+    "TPPlan",
     "all_gather",
+    "batch_sharded",
+    "build_ep_mesh",
     "build_hybrid_mesh",
     "build_mesh",
+    "build_tp_mesh",
     "current_mesh",
+    "ep_param_constraint",
+    "ep_param_specs",
+    "fsdp_param_constraint",
+    "fsdp_param_specs",
     "global_batch_tree",
     "global_ensemble_tree",
     "initialize_distributed",
+    "pipeline_apply",
     "pmean",
     "pmean_grads",
     "ppermute_shift",
     "process_fold_range",
     "psum",
     "reset_staged_bytes",
+    "shard_params_ep",
+    "shard_params_fsdp",
+    "shard_params_tp",
     "shard_sequence",
+    "shard_stage_params",
     "spawn_local_world",
     "staged_bytes",
+    "tp_param_constraint",
+    "tp_param_specs",
 ]

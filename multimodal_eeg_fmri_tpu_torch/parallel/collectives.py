@@ -26,7 +26,7 @@ returns its input; a group of one runs the collective.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -232,3 +232,52 @@ def pmean_grads(grads: Any, axis_name: AxisNames = DATA_AXIS,
                                             for i in idx])):
             out[i] = part.view(leaves[i].shape)
     return rebuild(out)
+
+
+@torch.no_grad()
+def reduce_grads_(grads: Dict[str, torch.Tensor],
+                  sharded: Dict[str, Tuple[str, ...]], mesh: Mesh) -> None:
+    """Each gradient, in place, summed over the mesh axes its parameter is
+    replicated on and divided by the mesh's size: with every rank's loss
+    the one global loss, each rank's backward gives the gradient of the
+    ranks' summed losses in its own copy of a parameter (the collectives'
+    transposes carry the rest), so this is the gradient of the global loss
+    in the parameter's shard, as GSPMD computes it. ``sharded`` gives each
+    parameter's sharded axes (absent: replicated on every axis). A
+    parameter replicated everywhere gets ``pmean_grads`` over all axes."""
+    n = mesh.axis_size(mesh.axis_names)
+    groups: Dict[Tuple[str, ...], List[str]] = {}
+    for name in grads:
+        own = set(sharded.get(name, ()))
+        rest = tuple(a for a in mesh.axis_names if a not in own)
+        groups.setdefault(rest, []).append(name)
+    for rest, names in groups.items():
+        gs = [grads[k] for k in names]
+        if not rest:
+            torch._foreach_div_(gs, n)
+            continue
+        mean = pmean_grads(gs, rest, mesh)
+        if len(rest) < len(mesh.axis_names):
+            # pmean_grads divided by the replicated axes' size only
+            torch._foreach_mul_(mean, mesh.axis_size(rest) / n)
+        torch._foreach_copy_(gs, mean)
+
+
+@torch.no_grad()
+def global_norm(grads: Dict[str, torch.Tensor],
+                sharded: Dict[str, Tuple[str, ...]],
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """‖g‖ of the whole gradient: a sharded parameter's squared norm summed
+    over the axes it is sharded on, a replicated one counted once. Every
+    rank gets the same value."""
+    groups: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    for name, g in grads.items():
+        groups.setdefault(tuple(sharded.get(name, ())), []).append(g)
+    if set(groups) == {()}:
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(groups[()])))
+    total = 0.0
+    for axes, gs in sorted(groups.items()):
+        sq = torch.stack(torch._foreach_norm(gs)).square().sum()
+        total = total + (psum(sq, axes, mesh) if axes else sq)
+    return total.sqrt()

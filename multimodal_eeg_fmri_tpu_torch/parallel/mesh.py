@@ -18,6 +18,7 @@ copied, by ``copy.deepcopy`` of the module that holds it.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple, Union
@@ -29,6 +30,9 @@ ENSEMBLE_AXIS = "ensemble"
 DATA_AXIS = "data"
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("mesh", default=None)
+# (mesh, axis) of the batch rows inside ``batch_sharded``
+_BATCH: contextvars.ContextVar = contextvars.ContextVar("batch_axis",
+                                                        default=None)
 
 AxisNames = Union[str, Sequence[str]]
 
@@ -114,7 +118,8 @@ class Mesh:
             return dist.group.WORLD
         raise NotImplementedError(
             f"a collective over the axes {axes} of a mesh with axes "
-            f"{self.axis_names}: one axis or all of them")
+            f"{self.axis_names}: one axis or all of them (a three-axis mesh "
+            "comes with ROADMAP.md, queue A item 7c)")
 
     def __enter__(self) -> "Mesh":
         self._tokens.append(_ACTIVE.set(self))
@@ -140,6 +145,37 @@ def resolve_mesh(mesh: Optional[Mesh]) -> Mesh:
     if mesh is None:
         raise ValueError("no mesh: pass mesh= or enter one with `with mesh:`")
     return mesh
+
+
+@contextlib.contextmanager
+def batch_sharded(mesh: Optional[Mesh], axis: Optional[str]):
+    """Inside the block the batch rows are sharded over ``axis`` of
+    ``mesh`` (a no-op for None): training-mode BatchNorm takes its
+    statistics over the whole batch and Mixture-of-Experts layers route the
+    whole batch's tokens, as the JAX package computes them on a batch
+    sharded over ``data``. ``train.fit`` enters it around its forwards."""
+    if mesh is None or axis is None:
+        yield
+        return
+    token = _BATCH.set((mesh, axis))
+    try:
+        yield
+    finally:
+        _BATCH.reset(token)
+
+
+def current_batch_axis() -> Optional[Tuple[Mesh, str]]:
+    """(mesh, axis) of the innermost ``batch_sharded``, or None."""
+    return _BATCH.get()
+
+
+def batch_axis_of(mesh: Optional[Mesh], seq_axis: Optional[str] = None
+                  ) -> Optional[str]:
+    """The axis a model's batch rows shard over: the mesh's ``data`` axis,
+    unless that axis carries the sequence."""
+    if mesh is None or DATA_AXIS not in mesh.shape or seq_axis == DATA_AXIS:
+        return None
+    return DATA_AXIS
 
 
 @dataclass(frozen=True)

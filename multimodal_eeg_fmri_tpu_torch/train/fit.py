@@ -34,12 +34,30 @@ The other options of the config, as in the JAX package:
 - ``resume_carry`` takes a result's ``carry`` (``FitCarry``), the whole
   training state, and continues from it: two runs of E₁ and E₂ epochs equal
   one of E₁+E₂.
-- A model that carries a mesh (``LongContextClassifier(attn_impl="ring",
-  mesh=...)``) trains SPMD: every rank calls ``fit`` with its shard of the
-  data (``parallel.input.shard_sequence``) and the same integer seed, and
-  each step averages every gradient over all the mesh's axes before
-  clipping (``TrainStep``). Params, the loss history and the metrics come
-  out the same on every rank.
+- A model that carries a mesh trains SPMD: every rank calls ``fit`` with
+  the same integer seed and the same data, but for a time axis sharded
+  over a ring's seq axis (``parallel.input.shard_sequence``). Every rank's
+  loss is the one global loss, and each gradient is summed over the mesh
+  axes its parameter is replicated on and divided by the mesh's size
+  (``parallel.collectives.reduce_grads_``), so that it is the global
+  loss's gradient in the rank's shard, as GSPMD computes it; the clip's
+  norm is the whole gradient's (``parallel.collectives.global_norm``). The
+  loss history and the metrics come out the same on every rank.
+- Where the mesh has a ``data`` axis the batch shards over it: each step
+  takes the global batch (shuffled alike on every rank) and each rank
+  runs its rows (``parallel.input.global_batch_tree``). What the JAX
+  package computes over the global batch stays global: the weighted loss
+  is the summed weighted loss over the summed weights, training-mode
+  BatchNorm statistics and Mixture-of-Experts routing run over the whole
+  batch (``parallel.mesh.batch_sharded``), and the eval metrics are taken
+  on the logits gathered over the axis.
+- ``param_sharding`` (``parallel.tensor.tp_param_constraint``,
+  ``parallel.fsdp.fsdp_param_constraint``,
+  ``parallel.expert.ep_param_constraint``) lays the model out in place
+  before its optimizer is built; params, AdamW's moments, the best params
+  and the EMA are then this rank's shards. A ``resume_carry`` of full
+  tensors (a checkpoint's) is cut to the layout first
+  (``parallel.layout.local_tree``).
 
 Where the JAX package initialises params inside ``fit``, the module passed
 in here carries its weights, the torch idiom: ``fit`` trains them in place
@@ -68,7 +86,22 @@ from multimodal_eeg_fmri_tpu_torch.ops.moe import (
     collect_aux_losses,
     total_aux_loss,
 )
-from multimodal_eeg_fmri_tpu_torch.parallel.collectives import pmean_grads
+from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
+    all_gather,
+    global_norm,
+    psum,
+    reduce_grads_,
+)
+from multimodal_eeg_fmri_tpu_torch.parallel.input import global_batch_tree
+from multimodal_eeg_fmri_tpu_torch.parallel.layout import (
+    local_tree,
+    param_axes,
+)
+from multimodal_eeg_fmri_tpu_torch.parallel.mesh import (
+    MeshPlan,
+    batch_axis_of,
+    batch_sharded,
+)
 from multimodal_eeg_fmri_tpu_torch.report.metrics import (
     binary_classification_metrics,
     regression_metrics,
@@ -148,11 +181,16 @@ def _plateau_update(cfg: TrainConfig, best, bad, scale, metric):
     return best, bad, scale
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float,
+                         norm: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Scale ``grads`` in place by max_norm/‖g‖ when the global norm ‖g‖
     reaches max_norm, as optax's ``clip_by_global_norm`` (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``). Returns ‖g‖; never syncs."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    ``torch.nn.utils.clip_grad_norm_``). ``norm`` is ‖g‖ where the caller
+    has it (a sharded gradient's). Returns ‖g‖; never syncs."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
     factor = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, factor)
     return norm
@@ -203,12 +241,15 @@ class TrainStep:
             if cfg.loss == "label_smoothing":
                 lk.setdefault("smoothing", cfg.label_smoothing)
             self.loss_fn = make_loss_fn(cfg.loss, **lk)
-        # a model whose activations shard over a mesh (the ring route):
-        # its params are replicated, and each rank's backward gives its
-        # share of the gradient of the sum of the ranks' (equal) losses
-        # through the collectives' transposes, so the mean over every mesh
-        # axis is the gradient of the loss
+        # a model on a mesh: each rank's backward gives the gradient of the
+        # sum of the ranks' (equal) losses in its own copy of a parameter,
+        # through the collectives' transposes; the sum over the axes a
+        # parameter is replicated on, over the mesh's size, is the
+        # gradient of the loss (``reduce_grads_``)
         self.mesh = getattr(model, "mesh", None)
+        self.sharded = param_axes(model) if self.mesh is not None else {}
+        self.data_axis = batch_axis_of(self.mesh,
+                                       getattr(model, "seq_axis", None))
         self.named_params = dict(model.named_parameters())
         self.params = list(self.named_params.values())
         # every parameter gets a gradient, zero where none flows (a frozen
@@ -239,14 +280,35 @@ class TrainStep:
                   for k, v in inputs.items()}
         return functional_call(self.model, params, (), inputs)
 
+    def rows(self, batch: Tensors) -> Tensors:
+        """This rank's rows of a global batch where the batch shards over
+        the mesh's data axis; the batch itself otherwise."""
+        if self.data_axis is None:
+            return batch
+        return global_batch_tree(MeshPlan(self.mesh,
+                                          data_axis=self.data_axis), batch)
+
+    def sharded_forward(self):
+        """The context of this model's forwards: its batch's rows sharded
+        over the data axis, where it has one."""
+        return batch_sharded(self.mesh, self.data_axis)
+
     def losses(self, batch: Tensors, class_weights=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(task loss, Σ aux) of the forward in train mode, in f32: the aux
-        losses the MoE layers leave (``ops.moe``), None without one."""
-        with collect_aux_losses() as sink:
-            out = self.forward(self.inputs(batch))
-        task = self.loss_fn(out.logits, batch["label"], class_weights,
-                            batch.get("weight"))
+        """(task loss, Σ aux) of the forward in train mode on the global
+        ``batch``, in f32: the aux losses the MoE layers leave
+        (``ops.moe``), None without one. Over a data axis each rank runs its
+        rows, and the task loss is Σ w·l / Σ w over the whole batch."""
+        local = self.rows(batch)
+        with collect_aux_losses() as sink, self.sharded_forward():
+            out = self.forward(self.inputs(local))
+        task = self.loss_fn(out.logits, local["label"], class_weights,
+                            local.get("weight"))
+        if self.data_axis is not None:
+            w = self._eff_weight(local, class_weights).sum()
+            total = psum(torch.stack([task * w.clamp_min(1e-8), w]),
+                         self.data_axis, self.mesh)
+            task = total[0] / total[1].clamp_min(1e-8)
         return task, total_aux_loss(sink)
 
     def loss(self, batch: Tensors, class_weights=None) -> torch.Tensor:
@@ -299,15 +361,19 @@ class TrainStep:
 
     def backward(self, batch: Tensors, class_weights=None) -> torch.Tensor:
         """The batch's loss, with its gradient in the params' ``.grad``
-        (zeroed first): on a model with a mesh, the mean of the ranks'
-        gradients over every mesh axis."""
+        (zeroed first): on a model with a mesh, each reduced over the axes
+        its parameter is replicated on (``reduce_grads_``)."""
         self.optimizer.zero_grad(set_to_none=False)
         loss = self.objective(batch, class_weights)
         if self.mesh is not None:
-            grads = [p.grad for p in self.params]
-            mean = pmean_grads(grads, self.mesh.axis_names, self.mesh)
-            torch._foreach_copy_(grads, mean)
+            reduce_grads_({n: p.grad for n, p in self.named_params.items()},
+                          self.sharded, self.mesh)
         return loss
+
+    def grad_norm(self) -> torch.Tensor:
+        """‖g‖ of the whole gradient (every shard's, once)."""
+        return global_norm({n: p.grad for n, p in self.named_params.items()},
+                           self.sharded, self.mesh)
 
     def __call__(self, batch, class_weights=None,
                  generator: Optional[torch.Generator] = None,
@@ -318,7 +384,7 @@ class TrainStep:
         loss = self.backward(batch, class_weights)
         if self.cfg.grad_clip and self.cfg.grad_clip > 0:
             clip_by_global_norm_([p.grad for p in self.params],
-                                 self.cfg.grad_clip)
+                                 self.cfg.grad_clip, self.grad_norm())
         group = self.optimizer.param_groups[0]
         group["lr"] = self.cfg.learning_rate if lr is None else lr
         group["weight_decay"] = self.cfg.weight_decay if wd is None else wd
@@ -427,6 +493,22 @@ def initial_carry(model: nn.Module, ema: bool = False) -> FitCarry:
         ema_params=_cloned(params, dev) if ema else None)
 
 
+def localize_carry(model: nn.Module, carry: FitCarry) -> FitCarry:
+    """``carry`` with every tree by parameter or state-dict name cut to the
+    model's layout where it holds full tensors (a checkpoint's)."""
+    def cut(tree):
+        return local_tree(model, tree)
+
+    return carry._replace(
+        params=cut(carry.params), batch_stats=cut(carry.batch_stats),
+        best_params=cut(carry.best_params),
+        best_batch_stats=cut(carry.best_batch_stats),
+        ema_params=cut(carry.ema_params),
+        opt_state={**carry.opt_state,
+                   "exp_avg": cut(carry.opt_state["exp_avg"]),
+                   "exp_avg_sq": cut(carry.opt_state["exp_avg_sq"])})
+
+
 def _to_device(data, device) -> Tensors:
     return {k: as_tensor(v, device) for k, v in data.items()}
 
@@ -450,16 +532,13 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
     takes the carry's state. ``hyper`` ({'lr', 'wd'}) overrides the config's
     optimizer hyperparameters. ``num_epochs`` (default ``cfg.num_epochs``)
     is the epochs of this call; the cosine schedule reads the global epoch
-    against ``cfg.num_epochs``."""
+    against ``cfg.num_epochs``. ``param_sharding`` (``model → model``)
+    lays the model out before its optimizer is built, on every call."""
     E = num_epochs or cfg.num_epochs
     if cfg.selection != "train_loss" and cfg.selection not in eval_names:
         raise ValueError(
             f"cfg.selection={cfg.selection!r} but eval_names={eval_names}; "
             "pass the selection set or use selection='train_loss'")
-    if param_sharding is not None:
-        raise NotImplementedError(
-            "param_sharding is not ported yet (ROADMAP.md, queue A item 7b: "
-            "parameter sharding)")
     compute_dtype(cfg)
     metric_mode_max = cfg.selection != "train_loss"
     accum = max(int(cfg.grad_accum or 1), 1)
@@ -468,6 +547,8 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
     def fit(generator: Union[torch.Generator, int], train_data, eval_sets,
             class_weights=None, hyper: Optional[dict] = None,
             resume_carry: Optional[FitCarry] = None) -> FitResult:
+        if param_sharding is not None:
+            param_sharding(model)
         dev = next(model.parameters()).device
         if isinstance(generator, int):
             generator = torch.Generator(device=dev).manual_seed(generator)
@@ -487,10 +568,18 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
                              f"(effective) batch size {bsz}")
         step = TrainStep(model, cfg, task=task, loss_kwargs=loss_kwargs,
                          augment=augment, preprocess=preprocess)
+        if step.data_axis is not None:
+            n_data = step.mesh.shape[step.data_axis]
+            if (bsz // accum) % n_data:
+                raise ValueError(
+                    f"the (micro)batch of {bsz // accum} rows does not "
+                    f"divide the {step.data_axis!r} axis ({n_data})")
 
         c = resume_carry
         if c is None:
             c = initial_carry(model, ema=ema_d > 0)
+        elif step.mesh is not None:
+            c = localize_carry(model, c)
         model.load_state_dict({**c.params, **c.batch_stats})
         step.load_opt_state(c.opt_state)
         if c.rng is not None:
@@ -536,10 +625,14 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
             sel_metric = -train_loss
             for name in eval_names:
                 data = eval_sets[name]
-                out = _apply_eval(model, step.inputs(data), ema)
+                with step.sharded_forward():
+                    logits = _apply_eval(model, step.inputs(step.rows(data)),
+                                         ema).logits
+                if step.data_axis is not None:
+                    logits = all_gather(logits, step.data_axis, 0, step.mesh)
                 m = (regression_metrics if task == "regression"
                      else binary_classification_metrics)(
-                    out.logits, data["label"], data.get("weight"))
+                    logits, data["label"], data.get("weight"))
                 metrics_out.update({f"{name}_{k}": v for k, v in m.items()})
                 if cfg.selection == name:
                     sel_metric = m["f1" if task == "classification" else "r2"]

@@ -9,6 +9,11 @@ EMA) and the histories so far are written by ``core.checkpoint``'s
 written last. On restart the latest complete chunk is loaded and training
 continues where it left off: the schedule, early stopping and selection see
 the state they would have seen in one run.
+
+A model on a mesh (``param_sharding``, a pipeline's stages) checkpoints the
+gathered full tensors (``parallel.layout.full_tree``, collective): rank 0
+of the world writes, and a resume on any layout cuts them to its own
+(``train.fit.localize_carry``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from multimodal_eeg_fmri_tpu_torch.core.checkpoint import (
@@ -27,9 +33,12 @@ from multimodal_eeg_fmri_tpu_torch.core.checkpoint import (
     save_checkpoint,
 )
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
+from multimodal_eeg_fmri_tpu_torch.parallel.layout import full_tree
+from multimodal_eeg_fmri_tpu_torch.parallel.mesh import world
 from multimodal_eeg_fmri_tpu_torch.train.fit import (
     FitCarry,
     FitResult,
+    localize_carry,
     make_fit_fn,
 )
 
@@ -78,6 +87,22 @@ def _load_chunk(cd: Path):
     return carry, ck["extra"]["histories"]
 
 
+def _full_carry(model: nn.Module, carry: FitCarry) -> Dict[str, Any]:
+    """The carry as a dict, every tree by parameter or state-dict name
+    gathered to full tensors (collective over the model's mesh)."""
+    def full(tree):
+        return None if tree is None else full_tree(model, tree)
+
+    out = carry._asdict()
+    for k in ("params", "batch_stats", "best_params", "best_batch_stats",
+              "ema_params"):
+        out[k] = full(out[k])
+    out["opt_state"] = {**carry.opt_state,
+                        "exp_avg": full(carry.opt_state["exp_avg"]),
+                        "exp_avg_sq": full(carry.opt_state["exp_avg_sq"])}
+    return out
+
+
 def _concat_histories(histories) -> Dict[str, torch.Tensor]:
     if not histories:
         return {}
@@ -107,9 +132,16 @@ def fit_resumable(model: nn.Module, cfg: TrainConfig,
     chunk that a resume ignores. The JAX package also donates the resume
     carry's device buffers to each chunk; torch has no counterpart, and the
     carry of the previous chunk is freed when the next one replaces it.
-    ``param_sharding`` is not ported yet and raises, as in ``make_fit_fn``."""
+    ``param_sharding`` goes to ``make_fit_fn``: each chunk lays the model
+    out, a checkpoint keeps the gathered full tensors, which rank 0 of the
+    world writes, and a resumed carry is cut back to the layout."""
     ckpt_dir = Path(ckpt_dir).absolute()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
+    spmd = getattr(model, "mesh", None) is not None or (
+        param_sharding is not None)
+    if spmd and dist.is_initialized():
+        dist.barrier()  # every rank sees the same complete chunks
+    writes = world()[0] == 0
     n_chunks = (cfg.num_epochs + chunk_epochs - 1) // chunk_epochs
     fit_fn = make_fit_fn(model, cfg, num_epochs=chunk_epochs,
                          eval_names=tuple(eval_sets.keys()),
@@ -129,7 +161,8 @@ def fit_resumable(model: nn.Module, cfg: TrainConfig,
 
     result = None
     pending = None  # (future, dir, chunk) of a write still in flight
-    writer = ThreadPoolExecutor(max_workers=1) if async_save else None
+    writer = (ThreadPoolExecutor(max_workers=1) if async_save and writes
+              else None)
     try:
         for chunk in range(start, n_chunks):
             result = fit_fn(generator, train_data, eval_sets, class_weights,
@@ -138,7 +171,10 @@ def fit_resumable(model: nn.Module, cfg: TrainConfig,
             histories.append({k: v.cpu() for k, v in result.history.items()})
             # the host copy, taken before the next chunk trains; the list is
             # copied so that the writer does not see the next append
-            state = (_host_copy(carry._asdict()), list(histories))
+            state = (_host_copy(_full_carry(model, carry) if spmd
+                                else carry._asdict()), list(histories))
+            if not writes:
+                continue
             if pending is not None:
                 pending[0].result()
                 finalize(*pending[1:])
@@ -163,6 +199,10 @@ def fit_resumable(model: nn.Module, cfg: TrainConfig,
 
     history = _concat_histories(histories)
     if result is None:  # every chunk was done already
+        if param_sharding is not None:
+            param_sharding(model)
+        if spmd:
+            carry = localize_carry(model, carry)
         model.load_state_dict({**carry.params, **carry.batch_stats})
         model.eval()
         return FitResult(

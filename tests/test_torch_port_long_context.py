@@ -412,12 +412,21 @@ def test_predictor_matches_jax():
     dict(attn_impl="ring"), dict(mesh=object()), dict(head_axis="model"),
     dict(expert_axis="expert"), dict(ring_chunk_impl="flash")])
 def test_parallel_options_name_queue_a_item_7(kw):
-    """Expert parallelism still raises, naming its queue item (7b); the
-    sequence-parallel options build, and the ring route without a mesh
-    raises at its first forward."""
+    """The parallel options build: expert parallelism (item 7b) on a
+    layout-only (data 1 × expert 1) mesh runs a forward with its MoE
+    blocks; the sequence-parallel options build, and the ring route without
+    a mesh raises at its first forward."""
     if "expert_axis" in kw:
-        with pytest.raises(NotImplementedError, match="queue A item 7b"):
-            t_lc.LongContextClassifier(**kw, device="cpu")
+        from multimodal_eeg_fmri_tpu_torch.parallel import Mesh
+
+        mesh = Mesh(np.zeros((1, 1), np.int64), ("data", "expert"))
+        model = t_lc.LongContextClassifier(**kw, mesh=mesh, num_experts=2,
+                                           hidden_dim=16, num_layers=1,
+                                           device="cpu")
+        assert model.block_0.moe.expert_axis == "expert"
+        with torch.no_grad():
+            out = model.eval()(erp=torch.zeros(2, 8, 18))
+        assert out.logits.shape == (2, 2)
         return
     model = t_lc.LongContextClassifier(**kw, device="cpu")
     if kw.get("attn_impl") == "ring":

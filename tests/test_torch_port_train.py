@@ -504,6 +504,33 @@ def test_early_stopping_freezes_the_run(no_gate_dropout):
 
 @pytest.mark.parametrize("what", ["param_sharding"])
 def test_unported_fit_options_raise(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 7b"):
-        t_fit.make_fit_fn(t_layers.MLP(4, (2,)), TrainConfig(),
-                          eval_names=("val",), param_sharding=lambda p: p)
+    """``param_sharding`` (queue A item 7b, ported) is a hook that lays the
+    model out before its optimizer is built: ``fit`` calls it with the
+    model on every call, and an identity layout trains as no layout."""
+    from multimodal_eeg_fmri_tpu_torch.models.eeg import ModelOutput
+
+    seen = []
+    cfg = TrainConfig(batch_size=4, num_epochs=1, schedule="constant",
+                      selection="train_loss")
+    r = np.random.default_rng(0)
+    train = {"x": r.standard_normal((8, 4)).astype(np.float32),
+             "label": np.arange(8) % 2}
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            torch.manual_seed(0)
+            self.mlp = t_layers.MLP(4, (2,), norm="none")
+
+        def forward(self, x):
+            logits = self.mlp(x)
+            return ModelOutput(logits, logits, None, None)
+
+    runs = []
+    for hook in (None, lambda m: seen.append(m) or m):
+        model = Net()
+        runs.append(t_fit.make_fit_fn(model, cfg, eval_names=(),
+                                      param_sharding=hook)(0, train, {}))
+    assert len(seen) == 1 and isinstance(seen[0], Net)
+    torch.testing.assert_close(runs[1].history["train_loss"],
+                               runs[0].history["train_loss"], atol=0, rtol=0)

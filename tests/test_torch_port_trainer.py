@@ -502,7 +502,18 @@ def test_fit_resumable_crash_and_resume_equal_one_run(tmp_path, async_save):
 
 
 def test_fit_resumable_param_sharding_raises(tmp_path):
+    """``param_sharding`` (queue A item 7b, ported) reaches every chunk's
+    ``fit``: an identity layout called once a chunk, and the run equal to
+    the one without it."""
     train, val = data()
-    with pytest.raises(NotImplementedError, match="queue A item 7b"):
-        fit_resumable(_dropout_model(), TrainConfig(**FIT_KW), 0, train,
-                      {"val": val}, tmp_path, param_sharding=lambda p: p)
+    seen = []
+    runs = []
+    for i, hook in enumerate((None, lambda m: seen.append(m) or m)):
+        model = _dropout_model()
+        torch.manual_seed(0)  # the dropout masks' generator
+        runs.append(fit_resumable(model, TrainConfig(**FIT_KW), 0, train,
+                                  {"val": val}, tmp_path / str(i),
+                                  chunk_epochs=1, param_sharding=hook))
+    assert len(seen) == FIT_KW.get("num_epochs", 10)
+    for k, v in runs[0].history.items():
+        torch.testing.assert_close(runs[1].history[k], v, atol=0, rtol=0)

@@ -144,9 +144,7 @@ def ring_fit(mesh_spec, kw, variables, data, batch, cfg_kw, cw):
     grads = {k: p.grad.clone() for k, p in model.named_parameters()}
     keys = list(model.state_dict())
     model = _ring_model(kw, variables, mesh, seq, heads, impl)
-    real = torch.randperm
-    torch.randperm = lambda n, generator=None, device=None: torch.arange(
-        n, device=device)
+    real = _identity_shuffle()
     try:
         res = make_fit_fn(model, cfg, eval_names=())(
             0, shard_sequence(data, mesh, seq), {}, cw)
@@ -168,3 +166,269 @@ def failing_rank(rank, world):
         x = torch.zeros(1, 1, 4, 8)
         ring_attention_local(x, x, x, "data", world + 1, mesh=mesh)
     return None
+
+
+def _identity_shuffle():
+    """``fit``'s shuffle as the identity, as the JAX side has it (its
+    ``jax.random.permutation`` patched); returns the real ``randperm``."""
+    real = torch.randperm
+    torch.randperm = lambda n, generator=None, device=None: torch.arange(
+        n, device=device)
+    return real
+
+
+def _history(res):
+    return {k: v.clone() for k, v in res.history.items()}
+
+
+def pipeline_cases(rank, world, stages, x, apply_cases, fits, cfg_kw):
+    """The pipeline's cases on stage meshes of the whole world.
+
+    ``stages`` {"w": (S, d, d), "b": (S, d)} and ``x``: ``pipeline_apply``
+    of a residual GELU MLP stage on a ("stage",) mesh, forward at each
+    ``apply_cases`` n_micro (the outputs) and, at the last, the gradient of
+    sum(out²) in this rank's stage (reduced as ``fit`` reduces it). ``fits``
+    {name: (mesh shape, axis names, model kwargs, flax params, data, torch
+    seed)}: the ``PipelinedLongContextClassifier`` fit's history on that
+    mesh, with the shuffle the identity and the default generator seeded
+    first. Returns (apply results, fit histories, each fit's full state
+    dict's keys, whether JAX was imported)."""
+    from multimodal_eeg_fmri_tpu_torch.models import (
+        PipelinedLongContextClassifier,
+    )
+    from multimodal_eeg_fmri_tpu_torch.models.layers import gelu
+    from multimodal_eeg_fmri_tpu_torch.parallel import pipeline_apply
+    from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
+        reduce_grads_,
+    )
+    from multimodal_eeg_fmri_tpu_torch.parallel.pipeline import (
+        shard_stage_params,
+    )
+
+    mesh = _mesh((world,), ("stage",))
+    mine = shard_stage_params({k: torch.from_numpy(v)
+                               for k, v in stages.items()}, mesh)
+    mine = {k: v.clone().requires_grad_() for k, v in mine.items()}
+
+    def stage(p, h):
+        return gelu(h @ p["w"] + p["b"]) + h
+
+    applied = {}
+    xt = torch.from_numpy(x)
+    for n_micro in apply_cases:
+        applied[n_micro] = pipeline_apply(mine, xt, stage, mesh,
+                                          n_micro=n_micro).detach()
+    y = pipeline_apply(mine, xt[:16], stage, mesh, n_micro=apply_cases[-1])
+    (y * y).sum().backward()
+    grads = {k: v.grad for k, v in mine.items()}
+    reduce_grads_(grads, {k: ("stage",) for k in grads}, mesh)
+
+    histories, keys = {}, {}
+    real = _identity_shuffle()
+    try:
+        for name, (shape, names, kw, params, data, seed) in fits.items():
+            fmesh = _mesh(shape, names)
+            model = load_flax_variables(
+                PipelinedLongContextClassifier(mesh=fmesh, **kw,
+                                               device="cpu"), params)
+            local = data
+            if "seq" in names:
+                local = shard_sequence(data, fmesh, "seq")
+            torch.manual_seed(seed)
+            res = make_fit_fn(model, TrainConfig(**cfg_kw), eval_names=())(
+                0, local, {})
+            histories[name] = _history(res)
+            keys[name] = sorted(model.full_state_dict())
+    finally:
+        torch.randperm = real
+    return ((applied, grads), histories, keys, "jax" in sys.modules)
+
+
+def _v4(kw, variables):
+    """A narrow ``TriModalFusionNetV4`` on the CPU from flax variables, the
+    fusion gate's fixed dropout off (as the JAX side patches flax's)."""
+    from multimodal_eeg_fmri_tpu_torch.models import TriModalFusionNetV4
+    from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
+
+    model = load_flax_variables(TriModalFusionNetV4(**kw, device="cpu"),
+                                variables["params"],
+                                variables.get("batch_stats"))
+    for m in model.modules():
+        if isinstance(m, LearnedFusion):
+            m.gate_dropout = 0.0
+    return model
+
+
+def _layout(kind, mesh):
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        ep_param_constraint,
+        ep_param_specs,
+        fsdp_param_constraint,
+        shard_params_fsdp,
+        tp_param_constraint,
+    )
+
+    return {"tp": lambda: tp_param_constraint(mesh),
+            "fsdp": lambda: fsdp_param_constraint(mesh),
+            "fsdp_tp": lambda: fsdp_param_constraint(mesh, tp=True),
+            "ep": lambda: ep_param_constraint(mesh),
+            "fsdp_ep": lambda: lambda m: shard_params_fsdp(
+                m, mesh, base=ep_param_specs(m, mesh.shape["expert"]),
+                min_size=2 ** 6),
+            }[kind]()
+
+
+def _step_grads(model, cfg, train, layout):
+    """The first step's gradient of ``model`` laid out by ``layout``: the
+    first ``cfg.batch_size`` rows, reduced as ``fit`` reduces it and
+    gathered to full tensors, and its global norm (the clip's)."""
+    from multimodal_eeg_fmri_tpu_torch.parallel.layout import full_tree
+
+    layout(model)
+    step = TrainStep(model, cfg)
+    step.backward({k: torch.from_numpy(np.asarray(v[:cfg.batch_size]))
+                   for k, v in train.items()})
+    grads = full_tree(model, {k: p.grad for k, p in
+                              model.named_parameters()})
+    return grads, step.grad_norm()
+
+
+def _sharded_fits(fits):
+    """``sharded_fits``' fits: {name: (history, {param: (local numel,
+    spec)}, AdamW's local numel, (first step's full gradient, its
+    norm))}."""
+    from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
+
+    out = {}
+    real = _identity_shuffle()
+    try:
+        for name, (kind, shape, names, arch, kw, variables, train, evals,
+                   cfg_kw, cw) in fits.items():
+            mesh = _mesh(shape, names)
+
+            def build():
+                if arch == "v4":
+                    return _v4(dict(kw, mesh=mesh) if "ep" in kind else kw,
+                               variables)
+                return load_flax_variables(LongContextClassifier(
+                    **kw, mesh=mesh, device="cpu"), variables["params"])
+
+            cfg = TrainConfig(**cfg_kw)
+            grads = _step_grads(build(), cfg, train, _layout(kind, mesh))
+            model = build()
+            fit = make_fit_fn(model, cfg, eval_names=tuple(evals),
+                              param_sharding=_layout(kind, mesh))
+            res = fit(0, train, evals,
+                      None if cw is None else torch.from_numpy(cw))
+            opt = res.carry.opt_state["exp_avg"]
+            out[name] = (_history(res),
+                         {k: (p.numel(), model.param_specs.get(k, ()))
+                          for k, p in model.named_parameters()},
+                         sum(v.numel() for v in opt.values()), grads)
+    finally:
+        torch.randperm = real
+    return out
+
+
+def sharded_fits(rank, world, fits, resume):
+    """``fits`` {name: (layout, mesh shape, axis names, model ("v4" or
+    "lc"), model kwargs, flax variables, train, evals, config kwargs,
+    class weights)}: one ``fit`` of the model laid out on that mesh, the
+    shuffle the identity. Returns per fit (history, each parameter's local
+    numel and spec, AdamW's local numel, the first step's full gradient
+    and its norm). ``resume`` (an FSDP
+    ``fit_resumable`` with grad-accum and EMA that crashes in its second
+    chunk and resumes, or None): (kwargs, flax variables, train, val,
+    config kwargs, checkpoint dir) → its history."""
+    from multimodal_eeg_fmri_tpu_torch.train.resilient import fit_resumable
+
+    out = _sharded_fits(fits)
+    if resume is not None:
+        kw, variables, train, val, cfg_kw, ckpt = resume
+        mesh = _mesh((world,), ("data",))
+        cfg = TrainConfig(**cfg_kw)
+        crash = {"calls": 0}
+
+        def augment(generator, batch):
+            crash["calls"] += 1
+            if crash["calls"] == crash.get("at", 0):
+                raise RuntimeError("crash")
+            return batch
+
+        model = _v4(kw, variables)
+        crash["at"] = cfg.num_epochs // 2 * (len(train["label"])
+                                             // cfg.batch_size) + 1
+        try:
+            fit_resumable(model, cfg, 0, train, {"val": val}, ckpt,
+                          chunk_epochs=cfg.num_epochs // 2, async_save=True,
+                          param_sharding=_layout("fsdp", mesh),
+                          augment=augment)
+            raise AssertionError("the run did not crash")
+        except RuntimeError as e:
+            assert str(e) == "crash"
+        crash["at"] = 0
+        res = fit_resumable(_v4(kw, variables), cfg, 0, train, {"val": val},
+                            ckpt, chunk_epochs=cfg.num_epochs // 2,
+                            async_save=True,
+                            param_sharding=_layout("fsdp", mesh),
+                            augment=augment)
+        out["resume"] = _history(res)
+    return out, "jax" in sys.modules
+
+
+def expert_cases(rank, world, fits, ring, capacity):
+    """The expert-parallel cases: ``fits`` as in ``sharded_fits``; ``ring``
+    (model kwargs, flax params, data, config kwargs): the
+    ``LongContextClassifier`` with MoE blocks on a ring of the whole world,
+    its history; ``capacity`` (MoE kwargs, flax variables, x (B, T, D), g):
+    the layer on a (data 2 × expert 2) mesh with this rank's rows, its
+    output rows and the gradients of Σ out·g in x and the parameters
+    (reduced as ``fit`` reduces them), and the tokens it dropped."""
+    from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
+    from multimodal_eeg_fmri_tpu_torch.ops.moe import MoEFFN
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        MeshPlan,
+        batch_sharded,
+        global_batch_tree,
+        shard_params_ep,
+    )
+    from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
+        reduce_grads_,
+    )
+    from multimodal_eeg_fmri_tpu_torch.parallel.layout import param_axes
+
+    out = _sharded_fits(fits)
+    kw, params, data, cfg_kw = ring
+    mesh = _mesh((world,), ("seq",))
+    model = load_flax_variables(LongContextClassifier(
+        **kw, attn_impl="ring", mesh=mesh, seq_axis="seq", device="cpu"),
+        params)
+    real = _identity_shuffle()
+    try:
+        res = make_fit_fn(model, TrainConfig(**cfg_kw), eval_names=())(
+            0, shard_sequence(data, mesh, "seq"), {})
+    finally:
+        torch.randperm = real
+    out["ring"] = _history(res)
+
+    moe_kw, variables, x, g = capacity
+    mesh = _mesh((2, world // 2), ("data", "expert"))
+    holder = torch.nn.Module()
+    holder.moe = load_flax_variables(
+        MoEFFN(**moe_kw, mesh=mesh, expert_axis="expert", device="cpu"),
+        variables["params"])
+    shard_params_ep(holder, mesh)
+    plan = MeshPlan(mesh)
+    xl = torch.from_numpy(global_batch_tree(plan, x)).requires_grad_()
+    gl = torch.from_numpy(global_batch_tree(plan, g))
+    with batch_sharded(mesh, "data"):
+        y = holder.moe(xl)
+        dispatch, _, _ = holder.moe.routing(xl.detach())
+    loss = psum((y * gl).sum(), "data", mesh)
+    loss.backward()
+    grads = {"x": xl.grad, **{k: p.grad for k, p in
+                              holder.named_parameters()}}
+    reduce_grads_(grads, {**param_axes(holder), "x": ("data",)}, mesh)
+    kept = int(dispatch.sum().item())
+    out["capacity"] = (y.detach(), grads, kept)
+    return out, "jax" in sys.modules

@@ -448,15 +448,31 @@ def test_registry_model_builds_on_the_gpu_unless_asked(name):
     ("lc_ring_moe", "queue A item 7b"), ("lc_expert_axis", "queue A item 7b"),
     ("moe_mesh", "queue A item 7b"), ("moe_expert_axis", "queue A item 7b")])
 def test_unported_guards_name_their_queue_item(what, match):
+    """The paths these guards held back (queue A item 7b, ported) build and
+    run, on layout-only meshes of one rank: MoE blocks on the ring, the
+    classifier's and the MoE layer's expert axis, and the MoE layer with a
+    mesh; with no axis sharded each equals the same layer without one."""
     from multimodal_eeg_fmri_tpu_torch.models import LongContextClassifier
+    from multimodal_eeg_fmri_tpu_torch.parallel import Mesh
 
-    with pytest.raises(NotImplementedError, match=match):
-        if what == "moe_mesh":
-            t_moe.MoEFFN(32, 4, mesh=object(), device="cpu")
-        elif what == "moe_expert_axis":
-            t_moe.MoEFFN(32, 4, expert_axis="expert", device="cpu")
-        elif what == "lc_ring_moe":
-            LongContextClassifier(attn_impl="ring", num_experts=4,
-                                  device="cpu")
-        else:
-            LongContextClassifier(expert_axis="expert", device="cpu")
+    assert "7b" in match
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 8, 32)).astype(np.float32))
+    one = Mesh(np.zeros((1, 1), np.int64), ("seq", "expert"))
+    if what.startswith("moe"):
+        kw = (dict(mesh=one) if what == "moe_mesh"
+              else dict(mesh=one, expert_axis="expert"))
+        torch.manual_seed(0)
+        layer = t_moe.MoEFFN(32, 4, **kw, device="cpu")
+        torch.manual_seed(0)
+        plain = t_moe.MoEFFN(32, 4, device="cpu")
+        with torch.no_grad():
+            torch.testing.assert_close(layer(x), plain(x), atol=0, rtol=0)
+        return
+    kw = (dict(attn_impl="ring", num_experts=4) if what == "lc_ring_moe"
+          else dict(expert_axis="expert", num_experts=4))
+    model = LongContextClassifier(mesh=one, hidden_dim=32, num_layers=1,
+                                  in_channels=32, **kw, device="cpu")
+    with torch.no_grad():
+        out = model.eval()(erp=x)
+    assert out.logits.shape == (2, 2) and torch.isfinite(out.logits).all()
