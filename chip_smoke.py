@@ -779,8 +779,8 @@ def crashing(augment, calls: int):
 
 
 @contextlib.contextmanager
-def deterministic():
-    torch.use_deterministic_algorithms(True)
+def deterministic(warn_only: bool = False):
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
     try:
         yield
     finally:
@@ -1485,7 +1485,7 @@ def cv_fold(model, fit_fn, stacks, i: int, seed: int, task="classification"):
     from multimodal_eeg_fmri_tpu_torch.train.cv import fold_rngs, start_fold
     from multimodal_eeg_fmri_tpu_torch.train.evaluate import evaluate_dataset
 
-    train, evals, cw = stacks
+    train, evals, cw, _ = stacks
     rngs = fold_rngs(seed, next(model.parameters()).device)
     start_fold(model, rngs)
 
@@ -1697,7 +1697,8 @@ def cv_eeg_kfold_phase(dev, card: str) -> dict:
                  f"{other} route")
     return {"launches": launches, "seconds": seconds,
             "seconds_per_fold": seconds / len(splits),
-            "steps_per_fold": steps * CV_EPOCHS, "busy": busy}
+            "steps_per_fold": steps * CV_EPOCHS, "busy": busy,
+            "deterministic_run": det, "n_folds": len(splits)}
 
 
 def cv_eeg_pipeline_phase(dev, card: str) -> dict:
@@ -1746,9 +1747,6 @@ def cv_fmri_phase(dev, card: str) -> dict:
     from multimodal_eeg_fmri_tpu_torch.core.config import (
         FMRIConfig,
         TrainConfig,
-    )
-    from multimodal_eeg_fmri_tpu_torch.data.normalize import (
-        feature_standardize,
     )
     from multimodal_eeg_fmri_tpu_torch.data.synthetic import synthetic_fmri
     from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet
@@ -1811,14 +1809,12 @@ def cv_fmri_phase(dev, card: str) -> dict:
         fail(f"cv-fmri LOSO: pooled clinical report {pooled}")
     out["loso_seconds"] = seconds
 
-    n_train = CV_FMRI_N * 3 // 4
-    normed = feature_standardize(
-        {**data, "weight": np.ones(CV_FMRI_N, np.float32)},
-        np.arange(n_train), FMRI_KEYS)
-    train = {k: v[:n_train] for k, v in normed.items()}
-    val = {k: v[n_train:] for k, v in normed.items()}
-    sweep, seconds = timed(lambda: run_seed_sweep(
-        model, cfg, train, {"val": val}, CV_SEEDS))
+    model, cfg, train, val = sweep_setup(dev)
+    # deterministic: the sweep on the ensemble axis is held to it bit for
+    # bit (ensemble_gates)
+    with deterministic():
+        sweep, seconds = timed(lambda: run_seed_sweep(
+            model, cfg, train, {"val": val}, CV_SEEDS))
     lo, hi = sweep["ci95"]
     print(f"seed sweep, {CV_SEEDS} seeds: best val f1 "
           f"{np.array2string(sweep['best_metric'], precision=4)}, mean "
@@ -1829,7 +1825,40 @@ def cv_fmri_phase(dev, card: str) -> dict:
                           for v in sweep["history"].values())):
         fail("seed sweep: non-finite values, or a CI that misses its mean")
     out["sweep_seconds"] = seconds
+    out["sweep"] = sweep
     return out
+
+
+def sweep_setup(dev) -> tuple:
+    """cv-fmri's seed sweep: (FMRIFusionNet at FMRIConfig's widths on
+    ``dev``, its config, the train and val rows of 32 subjects,
+    feature-standardized on the first 24)."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import (
+        FMRIConfig,
+        TrainConfig,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.normalize import (
+        feature_standardize,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import synthetic_fmri
+    from multimodal_eeg_fmri_tpu_torch.models.fmri import FMRIFusionNet
+
+    f = FMRIConfig()
+    data = synthetic_fmri(n_subjects=CV_FMRI_N)
+    data.pop("reg_label")
+    model = FMRIFusionNet(hidden_dim=f.hidden_dim, num_classes=f.num_classes,
+                          dropout=f.dropout,
+                          activation_features=data["activation"].shape[1],
+                          connectivity_features=data["connectivity"].shape[1],
+                          device=dev)
+    cfg = TrainConfig(batch_size=BATCH, num_epochs=CV_FMRI_EPOCHS,
+                      selection="val")
+    n_train = CV_FMRI_N * 3 // 4
+    normed = feature_standardize(
+        {**data, "weight": np.ones(CV_FMRI_N, np.float32)},
+        np.arange(n_train), FMRI_KEYS)
+    return (model, cfg, {k: v[:n_train] for k, v in normed.items()},
+            {k: v[n_train:] for k, v in normed.items()})
 
 
 def cv_phase(dev, card: str) -> dict:
@@ -1853,9 +1882,12 @@ def cv_phase(dev, card: str) -> dict:
           f"subjects: 5-fold, LOSO, {CV_SEEDS}-seed sweep")
     fmri = cv_fmri_phase(dev, card)
     print(json.dumps({"cv": {"eeg_kfold_T512": {
-        k: v for k, v in eeg.items() if k != "launches"},
-        "eeg_pipeline_T250": pipeline, "fmri": fmri, "device": card}}))
-    return eeg
+        k: v for k, v in eeg.items()
+        if k not in ("launches", "deterministic_run")},
+        "eeg_pipeline_T250": pipeline,
+        "fmri": {k: v for k, v in fmri.items() if k != "sweep"},
+        "device": card}}))
+    return {**eeg, "sweep": fmri["sweep"]}
 
 
 # --- the model zoo: the reference's four-model suite, K1-K3 in new models ---
@@ -3676,7 +3708,13 @@ def serving_phase(dev, card: str) -> dict:
     times = serve_timings(live, members, ensembles["mean_probs"], rows, card)
     seconds = time.perf_counter() - t0
     print(f"serving phase: {seconds:.1f} s {card}")
+    # serve-ensemble-mesh-T512's members: the first MESH_MEMBERS, on the host
+    state = [(dict(m.named_parameters()), dict(m.named_buffers()))
+             for m in members[:MESH_MEMBERS]]
     return {"launches_per_batch": 4, "folded": folded,
+            "mesh_members": tuple(
+                {k: torch.stack([st[j][k].detach().cpu() for st in state])
+                 for k in state[0][j]} for j in (0, 1)),
             "times": {**times, **dispatch, "batcher_rows_per_s": rows_per_s,
                       "calibrated_temperature": temperature,
                       "phase_s": seconds}}
@@ -3915,34 +3953,16 @@ def hpo_phase(dev, card: str) -> dict:
     held to the count derived from each trial's flash layers (attention
     dropout is on in every trial: K1 in the one validation forward a
     trial-epoch, none in training)."""
-    from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
-    from multimodal_eeg_fmri_tpu_torch.data.arrays import (
-        balanced_class_weights,
-        pad_rows,
-        subset,
-    )
-    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
-        synthetic_eeg_trimodal,
-    )
     from multimodal_eeg_fmri_tpu_torch.ops.attention import (
         kernel_launches_by_head_dim,
     )
     from multimodal_eeg_fmri_tpu_torch.train.hpo import (
         DEFAULT_SPACE,
         OPT_KEYS,
-        build_trimodal,
-        run_hpo,
         sample_trials,
     )
 
-    data = synthetic_eeg_trimodal(n_subjects=HPO_TRAIN + HPO_VAL,
-                                  time_steps=T_SERVE, conn_as_matrix=True)
-    data.pop("subject")
-    train = pad_rows(subset(data, np.arange(HPO_TRAIN)), HPO_TRAIN)
-    val = pad_rows(subset(data, np.arange(HPO_TRAIN, HPO_TRAIN + HPO_VAL)),
-                   HPO_VAL)
-    make_model = functools.partial(build_trimodal, device=dev,
-                                conn_shape=data["conn"].shape[1:])
+    make_model, train, val, study = hpo_setup(dev)
     trials = sample_trials(DEFAULT_SPACE, HPO_TRIALS, seed=0)
 
     def arch(t):
@@ -3954,11 +3974,10 @@ def hpo_phase(dev, card: str) -> dict:
         if key not in layers:
             layers[key] = flash_layers(make_model(**arch(t)), val)
     reset_all_launches()
-    res, seconds = timed(lambda: run_hpo(
-        make_model, TrainConfig(), train, val, space=DEFAULT_SPACE,
-        n_trials=HPO_TRIALS, proxy_epochs=1, full_epochs=1,
-        top_fraction=HPO_TOP, seed=0,
-        class_weights=balanced_class_weights(train["label"])))
+    # deterministic: the study on the ensemble axis is held to it
+    # (ensemble_gates); warn_only, as no gate of this phase needs it
+    with deterministic(warn_only=True):
+        res, seconds = timed(study)
     by_dim = kernel_launches_by_head_dim()
     launches = total_launches()
     k = max(1, int(round(HPO_TRIALS * HPO_TOP)))
@@ -3988,7 +4007,45 @@ def hpo_phase(dev, card: str) -> dict:
         fail("hpo launched other than expected")
     return {"seconds": seconds, "launches": launches,
             "flash_fwd_by_head_dim": by_dim["flash_fwd"],
-            "best_score": res.best_score}
+            "best_score": res.best_score, "result": res}
+
+
+def hpo_setup(dev) -> tuple:
+    """hpo-default-T512's builder (on ``dev``, the data's widths bound), its
+    train and val rows, and its study as ``study(mesh_plan=None)``."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
+    from multimodal_eeg_fmri_tpu_torch.data.arrays import (
+        balanced_class_weights,
+        pad_rows,
+        subset,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.hpo import (
+        DEFAULT_SPACE,
+        build_trimodal,
+        run_hpo,
+    )
+
+    data = synthetic_eeg_trimodal(n_subjects=HPO_TRAIN + HPO_VAL,
+                                  time_steps=T_SERVE, conn_as_matrix=True)
+    data.pop("subject")
+    train = pad_rows(subset(data, np.arange(HPO_TRAIN)), HPO_TRAIN)
+    val = pad_rows(subset(data, np.arange(HPO_TRAIN, HPO_TRAIN + HPO_VAL)),
+                   HPO_VAL)
+    make_model = functools.partial(build_trimodal, device=dev,
+                                   conn_shape=data["conn"].shape[1:])
+
+    def study(mesh_plan=None):
+        return run_hpo(make_model, TrainConfig(), train, val,
+                       space=DEFAULT_SPACE, n_trials=HPO_TRIALS,
+                       proxy_epochs=1, full_epochs=1, top_fraction=HPO_TOP,
+                       seed=0,
+                       class_weights=balanced_class_weights(train["label"]),
+                       mesh_plan=mesh_plan)
+
+    return make_model, train, val, study
 
 
 def padded_predictor_gate(dev, card: str) -> dict:
@@ -4519,6 +4576,9 @@ def ring_worker(rank: int, world: int, one_card_each: bool, start: float,
     del model, fit, result
     torch.cuda.empty_cache()
     out["parallel"] = parallel_cases(rank, world, dev, start, refs)
+    torch.cuda.empty_cache()
+    out["ensemble"] = ensemble_cases(rank, world, dev, start,
+                                     refs["members"])
     return out
 
 
@@ -5098,6 +5158,355 @@ def parallel_gates(ranks: list, refs: dict, card: str) -> dict:
     return {"times": times, "launches": launches}
 
 
+# --- the ensemble axis (queue A item 7c), in the ring phase's world --------
+
+CV_MESH, SWEEP_MESH, HPO_MESH = (4, 1), (4, 1), (4, 1)   # (ensemble, data)
+SERVE_MESH = (2, 2)
+MESH_MEMBERS = 4                  # of serve-ensemble-T512's members
+SERVE_TIMED_CALLS = 20
+
+
+VMAP_MEMBERS = 4
+
+
+def vmap_grad_gate(dev, gen) -> dict:
+    """The gradient of Σ flash_attention(q, k, v)·g in q, k and v under
+    ``torch.func.vmap`` over VMAP_MEMBERS members: exactly one launch each
+    of K1, K2 and K3 (the members folded into B), and equal to a loop of
+    the same gradient over the members (bit for bit expected: the folded
+    rows are independent blocks; else within GRAD_ATOL)."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import flash_attention
+
+    B, H, T, d = SLICE_SHAPES[1]
+    q, k, v, g = (torch.randn(VMAP_MEMBERS, B, H, T, d, device=dev,
+                              generator=gen) for _ in range(4))
+
+    def loss(q, k, v, g):
+        return (flash_attention(q, k, v) * g).sum()
+
+    grad = torch.func.grad(loss, argnums=(0, 1, 2))
+    torch.cuda.synchronize()
+    reset_all_launches()
+    got = torch.func.vmap(grad)(q, k, v, g)
+    torch.cuda.synchronize()
+    launches = total_launches()
+    loop = [grad(q[i], k[i], v[i], g[i]) for i in range(VMAP_MEMBERS)]
+    torch.cuda.synchronize()
+    err = max((a[i] - b).abs().max().item() for i, one in enumerate(loop)
+              for a, b in zip(got, one))
+    exact = all(torch.equal(a[i], b) for i, one in enumerate(loop)
+                for a, b in zip(got, one))
+    want = {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    print(f"vmap(grad) over {VMAP_MEMBERS} members: launches {launches} "
+          f"(expected {want}); against the loop max|d(dQ, dK, dV)| "
+          f"{err:.3e}, bit for bit: {exact} (limit {GRAD_ATOL:g})")
+    if launches != want or not err <= GRAD_ATOL:
+        fail("the gradient under vmap did not fold into one launch each or "
+             "disagrees with the loop")
+    return {"launches": launches, "max_abs_err": err, "bit_for_bit": exact}
+
+
+def ensemble_references(dev, card: str, cv: dict, hpo: dict,
+                        serving: dict) -> dict:
+    """The single-device results the ensemble block is gated against, kept
+    from the phases that made them: cv-eeg-kfold-T512's run under
+    deterministic algorithms (the cv phase's gate a), cv-fmri's sweep and
+    hpo-default-T512's study (both run so), all on the host; and
+    serve-ensemble-T512's first 4 members served by one unplanned
+    EnsemblePredictor on the card, each reduction, with its p50."""
+    from multimodal_eeg_fmri_tpu_torch import MultimodalEndToEnd
+    from multimodal_eeg_fmri_tpu_torch.serving import EnsemblePredictor
+
+    phase(f"cv-mesh-T{T_SERVE}, sweep-mesh, hpo-mesh-T{T_SERVE}, "
+          f"serve-ensemble-mesh-T{T_SERVE}: the single-device references "
+          f"on {dev} {card}")
+    params, buffers = serving["mesh_members"]
+    rows = request(BATCH, T_SERVE, seed=50)
+    served, p50 = {}, None
+    for reduce in ("mean_probs", "vote", "none"):
+        ens = EnsemblePredictor(
+            MultimodalEndToEnd(device=dev),
+            {k: v.to(dev) for k, v in params.items()},
+            {k: v.to(dev) for k, v in buffers.items()}, batch_size=BATCH,
+            reduce=reduce)
+        served[reduce] = ens(**rows)
+        if reduce == "mean_probs":
+            p50 = ens.benchmark(rows, warmup=3, iters=SERVE_TIMED_CALLS)
+    print(f"EnsemblePredictor({MESH_MEMBERS} members) B={BATCH}: p50 "
+          f"{p50['p50_ms']:.3f} ms, p95 {p50['p95_ms']:.3f} ms on one device "
+          f"{card}")
+    del ens
+    torch.cuda.empty_cache()
+    return {"cv": on_host(cv["deterministic_run"]), "cv_launches":
+            cv["launches"], "cv_folds": cv["n_folds"], "cv_s": cv["seconds"],
+            "sweep": on_host(cv["sweep"]), "hpo": hpo["result"],
+            "hpo_k1": hpo["launches"]["flash_fwd"], "served": served,
+            "served_ms": p50, "members": (params, buffers)}
+
+
+def on_host(tree):
+    """A result with every tensor copied to the host (dicts, lists,
+    tuples, named tuples and dataclasses)."""
+    from torch.utils import _pytree as pytree
+
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: on_host(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return pytree.tree_map(
+        lambda x: x.detach().cpu() if torch.is_tensor(x) else x, tree)
+
+
+def ensemble_cases(rank: int, world: int, dev, start: float,
+                   members: tuple) -> dict:
+    """cv-mesh-T512, sweep-mesh, hpo-mesh-T512 and serve-ensemble-mesh-T512
+    on this rank of the ring phase's world, each on its mesh of the whole
+    world, the training ones under deterministic algorithms as their
+    references ran (``members``: the 4 members' stacked params and buffers
+    on the host). Returns the rank's results on the host."""
+    from multimodal_eeg_fmri_tpu_torch import MultimodalEndToEnd
+    from multimodal_eeg_fmri_tpu_torch.core.config import (
+        EEGConfig,
+        TrainConfig,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+    )
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        build_mesh,
+        reset_staged_bytes,
+        staged_bytes,
+    )
+    from multimodal_eeg_fmri_tpu_torch.serving import EnsemblePredictor
+    from multimodal_eeg_fmri_tpu_torch.train.cv import (
+        eeg_kfold_splits,
+        run_cv,
+        run_seed_sweep,
+    )
+
+    attention = importlib.import_module(
+        "multimodal_eeg_fmri_tpu_torch.ops.attention")
+    out = {}
+
+    def case(name: str, what: str, fn, **kw) -> dict:
+        at = world_phase(rank, start, f"{name}: {what}")
+        torch.cuda.synchronize()
+        reset_all_launches()
+        reset_staged_bytes()
+        t0 = time.perf_counter()
+        with deterministic(**kw):
+            result = fn()
+        torch.cuda.synchronize()
+        return {"result": on_host(result), "launches": total_launches(),
+                "staged": staged_bytes(), "s": time.perf_counter() - t0,
+                "at": at}
+
+    data = synthetic_eeg_trimodal(n_subjects=CV_EEG_N, time_steps=T_SERVE)
+    cfg = TrainConfig(batch_size=BATCH, num_epochs=CV_EPOCHS,
+                      loss="weighted_ce", selection="val")
+    plan = build_mesh(*CV_MESH)
+    out["cv"] = case(
+        f"cv-mesh-T{T_SERVE}", f"cv-eeg-kfold-T{T_SERVE}'s run_cv on an "
+        f"(ensemble, data) mesh {CV_MESH}, 5 folds padded to 8",
+        lambda: run_cv(eeg_model(EEGConfig(), 0.0, dev), cfg, data,
+                       eeg_kfold_splits(data, cfg), normalize_keys=EEG_KEYS,
+                       mesh_plan=plan))
+    out["cv"]["param_bytes"] = sum(
+        v.numel() * v.element_size()
+        for v in out["cv"]["result"].params.values())
+
+    model, scfg, train, val = sweep_setup(dev)
+    plan = build_mesh(*SWEEP_MESH)
+    out["sweep"] = case(
+        "sweep-mesh", f"cv-fmri's {CV_SEEDS}-seed run_seed_sweep on "
+        f"{SWEEP_MESH}",
+        lambda: run_seed_sweep(model, scfg, train, {"val": val}, CV_SEEDS,
+                               mesh_plan=plan))
+
+    study = hpo_setup(dev)[3]
+    plan = build_mesh(*HPO_MESH)
+    out["hpo"] = case(
+        f"hpo-mesh-T{T_SERVE}", f"hpo-default-T{T_SERVE}'s {HPO_TRIALS} "
+        f"trials on {HPO_MESH}, each architecture group padded to the "
+        "ensemble axis", lambda: study(plan), warn_only=True)
+
+    at = world_phase(rank, start, f"serve-ensemble-mesh-T{T_SERVE}: "
+                     f"{MESH_MEMBERS} members of serve-ensemble-T{T_SERVE} on "
+                     f"an (ensemble, data) mesh {SERVE_MESH}: the three "
+                     "reductions, each call collective")
+    params, buffers = members
+    plan = build_mesh(*SERVE_MESH)
+    rows = request(BATCH, T_SERVE, seed=50)
+    served = {"at": at, "calls": []}
+    real = attention._flash_forward
+
+    def spy(q, *a):
+        served["calls"].append(tuple(q.shape))
+        return real(q, *a)
+
+    for reduce in ("mean_probs", "vote", "none"):
+        ens = EnsemblePredictor(
+            MultimodalEndToEnd(device=dev),
+            {k: v.to(dev) for k, v in params.items()},
+            {k: v.to(dev) for k, v in buffers.items()}, plan=plan,
+            batch_size=BATCH, reduce=reduce)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        reset_staged_bytes()
+        attention._flash_forward = spy
+        try:
+            served[reduce] = ens(**rows)
+        finally:
+            attention._flash_forward = real
+        torch.cuda.synchronize()
+        served["launches", reduce] = total_launches()
+        served["staged", reduce] = staged_bytes()
+        if reduce == "mean_probs":
+            served["times"] = ens.benchmark(rows, warmup=3,
+                                            iters=SERVE_TIMED_CALLS)
+    out["serve"] = served
+    return out
+
+
+def ensemble_gates(ranks: list, refs: dict, card: str) -> dict:
+    """The ensemble block's gates on every rank's results: the training
+    cases bit for bit against their single-device runs (every rank's whole
+    result), the launches per rank exactly, the served reductions within
+    SERVE_ATOL of the single device's (votes exactly)."""
+    times, launches = {}, {}
+
+    # cv-mesh-T512
+    what = f"cv-mesh-T{T_SERVE}: "
+    n_folds, n_ens = refs["cv_folds"], CV_MESH[0]
+    per_rank = -(-n_folds // n_ens)
+    want = {k: v // n_folds * per_rank for k, v in refs["cv_launches"].items()}
+    par_launch_gate(what, ranks, lambda r: r["cv"]["launches"], want)
+    launches[f"cv-mesh-T{T_SERVE}, per rank"] = want
+    ref = refs["cv"]
+    gaps = []
+    for r, res in enumerate(ranks):
+        got = res["cv"]["result"]
+        if got.n_folds != n_folds:
+            fail(f"{what}rank {r} returned {got.n_folds} folds")
+        gap = max(max_diff(got.params, ref.params),
+                  max_diff(got.batch_stats, ref.batch_stats),
+                  max(float(np.abs(got.history[k] - ref.history[k]).max())
+                      for k in ref.history),
+                  max(float(np.abs(got.fold_metrics[k]
+                                   - ref.fold_metrics[k]).max())
+                      for k in ref.fold_metrics),
+                  float(np.abs(got.test_probs - ref.test_probs).max()),
+                  float(np.abs(got.best_epochs - ref.best_epochs).max()))
+        gaps.append(gap)
+    t = [r["cv"]["s"] for r in ranks]
+    print(f"{what}{n_folds} folds padded to {per_rank * n_ens}, {per_rank} "
+          f"a rank: every rank's gathered result (params, statistics, "
+          f"history, metrics, best epochs, test probs) against the "
+          f"single-device run: max|d| by rank {gaps} (limit 0); run_cv "
+          f"{', '.join(f'{x:.2f}' for x in t)} s by rank against "
+          f"{refs.get('cv_s', float('nan')):.2f} s on one device; bytes "
+          f"staged by rank {[r['cv']['staged'] for r in ranks]}; the "
+          f"gathered params {ranks[0]['cv']['param_bytes']} bytes {card}")
+    if any(gaps):
+        fail(f"{what}the sharded run_cv differs from the single-device run")
+    times["cv_mesh"] = {"s": t, "staged_bytes": [r["cv"]["staged"]
+                                                  for r in ranks],
+                        "param_bytes": ranks[0]["cv"]["param_bytes"],
+                        "at_s": ranks[0]["cv"]["at"]}
+
+    # sweep-mesh
+    what = "sweep-mesh: "
+    ref = refs["sweep"]
+    for r, res in enumerate(ranks):
+        got = res["sweep"]["result"]
+        same = (np.array_equal(got["best_metric"], ref["best_metric"])
+                and all(np.array_equal(got["history"][k], ref["history"][k])
+                        for k in ref["history"])
+                and all(max_diff(a.params, b.params) == 0
+                        and max_diff(a.final_params, b.final_params) == 0
+                        for a, b in zip(got["result"], ref["result"])))
+        if not same:
+            fail(f"{what}rank {r}'s sweep differs from the single-device "
+                 "sweep")
+    t = [r["sweep"]["s"] for r in ranks]
+    print(f"{what}{CV_SEEDS} seeds on {SWEEP_MESH}: every rank's best "
+          f"metrics, histories and per-seed params equal the single-device "
+          f"sweep's bit for bit; {', '.join(f'{x:.2f}' for x in t)} s by "
+          f"rank; launches {ranks[0]['sweep']['launches']} {card}")
+    times["sweep_mesh"] = {"s": t, "staged_bytes": [r["sweep"]["staged"]
+                                                     for r in ranks]}
+
+    # hpo-mesh-T512
+    what = f"hpo-mesh-T{T_SERVE}: "
+    ref = refs["hpo"]
+    for r, res in enumerate(ranks):
+        got = res["hpo"]["result"]
+        same = (all(np.array_equal(a, b) for a, b in
+                    zip(got.rung_scores, ref.rung_scores))
+                and got.best_params == ref.best_params)
+        if not same:
+            fail(f"{what}rank {r}'s study differs: rung scores "
+                 f"{got.rung_scores}, best {got.best_params}; single device "
+                 f"{ref.rung_scores}, {ref.best_params}")
+    t = [r["hpo"]["s"] for r in ranks]
+    k1 = [r["hpo"]["launches"]["flash_fwd"] for r in ranks]
+    print(f"{what}rung scores and best params {ref.best_params} equal the "
+          f"single-device study's on every rank; "
+          f"{', '.join(f'{x:.2f}' for x in t)} s by rank; K1 launches by "
+          f"rank {k1} (single device {refs.get('hpo_k1')}) {card}")
+    launches[f"hpo-mesh-T{T_SERVE}, per rank"] = {
+        "flash_fwd": k1, "flash_bwd_dkv": [r["hpo"]["launches"][
+            "flash_bwd_dkv"] for r in ranks], "flash_bwd_dq": [
+            r["hpo"]["launches"]["flash_bwd_dq"] for r in ranks]}
+    times["hpo_mesh"] = {"s": t, "staged_bytes": [r["hpo"]["staged"]
+                                                   for r in ranks]}
+
+    # serve-ensemble-mesh-T512
+    what = f"serve-ensemble-mesh-T{T_SERVE}: "
+    k_local = MESH_MEMBERS // SERVE_MESH[0]
+    want = {"flash_fwd": 4, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    errs = {}
+    for reduce in ("mean_probs", "vote", "none"):
+        par_launch_gate(f"{what}{reduce}, one batch: ", ranks,
+                        lambda r: r["serve"]["launches", reduce], want)
+        expect = refs["served"][reduce]
+        errs[reduce] = max(float(np.abs(r["serve"][reduce] - expect).max())
+                           for r in ranks)
+        limit = 0.0 if reduce == "vote" else SERVE_ATOL * np.abs(
+            expect).max()
+        if (any(r["serve"][reduce].shape != expect.shape for r in ranks)
+                or not errs[reduce] <= limit):
+            fail(f"{what}{reduce}: max|d| {errs[reduce]:.3e} against the "
+                 f"single-device ensemble (limit {limit:.1e})")
+    rows = {c[0] for r in ranks for c in r["serve"]["calls"]}
+    print(f"{what}every rank's reductions against the single-device "
+          f"EnsemblePredictor of the same {MESH_MEMBERS} members: max|d| "
+          f"{errs} (limit {SERVE_ATOL:g} of the largest, votes exact); K1 "
+          f"{want['flash_fwd']} launches a batch a rank over "
+          f"{sorted(set(c for r in ranks for c in r['serve']['calls']))} "
+          f"(members × rows {k_local} × {BATCH})")
+    if rows != {k_local * BATCH}:
+        fail(f"{what}K1 ran over {rows} rows, not {k_local * BATCH}")
+    p50 = [r["serve"]["times"]["p50_ms"] for r in ranks]
+    p95 = [r["serve"]["times"]["p95_ms"] for r in ranks]
+    one = refs["served_ms"]
+    print(f"{what}a collective call (B={BATCH}, mean_probs): p50 "
+          f"{', '.join(f'{x:.3f}' for x in p50)} ms, p95 "
+          f"{', '.join(f'{x:.3f}' for x in p95)} ms by rank, against "
+          f"{one['p50_ms']:.3f} / {one['p95_ms']:.3f} ms on one device; "
+          f"bytes staged a call by rank "
+          f"{[r['serve']['staged', 'mean_probs'] for r in ranks]} {card}")
+    launches[f"serve-ensemble-mesh-T{T_SERVE}, per batch per rank"] = want
+    times["serve_mesh"] = {"p50_ms": p50, "p95_ms": p95,
+                           "single_p50_ms": one["p50_ms"],
+                           "single_p95_ms": one["p95_ms"],
+                           "staged_bytes_per_call": [
+                               r["serve"]["staged", "mean_probs"]
+                               for r in ranks],
+                           "max_abs_err": errs}
+    return {"times": times, "launches": launches}
+
+
 def ring_grad_gate(what: str, loss: float, grads: dict, refs: dict,
                    noisy: set) -> dict:
     """``loss`` within the history gate's bounds of each reference route's
@@ -5155,10 +5564,12 @@ def f64_step(model, batch: dict, dev) -> tuple:
     return total, {k: p.grad.cpu() for k, p in m.named_parameters()}
 
 
-def ring_phase(dev, card: str) -> dict:
+def ring_phase(dev, card: str, ensemble_refs: dict) -> dict:
     """lc-ring-T8192, lc-ring-heads and a world of one over NCCL, after
     the single-device references on ``dev``: the flash-route fit at
-    T=8192 and one step on the kernel route and on a float64 einsum copy."""
+    T=8192 and one step on the kernel route and on a float64 einsum copy;
+    in the same world the pipeline, parameter-sharding and ensemble
+    blocks (``ensemble_refs``: ``ensemble_references``)."""
     from multimodal_eeg_fmri_tpu_torch import make_fit_fn
     from multimodal_eeg_fmri_tpu_torch.parallel import spawn_local_world
 
@@ -5196,13 +5607,14 @@ def ring_phase(dev, card: str) -> dict:
           f"ring_chunk_impl='flash') over a seq axis of {RING_SEQ}, T_local "
           f"{RING_T // RING_SEQ}: {RING_SEQ} ranks on {backend}, {per_card} "
           f"rank(s) a card; then lc-ring-heads on a {RING_HEADS_MESH} "
-          "(seq, model) mesh of the same world, and the pipeline and "
-          "parameter-sharding phases")
+          "(seq, model) mesh of the same world, and the pipeline, "
+          "parameter-sharding and ensemble phases")
     t0 = time.perf_counter()
     start = time.time() - (time.perf_counter() - T_START)
     ranks = spawn_local_world(ring_worker, RING_SEQ, one_card_each, start,
                               {"ep": par_refs["ep"]["choices"],
-                               "shard_pools": par_refs["shard"]["pools"]},
+                               "shard_pools": par_refs["shard"]["pools"],
+                               "members": ensemble_refs["members"]},
                               backend=backend)
     world_s = time.perf_counter() - t0
     r0 = ranks[0]
@@ -5289,6 +5701,7 @@ def ring_phase(dev, card: str) -> dict:
         r0["heads"][0], r0["heads"][1], refs, noisy)
 
     par = parallel_gates([r["parallel"] for r in ranks], par_refs, card)
+    ens = ensemble_gates([r["ensemble"] for r in ranks], ensemble_refs, card)
 
     phase("a world of one over NCCL: the ring of one against the "
           "single-device flash route")
@@ -5326,7 +5739,7 @@ def ring_phase(dev, card: str) -> dict:
     return {"launches": {"fit": r0["fit_launches"], "step": r0["step"][2],
                          "heads": r0["heads"][2], "one": one["launches"]},
             "par_launches": par["launches"], "times": times,
-            "parallel": par["times"]}
+            "parallel": par["times"], "ensemble": ens}
 
 
 def main() -> None:
@@ -5555,6 +5968,12 @@ def main() -> None:
     after = total_launches()
     if any(after[k] - before[k] != 2 for k in after):
         fail(f"autograd did not go through the kernels: {before} -> {after}")
+
+    phase(f"vmap-grad: torch.func.vmap(torch.func.grad(loss)) through "
+          f"flash_attention over {VMAP_MEMBERS} members at "
+          f"{(VMAP_MEMBERS, *SLICE_SHAPES[1])}: one K1, K2 and K3 launch "
+          "over the folded rows, against a loop over the members")
+    vmap_grad = vmap_grad_gate(dev, gen)
 
     phase(f"serving path: MultimodalEndToEnd defaults, Predictor(batch_size="
           f"{BATCH}), T={T_SERVE}")
@@ -6032,12 +6451,16 @@ def main() -> None:
         "hpo_flash_fwd_by_head_dim": pipes["hpo"]["flash_fwd_by_head_dim"],
         "phase_s": pipes["phase_s"], "device": smi}}))
 
+    ens_refs = ensemble_references(dev, card, cv, pipes["hpo"], serving)
+    del serving["mesh_members"]
     phase(f"ring: parallel/, ops/ring_attention.py and LongContextClassifier"
           f"(attn_impl='ring') on torch.distributed {card}")
     reset_all_launches()
-    ring = ring_phase(dev, card)
+    ring = ring_phase(dev, card, ens_refs)
     print(json.dumps({"ring": {**ring["times"], "device": smi}}))
     print(json.dumps({"parallel": {**ring["parallel"], "device": smi}}))
+    print(json.dumps({"ensemble": {**ring["ensemble"]["times"],
+                                   "vmap_grad": vmap_grad, "device": smi}}))
 
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     print(json.dumps({"kernels": [{
@@ -6085,7 +6508,12 @@ def main() -> None:
                                  ring["launches"]["one"][name],
                              # the pipeline and sharding phases, each rank's
                              **{path: n[name] for path, n in
-                                ring["par_launches"].items()}},
+                                ring["par_launches"].items()},
+                             # the ensemble block, each rank's
+                             **{path: n[name] for path, n in
+                                ring["ensemble"]["launches"].items()},
+                             "vmap-grad (4, 8, 4, 512, 32)":
+                                 vmap_grad["launches"][name]},
         "max_abs_err": worst[name],
         **timings(per_step[name, "f32"]),
         # the mixed-precision fit's launches by storage, and the

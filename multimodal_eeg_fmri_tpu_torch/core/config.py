@@ -150,9 +150,9 @@ class BridgeConfig:
 class MeshConfig:
     """Device-mesh layout. ``ensemble`` shards independent model replicas
     (CV folds / HPO trials / ensemble members); ``data`` shards the batch.
-    Axis size 0 means "infer from available devices". Nothing of the port
-    reads it yet (``parallel.mesh.build_mesh`` takes the sizes; ROADMAP.md,
-    queue A item 7c)."""
+    Axis size 0 means "infer from available devices". Nothing reads it,
+    here or in the JAX package: ``parallel.mesh.build_mesh`` takes the
+    sizes."""
 
     ensemble_axis: int = 0
     data_axis: int = 0

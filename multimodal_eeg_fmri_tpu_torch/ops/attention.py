@@ -13,7 +13,8 @@ by the C entry point and launch head dim that ran in
 ``kernel_launches_by_head_dim()`` and ``kernel_launches_by_instance()``
 read the three kernels' counts. The forward is reached through the
 operator ``mmef::flash_fwd``, which ``torch.func.vmap`` folds into one
-launch and ``torch.export`` traces.
+launch and ``torch.export`` traces, and the backward through
+``mmef::flash_bwd``, which vmap folds the same way.
 
 The tensor-core kernels are built for the head dims in
 ``KERNEL_HEAD_DIMS``. A wrapper given another head dim d ≤ 128 zero-pads q,
@@ -401,7 +402,8 @@ def _bf16_operands(compute_dtype) -> bool:
 # it: ``mmef::flash_fwd`` runs the kernel on a CUDA tensor (or raises) and
 # the plain version on a CPU tensor; its fake gives the output shapes; its
 # vmap rule folds the vmapped axis into B for one launch. ``_FlashAttention``
-# differentiates it through ``mmef::flash_bwd`` (K2 and K3). Registering
+# differentiates it through ``mmef::flash_bwd`` (K2 and K3), whose vmap
+# rule folds alike. Registering
 # builds nothing: the library is built at the first CUDA call
 # (``ops/_kernels.py``).
 @torch.library.custom_op("mmef::flash_fwd", mutates_args=())
@@ -451,20 +453,22 @@ def _(q, k, v, o, lse, g, g_lse, bf16_operands):
 
 
 @flash_bwd_op.register_vmap
-def _(info, in_dims, *args):
-    raise NotImplementedError(
-        "the flash backward (K2, K3) has no vmap rule: a gradient through "
-        "flash attention under torch.func.vmap is not supported (ROADMAP.md "
-        "queue B item 5, for training folds and HPO trials side by side); "
-        "differentiate each member outside vmap, or fold the members into "
-        "the batch")
+def _(info, in_dims, q, k, v, o, lse, g, g_lse, bf16_operands):
+    # as the forward's rule: one K2 and one K3 launch over n·B rows; a
+    # g_lse of None stays None
+    n = info.batch_size
+    folded = [None if x is None else _fold(x, d, n)
+              for x, d in zip((q, k, v, o, lse, g, g_lse), in_dims[:7])]
+    grads = flash_bwd_op(*folded, bf16_operands)
+    return tuple(t.unflatten(0, (n, -1)) for t in grads), (0, 0, 0)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The forward op with the residuals (q, k, v, o, lse) saved for the
     backward op; differentiable in both outputs, and the cotangent of lse
-    folds into Δ. Under torch.func.vmap the forward folds into one K1
-    launch and the backward raises (``flash_bwd_op`` has no vmap rule)."""
+    folds into Δ. Under torch.func.vmap both fold the vmapped axis into
+    B: a gradient under vmap launches one K1, one K2 and one K3 over n·B
+    rows."""
 
     generate_vmap_rule = True
 

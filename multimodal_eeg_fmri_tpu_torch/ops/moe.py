@@ -85,7 +85,7 @@ def total_aux_loss(sink: List[torch.Tensor]) -> Optional[torch.Tensor]:
     return torch.stack(sink).sum()
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
+def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact GELU as ``jax.nn.gelu(approximate=False)`` computes it (the
     port's ``models.layers.gelu``, defined here so that ops/ never imports
     models/)."""
@@ -303,7 +303,7 @@ class MoEFFN(nn.Module):
             combine = combine[:, e0:e0 + held]
         xs = x.reshape(B * T, D)
         xe = torch.einsum("sec,sd->ecd", dispatch.to(dt), xs)   # (E, C, D)
-        h = _gelu(torch.einsum("ecd,edf->ecf", xe, self.w1)
+        h = gelu(torch.einsum("ecd,edf->ecf", xe, self.w1)
                   + self.b1[:, None, :])
         ye = torch.einsum("ecf,efd->ecd", h, self.w2) + self.b2[:, None, :]
         # combine rounds its gates to the compute dtype, as the JAX

@@ -1,17 +1,17 @@
 """Meshes, collectives and per-rank input on ``torch.distributed``.
 Counterpart of ``multimodal_eeg_fmri_tpu/parallel``: ``mesh`` lays the
-ranks out on named axes with one process group per axis line,
-``collectives`` holds the differentiable collectives over those axes,
-``distributed`` the process start-up (and a local world for tests and
-smoke runs), ``input`` each rank's shard of host arrays, ``pipeline`` the
-stage axis, ``tensor``, ``fsdp`` and ``expert`` the parameter layouts (on
-``layout``'s machinery).
-
-Not ported yet (ROADMAP.md, queue A item 7c): the sharding helpers
-``replicated``, ``batch_sharding``, ``ensemble_sharding`` and
-``shard_batch`` with the ensemble and data axes' callers (``run_cv``,
-``run_seed_sweep``, ``run_hpo``, ``EnsemblePredictor(plan=)``);
-``ensemble_vmap`` is dropped (item 8)."""
+ranks out on named axes with one process group per line of every set of
+axes, and holds the sharding helpers (the JAX package's shardings as specs,
+each rank's block of host arrays); ``collectives`` holds the
+differentiable collectives over those axes, ``distributed`` the process
+start-up (and a local world for tests and smoke runs), ``input`` each
+rank's shard of host arrays and the gather of an ensemble axis's results,
+``pipeline`` the stage axis, ``tensor``, ``fsdp`` and ``expert`` the
+parameter layouts (on ``layout``'s machinery). The ensemble axis's callers
+are ``train.cv.run_cv``, ``run_seed_sweep``, ``train.hpo.run_hpo`` (each
+with ``mesh_plan=``) and ``serving.EnsemblePredictor(plan=...)``.
+``ensemble_vmap`` is dropped (ROADMAP.md, queue A item 8): the port's ranks
+are SPMD already."""
 
 from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
     all_gather,
@@ -28,6 +28,7 @@ from multimodal_eeg_fmri_tpu_torch.parallel.distributed import (
     spawn_local_world,
 )
 from multimodal_eeg_fmri_tpu_torch.parallel.input import (
+    gather_ensemble_tree,
     global_batch_tree,
     global_ensemble_tree,
     process_fold_range,
@@ -39,8 +40,14 @@ from multimodal_eeg_fmri_tpu_torch.parallel.mesh import (
     Mesh,
     MeshPlan,
     batch_sharded,
+    batch_sharding,
     build_mesh,
     current_mesh,
+    ensemble_batch_sharding,
+    ensemble_sharding,
+    replicated,
+    shard_batch,
+    shard_ensemble_tree,
 )
 from multimodal_eeg_fmri_tpu_torch.parallel.tensor import (
     TPPlan,
@@ -75,15 +82,19 @@ __all__ = [
     "TPPlan",
     "all_gather",
     "batch_sharded",
+    "batch_sharding",
     "build_ep_mesh",
     "build_hybrid_mesh",
     "build_mesh",
     "build_tp_mesh",
     "current_mesh",
+    "ensemble_batch_sharding",
+    "ensemble_sharding",
     "ep_param_constraint",
     "ep_param_specs",
     "fsdp_param_constraint",
     "fsdp_param_specs",
+    "gather_ensemble_tree",
     "global_batch_tree",
     "global_ensemble_tree",
     "initialize_distributed",
@@ -93,7 +104,10 @@ __all__ = [
     "ppermute_shift",
     "process_fold_range",
     "psum",
+    "replicated",
     "reset_staged_bytes",
+    "shard_batch",
+    "shard_ensemble_tree",
     "shard_params_ep",
     "shard_params_fsdp",
     "shard_params_tp",

@@ -16,11 +16,11 @@ differentiable, and their backward is the transpose JAX takes:
 ``pmean_grads`` averages gradients (not differentiable): one all-reduce per
 dtype and device over a flat buffer.
 
-Transport: an NCCL group takes CUDA tensors as they are. A gloo group takes
-host tensors, so a CUDA tensor goes through pinned host memory here (copied
-to the host, reduced or sent there, copied back); ``staged_bytes()`` counts
-the bytes those copies move, both ways. Nothing else differs between the
-two backends. An axis of one rank with no process group (a layout-only mesh)
+Transport: an NCCL group takes CUDA tensors as they are, and a host tensor
+goes through the current card. A gloo group takes host tensors, so a CUDA
+tensor goes through pinned host memory here (copied to the host, reduced or
+sent there, copied back); ``staged_bytes()`` counts the bytes those copies
+move, both ways. Nothing else differs between the two backends. An axis of one rank with no process group (a layout-only mesh)
 returns its input; a group of one runs the collective.
 """
 
@@ -95,6 +95,10 @@ def _transport(x: torch.Tensor, group,
         host = _to_host(x)
         op(host)
         return _to_device(host, x.device)
+    if not x.is_cuda and not _on_host(group):
+        card = x.to(torch.cuda.current_device())
+        op(card)
+        return card.to(x.device)
     y = x.contiguous().clone()
     op(y)
     return y
@@ -106,12 +110,14 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
 
 def _all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     staged = x.is_cuda and _on_host(group)
-    src = _to_host(x) if staged else x.contiguous()
+    on_card = not x.is_cuda and not _on_host(group)
+    src = (_to_host(x) if staged else
+           x.to(torch.cuda.current_device()) if on_card else x.contiguous())
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     if staged:
         parts = [_to_device(p, x.device) for p in parts]
-    return torch.cat(parts, axis)
+    return torch.cat(parts, axis).to(x.device)
 
 
 def _ppermute(x: torch.Tensor, group, shift: int) -> torch.Tensor:

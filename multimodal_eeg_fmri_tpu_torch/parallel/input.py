@@ -14,6 +14,10 @@ from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
 from multimodal_eeg_fmri_tpu_torch.parallel.mesh import (
     Mesh,
     MeshPlan,
@@ -25,7 +29,9 @@ SEQ_AXIS = "data"  # the ring's default axis, as the JAX package's
 
 def _map(fn, tree):
     if isinstance(tree, dict):
-        return {k: fn(v) for k, v in tree.items()}
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -68,6 +74,39 @@ def global_ensemble_tree(plan: MeshPlan, tree: Any) -> Any:
     shards over the ensemble axis."""
     i, n = plan.mesh.axis_index(plan.ensemble_axis), plan.n_ensemble
     return _map(lambda x: _block(x, 0, i, n, "folds"), tree)
+
+
+@torch.no_grad()
+def gather_ensemble_tree(plan: Optional[MeshPlan], tree: Any) -> Any:
+    """Each leaf (a tensor or numpy array whose leading axis is this rank's
+    block of the ensemble axis, as ``global_ensemble_tree`` cuts it)
+    concatenated over the ranks of the ensemble axis, in their order: every
+    rank gets the whole axis. Collective over the ensemble axis, one
+    all-gather per dtype and device (leaves of one block size, the same
+    tree on every rank); the identity without a plan. Numpy leaves come
+    back as numpy, tensors on their device; None stays None."""
+    from multimodal_eeg_fmri_tpu_torch.parallel.collectives import all_gather
+
+    if plan is None:
+        return tree
+    leaves, spec = pytree.tree_flatten(tree)
+    tensors = [torch.from_numpy(np.ascontiguousarray(x))
+               if isinstance(x, np.ndarray) else x for x in leaves]
+    buckets = {}
+    for i, t in enumerate(tensors):
+        if t is not None:
+            buckets.setdefault((t.dtype, t.device), []).append(i)
+    out = list(tensors)
+    for idx in buckets.values():
+        block = tensors[idx[0]].shape[0]
+        flat = torch.cat([tensors[i].reshape(block, -1) for i in idx], 1)
+        whole = all_gather(flat, plan.ensemble_axis, 0, plan.mesh)
+        parts = whole.split([tensors[i][0].numel() for i in idx], 1)
+        for i, part in zip(idx, parts):
+            out[i] = part.reshape(-1, *tensors[i].shape[1:]).contiguous()
+    out = [o.numpy() if isinstance(x, np.ndarray) else o
+           for o, x in zip(out, leaves)]
+    return pytree.tree_unflatten(out, spec)
 
 
 def global_batch_tree(plan: MeshPlan, tree: Any) -> Any:

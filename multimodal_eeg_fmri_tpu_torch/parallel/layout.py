@@ -36,9 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from multimodal_eeg_fmri_tpu_torch.parallel.mesh import Mesh
-
-Spec = Tuple[Optional[str], ...]
+from multimodal_eeg_fmri_tpu_torch.parallel.mesh import Mesh, Spec
 
 
 class FlaxLeaf:

@@ -1,27 +1,36 @@
-"""Device mesh over ``torch.distributed`` ranks. Counterpart of
-``multimodal_eeg_fmri_tpu/parallel/mesh.py``.
+"""Device mesh over ``torch.distributed`` ranks, and the sharding helpers.
+Counterpart of ``multimodal_eeg_fmri_tpu/parallel/mesh.py``.
 
 A ``Mesh`` lays the ranks of the default process group out on named axes
 (an integer array of global ranks, one rank a device), and owns one process
-group per line of ranks along each axis: ``group(axis)`` is this rank's.
-The port is SPMD: every rank runs the same program on its own shard, and
-the collectives (``parallel/collectives.py``) name an axis where the JAX
-package's ``shard_map`` bodies name a mesh axis. Built in a process with no
-process group, a mesh is a layout only: axes of size 1 need no group, and a
-collective over a larger axis raises.
+group per line of ranks along every set of its axes: ``group(axes)`` is
+this rank's. The port is SPMD: every rank runs the same program on its own
+shard, and the collectives (``parallel/collectives.py``) name an axis where
+the JAX package's ``shard_map`` bodies name a mesh axis. Built in a process
+with no process group, a mesh is a layout only: axes of size 1 need no
+group, and a collective over a larger axis raises.
 
 ``with mesh:`` makes a mesh the active one, for code that names an axis
 without holding a mesh (``attn_impl="ring_local"``, as the JAX package's
 body inside ``shard_map`` names the bound axis). A mesh is shared, not
 copied, by ``copy.deepcopy`` of the module that holds it.
+
+The sharding helpers: where the JAX package builds a ``NamedSharding``,
+``replicated``, ``batch_sharding``, ``ensemble_sharding`` and
+``ensemble_batch_sharding`` return its ``PartitionSpec`` as the port's spec
+(``parallel/layout.py``: a tuple of axis names or None, ``()``
+replicated); where it ``device_put``s host arrays with one, ``shard_batch``
+and ``shard_ensemble_tree`` return this rank's block of them
+(``parallel/input.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple, Union
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch.distributed as dist
@@ -79,13 +88,20 @@ class Mesh:
                 raise ValueError(f"a mesh of {ranks.size} ranks in a world "
                                  f"of {size}")
             # every rank creates every group, in one order: new_group is
-            # collective over the default group
-            for i, name in enumerate(axis_names):
-                lines = np.moveaxis(ranks, i, -1).reshape(-1, ranks.shape[i])
-                for line in lines:
-                    g = dist.new_group(line.tolist())
-                    if self.rank in line:
-                        self._groups[name] = g
+            # collective over the default group. A proper subset of the
+            # axes gets a group per line; all of them are the world.
+            for n in range(1, len(axis_names)):
+                for subset in itertools.combinations(range(len(axis_names)),
+                                                     n):
+                    lines = np.moveaxis(ranks, subset, range(-n, 0))
+                    lines = lines.reshape(-1, int(np.prod(
+                        [ranks.shape[i] for i in subset])))
+                    key = tuple(axis_names[i] for i in subset)
+                    for line in lines:
+                        g = dist.new_group(line.tolist())
+                        if self.rank in line:
+                            self._groups[key] = g
+            self._groups[axis_names] = dist.group.WORLD
 
     def _axes(self, axis_name: AxisNames) -> Tuple[str, ...]:
         axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
@@ -102,8 +118,8 @@ class Mesh:
 
     def group(self, axis_name: AxisNames):
         """The process group of this rank's line along ``axis_name`` (one
-        axis, or every axis of the mesh: the world); None on a layout-only
-        mesh, where the axis must hold one rank."""
+        axis or any set of them: over all of them, the world); None on a
+        layout-only mesh, where the axes must hold one rank."""
         axes = self._axes(axis_name)
         if not self._groups:
             if self.axis_size(axes) == 1:
@@ -112,14 +128,7 @@ class Mesh:
                 f"mesh axis {axes} holds {self.axis_size(axes)} ranks but "
                 "the mesh has no process groups (initialize_distributed "
                 "before building it)")
-        if len(axes) == 1:
-            return self._groups[axes[0]]
-        if sorted(axes) == sorted(self.axis_names):
-            return dist.group.WORLD
-        raise NotImplementedError(
-            f"a collective over the axes {axes} of a mesh with axes "
-            f"{self.axis_names}: one axis or all of them (a three-axis mesh "
-            "comes with ROADMAP.md, queue A item 7c)")
+        return self._groups[tuple(a for a in self.axis_names if a in axes)]
 
     def __enter__(self) -> "Mesh":
         self._tokens.append(_ACTIVE.set(self))
@@ -226,3 +235,45 @@ def build_mesh(ensemble: int = 0, data: int = 0,
     ensemble, data = mesh_sizes(n, ensemble, data)
     return MeshPlan(Mesh(np.arange(n).reshape(ensemble, data),
                          (ENSEMBLE_AXIS, DATA_AXIS), rank=rank))
+
+
+# a layout: one mesh axis name (or None) per dimension; () is replicated
+Spec = Tuple[Optional[str], ...]
+
+
+def replicated(plan: MeshPlan) -> Spec:
+    return ()
+
+
+def batch_sharding(plan: MeshPlan, ndim: int = 1) -> Spec:
+    """The leading (batch) dim over the data axis."""
+    return (DATA_AXIS, *([None] * (ndim - 1)))
+
+
+def ensemble_sharding(plan: MeshPlan, ndim: int = 1) -> Spec:
+    """The leading (fold/trial/member) dim over the ensemble axis."""
+    return (ENSEMBLE_AXIS, *([None] * (ndim - 1)))
+
+
+def ensemble_batch_sharding(plan: MeshPlan, ndim: int = 2) -> Spec:
+    """Dim 0 over ensemble and dim 1 over data: the layout of fold-stacked
+    batches ``(n_folds, batch, ...)``."""
+    return (ENSEMBLE_AXIS, DATA_AXIS, *([None] * (ndim - 2)))
+
+
+def shard_batch(plan: MeshPlan, tree: Any) -> Any:
+    """This rank's block of a tree of host arrays under ``batch_sharding``:
+    its rows of the leading axis."""
+    from multimodal_eeg_fmri_tpu_torch.parallel.input import global_batch_tree
+
+    return global_batch_tree(plan, tree)
+
+
+def shard_ensemble_tree(plan: MeshPlan, tree: Any) -> Any:
+    """This rank's block of a tree whose leaves have a leading ensemble
+    axis (fold-stacked params, say) under ``ensemble_sharding``."""
+    from multimodal_eeg_fmri_tpu_torch.parallel.input import (
+        global_ensemble_tree,
+    )
+
+    return global_ensemble_tree(plan, tree)

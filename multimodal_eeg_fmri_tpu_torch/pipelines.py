@@ -19,8 +19,9 @@ input widths at construction (flax infers them), so each pipeline reads
 them from the data. Each runs on ``device``, the card unless the caller
 asks for the CPU; without a card the default raises. The JAX package's
 XLA compilation cache (``core/cache.py``) has no counterpart (ROADMAP.md,
-queue A item 8), and ``mesh_plan`` / ``aot_dir`` go on to ``run_cv``, which
-raises for either.
+queue A item 8). ``mesh_plan`` and ``aot_dir`` go on to ``run_cv``: a plan
+shards the folds over the mesh's ensemble axis (every rank runs the
+pipeline; ``parallel.build_mesh``), and ``aot_dir`` raises.
 """
 
 from __future__ import annotations

@@ -12,7 +12,11 @@
 - ``EnsemblePredictor``: K member models in one ``torch.func.vmap`` of
   ``functional_call`` over their stacked weights. The flash forward K1
   folds the member axis into its batch (``ops/attention.py``), so a served
-  batch launches it once per attention layer, not once per member.
+  batch launches it once per attention layer, not once per member. With a
+  ``plan`` (``parallel.build_mesh``) the members shard over the mesh's
+  ensemble axis: each rank serves its block in that one forward and the
+  reduction crosses ranks; a call is collective, every rank passing the
+  same rows.
 - ``DynamicBatcher``: coalesces concurrent small requests into one call,
   with a bounded queue (``QueueFull``) and a per-request timeout.
 """
@@ -35,6 +39,12 @@ from multimodal_eeg_fmri_tpu_torch.core.quantize import load_quantized
 from multimodal_eeg_fmri_tpu_torch.data.arrays import as_tensor
 # registers mmef::flash_fwd, which the programs of load_artifact call
 from multimodal_eeg_fmri_tpu_torch.ops import attention as _ops  # noqa: F401
+from multimodal_eeg_fmri_tpu_torch.parallel.collectives import all_gather, psum
+from multimodal_eeg_fmri_tpu_torch.parallel.input import gather_ensemble_tree
+from multimodal_eeg_fmri_tpu_torch.parallel.mesh import (
+    shard_ensemble_tree,
+    world,
+)
 from multimodal_eeg_fmri_tpu_torch.train.fit import RESERVED_KEYS
 
 
@@ -279,7 +289,8 @@ class _EnsembleNet(nn.Module):
 
     def __init__(self, model: nn.Module, params: Dict[str, torch.Tensor],
                  buffers: Dict[str, torch.Tensor], preprocess, reduce: str,
-                 temperature: Optional[float]):
+                 temperature: Optional[float], plan=None,
+                 n_members: int = 0):
         super().__init__()
         # the structure only: functional_call gives it every tensor it
         # reads, so it holds none (nor does an exported program)
@@ -296,6 +307,9 @@ class _EnsembleNet(nn.Module):
         self.preprocess = preprocess
         self.reduce = reduce
         self.temperature = temperature
+        # with a plan the state is this rank's block of the K members
+        self.plan = plan
+        self.n_members = n_members
 
     def state(self):
         params, buffers = self.names
@@ -317,14 +331,25 @@ class _EnsembleNet(nn.Module):
         # the temperature sits inside each member's softmax: the fusion
         # averages probabilities, not logits
         probs = _scaled_probs(self.member_logits(inputs), self.temperature)
-        if self.reduce == "mean_probs":
-            return probs.mean(dim=0)
+        if self.reduce == "none":
+            return self.gather_members(probs)
         if self.reduce == "vote":
             # per-class vote fractions: their argmax is the majority vote
-            votes = nn.functional.one_hot(probs.argmax(dim=-1),
-                                          probs.shape[-1])
-            return votes.to(probs.dtype).mean(dim=0)
-        return probs
+            probs = nn.functional.one_hot(
+                probs.argmax(dim=-1), probs.shape[-1]).to(probs.dtype)
+        if self.plan is None:
+            return probs.mean(dim=0)
+        # the ranks' sums over their members, summed over the ensemble axis
+        return psum(probs.sum(dim=0), self.plan.ensemble_axis,
+                    self.plan.mesh) / self.n_members
+
+    def gather_members(self, member_axis: torch.Tensor) -> torch.Tensor:
+        """A (k, ...) tensor of this rank's members as (K, ...) of all of
+        them (the identity without a plan)."""
+        if self.plan is None:
+            return member_axis
+        return all_gather(member_axis, self.plan.ensemble_axis, 0,
+                          self.plan.mesh)
 
 
 class EnsemblePredictor(_Serving):
@@ -339,8 +364,20 @@ class EnsemblePredictor(_Serving):
     is the members' majority vote; ``"none"`` each member's probabilities
     (K, n, classes). ``stacked_params`` and ``stacked_buffers`` are state
     dicts with the member axis first (``stack_variable_trees``,
-    ``from_modules``). ``plan`` (the JAX package's mesh sharding of the
-    member axis) is not ported."""
+    ``from_modules``).
+
+    ``plan`` (a ``parallel.MeshPlan`` whose ensemble axis divides K) shards
+    the members over the ranks, as the JAX package's ``ensemble_vmap`` does:
+    every rank builds the predictor from all K members and keeps its
+    contiguous block, and a call is collective over the mesh, the inputs
+    the same on every rank (the JAX package's ``replicated`` inputs; ranks
+    along the data axis repeat their row's members). ``mean_probs`` sums
+    each rank's members' probabilities over the ensemble axis and divides
+    by K, ``vote`` sums their one-hot votes alike, ``none`` gathers the
+    members in order; every rank gets the result. ``calibrated`` fits T on
+    all K members' logits; ``export_artifact`` writes the whole K-member
+    function on global rank 0 (the unplanned predictor's program; the
+    other ranks write nothing and return None)."""
 
     def __init__(self, model: nn.Module,
                  stacked_params: Dict[str, torch.Tensor],
@@ -349,11 +386,6 @@ class EnsemblePredictor(_Serving):
                  preprocess: Optional[Callable] = None,
                  reduce: str = "mean_probs",
                  temperature: Optional[float] = None):
-        if plan is not None:
-            raise NotImplementedError(
-                "EnsemblePredictor(plan=...) shards the member axis over a "
-                "mesh, which is not ported yet (ROADMAP.md queue A item 7c, "
-                "the ensemble and data axes)")
         if reduce not in ("mean_probs", "vote", "none"):
             raise ValueError(f"unknown reduce={reduce!r}")
         self.model = model.eval()
@@ -361,11 +393,27 @@ class EnsemblePredictor(_Serving):
         self.reduce = reduce
         self.temperature = _check_temperature(temperature)
         self._preprocess = preprocess
+        self._plan = plan
         self.n_members = int(next(iter(stacked_params.values())).shape[0])
         self.device = next(iter(stacked_params.values())).device
-        self.net = _EnsembleNet(self.model, stacked_params,
-                                stacked_buffers or {}, preprocess, reduce,
-                                self.temperature)
+        stacked_buffers = stacked_buffers or {}
+        if plan is not None:
+            if self.n_members % plan.n_ensemble:
+                raise ValueError(
+                    f"{self.n_members} members not divisible by the mesh's "
+                    f"ensemble axis ({plan.n_ensemble})")
+            # this rank's block, apart from the K-member stack
+            stacked_params, stacked_buffers = (
+                {k: v.clone() for k, v in shard_ensemble_tree(
+                    plan, tree).items()}
+                for tree in (stacked_params, stacked_buffers))
+        self.net = _EnsembleNet(self.model, stacked_params, stacked_buffers,
+                                preprocess, reduce, self.temperature, plan,
+                                self.n_members)
+
+    def _whole_state(self):
+        """(params, buffers) of all K members (collective with a plan)."""
+        return gather_ensemble_tree(self._plan, self.net.state())
 
     @classmethod
     def from_modules(cls, models: Sequence[nn.Module],
@@ -408,7 +456,8 @@ class EnsemblePredictor(_Serving):
             **kw)
 
     def _logits(self, inputs: Dict[str, np.ndarray]) -> torch.Tensor:
-        """(K, n, C) member logits for any number of rows, on the device."""
+        """(K, n, C) member logits for any number of rows, on the device
+        (all K members' on every rank with a plan: collective)."""
         out = []
         with torch.inference_mode():
             for chunk, m in self._pad(_served(inputs)):
@@ -416,7 +465,7 @@ class EnsemblePredictor(_Serving):
                 if self._preprocess is not None:
                     dev = {**dev, **self._preprocess(dev)}
                 out.append(self.net.member_logits(dev)[:, :m])
-        return torch.cat(out, dim=1)
+            return self.net.gather_members(torch.cat(out, dim=1))
 
     def calibrated(self, val_inputs: Dict[str, np.ndarray],
                    val_labels: np.ndarray,
@@ -433,10 +482,26 @@ class EnsemblePredictor(_Serving):
         t = float(fit_temperature_ensemble(
             self._logits(val_inputs), np.asarray(val_labels),
             weights=None if weights is None else np.asarray(weights)))
-        params, buffers = self.net.state()
+        params, buffers = self._whole_state()
+        return EnsemblePredictor(
+            self.model, params, buffers, plan=self._plan,
+            batch_size=self.batch_size, preprocess=self._preprocess,
+            reduce=self.reduce, temperature=t)
+
+    def export_artifact(self, example: Dict[str, np.ndarray],
+                        path: str | Path) -> Optional[bytes]:
+        """``Predictor.export_artifact`` of the K-member forward; with a
+        plan, collective: the members are gathered and global rank 0 writes
+        the unplanned predictor's program (the other ranks return None)."""
+        if self._plan is None:
+            return super().export_artifact(example, path)
+        params, buffers = self._whole_state()
+        if world()[0] != 0:
+            return None
         return EnsemblePredictor(
             self.model, params, buffers, batch_size=self.batch_size,
-            preprocess=self._preprocess, reduce=self.reduce, temperature=t)
+            preprocess=self._preprocess, reduce=self.reduce,
+            temperature=self.temperature).export_artifact(example, path)
 
     def __call__(self, **inputs) -> np.ndarray:
         outs = []
@@ -485,7 +550,8 @@ class DynamicBatcher:
     ``max_queue`` bounds the pending rows: an enqueue beyond it raises
     ``QueueFull`` at once. ``timeout_s`` bounds a caller's wait: a call that
     wedges gives ``TimeoutError``, and a request still queued then is
-    withdrawn. ``rows / batches`` is the coalescing ratio."""
+    withdrawn. ``rows / batches`` is the coalescing ratio. An
+    ``EnsemblePredictor`` with a plan (collective calls) is refused."""
 
     def __init__(self, predictor: Callable, max_delay_ms: float = 5.0,
                  max_batch: Optional[int] = None,
@@ -503,6 +569,12 @@ class DynamicBatcher:
                 "batch axis is not leading, so per-request slicing would "
                 "cut the member axis; wrap a reducing ensemble "
                 "(reduce='mean_probs') instead")
+        if getattr(predictor, "_plan", None) is not None:
+            # its calls are collective: one rank would have to hand every
+            # coalesced batch to the others
+            raise NotImplementedError(
+                "a DynamicBatcher over an EnsemblePredictor with a plan is "
+                "not ported (ROADMAP.md, queue A item 7d)")
         self.predictor = predictor
         self._delay = max_delay_ms / 1e3
         self._max = int(max_batch

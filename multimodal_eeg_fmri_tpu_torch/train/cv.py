@@ -19,6 +19,17 @@ Here each run, as the JAX package's:
 5. evaluates each fold's best state on its test set in eval mode and
    aggregates mean ± std like the reference's summaries.
 
+With a ``mesh_plan`` (``parallel.build_mesh``) the fold axis is padded to
+a multiple of the ensemble axis by repeating the last fold, and the ranks
+are SPMD, as the JAX package's ``ensemble_vmap`` runs them: every rank
+calls with the same arguments, trains its contiguous block of the padded
+folds (the ranks of one ensemble row repeat them: the data axis is not
+used), and the results are gathered over the ensemble axis once, after
+training; every rank returns the whole result, padded folds dropped (the
+JAX package keeps their params and histories). A fold's result does not
+depend on the rank that trains it: fold ``i`` of a sharded run equals fold
+``i`` of the unsharded run bit for bit.
+
 Randomness. Fold ``i`` of a run with root seed ``s`` gets the seed
 ``fold_in(s, i)`` (``core/rng.py``), and from it three streams, as the JAX
 package's ``fit`` splits a fold's key in three: the initial weights
@@ -42,6 +53,7 @@ from typing import (Any, Callable, Dict, List, Mapping, NamedTuple, Optional,
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
 from multimodal_eeg_fmri_tpu_torch.core.rng import (
@@ -68,6 +80,7 @@ from multimodal_eeg_fmri_tpu_torch.data.splits import (
     stratified_group_kfold,
     stratified_kfold,
 )
+from multimodal_eeg_fmri_tpu_torch.parallel.input import gather_ensemble_tree
 from multimodal_eeg_fmri_tpu_torch.report.stats import confidence_interval
 from multimodal_eeg_fmri_tpu_torch.train.evaluate import evaluate_dataset
 from multimodal_eeg_fmri_tpu_torch.train.fit import FitResult, make_fit_fn
@@ -96,19 +109,26 @@ class CVResult:
         return self.summary[name]
 
 
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
 def build_fold_arrays(
     data: Dict[str, np.ndarray],
     splits: Sequence[Split],
     normalize: str = "scalar",
     normalize_keys: Sequence[str] = (),
+    batch_multiple: int = 1,
+    fold_multiple: int = 1,
     num_classes: int = 2,
     weighted_classes: bool = True,
 ):
     """Normalize per fold, pad to fixed shapes, stack on a fold axis.
 
-    Returns (train_stack, eval_stacks{'val','test'}, class_weights (F,C)):
-    the JAX package's arrays with its fold axis unpadded (``fold_multiple``
-    1), which it pads only to shard folds over a mesh.
+    Returns (train_stack, eval_stacks{'val','test'}, class_weights (F,C),
+    fold_mask (F,)). The train rows pad to a multiple of ``batch_multiple``.
+    When ``fold_multiple`` > 1 the fold axis is padded by repeating the last
+    fold (mask 0) so it shards evenly over the mesh.
     """
     trains, vals, tests, cws = [], [], [], []
     for sp in splits:
@@ -127,12 +147,29 @@ def build_fold_arrays(
         else:
             cws.append(np.ones((num_classes,), np.float32))
 
-    def _stack(folds: List[dict]):
-        target = max(len(next(iter(f.values()))) for f in folds)
+    def _stack(folds: List[dict], multiple=1):
+        target = _round_up(max(len(next(iter(f.values()))) for f in folds),
+                           multiple)
         return stack_trees([pad_rows(f, target) for f in folds])
 
-    return (_stack(trains), {"val": _stack(vals), "test": _stack(tests)},
-            np.stack(cws))
+    train_stack = _stack(trains, batch_multiple)
+    val_stack = _stack(vals)
+    test_stack = _stack(tests)
+    cw = np.stack(cws)
+    n = len(splits)
+    n_pad = _round_up(n, fold_multiple)
+    fold_mask = np.ones((n_pad,), np.float32)
+    if n_pad > n:
+        fold_mask[n:] = 0.0
+
+        def rep(t):
+            return {k: np.concatenate([v] + [v[-1:]] * (n_pad - n), axis=0)
+                    for k, v in t.items()}
+
+        train_stack, val_stack, test_stack = map(rep, (train_stack, val_stack,
+                                                       test_stack))
+        cw = np.concatenate([cw] + [cw[-1:]] * (n_pad - n), axis=0)
+    return train_stack, {"val": val_stack, "test": test_stack}, cw, fold_mask
 
 
 class FoldRng(NamedTuple):
@@ -203,6 +240,44 @@ def _check_initial(initial_variables, n: int) -> None:
                          f"entries, need {n}")
 
 
+def _block(mesh_plan, n: int) -> range:
+    """The indices of the ensemble axis's ``n`` members (folds, seeds,
+    trials) that this rank trains: all of them without a plan, else its
+    contiguous block, as ``P(ensemble)`` lays them out."""
+    if mesh_plan is None:
+        return range(n)
+    per = n // mesh_plan.n_ensemble
+    e = mesh_plan.mesh.axis_index(mesh_plan.ensemble_axis)
+    return range(e * per, (e + 1) * per)
+
+
+def _stack(results: List[Any]) -> Any:
+    """Per-member results (trees of one structure) stacked on a leading
+    member axis; Python scalars become tensors, None stays None."""
+    leaves, spec = zip(*(pytree.tree_flatten(r) for r in results))
+    cols = []
+    for col in zip(*leaves):
+        if col[0] is None:
+            cols.append(None)
+        elif torch.is_tensor(col[0]):
+            cols.append(torch.stack(col))
+        else:
+            cols.append(torch.tensor(col, dtype=torch.float64)
+                        if isinstance(col[0], float) else torch.tensor(col))
+    return pytree.tree_unflatten(cols, spec[0])
+
+
+def _unstack(stacked: Any, like: Any, n: int) -> List[Any]:
+    """``_stack``'s inverse for ``n`` members; ``like`` gives each leaf's
+    type (a Python scalar comes back as one)."""
+    leaves, spec = pytree.tree_flatten(stacked)
+    kinds = pytree.tree_flatten(like)[0]
+    return [pytree.tree_unflatten(
+        [None if x is None else x[i] if torch.is_tensor(k)
+         else type(k)(x[i].item()) for x, k in zip(leaves, kinds)], spec)
+        for i in range(n)]
+
+
 def run_cv(
     model: nn.Module,
     cfg: TrainConfig,
@@ -221,15 +296,13 @@ def run_cv(
 ) -> CVResult:
     """Train one model architecture across all folds, one after another,
     each from fresh weights, on the model's device (the module is trained
-    in place and left at the last fold's final weights).
+    in place and left at the final weights of the last fold it trained).
 
-    ``rng`` (default ``cfg.seed``) and ``initial_variables`` (one flax
-    variable dict per fold) are described in the module's docstring.
-    ``mesh_plan`` and ``aot_dir`` are not ported and raise."""
-    if mesh_plan is not None:
-        raise NotImplementedError(
-            "mesh_plan is not ported yet (ROADMAP.md, queue A item 7c: the "
-            "ensemble and data axes)")
+    ``rng`` (default ``cfg.seed``; a sequence gives one seed per padded
+    fold), ``initial_variables`` (one flax variable dict per real fold;
+    padded folds start from ``init_weights``) and ``mesh_plan`` are
+    described in the module's docstring. ``aot_dir`` is not ported and
+    raises."""
     if aot_dir is not None:
         raise NotImplementedError(
             "aot_dir is not ported: core/aot.py (jax.export bundles) is "
@@ -242,12 +315,15 @@ def run_cv(
                      # build_fold_arrays adds per-fold padding masks itself
                      warn_missing_weight=False)
     model_data = {k: np.asarray(v) for k, v in data.items()}
-    train_stack, eval_stacks, cw = build_fold_arrays(
+    fold_multiple = mesh_plan.n_ensemble if mesh_plan is not None else 1
+    train_stack, eval_stacks, cw, fold_mask = build_fold_arrays(
         model_data, splits, normalize, normalize_keys,
+        batch_multiple=1, fold_multiple=fold_multiple,
         weighted_classes=cfg.loss == "weighted_ce" and task == "classification",
     )
     n_folds = len(splits)
-    seeds = fold_seeds(cfg.seed if rng is None else rng, n_folds)
+    n_total = len(fold_mask)
+    seeds = fold_seeds(cfg.seed if rng is None else rng, n_total)
     _check_initial(initial_variables, n_folds)
     fit_fn = make_fit_fn(model, cfg, num_epochs=num_epochs, task=task,
                          eval_names=tuple(eval_stacks), augment=augment)
@@ -255,10 +331,10 @@ def run_cv(
 
     fits, metrics, probs = [], [], []
     with _fork_rng(dev):
-        for i in range(n_folds):
+        for i in _block(mesh_plan, n_total):
             rngs = fold_rngs(seeds[i], dev)
             start_fold(model, rngs, None if initial_variables is None
-                       else initial_variables[i])
+                       or i >= n_folds else initial_variables[i])
             res = fit_fn(rngs.shuffle, _fold(train_stack, i),
                          {name: _fold(s, i) for name, s in eval_stacks.items()},
                          cw[i])
@@ -270,26 +346,30 @@ def run_cv(
             probs.append(out.logits if task == "regression"
                          else torch.softmax(out.logits.float(), dim=-1))
 
-    def host(tensors):
-        return torch.stack(tensors).cpu().numpy()
+    # every fold's results on every rank: one gather, after training
+    whole = gather_ensemble_tree(mesh_plan, _stack([
+        {"params": r.params, "batch_stats": r.batch_stats,
+         "history": r.history, "best_epoch": r.best_epoch, "metrics": m,
+         "probs": p} for r, m, p in zip(fits, metrics, probs)]))
+    whole = pytree.tree_map(lambda t: t[:n_folds], whole)
 
-    fold_metrics = {k: host([m[k] for m in metrics]) for k in metrics[0]}
+    def host(t):
+        return t.cpu().numpy()
+
+    fold_metrics = {k: host(v) for k, v in whole["metrics"].items()}
     summary = {
         k: (float(np.mean(v)), float(np.std(v))) for k, v in fold_metrics.items()
     }
-    test_np = eval_stacks["test"]
+    test_np = {k: v[:n_folds] for k, v in eval_stacks["test"].items()}
     return CVResult(
         fold_metrics=fold_metrics,
         summary=summary,
-        params={k: torch.stack([r.params[k] for r in fits])
-                for k in fits[0].params},
-        batch_stats={k: torch.stack([r.batch_stats[k] for r in fits])
-                     for k in fits[0].batch_stats},
-        history={k: host([r.history[k] for r in fits])
-                 for k in fits[0].history},
-        best_epochs=host([r.best_epoch for r in fits]),
+        params=whole["params"],
+        batch_stats=whole["batch_stats"],
+        history={k: host(v) for k, v in whole["history"].items()},
+        best_epochs=host(whole["best_epoch"]),
         n_folds=n_folds,
-        test_probs=host(probs),
+        test_probs=host(whole["probs"]),
         test_labels=test_np["label"],
         test_weight=test_np["weight"],
         test_subjects=test_np.get("subject"),
@@ -330,31 +410,38 @@ def run_seed_sweep(
     variance of training itself (init + shuffling + dropout masks) is the
     other half of the uncertainty. Seed ``i`` takes the streams of
     ``fold_in(base_seed, i)`` as a CV fold does, or ``initial_variables[i]``
-    as its weights.
+    as its weights. With a ``mesh_plan`` whose ensemble axis divides
+    ``n_seeds``, each rank trains its block of seeds and the results are
+    gathered, as ``run_cv`` shards folds.
 
     Returns ``{"best_metric": (S,), "mean", "std", "ci95": (lo, hi),
-    "history": {metric: (S, epochs)}, "result": [FitResult per seed]}``;
-    the CI is the t-distribution interval
+    "history": {metric: (S, epochs)}, "result": [FitResult per seed]}``
+    (the whole result on every rank); the CI is the t-distribution interval
     (`report/stats.confidence_interval`, reference §28).
     """
-    if mesh_plan is not None:
-        raise NotImplementedError(
-            "mesh_plan is not ported yet (ROADMAP.md, queue A item 7c: the "
-            "ensemble and data axes)")
     validate_dataset(train_data, require_label=task == "classification",
                      num_classes=getattr(cfg, "num_classes", 2),
                      name="seed_sweep train_data")
+    if mesh_plan is not None and n_seeds % mesh_plan.n_ensemble:
+        raise ValueError(
+            f"the ensemble axis ({mesh_plan.n_ensemble}) must divide "
+            f"n_seeds={n_seeds}")
     _check_initial(initial_variables, n_seeds)
     fit = make_fit_fn(model, cfg, eval_names=tuple(eval_sets), task=task)
     dev = next(model.parameters()).device
+    seeds = fold_seeds(base_seed, n_seeds)
     results: List[FitResult] = []
     with _fork_rng(dev):
-        for i, seed in enumerate(fold_seeds(base_seed, n_seeds)):
-            rngs = fold_rngs(seed, dev)
+        for i in _block(mesh_plan, n_seeds):
+            rngs = fold_rngs(seeds[i], dev)
             start_fold(model, rngs, None if initial_variables is None
                        else initial_variables[i])
             results.append(fit(rngs.shuffle, train_data, eval_sets,
                                class_weights))
+    if mesh_plan is not None:
+        # every seed's result on every rank: one gather, after training
+        results = _unstack(gather_ensemble_tree(mesh_plan, _stack(results)),
+                           results[0], n_seeds)
     best = torch.stack([r.best_metric for r in results]).cpu().numpy()
     mean, lo, hi = confidence_interval(best)
     return {

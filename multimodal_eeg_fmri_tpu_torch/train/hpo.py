@@ -17,6 +17,12 @@ As the JAX package's:
   position ``j`` of its group takes the streams of ``fold_in(seed, j)``
   (``train/cv.py``'s ``fold_rngs``), as the JAX package seeds it with
   ``fold_in(key(seed), j)``.
+- With a ``mesh_plan`` each architecture group's trials are padded to a
+  multiple of the ensemble axis with copies of its last trial, and each
+  rank trains its contiguous block of them, SPMD (every rank calls with the
+  same arguments, as ``train/cv.py``'s ``run_cv`` shards folds); the
+  scores are gathered over the ensemble axis once a rung, so every rank
+  picks the same finalists and returns the same ``HPOResult``.
 """
 
 from __future__ import annotations
@@ -27,10 +33,18 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
 from multimodal_eeg_fmri_tpu_torch.core.rng import fold_in
-from multimodal_eeg_fmri_tpu_torch.train.cv import FoldRng, fold_rngs, start_fold
+from multimodal_eeg_fmri_tpu_torch.parallel.input import gather_ensemble_tree
+from multimodal_eeg_fmri_tpu_torch.train.cv import (
+    FoldRng,
+    _block,
+    _round_up,
+    fold_rngs,
+    start_fold,
+)
 from multimodal_eeg_fmri_tpu_torch.train.fit import make_fit_fn
 
 
@@ -178,14 +192,11 @@ def run_hpo(
     one after another within architecture groups. Rung 2: top
     ``top_fraction`` rerun at ``full_epochs``. Maximizes val ``metric``.
     Each trial trains the model that ``model_builder`` returns, on its
-    device. ``mesh_plan`` (trials sharded over cards) is not ported and
-    raises."""
-    if mesh_plan is not None:
-        raise NotImplementedError(
-            "mesh_plan is not ported yet (ROADMAP.md, queue A item 7c: the "
-            "ensemble and data axes)")
+    device. ``mesh_plan`` shards each group's trials over the ensemble axis
+    (the module's docstring)."""
     space = space or DEFAULT_SPACE
     trials = sample_trials(space, n_trials, seed)
+    m = mesh_plan.n_ensemble if mesh_plan is not None else 1
 
     def arch_key(trial):
         return tuple(sorted(
@@ -193,26 +204,41 @@ def run_hpo(
             if k not in OPT_KEYS and k != "score"))
 
     def run_rung(rung_trials: List[dict], epochs: int) -> np.ndarray:
-        scores = np.full(len(rung_trials), -np.inf)
         by_arch: Dict[tuple, List[int]] = {}
         for i, t in enumerate(rung_trials):
             by_arch.setdefault(arch_key(t), []).append(i)
+        # this rank's scores, group after group: its block of each group's
+        # padded trials
+        local = []
         for key, idxs in by_arch.items():
             arch_kwargs = dict(key)
             model = model_builder(**arch_kwargs)
             cfg = dataclasses.replace(base_cfg, num_epochs=epochs,
                                       selection="val")
             fit_fn = make_fit_fn(model, cfg, eval_names=("val",))
-            for j, i in enumerate(idxs):
+            pad_idx = idxs + [idxs[-1]] * (_round_up(len(idxs), m)
+                                           - len(idxs))
+            for j in _block(mesh_plan, len(pad_idx)):
+                trial = rung_trials[pad_idx[j]]
                 rngs = _start_trial(model, arch_kwargs, j, seed)
                 res = fit_fn(rngs.shuffle, train_data, {"val": val_data},
                              class_weights,
-                             {"lr": rung_trials[i]["lr"],
-                              "wd": rung_trials[i].get("wd",
-                                                       cfg.weight_decay)})
+                             {"lr": trial["lr"],
+                              "wd": trial.get("wd", cfg.weight_decay)})
                 # best val metric over epochs (MedianPruner analogue: the
                 # proxy score IS the selection metric at its best epoch)
-                scores[i] = float(res.history[f"val_{metric}"].max())
+                local.append(res.history[f"val_{metric}"].max().cpu())
+        # every group's scores on every rank: one gather a rung
+        got = gather_ensemble_tree(mesh_plan,
+                                   torch.stack(local)[None]).numpy()
+        scores = np.full(len(rung_trials), -np.inf)
+        at = 0
+        for idxs in by_arch.values():
+            per = _round_up(len(idxs), m) // m
+            block = got[:, at:at + per].reshape(-1)
+            for j, i in enumerate(idxs):
+                scores[i] = float(block[j])
+            at += per
         return scores
 
     scores1 = run_rung(trials, proxy_epochs)

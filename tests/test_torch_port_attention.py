@@ -161,6 +161,12 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.parallel.collectives, "
             "multimodal_eeg_fmri_tpu_torch.parallel.distributed, "
             "multimodal_eeg_fmri_tpu_torch.parallel.input, "
+            "multimodal_eeg_fmri_tpu_torch.parallel.layout, "
+            "multimodal_eeg_fmri_tpu_torch.parallel.tensor, "
+            "multimodal_eeg_fmri_tpu_torch.parallel.fsdp, "
+            "multimodal_eeg_fmri_tpu_torch.parallel.expert, "
+            "multimodal_eeg_fmri_tpu_torch.parallel.pipeline, "
+            "multimodal_eeg_fmri_tpu_torch.ops.attention, "
             "multimodal_eeg_fmri_tpu_torch.ops.ring_attention, "
             "multimodal_eeg_fmri_tpu_torch.models.layers, "
             "multimodal_eeg_fmri_tpu_torch.utils, "

@@ -18,8 +18,8 @@ as in ``test_fit_matches_jax``; cohorts, splits, fold arrays, best epochs,
 test labels, weights and subjects exactly equal. The clinical report of
 the port's run: finite, in range. The port's own rules: fold
 seeds fixed by (seed, fold), each fold started afresh, the caller's
-generator restored, the unported options raising, ``RngStream``'s replay
-by (seed, name, index) and ``seed_everything``.
+generator restored, ``aot_dir`` raising, a one-rank ``mesh_plan``,
+``RngStream``'s replay by (seed, name, index) and ``seed_everything``.
 """
 
 import contextlib
@@ -182,7 +182,8 @@ def test_cohorts_splits_and_fold_arrays_match_jax(jax_run, port_eeg):
             np.testing.assert_array_equal(getattr(sp, f), getattr(want, f))
     got = t_cv.build_fold_arrays(data, splits, "scalar", EEG_KEYS)
     want = run["stacks"]
-    assert len(got) == 3 and np.all(want[3] == 1)   # no fold padding
+    assert len(got) == 4 and np.all(want[3] == 1)   # no fold padding
+    np.testing.assert_array_equal(got[3], want[3])
     for g, w in zip(got[:2], want[:2]):
         for name in (w if "val" in w else {"": w}):
             gs, ws = (g[name], w[name]) if name else (g, w)
@@ -298,12 +299,30 @@ def test_run_cv_folds_start_fresh_and_restore_the_generators():
 
 @pytest.mark.parametrize("what", ["mesh_plan", "aot_dir"])
 def test_unported_run_cv_options_raise(what):
-    data = t_synthetic.synthetic_fmri(n_subjects=8, with_regression=False)
-    item = {"mesh_plan": "queue A item 7c", "aot_dir": "queue A item 8"}[what]
-    with pytest.raises(NotImplementedError, match=item):
-        t_cv.run_cv(TFMRI(**FMRI, device="cpu"), TrainConfig(), data,
-                    t_cv.loso_splits(data, TrainConfig()), **{what: "x"})
+    """``aot_dir`` raises, naming queue A item 8; ``mesh_plan`` is ported:
+    a plan of one rank (a layout-only mesh, no process group) gives the
+    unsharded run bit for bit (the sharded runs:
+    ``test_torch_port_ensemble.py``)."""
+    from multimodal_eeg_fmri_tpu_torch.parallel import build_mesh
 
+    data = t_synthetic.synthetic_fmri(n_subjects=8, with_regression=False)
+    cfg = TrainConfig(batch_size=4, num_epochs=1, selection="train_loss")
+    splits = t_cv.loso_splits(data, cfg)[:3]
+    if what == "aot_dir":
+        with pytest.raises(NotImplementedError, match="queue A item 8"):
+            t_cv.run_cv(TFMRI(**FMRI, device="cpu"), cfg, data, splits,
+                        aot_dir="x")
+        return
+    plain = t_cv.run_cv(TFMRI(**FMRI, device="cpu"), cfg, data, splits)
+    planned = t_cv.run_cv(TFMRI(**FMRI, device="cpu"), cfg, data, splits,
+                          mesh_plan=build_mesh(world_size=1))
+    assert planned.n_folds == plain.n_folds == 3
+    for k, v in plain.params.items():
+        assert torch.equal(planned.params[k], v), k
+    for k, v in plain.history.items():
+        np.testing.assert_array_equal(planned.history[k], v, err_msg=k)
+    np.testing.assert_array_equal(planned.test_probs, plain.test_probs)
+    np.testing.assert_array_equal(planned.best_epochs, plain.best_epochs)
 
 
 def test_rng_stream_replays_by_seed_name_and_index():

@@ -329,11 +329,30 @@ def test_mixed_batch_stats_raise_naming_the_paths(members, tmp_path, source):
 
 
 def test_ensemble_plan_and_unknown_reduce_raise(members):
-    model = port_model(members[0])
-    with pytest.raises(NotImplementedError, match="queue A item 7c"):
-        EnsemblePredictor.from_modules([model], plan=object())
+    """``plan`` is ported: a plan of one rank (a layout-only mesh, no
+    process group) serves what the unplanned predictor serves, bit for
+    bit, and a ``DynamicBatcher`` refuses it (queue A item 7d); members
+    that do not divide the ensemble axis raise JAX's error, as does an
+    unknown reduction (the sharded predictor:
+    ``test_torch_port_ensemble.py``)."""
+    from multimodal_eeg_fmri_tpu_torch.parallel import build_mesh
+
+    models = [port_model(m) for m in members]
+    for reduce in ("none", "vote", "mean_probs"):
+        planned = EnsemblePredictor.from_modules(
+            models, batch_size=BATCH, reduce=reduce,
+            plan=build_mesh(world_size=1))
+        np.testing.assert_array_equal(
+            planned(**DATA), EnsemblePredictor.from_modules(
+                models, batch_size=BATCH, reduce=reduce)(**DATA))
+    with pytest.raises(NotImplementedError, match="queue A item 7d"):
+        DynamicBatcher(planned)
+    with pytest.raises(ValueError, match="3 members not divisible by the "
+                       r"mesh's ensemble axis \(2\)"):
+        EnsemblePredictor.from_modules(
+            models, plan=build_mesh(ensemble=2, world_size=2, rank=1))
     with pytest.raises(ValueError, match="unknown reduce"):
-        EnsemblePredictor.from_modules([model], reduce="max")
+        EnsemblePredictor.from_modules([models[0]], reduce="max")
 
 
 @pytest.mark.parametrize("in_dims", [(0, 0, 0), (1, None, 1), (2, 2, 0)])
@@ -377,29 +396,38 @@ def test_flash_ops_pass_opcheck(op):
 
 
 @pytest.mark.parametrize("route", ["autograd", "torch.func"])
-def test_gradient_under_vmap_raises(route):
+def test_gradient_under_vmap_raises(route, monkeypatch):
+    """A gradient through flash attention under ``torch.func.vmap`` (by
+    autograd from a vmapped forward, or ``vmap(grad(...))``) folds the
+    members into one call of the flash backward over n·B rows and equals a
+    loop over the members bit for bit (on the card: one K2 and one K3
+    launch, ``test_torch_port_kernel.py``)."""
     q, k, v = (torch.from_numpy(_x(2, 1, 2, 20, 16, seed=s)) for s in (1, 2, 3))
-    msg = "no vmap rule"
-    if route == "autograd":
-        q.requires_grad_()
-        out = torch.func.vmap(port_attn.flash_attention)(q, k, v)
-        with pytest.raises(NotImplementedError, match=msg):
-            out.sum().backward()
-    else:
-        def loss(q, k, v):
-            return port_attn.flash_attention(q, k, v).sum()
+    calls = []
+    real = port_attn._flash_backward
 
-        with pytest.raises(NotImplementedError, match=msg):
-            torch.func.vmap(torch.func.grad(loss))(q, k, v)
-    # outside vmap both routes give the loop's gradient
+    def spy(q, *a):
+        calls.append(tuple(q.shape))
+        return real(q, *a)
+
     def member_grad(i):
         qi = q[i].detach().requires_grad_()
         port_attn.flash_attention(qi, k[i], v[i]).sum().backward()
         return qi.grad
 
-    got = torch.func.grad(lambda q: port_attn.flash_attention(
-        q, k[0], v[0]).sum())(q[0].detach())
-    torch.testing.assert_close(got, member_grad(0), atol=0, rtol=0)
+    loop = torch.stack([member_grad(i) for i in range(2)])
+    monkeypatch.setattr(port_attn, "_flash_backward", spy)
+    if route == "autograd":
+        qv = q.clone().requires_grad_()
+        torch.func.vmap(port_attn.flash_attention)(qv, k, v).sum().backward()
+        got = qv.grad
+    else:
+        def loss(q, k, v):
+            return port_attn.flash_attention(q, k, v).sum()
+
+        got = torch.func.vmap(torch.func.grad(loss))(q, k, v)
+    assert calls == [(2, 2, 20, 16)]
+    torch.testing.assert_close(got, loop, atol=0, rtol=0)
 
 
 # --- quantized payloads ------------------------------------------------------

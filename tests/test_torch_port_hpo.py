@@ -80,8 +80,24 @@ def test_default_space_head_dims():
 
 
 def test_run_hpo_unported_options():
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        t_hpo.run_hpo(None, TrainConfig(), {}, {}, mesh_plan=object())
+    """``mesh_plan`` is ported: a plan of one rank (a layout-only mesh, no
+    process group) gives the unplanned study (the sharded studies:
+    ``test_torch_port_ensemble.py``); ``run_hpo_optuna`` raises without
+    optuna."""
+    from multimodal_eeg_fmri_tpu_torch.parallel import build_mesh
+
+    train, val = _data(8, 8, 4)
+    make = dict(conn_shape=(459,), device="cpu")
+    space = _space(t_hpo, hidden_dim=8, num_transformer_layers=1,
+                   num_heads=2, dropout=0.0)
+    runs = [t_hpo.run_hpo(
+        lambda **kw: t_hpo.build_trimodal(False, **make, **kw),
+        _cfg(TrainConfig, 8), train, val, space=space, n_trials=3,
+        proxy_epochs=1, full_epochs=1, top_fraction=0.5, seed=SEED,
+        mesh_plan=plan) for plan in (None, build_mesh(world_size=1))]
+    for a, b in zip(*(r.rung_scores for r in runs), strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert runs[0].best_params == runs[1].best_params
     try:
         import optuna  # noqa: F401
     except ImportError:

@@ -177,14 +177,26 @@ def test_vmapped_members_fold_into_one_launch(cuda_device, member_dim):
 
 @pytest.mark.cuda
 def test_gradient_under_vmap_raises_on_the_card(cuda_device):
-    q, k, v = (torch.randn(2, 1, 2, 64, 32, device=cuda_device)
+    """``vmap(grad(...))`` over 4 members at the serving shape launches
+    K1, K2 and K3 once each over the folded (32, 4, 512, 32) rows, and
+    equals a loop over the members (rows are independent blocks: bit for
+    bit is expected; the limit is the kernels' gradient tolerance)."""
+    q, k, v = (torch.randn(4, 8, 4, 512, 32, device=cuda_device)
                for _ in range(3))
 
     def loss(q, k, v):
-        return flash_attention(q, k, v).sum()
+        return flash_attention(q, k, v).square().sum()
 
-    with pytest.raises(NotImplementedError, match="no vmap rule"):
-        torch.func.vmap(torch.func.grad(loss))(q, k, v)
+    grad = torch.func.grad(loss, argnums=(0, 1, 2))
+    counts = (flash_forward_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    before = [fn.launches["f32"] for fn in counts]
+    got = torch.func.vmap(grad)(q, k, v)
+    torch.cuda.synchronize()
+    assert [fn.launches["f32"] - b for fn, b in zip(counts, before)] == [
+        1, 1, 1]
+    for i in range(4):
+        for g, w in zip(got, grad(q[i], k[i], v[i])):
+            torch.testing.assert_close(g[i], w, atol=2e-4, rtol=0)
 
 
 @pytest.mark.cuda

@@ -18,8 +18,8 @@ package's.
 - ``count_parameters``, ``tree_size_bytes`` and ``cast_floating`` over a
   module, its state dict and nested arrays, against the JAX package's over
   the same variables.
-- The parts still unported raise, naming their queue item; a rank that
-  fails fails its world.
+- The package's names cover the JAX package's ``__all__`` and no message
+  names queue A item 7c; a rank that fails fails its world.
 """
 
 import numpy as np
@@ -260,15 +260,26 @@ def test_tree_helpers_match_jax():
 
 
 def test_unported_parts_name_their_queue_item():
-    """Queue A items 7a and 7b are ported (the pipeline's names are
-    exported, as the JAX package exports them); item 7c still raises,
-    naming its item."""
+    """Queue A items 7a, 7b and 7c are ported: the package exports the
+    JAX package's ``__all__`` (``ensemble_vmap`` is dropped, item 8, and
+    not in it), no message of the port names item 7c any more, and a seed
+    sweep whose seeds do not divide the ensemble axis raises the JAX
+    package's error, word for word."""
+    from pathlib import Path
+
+    from multimodal_eeg_fmri_tpu import parallel as j_par
     from multimodal_eeg_fmri_tpu_torch import TrainConfig
-    from multimodal_eeg_fmri_tpu_torch import models as t_models
     from multimodal_eeg_fmri_tpu_torch.train import cv as t_cv
 
-    assert hasattr(t_models, "PipelinedLongContextClassifier")
-    assert hasattr(t_par, "pipeline_apply")
-    with pytest.raises(NotImplementedError, match="queue A item 7c"):
-        t_cv.run_seed_sweep(None, TrainConfig(), {}, {}, [0],
-                            mesh_plan=object())
+    assert set(j_par.__all__) <= set(t_par.__all__)
+    for name in t_par.__all__:
+        assert hasattr(t_par, name), name
+    root = Path(t_par.__file__).parents[1]
+    for path in root.rglob("*.py"):
+        assert "item 7c" not in path.read_text(), path
+    plan = t_par.build_mesh(ensemble=2, world_size=2, rank=0)
+    with pytest.raises(ValueError) as err:
+        t_cv.run_seed_sweep(None, TrainConfig(),
+                            {"label": np.zeros(2, np.int64)},
+                            {}, 3, mesh_plan=plan)
+    assert str(err.value) == "the ensemble axis (2) must divide n_seeds=3"

@@ -9,6 +9,7 @@ numpy; a rank's results are its own shards, which the tests reassemble.
 
 from __future__ import annotations
 
+import importlib
 import sys
 
 import numpy as np
@@ -432,3 +433,199 @@ def expert_cases(rank, world, fits, ring, capacity):
     kept = int(dispatch.sum().item())
     out["capacity"] = (y.detach(), grads, kept)
     return out, "jax" in sys.modules
+
+
+def _narrow_v4(kw, flash=False):
+    """A narrow ``TriModalFusionNetV4`` on the CPU, the fusion gate's fixed
+    dropout off; with ``flash`` every attention layer on the flash route."""
+    from multimodal_eeg_fmri_tpu_torch.models import TriModalFusionNetV4
+    from multimodal_eeg_fmri_tpu_torch.models.fusion import LearnedFusion
+    from multimodal_eeg_fmri_tpu_torch.models.layers import MultiHeadAttention
+
+    model = TriModalFusionNetV4(**kw, device="cpu")
+    for m in model.modules():
+        if isinstance(m, LearnedFusion):
+            m.gate_dropout = 0.0
+        if flash and isinstance(m, MultiHeadAttention):
+            m.attn_impl = "flash"
+    return model
+
+
+def hpo_space(**arch):
+    """A search space with lr and wd drawn and the architecture ``arch``
+    (each a tuple of choices)."""
+    from multimodal_eeg_fmri_tpu_torch.train import hpo
+
+    return {"lr": hpo.LogUniform(1e-3, 3e-2), "wd": hpo.LogUniform(1e-6, 1e-2),
+            **{k: hpo.Choice(v) for k, v in arch.items()}}
+
+
+def hpo_study(kw, train, val, space, mesh_plan=None):
+    """``run_hpo`` over narrow V4s of ``space`` (5 trials, 1 proxy and 1 full
+    epoch, 2 finalists) on ``mesh_plan``."""
+    from multimodal_eeg_fmri_tpu_torch.train.hpo import run_hpo
+
+    return run_hpo(lambda **arch: _narrow_v4({**kw, **arch}),
+                   TrainConfig(batch_size=len(train["label"]),
+                               schedule="constant", patience=100, seed=3),
+                   train, val, space=space, n_trials=5, proxy_epochs=1,
+                   full_epochs=1, top_fraction=0.4, seed=3,
+                   mesh_plan=mesh_plan)
+
+
+def ensemble_cases(rank, world, meshes, cv, sweep, hpo, serve):
+    """The ensemble axis's callers on each (ensemble, data) mesh of
+    ``meshes`` over the whole world. ``cv`` (model kwargs, cohort, config
+    kwargs, normalize keys, initial variables): ``run_cv`` over 3
+    eeg_kfold_splits folds; ``sweep`` (model kwargs, train, val, config
+    kwargs, seeds): ``run_seed_sweep``, and its error for seeds that do not
+    divide the ensemble axis; ``hpo`` (model kwargs, train, val, arch
+    choices): ``hpo_study``; ``serve`` (mesh, model kwargs, K members' flax
+    variables, rows, labels, batch size, artifact path): the planned
+    ``EnsemblePredictor``'s three reductions, its calibration, the flash
+    calls of one batch, the "not divisible" error and the export. Returns
+    ({case: result}, whether JAX was imported)."""
+    from multimodal_eeg_fmri_tpu_torch.serving import EnsemblePredictor
+    from multimodal_eeg_fmri_tpu_torch.train.cv import (
+        eeg_kfold_splits,
+        run_cv,
+        run_seed_sweep,
+    )
+
+    # the module (``ops.attention`` the package attribute is the function)
+    port_attn = importlib.import_module(
+        "multimodal_eeg_fmri_tpu_torch.ops.attention")
+    out = {}
+    kw, data, cfg_kw, keys, variables = cv
+    cfg = TrainConfig(**cfg_kw)
+    splits = eeg_kfold_splits(data, cfg, n_splits=3)
+    s_kw, s_train, s_val, s_cfg, n_seeds = sweep
+    h_kw, h_train, h_val, arch = hpo
+    for shape in meshes:
+        plan = build_mesh(*shape)
+        out["cv", shape] = run_cv(_narrow_v4(kw), cfg, data, splits,
+                                  normalize_keys=keys,
+                                  initial_variables=variables,
+                                  mesh_plan=plan)
+        out["sweep", shape] = run_seed_sweep(
+            _narrow_v4(s_kw), TrainConfig(**s_cfg), s_train, {"val": s_val},
+            n_seeds, mesh_plan=plan)
+        try:
+            run_seed_sweep(_narrow_v4(s_kw), TrainConfig(**s_cfg), s_train,
+                           {"val": s_val}, n_seeds + 1, mesh_plan=plan)
+            out["sweep_error", shape] = None
+        except ValueError as e:
+            out["sweep_error", shape] = str(e)
+        out["hpo", shape] = hpo_study(h_kw, h_train, h_val,
+                                      hpo_space(**arch), plan)
+
+    shape, kw, members, rows, labels, batch, path = serve
+    plan = build_mesh(*shape)
+    models = [load_flax_variables(_narrow_v4(kw, flash=True), v["params"],
+                                  v["batch_stats"]) for v in members]
+    calls = []
+    real = port_attn._flash_forward
+
+    def spy(q, *a):
+        calls.append(tuple(q.shape))
+        return real(q, *a)
+
+    served = {}
+    for reduce in ("mean_probs", "vote", "none"):
+        ens = EnsemblePredictor.from_modules(models, batch_size=batch,
+                                             reduce=reduce, plan=plan)
+        port_attn._flash_forward = spy
+        try:
+            served[reduce] = ens(**rows)
+        finally:
+            port_attn._flash_forward = real
+        served["calls", reduce] = list(calls)
+        calls.clear()
+    ens = EnsemblePredictor.from_modules(models, batch_size=batch, plan=plan)
+    cal = ens.calibrated(rows, labels)
+    served["temperature"] = cal.temperature
+    served["calibrated"] = cal(**rows)
+    served["export"] = ens.export_artifact(rows, path)
+    try:
+        EnsemblePredictor.from_modules(models[:3], plan=plan)
+        served["error"] = None
+    except ValueError as e:
+        served["error"] = str(e)
+    out["serve"] = served
+    return out, "jax" in sys.modules
+
+
+def multihost_cases(rank, world, kw, cfg_kw, folds_kw, dp):
+    """``examples/multihost_cpu.py``'s flow on the world, 2 ranks a host.
+    Phase 1: a hybrid (ensemble 2, data 2) mesh; each host loads only its
+    ``process_fold_range`` block of ``_multihost_folds(**folds_kw)`` and
+    trains it (fold i from the streams of ``fold_in(0, i)``); the histories
+    gathered over the ensemble axis. A (ensemble 2, data 2, model 1) mesh's
+    ``psum`` over two axes of it. Phase 2: a flat (ensemble 1, data 4) mesh
+    trains the fold ``dp`` (train, val) with its batch over ``data``."""
+    from multimodal_eeg_fmri_tpu_torch.core.rng import fold_in
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        build_hybrid_mesh,
+        gather_ensemble_tree,
+        process_fold_range,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.cv import fold_rngs, start_fold
+
+    hosts, per_host = 2, world // 2
+    plan = build_hybrid_mesh(ensemble=2, data=2, ranks_per_host=per_host)
+    rows = plan.mesh.ranks // per_host
+    assert all(len(set(r)) == 1 for r in rows.tolist()), rows
+    n_folds = plan.n_ensemble
+    lo, hi = process_fold_range(n_folds, plan, process_index=rank // per_host,
+                                num_processes=hosts)
+    local = multihost_folds(n_folds, plan.n_data, lo, hi, **folds_kw)
+    cfg = TrainConfig(**cfg_kw)
+    model = _narrow_v4(kw)
+    fit = make_fit_fn(model, cfg, eval_names=("val",))
+    hist = []
+    for i, (train, val) in zip(range(lo, hi), local):
+        rngs = fold_rngs(fold_in(0, i), "cpu")
+        start_fold(model, rngs)
+        hist.append(fit(rngs.shuffle, train, {"val": val}).history)
+    history = gather_ensemble_tree(plan, {
+        k: torch.stack([h[k] for h in hist]) for k in hist[0]})
+
+    three = Mesh(np.arange(world).reshape(2, 2, 1),
+                 ("ensemble", "data", "model"))
+    mine = torch.tensor([float(rank)])
+    sums = {axes: psum(mine, axes, three) for axes in (
+        ("ensemble", "data"), ("data", "model"), ("ensemble", "model"),
+        ("data", "ensemble"))}
+
+    flat = build_mesh(ensemble=1, data=world)
+    train, val = dp
+    model = _narrow_v4({**kw, "mesh": flat.mesh})
+    start_fold(model, fold_rngs(7, "cpu"))
+    res = make_fit_fn(model, TrainConfig(**{**cfg_kw, "batch_size": 8}),
+                      eval_names=("val",))(7, train, {"val": val})
+    return ((lo, hi), history, sums, _history(res), "jax" in sys.modules)
+
+
+def multihost_folds(n_folds, dp, lo=0, hi=None, seed=0, time_steps=32):
+    """Folds ``lo``..``hi`` of ``examples/multihost_cpu.py``'s
+    deterministic per-fold (train, eval) arrays: fold f draws its own row
+    range of one synthetic cohort, so a fold mixed up across ranks shows as
+    a wrong loss."""
+    from multimodal_eeg_fmri_tpu_torch.data.arrays import pad_rows, subset
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+    )
+
+    B = 2 * dp
+    rows = 3 * B
+    raw = synthetic_eeg_trimodal(n_subjects=n_folds * rows,
+                                 time_steps=time_steps, seed=seed)
+    raw.pop("subject")
+    out = []
+    for f in range(lo, n_folds if hi is None else hi):
+        start = f * rows
+        out.append((pad_rows(subset(raw, np.arange(start, start + 2 * B)),
+                             2 * B),
+                    pad_rows(subset(raw, np.arange(start + 2 * B,
+                                                   start + 3 * B)), B)))
+    return out
