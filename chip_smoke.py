@@ -612,7 +612,8 @@ def device_events(prof) -> list:
             and not e.key.startswith("Optimizer.")]
 
 
-def device_profile(fn, n: int = 50, attempts: int = 3) -> tuple:
+def device_profile(fn, n: int = 50, attempts: int = 3,
+                   cuda_only: bool = False) -> tuple:
     """(mean device time of one call in ms, device kernels per call), from
     torch.profiler over ``n`` calls: each kernel's mean time times the
     number of times one call launches it, its count over ``n`` rounded. A
@@ -622,15 +623,17 @@ def device_profile(fn, n: int = 50, attempts: int = 3) -> tuple:
     it is then taken again, up to ``attempts`` times. Where every trace
     comes back empty (seen on the H100 late in a run: the CPU ops recorded
     and no kernel, the ops' names printed), the device time is not
-    measured: (None, None), which the callers print as "not measured"."""
+    measured: (None, None), which the callers print as "not measured".
+    ``cuda_only`` traces the device alone (no CPU activity)."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] if cuda_only else [
+        ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
@@ -661,10 +664,10 @@ def per_call_device_ms(kernels: list, n: int) -> tuple:
             sum(k for k, _ in per_call))
 
 
-def device_ms(fn, n: int = 50):
+def device_ms(fn, n: int = 50, cuda_only: bool = False):
     """Mean device time of one call (``device_profile``), or None where
     the profiler recorded no kernel."""
-    return device_profile(fn, n)[0]
+    return device_profile(fn, n, cuda_only=cuda_only)[0]
 
 
 def share(num, den, spec: str = ".1%") -> str:
@@ -3303,10 +3306,13 @@ def serve_gate_ensemble(members, rows: dict, card: str) -> dict:
     return ensembles
 
 
-def serve_gate_folded_k1(dev, card: str) -> dict:
-    """K1 reached through vmap over the members at the ensemble's shape:
+def serve_gate_folded_k1(dev, card: str, K: int = SERVE_MEMBERS) -> dict:
+    """K1 reached through vmap over ``K`` members at the ensemble's shape:
     one launch on the folded (K·B, 4, 512, 32) batch, held against the
-    plain version there; its times beside its bound and SDPA's."""
+    plain version there; its times beside its bound and SDPA's, the device
+    time from a trace of CPU and device and from one of the device alone
+    (``cuda_only``; where the first comes back empty, the second may
+    not)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from multimodal_eeg_fmri_tpu_torch.ops.attention import (
@@ -3317,7 +3323,7 @@ def serve_gate_folded_k1(dev, card: str) -> dict:
     )
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    K, H, d = SERVE_MEMBERS, 4, 32
+    H, d = 4, 32
     q, k, v = (torch.randn(K, BATCH, H, T_SERVE, d, device=dev,
                            generator=gen) for _ in range(3))
     reset_kernel_launches()
@@ -3339,14 +3345,20 @@ def serve_gate_folded_k1(dev, card: str) -> dict:
     ms, plain_ms = in_turns(lambda: cuda_ms(lambda: flash_forward_cuda(
         *folded)), lambda: cuda_ms(lambda: flash_forward_plain(*folded)))
     dev_ms = device_ms(lambda: flash_forward_cuda(*folded))
+    cuda_dev_ms = device_ms(lambda: flash_forward_cuda(*folded),
+                            cuda_only=True)
     lib_ms = cuda_ms(lambda: sdpa(*folded))
+    lib_dev_ms = device_ms(lambda: sdpa(*folded), cuda_only=True)
     b_ms, by = bound_ms("flash_fwd", K * BATCH, H, T_SERVE, T_SERVE, d)
     print(f"flash_fwd {shape} f32: kernel {ms:.4f} ms (device "
-          f"{_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({by}), library (SDPA forward) {lib_ms:.4f} ms per call {card}")
+          f"{_ms(dev_ms)}; a trace of the device alone {_ms(cuda_dev_ms)}), "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), library "
+          f"(SDPA forward) {lib_ms:.4f} ms (device alone "
+          f"{_ms(lib_dev_ms)}) per call {card}")
     return {"shape": list(shape), "max_abs_err": err, "ms": ms,
-            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": by, "library_ms": lib_ms}
+            "device_ms": dev_ms, "device_ms_cuda_only": cuda_dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms, "library_device_ms_cuda_only": lib_dev_ms}
 
 
 def serve_dispatch_cost(dev, card: str) -> dict:
@@ -3695,6 +3707,9 @@ def serving_phase(dev, card: str) -> dict:
         ensembles = serve_gate_ensemble(members, rows, card)
         lap("gates a, b")
         folded = serve_gate_folded_k1(dev, card)
+        # serve-ensemble-mesh-T512's shape: a rank's 2 members × 8 rows
+        folded_mesh = serve_gate_folded_k1(
+            dev, card, MESH_MEMBERS // SERVE_MESH[0])
         dispatch = serve_dispatch_cost(dev, card)
         lap("K1 folded, dispatch cost")
         serve_gate_exports(live, ensembles["mean_probs"], rows, tmp)
@@ -3712,6 +3727,7 @@ def serving_phase(dev, card: str) -> dict:
     state = [(dict(m.named_parameters()), dict(m.named_buffers()))
              for m in members[:MESH_MEMBERS]]
     return {"launches_per_batch": 4, "folded": folded,
+            "folded_mesh": folded_mesh,
             "mesh_members": tuple(
                 {k: torch.stack([st[j][k].detach().cpu() for st in state])
                  for k in state[0][j]} for j in (0, 1)),
@@ -4582,11 +4598,19 @@ def ring_worker(rank: int, world: int, one_card_each: bool, start: float,
     return out
 
 
-def ring_one_worker(rank: int, world: int) -> dict:
+def ring_one_worker(rank: int, world: int, members: tuple) -> dict:
     """The world of one over NCCL: the ring of one's eval logits and one
-    step of the ring model on the step gate's batch."""
-    from multimodal_eeg_fmri_tpu_torch.parallel import Mesh
+    step of the ring model on the step gate's batch; then a planned
+    DynamicBatcher over ``members`` (serve-ensemble-mesh-T512's, on a
+    world-of-one plan), its requests ``ONE_BATCHER_REQUESTS`` one after
+    another beside the direct call on each: its broadcasts on NCCL."""
+    from multimodal_eeg_fmri_tpu_torch import MultimodalEndToEnd
+    from multimodal_eeg_fmri_tpu_torch.parallel import Mesh, build_mesh
     from multimodal_eeg_fmri_tpu_torch.parallel import collectives
+    from multimodal_eeg_fmri_tpu_torch.serving import (
+        DynamicBatcher,
+        EnsemblePredictor,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4601,10 +4625,32 @@ def ring_one_worker(rank: int, world: int) -> dict:
     torch.cuda.synchronize()
     launches = total_launches()
     group = mesh.group("seq")
-    return {"logits": logits.cpu(), "launches": launches,
-            "backend": str(torch.distributed.get_backend(group)),
-            "staged": collectives.staged_bytes(),
-            "step": step_grads(ring_model(dev, mesh), batch, cfg, dev)}
+    out = {"logits": logits.cpu(), "launches": launches,
+           "backend": str(torch.distributed.get_backend(group)),
+           "staged": collectives.staged_bytes(),
+           "step": step_grads(ring_model(dev, mesh), batch, cfg, dev)}
+
+    params, buffers = members
+    ens = EnsemblePredictor(
+        MultimodalEndToEnd(device=dev),
+        {k: v.to(dev) for k, v in params.items()},
+        {k: v.to(dev) for k, v in buffers.items()}, plan=build_mesh(),
+        batch_size=BATCH)
+    rows = request(ONE_BATCHER_REQUESTS[-1][1], T_SERVE,
+                   seed=BATCHER_MESH_SEED)
+    parts = [{k: v[lo:hi] for k, v in rows.items()}
+             for lo, hi in ONE_BATCHER_REQUESTS]
+    direct = [ens(**part) for part in parts]
+    collectives.reset_staged_bytes()
+    with DynamicBatcher(ens, max_delay_ms=1.0, timeout_s=WAIT_S) as b:
+        batched = [b(**part) for part in parts]
+        backend = str(torch.distributed.get_backend(b._group))
+    out["batcher"] = {"same": all(np.array_equal(x, y)
+                                  for x, y in zip(batched, direct)),
+                      "batches": b.batches, "rows": b.rows,
+                      "backend": backend,
+                      "staged": collectives.staged_bytes()}
+    return out
 
 
 # --- pipeline and parameter sharding (queue A items 7a and 7b), in the
@@ -5164,6 +5210,8 @@ CV_MESH, SWEEP_MESH, HPO_MESH = (4, 1), (4, 1), (4, 1)   # (ensemble, data)
 SERVE_MESH = (2, 2)
 MESH_MEMBERS = 4                  # of serve-ensemble-T512's members
 SERVE_TIMED_CALLS = 20
+BATCHER_MESH_SEED = 61            # serve-batcher-mesh-T512's BATCHER_ROWS rows
+ONE_BATCHER_REQUESTS = ((0, 3), (3, 5))   # the world of one's requests
 
 
 VMAP_MEMBERS = 4
@@ -5213,13 +5261,14 @@ def ensemble_references(dev, card: str, cv: dict, hpo: dict,
     deterministic algorithms (the cv phase's gate a), cv-fmri's sweep and
     hpo-default-T512's study (both run so), all on the host; and
     serve-ensemble-T512's first 4 members served by one unplanned
-    EnsemblePredictor on the card, each reduction, with its p50."""
+    EnsemblePredictor on the card, each reduction, with its p50, and
+    ``mean_probs`` on serve-batcher-mesh-T512's rows."""
     from multimodal_eeg_fmri_tpu_torch import MultimodalEndToEnd
     from multimodal_eeg_fmri_tpu_torch.serving import EnsemblePredictor
 
     phase(f"cv-mesh-T{T_SERVE}, sweep-mesh, hpo-mesh-T{T_SERVE}, "
-          f"serve-ensemble-mesh-T{T_SERVE}: the single-device references "
-          f"on {dev} {card}")
+          f"serve-ensemble-mesh-T{T_SERVE}, serve-batcher-mesh-T{T_SERVE}: "
+          f"the single-device references on {dev} {card}")
     params, buffers = serving["mesh_members"]
     rows = request(BATCH, T_SERVE, seed=50)
     served, p50 = {}, None
@@ -5232,6 +5281,9 @@ def ensemble_references(dev, card: str, cv: dict, hpo: dict,
         served[reduce] = ens(**rows)
         if reduce == "mean_probs":
             p50 = ens.benchmark(rows, warmup=3, iters=SERVE_TIMED_CALLS)
+            # serve-batcher-mesh-T512's rows
+            served["batcher"] = ens(**request(BATCHER_ROWS, T_SERVE,
+                                              seed=BATCHER_MESH_SEED))
     print(f"EnsemblePredictor({MESH_MEMBERS} members) B={BATCH}: p50 "
           f"{p50['p50_ms']:.3f} ms, p95 {p50['p95_ms']:.3f} ms on one device "
           f"{card}")
@@ -5365,7 +5417,92 @@ def ensemble_cases(rank: int, world: int, dev, start: float,
             served["times"] = ens.benchmark(rows, warmup=3,
                                             iters=SERVE_TIMED_CALLS)
     out["serve"] = served
+    del ens
+    torch.cuda.empty_cache()
+    out["batcher"] = batcher_mesh_case(rank, dev, start, members)
     return out
+
+
+def batcher_mesh_case(rank: int, dev, start: float, members: tuple) -> dict:
+    """serve-batcher-mesh-T512 on this rank: a DynamicBatcher over
+    serve-ensemble-mesh-T512's planned ``mean_probs`` predictor, built on
+    every rank with the same arguments. Every rank first makes the direct
+    planned call on the BATCHER_ROWS rows; then rank 0, the front, takes
+    them as one-row requests from as many threads, and every rank closes.
+    Records, while the batcher is open, K1's launches and shapes, the
+    padded chunks of each predictor call and the bytes staged; on the
+    front the rows and each request's latency; and on the wall clock when
+    the front called ``close()`` and when each rank's returned."""
+    from multimodal_eeg_fmri_tpu_torch import MultimodalEndToEnd
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        build_mesh,
+        reset_staged_bytes,
+        staged_bytes,
+    )
+    from multimodal_eeg_fmri_tpu_torch.serving import (
+        DynamicBatcher,
+        EnsemblePredictor,
+    )
+
+    attention = importlib.import_module(
+        "multimodal_eeg_fmri_tpu_torch.ops.attention")
+    at = world_phase(rank, start, f"serve-batcher-mesh-T{T_SERVE}: a "
+                     f"DynamicBatcher over serve-ensemble-mesh-T{T_SERVE}'s "
+                     f"planned mean_probs predictor {SERVE_MESH}: rank 0 "
+                     f"takes {BATCHER_ROWS} one-row requests from as many "
+                     "threads and broadcasts each batch")
+    params, buffers = members
+    ens = EnsemblePredictor(
+        MultimodalEndToEnd(device=dev),
+        {k: v.to(dev) for k, v in params.items()},
+        {k: v.to(dev) for k, v in buffers.items()},
+        plan=build_mesh(*SERVE_MESH), batch_size=BATCH)
+    rows = request(BATCHER_ROWS, T_SERVE, seed=BATCHER_MESH_SEED)
+    direct = ens(**rows)     # collective: before the batcher opens
+    calls, chunks, out, latency = [], [], {}, {}
+    real_forward, real_pad = attention._flash_forward, ens._pad
+
+    def spy(q, *a):
+        calls.append(tuple(q.shape))
+        return real_forward(q, *a)
+
+    def pad(inputs):
+        padded = real_pad(inputs)
+        chunks.append(len(padded))
+        return padded
+
+    def one(i):
+        t0 = time.perf_counter()
+        out[i] = b(**{k: v[i:i + 1] for k, v in rows.items()})
+        latency[i] = 1e3 * (time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    reset_staged_bytes()
+    attention._flash_forward, ens._pad = spy, pad
+    try:
+        b = DynamicBatcher(ens, max_delay_ms=5.0, max_batch=BATCH,
+                           timeout_s=WAIT_S)
+        t0 = time.perf_counter()
+        if rank == 0:
+            _threads(one, BATCHER_ROWS)
+        served_s = time.perf_counter() - t0
+        close_at = time.time()
+        b.close()
+        closed_at = time.time()
+    finally:
+        attention._flash_forward = real_forward
+        del ens._pad
+    torch.cuda.synchronize()
+    return {"at": at, "direct": direct,
+            "batched": (np.concatenate([out[i] for i in range(BATCHER_ROWS)])
+                        if rank == 0 else None),
+            "latency_ms": [latency[i] for i in sorted(latency)],
+            "served_s": served_s, "batches": b.batches, "rows": b.rows,
+            "launches": total_launches(), "calls": calls, "chunks": chunks,
+            "staged": staged_bytes(), "close_at": close_at,
+            "closed_at": closed_at, "alive": b._worker.is_alive(),
+            "row_bytes": sum(v[:1].nbytes for v in rows.values())}
 
 
 def ensemble_gates(ranks: list, refs: dict, card: str) -> dict:
@@ -5504,7 +5641,78 @@ def ensemble_gates(ranks: list, refs: dict, card: str) -> dict:
                                r["serve"]["staged", "mean_probs"]
                                for r in ranks],
                            "max_abs_err": errs}
+    times["batcher_mesh"], launches[
+        f"serve-batcher-mesh-T{T_SERVE}, per rank"] = batcher_mesh_gates(
+            [r["batcher"] for r in ranks], refs["served"]["batcher"], card)
     return {"times": times, "launches": launches}
+
+
+def batcher_mesh_gates(ranks: list, single: np.ndarray, card: str) -> tuple:
+    """serve-batcher-mesh-T512's gates: the front's rows bit for bit its
+    direct planned call on the same rows, and within SERVE_ATOL of the
+    single device's; fewer calls than rows; every follower's counters the
+    front's; K1 exactly 4 a padded chunk of BATCH rows on every rank (4 a
+    batch where a batch is one chunk), each over a rank's 2 members × 8
+    rows, (16, 4, 256, 32) in the ERP layers and (16, 4, 512, 32) in the
+    PW layers, and no K2/K3; every rank's worker returned within WAIT_S of
+    the front's ``close()``. Returns (times, K1-K3 launches by rank)."""
+    what = f"serve-batcher-mesh-T{T_SERVE}: "
+    front = ranks[0]
+    if not np.array_equal(front["batched"], front["direct"]):
+        fail(f"{what}a batched row differs from the direct planned call")
+    err = float(np.abs(front["direct"] - single).max())
+    limit = SERVE_ATOL * float(np.abs(single).max())
+    if front["direct"].shape != single.shape or not err <= limit:
+        fail(f"{what}the planned call is {err:.3e} from the single device's "
+             f"(limit {limit:.1e})")
+    batches = front["batches"]
+    counters = [(r["batches"], r["rows"]) for r in ranks]
+    if not (0 < batches < BATCHER_ROWS
+            and set(counters) == {(batches, BATCHER_ROWS)}):
+        fail(f"{what}calls and rows by rank {counters}: every rank must make "
+             f"the front's calls, fewer than {BATCHER_ROWS}")
+    rows = (MESH_MEMBERS // SERVE_MESH[0]) * BATCH
+    shape = {(rows, 4, T_SERVE // 2, 32), (rows, 4, T_SERVE, 32)}
+    k1 = [r["launches"]["flash_fwd"] for r in ranks]
+    chunks = [sum(r["chunks"]) for r in ranks]
+    for r, res in enumerate(ranks):
+        want = {"flash_fwd": 4 * chunks[0], "flash_bwd_dkv": 0,
+                "flash_bwd_dq": 0}
+        if (res["launches"] != want or res["chunks"] != front["chunks"]
+                or set(res["calls"]) != shape):
+            fail(f"{what}rank {r} launched {res['launches']} over "
+                 f"{sorted(set(res['calls']))} in chunks {res['chunks']} "
+                 f"(the front's {front['chunks']}; expected {want} at "
+                 f"{shape})")
+    late = [r["closed_at"] - front["close_at"] for r in ranks]
+    if any(r["alive"] for r in ranks) or not max(late) <= WAIT_S:
+        fail(f"{what}a worker outlived the front's close() by {late} s")
+    lat = np.asarray(front["latency_ms"])
+    rows_per_s = BATCHER_ROWS / front["served_s"]
+    staged = [r["staged"] / batches for r in ranks]
+    payload = front["row_bytes"] * BATCHER_ROWS / batches
+    print(f"{what}{BATCHER_ROWS} rows in {batches} calls "
+          f"({BATCHER_ROWS / batches:.2f} rows a call, {chunks[0]} chunks of "
+          f"{BATCH}), bit for bit the direct planned call, max|d| {err:.3e} "
+          f"from the single device (limit {limit:.1e}); every rank's "
+          f"batches/rows {counters[0]}; K1 {k1} by rank at "
+          f"{sorted(shape)}, 4 a chunk; workers returned "
+          f"{', '.join(f'{x:.3f}' for x in late)} s after the front's close() "
+          f"{card}")
+    print(f"{what}{rows_per_s:.1f} rows/s; a request's latency p50 "
+          f"{np.percentile(lat, 50):.3f} ms, p95 {np.percentile(lat, 95):.3f}"
+          f" ms; each batch broadcasts {payload:.0f} bytes of rows on "
+          f"average ({front['row_bytes']} a row); bytes staged a batch by "
+          f"rank {', '.join(f'{x:.0f}' for x in staged)} {card}")
+    times = {"rows_per_s": rows_per_s, "batches": batches,
+             "chunks": chunks[0], "p50_ms": float(np.percentile(lat, 50)),
+             "p95_ms": float(np.percentile(lat, 95)),
+             "payload_bytes_per_batch": payload,
+             "staged_bytes_per_batch": staged, "max_abs_err": err,
+             "close_lag_s": late}
+    return times, {name: [r["launches"][name] for r in ranks]
+                   for name in ("flash_fwd", "flash_bwd_dkv",
+                                "flash_bwd_dq")}
 
 
 def ring_grad_gate(what: str, loss: float, grads: dict, refs: dict,
@@ -5705,7 +5913,8 @@ def ring_phase(dev, card: str, ensemble_refs: dict) -> dict:
 
     phase("a world of one over NCCL: the ring of one against the "
           "single-device flash route")
-    one = spawn_local_world(ring_one_worker, 1, backend="nccl")[0]
+    one = spawn_local_world(ring_one_worker, 1, ensemble_refs["members"],
+                            backend="nccl")[0]
     single = ring_model(dev)
     with torch.no_grad():
         want = single.eval()(erp=torch.as_tensor(batch["erp"]).to(dev))
@@ -5721,6 +5930,18 @@ def ring_phase(dev, card: str, ensemble_refs: dict) -> dict:
                    one["step"][1],
                    {"the single-device kernel route": single_step[:2]},
                    noisy)
+    bat = one["batcher"]
+    n_rows = ONE_BATCHER_REQUESTS[-1][1]
+    print(f"serve-batcher-mesh-T{T_SERVE} on a world-of-one plan over "
+          f"{bat['backend']}: requests of "
+          f"{[hi - lo for lo, hi in ONE_BATCHER_REQUESTS]} rows equal the "
+          f"direct calls bit for bit: {bat['same']}; batches/rows "
+          f"{bat['batches']}/{bat['rows']}; bytes staged through the card "
+          f"{bat['staged']} {card}")
+    if not (bat["same"] and bat["backend"] == "nccl"
+            and (bat["batches"], bat["rows"]) == (
+                len(ONE_BATCHER_REQUESTS), n_rows) and bat["staged"] > 0):
+        fail("the planned batcher on NCCL's world of one misbehaved")
 
     times = {"backend": backend, "world": RING_SEQ, "ranks_per_card":
              per_card, "staged_bytes_per_step": staged_step[0],
@@ -6521,8 +6742,11 @@ def main() -> None:
         "launches_bf16_fit": mp_launches[name],
         "bf16_storage": {"max_abs_err": worst_bf16[name],
                          **timings(per_step[name, "bf16"])},
-        # K1 on the ensemble's folded batch (40, 4, 512, 32)
-        **({"serve_ensemble_T512": serving["folded"]}
+        # K1 on the ensemble's folded batch (40, 4, 512, 32), and on a
+        # rank's of serve-ensemble-mesh-T512 and serve-batcher-mesh-T512
+        # (16, 4, 512, 32)
+        **({"serve_ensemble_T512": serving["folded"],
+            "serve_mesh_T512": serving["folded_mesh"]}
            if name == "flash_fwd" else {}),
         # each call at lc-moe-T2048's (8, 4, 2048, 16)
         f"lc_moe_T{LC_T}": lc["kernels"][name],
@@ -6600,6 +6824,8 @@ def main() -> None:
                      if k not in ("max_abs_err", "bands")},
         "f64_errors_by_band": s1["bands"],
     }]}))
+    print(f"chip_smoke.py: {time.perf_counter() - T_START:.1f} s of its "
+          f"1200 s {card}")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,15 @@ rank's shard of host arrays and the gather of an ensemble axis's results,
 ``pipeline`` the stage axis, ``tensor``, ``fsdp`` and ``expert`` the
 parameter layouts (on ``layout``'s machinery). The ensemble axis's callers
 are ``train.cv.run_cv``, ``run_seed_sweep``, ``train.hpo.run_hpo`` (each
-with ``mesh_plan=``) and ``serving.EnsemblePredictor(plan=...)``.
+with ``mesh_plan=``), ``serving.EnsemblePredictor(plan=...)`` and a
+``serving.DynamicBatcher`` over it (``collectives.broadcast`` hands it each
+batch).
 ``ensemble_vmap`` is dropped (ROADMAP.md, queue A item 8): the port's ranks
 are SPMD already."""
 
 from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
     all_gather,
+    broadcast,
     pmean,
     pmean_grads,
     ppermute_shift,
@@ -83,6 +86,7 @@ __all__ = [
     "all_gather",
     "batch_sharded",
     "batch_sharding",
+    "broadcast",
     "build_ep_mesh",
     "build_hybrid_mesh",
     "build_mesh",

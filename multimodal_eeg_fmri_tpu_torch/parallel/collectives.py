@@ -14,20 +14,28 @@ differentiable, and their backward is the transpose JAX takes:
 - ``ppermute_shift(+s)``: ``ppermute_shift(−s)``.
 
 ``pmean_grads`` averages gradients (not differentiable): one all-reduce per
-dtype and device over a flat buffer.
+dtype and device over a flat buffer. ``broadcast`` (not differentiable)
+hands a dict of host arrays from one rank to a process group, shapes and
+dtypes included: the port's own plumbing for ``serving.DynamicBatcher`` over
+a planned ensemble, where one rank holds the request queue (the JAX
+package's inputs are replicated inside one process).
 
 Transport: an NCCL group takes CUDA tensors as they are, and a host tensor
 goes through the current card. A gloo group takes host tensors, so a CUDA
 tensor goes through pinned host memory here (copied to the host, reduced or
 sent there, copied back); ``staged_bytes()`` counts the bytes those copies
-move, both ways. Nothing else differs between the two backends. An axis of one rank with no process group (a layout-only mesh)
-returns its input; a group of one runs the collective.
+move, both ways, and those of a host tensor through the card on NCCL.
+Nothing else differs between the two backends. An axis of one rank with no
+process group (a layout-only mesh) returns its input; a group of one runs
+the collective.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import json
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -42,8 +50,9 @@ _STAGED = {"bytes": 0}
 
 
 def staged_bytes() -> int:
-    """Bytes copied between a CUDA device and host memory for gloo groups
-    since the last ``reset_staged_bytes()``."""
+    """Bytes copied between a CUDA device and host memory to run a
+    collective (a CUDA tensor on a gloo group, a host tensor on an NCCL
+    group) since the last ``reset_staged_bytes()``."""
     return _STAGED["bytes"]
 
 
@@ -87,6 +96,17 @@ def _to_device(host: torch.Tensor, device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+def _to_card(x: torch.Tensor) -> torch.Tensor:
+    """A host tensor on the current card, for an NCCL group."""
+    _STAGED["bytes"] += x.numel() * x.element_size()
+    return x.to(torch.cuda.current_device())
+
+
+def _from_card(card: torch.Tensor, device) -> torch.Tensor:
+    _STAGED["bytes"] += card.numel() * card.element_size()
+    return card.to(device)
+
+
 def _transport(x: torch.Tensor, group,
                op: Callable[[torch.Tensor], Any]) -> torch.Tensor:
     """Run ``op`` in place on a contiguous copy of ``x`` that the group's
@@ -96,9 +116,9 @@ def _transport(x: torch.Tensor, group,
         op(host)
         return _to_device(host, x.device)
     if not x.is_cuda and not _on_host(group):
-        card = x.to(torch.cuda.current_device())
+        card = _to_card(x)
         op(card)
-        return card.to(x.device)
+        return _from_card(card, x.device)
     y = x.contiguous().clone()
     op(y)
     return y
@@ -111,13 +131,14 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
 def _all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     staged = x.is_cuda and _on_host(group)
     on_card = not x.is_cuda and not _on_host(group)
-    src = (_to_host(x) if staged else
-           x.to(torch.cuda.current_device()) if on_card else x.contiguous())
+    src = (_to_host(x) if staged else _to_card(x) if on_card
+           else x.contiguous())
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     if staged:
         parts = [_to_device(p, x.device) for p in parts]
-    return torch.cat(parts, axis).to(x.device)
+    out = torch.cat(parts, axis)
+    return _from_card(out, x.device) if on_card else out.to(x.device)
 
 
 def _ppermute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
@@ -214,6 +235,79 @@ def ppermute_shift(x: Any, axis_name: str, shift: int = 1,
                            group, shift)
     parts = flat.split([t.numel() for t in leaves])
     return rebuild([p.view(t.shape) for p, t in zip(parts, leaves)])
+
+
+_STOP, _CALL = 0, 1
+_KINDS = "biufc"            # numpy kinds a buffer carries bit for bit
+
+
+def _bcast_host(buf: torch.Tensor, src: int, group, sender: bool
+                ) -> torch.Tensor:
+    """``buf`` (a host tensor) of rank ``src``, into ``buf`` on the
+    others: as it is on gloo, through the current card on NCCL."""
+    if not buf.numel():
+        return buf
+    if _on_host(group):
+        dist.broadcast(buf, src, group=group)
+        return buf
+    card = (_to_card(buf) if sender else torch.empty(
+        buf.shape, dtype=buf.dtype, device=torch.cuda.current_device()))
+    dist.broadcast(card, src, group=group)
+    if not sender:
+        _STAGED["bytes"] += card.numel() * card.element_size()
+        buf.copy_(card)
+    return buf
+
+
+@torch.no_grad()
+def broadcast(arrays: Optional[Mapping[str, np.ndarray]], src: int = 0,
+              group=None) -> Optional[Dict[str, np.ndarray]]:
+    """Global rank ``src``'s ``arrays`` (a dict of numeric host arrays) on
+    every rank of ``group`` (default: the world), which every rank calls;
+    ``None`` is a stop, which every rank gets as None. The other ranks'
+    argument is ignored. Every rank gets the arrays by sorted key,
+    contiguous, with the sender's shapes and dtypes, bit for bit (``src``
+    its own). Three messages: a fixed-size word (stop or call, and the
+    header's length), the header (the sorted keys, each array's shape and
+    dtype), then every array's bytes in one buffer. ``src`` checks the
+    arrays before it sends anything: a dtype that is not a number raises
+    there, and nothing goes out."""
+    sender = dist.get_rank() == src
+    word = torch.zeros(2, dtype=torch.int64)
+    if sender and arrays is not None:
+        arrays = {k: np.asarray(arrays[k], order="C")
+                  for k in sorted(arrays)}
+        bad = {k: str(a.dtype) for k, a in arrays.items()
+               if a.dtype.kind not in _KINDS}
+        if bad:
+            raise TypeError(f"broadcast carries numeric arrays only, got "
+                            f"{bad}")
+        header = np.frombuffer(json.dumps(
+            [[k, list(a.shape), a.dtype.str] for k, a in arrays.items()]
+        ).encode(), np.uint8).copy()
+        payload = np.concatenate(
+            [a.reshape(-1).view(np.uint8) for a in arrays.values()]
+            or [np.zeros(0, np.uint8)])
+        word[:] = torch.tensor([_CALL, len(header)])
+    _bcast_host(word, src, group, sender)
+    if int(word[0]) == _STOP:
+        return None
+    if not sender:
+        header = np.empty(int(word[1]), np.uint8)
+    _bcast_host(torch.from_numpy(header), src, group, sender)
+    if sender:
+        _bcast_host(torch.from_numpy(payload), src, group, sender)
+        return arrays
+    meta = [(k, tuple(shape), np.dtype(dtype))
+            for k, shape, dtype in json.loads(header.tobytes())]
+    sizes = [int(np.prod(shape)) * dtype.itemsize for _, shape, dtype in meta]
+    payload = np.empty(sum(sizes), np.uint8)
+    _bcast_host(torch.from_numpy(payload), src, group, sender)
+    out, at = {}, 0
+    for (k, shape, dtype), n in zip(meta, sizes):
+        out[k] = payload[at:at + n].view(dtype).reshape(shape).copy()
+        at += n
+    return out
 
 
 @torch.no_grad()

@@ -18,7 +18,9 @@
   reduction crosses ranks; a call is collective, every rank passing the
   same rows.
 - ``DynamicBatcher``: coalesces concurrent small requests into one call,
-  with a bounded queue (``QueueFull``) and a per-request timeout.
+  with a bounded queue (``QueueFull``) and a per-request timeout. Over a
+  planned ``EnsemblePredictor`` it is collective: global rank 0 takes the
+  requests and broadcasts each batch, and every rank makes the call.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from multimodal_eeg_fmri_tpu_torch.convert import load_flax_variables
@@ -39,7 +42,11 @@ from multimodal_eeg_fmri_tpu_torch.core.quantize import load_quantized
 from multimodal_eeg_fmri_tpu_torch.data.arrays import as_tensor
 # registers mmef::flash_fwd, which the programs of load_artifact call
 from multimodal_eeg_fmri_tpu_torch.ops import attention as _ops  # noqa: F401
-from multimodal_eeg_fmri_tpu_torch.parallel.collectives import all_gather, psum
+from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
+    all_gather,
+    broadcast,
+    psum,
+)
 from multimodal_eeg_fmri_tpu_torch.parallel.input import gather_ensemble_tree
 from multimodal_eeg_fmri_tpu_torch.parallel.mesh import (
     shard_ensemble_tree,
@@ -550,8 +557,31 @@ class DynamicBatcher:
     ``max_queue`` bounds the pending rows: an enqueue beyond it raises
     ``QueueFull`` at once. ``timeout_s`` bounds a caller's wait: a call that
     wedges gives ``TimeoutError``, and a request still queued then is
-    withdrawn. ``rows / batches`` is the coalescing ratio. An
-    ``EnsemblePredictor`` with a plan (collective calls) is refused."""
+    withdrawn. ``rows / batches`` is the coalescing ratio.
+
+    Over an ``EnsemblePredictor`` whose plan's mesh has process groups the
+    batcher is collective, since each of the predictor's calls is: every
+    rank of the mesh builds it with the same arguments, and it makes its
+    own process group over the mesh's ranks for its broadcasts. Global rank
+    0 is the front: it takes the requests under the contract above, and
+    before each group's call it broadcasts the joined rows
+    (``parallel.collectives.broadcast``), so that every rank makes the same
+    call on the same rows in the same order; a group that cannot be joined
+    goes back to its callers and is not broadcast; ``close()`` drains the
+    queue and broadcasts a stop. On every other rank, a follower, a worker
+    thread receives each batch, makes the same call, drops its result and
+    counts ``batches`` and ``rows``; an error of that call is dropped there,
+    since the front delivers the same error. A follower's ``__call__``
+    raises; its ``close()`` waits for the front's stop. While a planned
+    batcher is open no other thread may issue a collective on the plan's
+    mesh. A follower that fails alone (a device fault) leaves the front's
+    callers with ``TimeoutError`` after ``timeout_s``; the process group's
+    timeout bounds the rest. A broadcast that fails stops the batcher on
+    its rank: the waiting callers get its error, later calls raise, and
+    ``close()`` raises it. A plan with no process group
+    (``build_mesh(world_size=1)``) is served as an unplanned predictor."""
+
+    FRONT = 0   # the global rank that takes the requests of a planned batcher
 
     def __init__(self, predictor: Callable, max_delay_ms: float = 5.0,
                  max_batch: Optional[int] = None,
@@ -569,12 +599,6 @@ class DynamicBatcher:
                 "batch axis is not leading, so per-request slicing would "
                 "cut the member axis; wrap a reducing ensemble "
                 "(reduce='mean_probs') instead")
-        if getattr(predictor, "_plan", None) is not None:
-            # its calls are collective: one rank would have to hand every
-            # coalesced batch to the others
-            raise NotImplementedError(
-                "a DynamicBatcher over an EnsemblePredictor with a plan is "
-                "not ported (ROADMAP.md, queue A item 7d)")
         self.predictor = predictor
         self._delay = max_delay_ms / 1e3
         self._max = int(max_batch
@@ -585,22 +609,39 @@ class DynamicBatcher:
         self._cv = threading.Condition()
         self._queue: list = []  # (enqueue_time, _Request)
         self._closed = False
+        self._error: Optional[BaseException] = None  # a failed broadcast
         self.batches = 0  # calls of the predictor
         self.rows = 0     # rows served
+        self._group = None
+        plan = getattr(predictor, "_plan", None)
+        # the world's group on a mesh with process groups; None on a
+        # layout-only mesh of one rank (one of more raises there)
+        if (plan is not None
+                and plan.mesh.group(plan.mesh.axis_names) is not None):
+            # collective over the world (the mesh's ranks): every rank
+            # makes it, in one order
+            self._group = dist.new_group(list(range(plan.mesh.ranks.size)))
+        self._follower = (self._group is not None
+                          and dist.get_rank() != self.FRONT)
         self._worker = threading.Thread(
-            target=self._run, name="dynamic-batcher", daemon=True)
+            target=self._follow if self._follower else self._run,
+            name="dynamic-batcher", daemon=True)
         self._worker.start()
 
     def __call__(self, **inputs) -> np.ndarray:
         """Enqueue one request (any row count) and block for its slice of
         the batched result."""
+        if self._follower:
+            raise RuntimeError(
+                f"rank {dist.get_rank()} follows a planned DynamicBatcher: "
+                f"its front, global rank {self.FRONT}, takes the requests")
         inputs = {k: np.asarray(v) for k, v in _served(inputs).items()}
         if not inputs:
             raise ValueError("empty request")
         req = _Request(inputs, len(next(iter(inputs.values()))))
         with self._cv:
             if self._closed:
-                raise RuntimeError("DynamicBatcher is closed")
+                raise RuntimeError("DynamicBatcher is closed") from self._error
             if self._max_queue is not None:
                 pending = sum(r.n for _, r in self._queue)
                 if pending + req.n > self._max_queue:
@@ -623,13 +664,22 @@ class DynamicBatcher:
             raise req.error
         return req.result
 
+    def _on_device(self) -> None:
+        """A planned worker's collectives use the predictor's card: the
+        current device is per thread."""
+        device = getattr(self.predictor, "device", None)
+        if (self._group is not None and device is not None
+                and torch.device(device).type == "cuda"):
+            torch.cuda.set_device(device)
+
     def _run(self):
+        self._on_device()
         while True:
             with self._cv:
                 while not self._queue and not self._closed:
                     self._cv.wait()
                 if not self._queue and self._closed:
-                    return
+                    break
                 deadline = self._queue[0][0] + self._delay
                 while (sum(r.n for _, r in self._queue) < self._max
                        and not self._closed):
@@ -642,32 +692,86 @@ class DynamicBatcher:
             for _, r in batch:
                 groups.setdefault(frozenset(r.inputs), []).append(r)
             for reqs in groups.values():
-                try:
-                    joined = {
-                        k: (np.concatenate([r.inputs[k] for r in reqs])
-                            if len(reqs) > 1 else reqs[0].inputs[k])
-                        for k in reqs[0].inputs
-                    }
-                    out = np.asarray(self.predictor(**joined))
-                    self.batches += 1
-                    self.rows += sum(r.n for r in reqs)
-                    off = 0
-                    for r in reqs:
-                        r.result = out[off:off + r.n]
-                        off += r.n
-                except Exception as e:  # deliver it; the worker goes on
-                    for r in reqs:
-                        r.error = e
-                finally:
-                    for r in reqs:
-                        r.event.set()
+                self._serve(reqs)
+        if self._group is not None and self._error is None:
+            try:
+                self._send(None)
+            except Exception:  # noqa: BLE001 -- kept: close() raises it
+                pass
+
+    def _serve(self, reqs: list) -> None:
+        """One group's call; its result or error goes to its callers."""
+        try:
+            if self._error is not None:
+                raise RuntimeError("DynamicBatcher is closed") from self._error
+            joined = {
+                k: (np.concatenate([r.inputs[k] for r in reqs])
+                    if len(reqs) > 1 else reqs[0].inputs[k])
+                for k in reqs[0].inputs
+            }
+            if self._group is not None:
+                joined = self._send(joined)
+            out = np.asarray(self.predictor(**joined))
+            self.batches += 1
+            self.rows += sum(r.n for r in reqs)
+            off = 0
+            for r in reqs:
+                r.result = out[off:off + r.n]
+                off += r.n
+        except Exception as e:  # deliver it; the worker goes on
+            for r in reqs:
+                r.error = e
+        finally:
+            for r in reqs:
+                r.event.set()
+
+    def _send(self, joined: Optional[dict]) -> Optional[dict]:
+        """Broadcast a batch (None: the stop) from the front. A broadcast
+        that fails after its first message leaves the mesh out of step, so
+        the batcher stops: the error goes to every queued caller too."""
+        try:
+            return broadcast(joined, self.FRONT, self._group)
+        except TypeError:   # checked before anything was sent
+            raise
+        except Exception as e:
+            with self._cv:
+                self._error, self._closed = e, True
+                pending, self._queue = self._queue, []
+            for _, r in pending:
+                r.error = e
+                r.event.set()
+            raise
+
+    def _follow(self):
+        """A follower's worker: each batch the front broadcasts, called
+        here too, until the stop."""
+        self._on_device()
+        while True:
+            try:
+                joined = broadcast(None, self.FRONT, self._group)
+            except Exception as e:  # no stop can come now: close() raises
+                self._error = e
+                return
+            if joined is None:
+                return
+            try:
+                self.predictor(**joined)
+            except Exception:  # noqa: BLE001 -- the front delivers it
+                continue
+            self.batches += 1
+            self.rows += len(next(iter(joined.values())))
 
     def close(self):
-        """Drain the queue and stop the worker (idempotent)."""
+        """Drain the queue and stop the worker (idempotent). A planned
+        front broadcasts the stop once the queue is drained; a follower
+        waits for it. Raises the error of a broadcast that failed."""
         with self._cv:
             self._closed = True
             self._cv.notify_all()
         self._worker.join()
+        if self._error is not None:
+            raise RuntimeError("the DynamicBatcher's broadcast failed"
+                               ) from self._error
 
     def __enter__(self):
         return self

@@ -331,10 +331,12 @@ def test_mixed_batch_stats_raise_naming_the_paths(members, tmp_path, source):
 def test_ensemble_plan_and_unknown_reduce_raise(members):
     """``plan`` is ported: a plan of one rank (a layout-only mesh, no
     process group) serves what the unplanned predictor serves, bit for
-    bit, and a ``DynamicBatcher`` refuses it (queue A item 7d); members
-    that do not divide the ensemble axis raise JAX's error, as does an
-    unknown reduction (the sharded predictor:
-    ``test_torch_port_ensemble.py``)."""
+    bit, and so does a ``DynamicBatcher`` over it, which serves it as the
+    unplanned batcher does (requests of 1, 3 and 2 rows one after
+    another: the same calls on both); members that do not divide the
+    ensemble axis raise JAX's error, as does an unknown reduction (the
+    sharded predictor and its batcher: ``test_torch_port_ensemble.py``,
+    ``test_torch_port_batcher_mesh.py``)."""
     from multimodal_eeg_fmri_tpu_torch.parallel import build_mesh
 
     models = [port_model(m) for m in members]
@@ -345,8 +347,16 @@ def test_ensemble_plan_and_unknown_reduce_raise(members):
         np.testing.assert_array_equal(
             planned(**DATA), EnsemblePredictor.from_modules(
                 models, batch_size=BATCH, reduce=reduce)(**DATA))
-    with pytest.raises(NotImplementedError, match="queue A item 7d"):
-        DynamicBatcher(planned)
+    rows = eeg_inputs(6, seed=9)
+    served = []
+    for ens in (planned, EnsemblePredictor.from_modules(models,
+                                                        batch_size=BATCH)):
+        with DynamicBatcher(ens, max_delay_ms=1.0, timeout_s=WAIT_S) as b:
+            served.append([b(**{k: v[lo:hi] for k, v in rows.items()})
+                           for lo, hi in ((0, 1), (1, 4), (4, 6))])
+        assert (b.batches, b.rows) == (3, 6)
+    for got, want in zip(*served):
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="3 members not divisible by the "
                        r"mesh's ensemble axis \(2\)"):
         EnsemblePredictor.from_modules(

@@ -18,6 +18,9 @@ sharding helpers) against its own unsharded runs and the JAX package's.
   of ``test_torch_port_deploy.py``'s narrow V4 on the flash route: each
   rank folds its 2 members into one flash call per layer; the three
   reductions against JAX's planned predictor within 1e-5, votes exactly;
+  a ``DynamicBatcher`` over it (rank 0 the front, one row a thread)
+  against JAX's batcher over JAX's planned predictor alike, and bit for
+  bit the port's direct planned call, every rank's counters the front's;
   the calibrated temperature within 1e-5 of JAX's, relative; the "not
   divisible" error; the export written by rank 0 serves what the unplanned
   predictor serves, bit for bit.
@@ -46,6 +49,7 @@ from multimodal_eeg_fmri_tpu.core.config import TrainConfig as JTrainConfig
 from multimodal_eeg_fmri_tpu.data.arrays import pad_rows, subset
 from multimodal_eeg_fmri_tpu.models.eeg import TriModalFusionNetV4 as JTri
 from multimodal_eeg_fmri_tpu.parallel import mesh as j_mesh
+from multimodal_eeg_fmri_tpu.serving import DynamicBatcher as JBatcher
 from multimodal_eeg_fmri_tpu.serving import EnsemblePredictor as JEnsemble
 from multimodal_eeg_fmri_tpu.serving import stack_variable_trees as j_stack
 from multimodal_eeg_fmri_tpu_torch import parallel as t_par
@@ -144,14 +148,29 @@ def _jax_refs(data, cfg, members, labels):
                              data=SERVE_MESH[1])
     params = j_stack([m["params"] for m in members])
     stats = j_stack([m["batch_stats"] for m in members])
-    serve = {reduce: JEnsemble(JTri(**TRI), params, stats, plan=plan,
-                               batch_size=BATCH, reduce=reduce)(**DATA)
-             for reduce in ("mean_probs", "vote", "none")}
+    serve = {}
+    for reduce in ("mean_probs", "vote", "none"):
+        ens = JEnsemble(JTri(**TRI), params, stats, plan=plan,
+                        batch_size=BATCH, reduce=reduce)
+        serve[reduce] = ens(**DATA)
+        if reduce != "none":
+            serve["batcher", reduce] = _jax_batched(ens)
     cal = JEnsemble(JTri(**TRI), params, stats, plan=plan,
                     batch_size=BATCH).calibrated(DATA, labels)
     serve["temperature"] = cal.temperature
     serve["calibrated"] = cal(**DATA)
     return cv, serve
+
+
+def _jax_batched(ens):
+    """JAX's ``DynamicBatcher`` over ``ens``: each row of ``DATA`` from a
+    thread of its own, as ``workers.serve_batched`` sends them."""
+    out = {}
+    n = len(DATA["erp"])
+    with JBatcher(ens, max_delay_ms=20.0, timeout_s=workers.WAIT_S) as b:
+        workers.run_threads(lambda i: out.__setitem__(i, b(**{
+            k: v[i:i + 1] for k, v in DATA.items()})), n)
+    return np.concatenate([out[i] for i in range(n)])
 
 
 @pytest.fixture(scope="module")
@@ -336,6 +355,31 @@ def test_planned_ensemble_matches_jax(world, jax_refs, reduce):
         calls = rank["serve"]["calls", reduce]
         assert len(calls) == 3 * -(-len(DATA["erp"]) // BATCH)
         assert {c[0] for c in calls} == {2 * BATCH}
+
+
+@pytest.mark.parametrize("reduce", ["mean_probs", "vote"])
+def test_planned_batcher_matches_jax_and_the_direct_call(world, jax_refs,
+                                                         reduce):
+    """A ``DynamicBatcher`` over the planned predictor on every rank, rank
+    0 taking each row of ``DATA`` from its own thread: its rows against
+    JAX's ``DynamicBatcher`` over JAX's planned predictor within 1e-5
+    (votes exactly), and bit for bit the port's direct planned call on the
+    same rows; every rank made the front's calls (its counters) and
+    stopped at the front's ``close()``."""
+    ranks, _ = world
+    want = jax_refs.result()[1]["batcher", reduce]
+    got, batches, rows, alive = ranks[0]["serve"]["batcher", reduce]
+    assert got.shape == want.shape
+    if reduce == "vote":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=PROB_ATOL, rtol=0)
+    np.testing.assert_array_equal(got, ranks[0]["serve"][reduce])
+    assert rows == len(DATA["erp"]) and 1 <= batches <= rows
+    for r, rank in enumerate(ranks):
+        follower = rank["serve"]["batcher", reduce]
+        assert (r == 0) == (follower[0] is not None)
+        assert follower[1:] == (batches, rows, False), r
 
 
 def test_planned_ensemble_calibration_error_and_export(world, jax_refs,

@@ -260,9 +260,9 @@ def test_tree_helpers_match_jax():
 
 
 def test_unported_parts_name_their_queue_item():
-    """Queue A items 7a, 7b and 7c are ported: the package exports the
-    JAX package's ``__all__`` (``ensemble_vmap`` is dropped, item 8, and
-    not in it), no message of the port names item 7c any more, and a seed
+    """Queue A items 7a-7d are ported: the package exports the JAX
+    package's ``__all__`` (``ensemble_vmap`` is dropped, item 8, and not
+    in it), no message of the port names item 7c or 7d any more, and a seed
     sweep whose seeds do not divide the ensemble axis raises the JAX
     package's error, word for word."""
     from pathlib import Path
@@ -276,7 +276,8 @@ def test_unported_parts_name_their_queue_item():
         assert hasattr(t_par, name), name
     root = Path(t_par.__file__).parents[1]
     for path in root.rglob("*.py"):
-        assert "item 7c" not in path.read_text(), path
+        text = path.read_text()
+        assert "item 7c" not in text and "item 7d" not in text, path
     plan = t_par.build_mesh(ensemble=2, world_size=2, rank=0)
     with pytest.raises(ValueError) as err:
         t_cv.run_seed_sweep(None, TrainConfig(),

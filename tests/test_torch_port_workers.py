@@ -11,9 +11,12 @@ from __future__ import annotations
 
 import importlib
 import sys
+import threading
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_eeg_fmri_tpu_torch import load_flax_variables, make_fit_fn
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
@@ -32,6 +35,7 @@ from multimodal_eeg_fmri_tpu_torch.parallel import (
 from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+WAIT_S = 30.0       # the longest any thread of a rank may wait
 
 
 def _mesh(shape, names) -> Mesh:
@@ -483,8 +487,10 @@ def ensemble_cases(rank, world, meshes, cv, sweep, hpo, serve):
     choices): ``hpo_study``; ``serve`` (mesh, model kwargs, K members' flax
     variables, rows, labels, batch size, artifact path): the planned
     ``EnsemblePredictor``'s three reductions, its calibration, the flash
-    calls of one batch, the "not divisible" error and the export. Returns
-    ({case: result}, whether JAX was imported)."""
+    calls of one batch, the "not divisible" error and the export, and a
+    planned ``DynamicBatcher`` over it for ``mean_probs`` and ``vote``
+    (``serve_batched``). Returns ({case: result}, whether JAX was
+    imported)."""
     from multimodal_eeg_fmri_tpu_torch.serving import EnsemblePredictor
     from multimodal_eeg_fmri_tpu_torch.train.cv import (
         eeg_kfold_splits,
@@ -541,6 +547,8 @@ def ensemble_cases(rank, world, meshes, cv, sweep, hpo, serve):
             port_attn._flash_forward = real
         served["calls", reduce] = list(calls)
         calls.clear()
+        if reduce != "none":
+            served["batcher", reduce] = serve_batched(rank, ens, rows)
     ens = EnsemblePredictor.from_modules(models, batch_size=batch, plan=plan)
     cal = ens.calibrated(rows, labels)
     served["temperature"] = cal.temperature
@@ -629,3 +637,248 @@ def multihost_folds(n_folds, dp, lo=0, hi=None, seed=0, time_steps=32):
                     pad_rows(subset(raw, np.arange(start + 2 * B,
                                                    start + 3 * B)), B)))
     return out
+
+
+def run_threads(fn, n):
+    """``fn(i)`` on ``n`` threads, each joined within WAIT_S; raises the
+    first exception any of them raised."""
+    errors = []
+
+    def run(i):
+        try:
+            fn(i)
+        except BaseException as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(WAIT_S)
+        if t.is_alive():
+            raise RuntimeError("a request thread hung")
+    if errors:
+        raise errors[0]
+
+
+def serve_batched(rank, predictor, rows, **kw):
+    """A planned ``DynamicBatcher`` over ``predictor``, built on every
+    rank: rank 0 sends each row of ``rows`` from a thread of its own, and
+    every rank closes it twice. Returns (rank 0's rows in order, None
+    elsewhere; ``batches``; ``rows``; whether its worker still runs)."""
+    from multimodal_eeg_fmri_tpu_torch.serving import DynamicBatcher
+
+    b = DynamicBatcher(predictor, max_delay_ms=20.0, timeout_s=WAIT_S, **kw)
+    got = None
+    if rank == 0:
+        n = len(next(iter(rows.values())))
+        out = {}
+        run_threads(lambda i: out.__setitem__(i, b(**{
+            k: v[i:i + 1] for k, v in rows.items()})), n)
+        got = np.concatenate([out[i] for i in range(n)])
+    b.close()
+    b.close()
+    return got, b.batches, b.rows, b._worker.is_alive()
+
+
+class MeshStub:
+    """A planned predictor as the batcher sees it (``_plan``, ``device``,
+    ``batch_size``): a call sums x·(rank + 1) over the mesh's ensemble axis
+    (``psum``), x the request's arrays side by side as float64, and records
+    (sorted keys, rows). A request with the key ``boom`` raises on every
+    rank after its psum; ``hold``, where given, is waited for before it."""
+
+    def __init__(self, plan, hold=None):
+        self._plan = plan
+        self.device = torch.device("cpu")
+        self.batch_size = 8
+        self.hold = hold
+        self.seen = []
+
+    def __call__(self, **inputs):
+        self.seen.append((tuple(sorted(inputs)),
+                          len(next(iter(inputs.values())))))
+        if self.hold is not None:
+            self.hold.wait(WAIT_S)
+        x = np.concatenate([np.asarray(v, np.float64).reshape(len(v), -1)
+                            for _, v in sorted(inputs.items())], 1)
+        total = psum(torch.from_numpy(x) * (dist.get_rank() + 1),
+                     "ensemble", self._plan.mesh)
+        if "boom" in inputs:
+            raise RuntimeError("device fault")
+        return total.numpy()
+
+
+BROADCAST_CASE = {
+    "f32": np.arange(24, dtype=np.float32).reshape(2, 3, 4) / 7,
+    "f64": np.linspace(-1, 1, 5),
+    "i64": np.arange(-3, 3, dtype=np.int64).reshape(3, 2),
+    "mask": np.array([[True, False, True]]),
+    "u8": np.arange(7, dtype=np.uint8),
+    "half": np.array([1.5, -2.25], np.float16),
+    "scalar": np.float32(3.5),
+    "none": np.zeros((0, 4), np.float32),
+    "strided": np.arange(12.0).reshape(3, 4)[:, ::2],
+}
+
+
+def batcher_cases(rank, world):
+    """The planned ``DynamicBatcher``'s protocol on an ensemble axis of the
+    whole world, over ``MeshStub``s; rank 0 is the front, the others build
+    each batcher with the same arguments and close it twice. The cases, in
+    order: ``broadcast`` of ``BROADCAST_CASE`` and of a stop on a group of
+    its own, and a string array refused on the sender; two key sets in one
+    flush; a 3-row request flushed at the deadline; an error every rank
+    raises and a join error, each delivered on the front, then a good call;
+    ``QueueFull`` and a timeout while a call is held; a follower's
+    ``__call__``; a broadcast that fails on every rank. Returns ({case:
+    this rank's record}, whether JAX was imported)."""
+    from multimodal_eeg_fmri_tpu_torch.parallel.collectives import broadcast
+    from multimodal_eeg_fmri_tpu_torch.serving import (
+        DynamicBatcher,
+        QueueFull,
+    )
+
+    plan = build_mesh(ensemble=world)
+    front = rank == 0
+    out = {}
+
+    group = dist.new_group(list(range(world)))
+    sent = BROADCAST_CASE if front else None
+    got = broadcast(sent, 0, group)
+    stop = broadcast(None, 0, group)
+    refused = None
+    if front:
+        try:
+            broadcast({"s": np.array(["a"])}, 0, group)
+        except TypeError as e:
+            refused = str(e)
+    out["broadcast"] = (got, stop, refused)
+
+    def batcher(stub, **kw):
+        kw = {"max_delay_ms": 200.0, "timeout_s": WAIT_S, **kw}
+        return DynamicBatcher(stub, **kw)
+
+    def finish(name, b, stub, record):
+        t0 = time.perf_counter()
+        b.close()
+        b.close()
+        out[name] = {**record, "seen": stub.seen, "batches": b.batches,
+                     "rows": b.rows, "alive": b._worker.is_alive(),
+                     "close_s": time.perf_counter() - t0,
+                     "rejected": b.rejected}
+
+    def one(b, /, **arrays):
+        """A request's result, or its error's (type, message)."""
+        try:
+            return b(**arrays)
+        except Exception as e:  # noqa: BLE001 -- recorded
+            return type(e).__name__, str(e)
+
+    # two key sets in one flush
+    stub = MeshStub(plan)
+    b = batcher(stub, max_batch=8)
+    got = {}
+    if front:
+        keys = ("a", "b")
+        run_threads(lambda i: got.__setitem__(i, one(b, **{
+            keys[i % 2]: np.full((1, 2), float(i))})), 4)
+    finish("keys", b, stub, {"got": got})
+
+    # a multi-row request alone: flushed at the deadline
+    stub = MeshStub(plan)
+    b = batcher(stub, max_delay_ms=1.0)
+    x = np.arange(6, dtype=np.float32).reshape(3, 2)
+    finish("deadline", b, stub, {"got": one(b, x=x) if front else None})
+
+    # an error of the call on every rank; a group that cannot be joined
+    stub = MeshStub(plan)
+    b = batcher(stub, max_batch=8)
+    got = {}
+    if front:
+        got["boom"] = one(b, x=np.ones((1, 2)), boom=np.ones((1, 1)))
+        widths = (2, 3)
+        run_threads(lambda i: got.__setitem__(i, one(
+            b, x=np.ones((1, widths[i])))), 2)
+        got["after"] = one(b, x=np.full((2, 2), 2.0))
+    finish("errors", b, stub, {"got": got})
+
+    # QueueFull and a timeout while the front's call is held
+    hold = threading.Event() if front else None
+    stub = MeshStub(plan, hold)
+    b = batcher(stub, max_delay_ms=1.0, max_batch=1, max_queue=2,
+                timeout_s=1.0)
+    got = {}
+    if front:
+        held = threading.Thread(target=lambda: got.__setitem__(
+            "held", one(b, x=np.ones((1, 2)))))
+        held.start()
+        deadline = time.monotonic() + WAIT_S
+        while not stub.seen and time.monotonic() < deadline:
+            time.sleep(0.005)
+        queued = threading.Thread(target=lambda: got.__setitem__(
+            "queued", one(b, x=np.ones((2, 2)))))
+        queued.start()
+        while time.monotonic() < deadline:
+            with b._cv:
+                if b._queue:
+                    break
+            time.sleep(0.005)
+        try:
+            b(x=np.ones((1, 2)))
+        except QueueFull as e:
+            got["full"] = str(e)
+        queued.join(WAIT_S)
+        with b._cv:
+            got["left"] = len(b._queue)
+        hold.set()
+        held.join(WAIT_S)
+        got["hung"] = held.is_alive() or queued.is_alive()
+        got["after"] = one(b, x=np.full((1, 2), 3.0))
+    finish("queue", b, stub, {"got": got})
+
+    # a follower takes no request
+    stub = MeshStub(plan)
+    b = batcher(stub)
+    call = None if front else one(b, x=np.ones((1, 2)))
+    finish("follower_call", b, stub, {"got": call})
+    if front:
+        out["closed"] = one(b, x=np.ones((1, 2)))
+
+    # a broadcast that fails (here on every rank, at its first batch)
+    # stops the batcher: no rank carries on
+    serving = importlib.import_module("multimodal_eeg_fmri_tpu_torch.serving")
+
+    def broken(arrays, src, group):
+        raise ConnectionError("the group failed")
+
+    serving.broadcast = broken
+    try:
+        stub = MeshStub(plan)
+        b = batcher(stub, max_delay_ms=1.0)
+        got = {}
+        if front:
+            got["first"] = one(b, x=np.ones((1, 2)))
+            got["later"] = one(b, x=np.ones((1, 2)))
+        closes = [one(b.close) for _ in range(2)]
+        out["broken"] = {"got": got, "closes": closes, "seen": stub.seen,
+                         "alive": b._worker.is_alive(),
+                         "cause": repr(b._error)}
+    finally:
+        serving.broadcast = broadcast
+    return out, "jax" in sys.modules
+
+
+def batcher_world_of_one(rank, world):
+    """A ``DynamicBatcher`` over a ``MeshStub`` on a plan of the world of
+    one, which has a process group: the planned mode, its broadcasts on a
+    group of one. Returns (requests' results, counters, whether it made a
+    group, the stub's calls, whether JAX was imported)."""
+    from multimodal_eeg_fmri_tpu_torch.serving import DynamicBatcher
+
+    stub = MeshStub(build_mesh())
+    x = np.arange(10.0).reshape(5, 2)
+    with DynamicBatcher(stub, max_delay_ms=1.0, timeout_s=WAIT_S) as b:
+        got = [b(x=x[lo:hi]) for lo, hi in ((0, 3), (3, 5))]
+    return (got, (b.batches, b.rows), b._group is not None, stub.seen,
+            "jax" in sys.modules)
