@@ -244,6 +244,28 @@ blocks on a ring of 4 with the flash chunk): the tokens routed otherwise
 than on the single device printed, and with any the gate held on a run
 that takes the single device's expert choices (C8). A ``parallel`` JSON
 line holds their times; the kernels line lists their launches.
+The last of the JAX package (queue A item 8), after the pipelines phase:
+aot-cv-eeg-kfold-T512 runs cv-eeg-kfold-T512's ``run_cv`` under
+deterministic algorithms without ``aot_dir``, with a fresh one (a miss:
+its evaluation program exported, one bundle written) and again (a hit: the
+bundle loaded, no file written): fold metrics equal, test probabilities
+bit for bit or within 1e-6 of the largest (which one held is printed),
+K1-K3 launches equal; each run's seconds and the export and load times
+printed. A fresh process loads the bundle without the model's code and
+gives fold 0's test logits bit for bit. aot-train-e2e-T512 bundles
+MultimodalEndToEnd(dropout=0.0)'s train-mode loss at train-e2e-T512's
+shapes (weights and buffers as inputs), loads it and runs it backward:
+K1, K2 and K3 4 each through the operator's registered gradient, the loss
+and gradients held to the live module's by ``step_gate``. The flat AdamW
+(``ops/optim.py``) takes 3 steps over those parameters against
+``torch.optim.AdamW`` (1e-6 of each tensor's largest), timed. K1, K2 and
+K3 at (1, 1, 64, 12800), past the old head-dim limit of 12,448, are held
+to their plain versions (2e-5, 2e-4) and timed. An ``aot`` JSON line holds
+these numbers. In the ring world, ensemble-vmap-T512 maps the V4 member
+forward at T = 512 over 4 of cv-eeg-kfold-T512's fold-stacked weight sets
+with ``parallel.ensemble_vmap`` on an ensemble axis of 4: every rank's
+logits bit for bit the single-device vmap of each rank's fold, K1 4 a
+rank; the vmap of all 4 folds at once within 4e-6 of the largest logit.
 Any failed phase raises, so the exit code is not 0 and the final line is
 not printed.
 There is no CPU mode: without a GPU the script fails at once.
@@ -4595,6 +4617,8 @@ def ring_worker(rank: int, world: int, one_card_each: bool, start: float,
     torch.cuda.empty_cache()
     out["ensemble"] = ensemble_cases(rank, world, dev, start,
                                      refs["members"])
+    torch.cuda.empty_cache()
+    out["vmap"] = ensemble_vmap_case(rank, world, dev, refs["vmap"])
     return out
 
 
@@ -5822,7 +5846,8 @@ def ring_phase(dev, card: str, ensemble_refs: dict) -> dict:
     ranks = spawn_local_world(ring_worker, RING_SEQ, one_card_each, start,
                               {"ep": par_refs["ep"]["choices"],
                                "shard_pools": par_refs["shard"]["pools"],
-                               "members": ensemble_refs["members"]},
+                               "members": ensemble_refs["members"],
+                               "vmap": ensemble_refs["vmap"]},
                               backend=backend)
     world_s = time.perf_counter() - t0
     r0 = ranks[0]
@@ -5910,6 +5935,8 @@ def ring_phase(dev, card: str, ensemble_refs: dict) -> dict:
 
     par = parallel_gates([r["parallel"] for r in ranks], par_refs, card)
     ens = ensemble_gates([r["ensemble"] for r in ranks], ensemble_refs, card)
+    ens["launches"][f"ensemble-vmap-T{T_SERVE}, per rank"] = vmap_gates(
+        [r["vmap"] for r in ranks], ensemble_refs["vmap"], card)["launches"]
 
     phase("a world of one over NCCL: the ring of one against the "
           "single-device flash route")
@@ -5961,6 +5988,437 @@ def ring_phase(dev, card: str, ensemble_refs: dict) -> dict:
                          "heads": r0["heads"][2], "one": one["launches"]},
             "par_launches": par["launches"], "times": times,
             "parallel": par["times"], "ensemble": ens}
+
+
+
+# --- the last of the JAX package: program bundles, the flat AdamW, head
+# dims past 12,448 and ensemble_vmap ----------------------------------------
+
+AOT_RTOL = 1e-6           # fold probabilities, bundled vs eager, of the largest
+ADAMW_RTOL = 1e-6         # flat AdamW vs torch.optim.AdamW, of each largest
+ADAMW_STEPS = 3
+HEAD_DIM_CASE = (1, 1, 64, 12800)   # past the old limit of 12,448
+VMAP_FOLDS = 4            # ensemble-vmap-T512: cv-eeg-kfold-T512's first folds
+# the vmap of all folds at once against the blocks', of the largest logit:
+# cuBLAS picks its batched GEMMs by the count of folds (read on the H100:
+# 2.235e-7 of 0.2176, 1.03e-6)
+VMAP_WHOLE_RTOL = 4e-6
+
+FRESH_PROCESS = """
+import sys, time
+t0 = time.perf_counter()
+import torch
+from multimodal_eeg_fmri_tpu_torch.core.aot import load_bundle
+from multimodal_eeg_fmri_tpu_torch.ops.attention import kernel_launches
+bundle, args_path, out_path, dev = sys.argv[1:]
+tensors, inputs = torch.load(args_path)
+dev = torch.device(dev)
+# the parent's settings: a bundle does not carry the process's TF32 flags
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+tensors = {k: v.to(dev) for k, v in tensors.items()}
+inputs = {k: v.to(dev) for k, v in inputs.items()}
+t1 = time.perf_counter()
+program = load_bundle(bundle)
+t2 = time.perf_counter()
+with torch.no_grad():
+    out = program(tensors, inputs)
+if dev.type == "cuda":
+    torch.cuda.synchronize()
+models = [m for m in sys.modules if m.startswith("multimodal_eeg_fmri_tpu.")
+          or m == "jax"]
+torch.save({"logits": out.logits.cpu(), "launches": kernel_launches(),
+            "tf32": torch.backends.cudnn.allow_tf32,
+            "load_s": t2 - t1, "start_s": t1 - t0, "jax": models}, out_path)
+"""
+
+
+def aot_phase(dev, card: str) -> dict:
+    """aot-cv-eeg-kfold-T512: ``run_cv`` of cv-eeg-kfold-T512's
+    configuration without ``aot_dir``, with a fresh one (a miss: the
+    evaluation program exported) and again (a hit: loaded), all three under
+    deterministic algorithms; then a fresh process that loads the bundle
+    without the model's code and runs fold 0's evaluation."""
+    from multimodal_eeg_fmri_tpu_torch.core import aot
+    from multimodal_eeg_fmri_tpu_torch.core.config import (
+        EEGConfig,
+        TrainConfig,
+    )
+    from multimodal_eeg_fmri_tpu_torch.data.synthetic import (
+        synthetic_eeg_trimodal,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.cv import (
+        build_fold_arrays,
+        eeg_kfold_splits,
+        run_cv,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.fit import (
+        split_batch,
+        state_tensors,
+    )
+
+    data = synthetic_eeg_trimodal(n_subjects=CV_EEG_N, time_steps=T_SERVE)
+    cfg = TrainConfig(batch_size=BATCH, num_epochs=CV_EPOCHS,
+                      loss="weighted_ce", selection="val")
+    splits = eeg_kfold_splits(data, cfg)
+    model = eeg_model(EEGConfig(), 0.0, dev)
+    clock = {"export": [], "load": []}
+    real = {"export": aot.export_jitted, "load": aot.load_bundle}
+
+    def clocked(kind):
+        def wrapper(*a, **kw):
+            out, s = timed(lambda: real[kind](*a, **kw))
+            clock[kind].append(s)
+            return out
+        return wrapper
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="mmef_aot_") as tmp:
+        bundles = lambda: sorted(Path(tmp).glob("*.pt2"))  # noqa: E731
+        for name, aot_dir in (("eager", None), ("miss", tmp), ("hit", tmp)):
+            before = bundles()
+            reset_all_launches()
+            with patched(aot, "export_jitted", clocked("export")), \
+                    patched(aot, "load_bundle", clocked("load")), \
+                    deterministic():
+                result, seconds = timed(lambda: run_cv(
+                    model, cfg, data, splits, normalize_keys=EEG_KEYS,
+                    aot_dir=aot_dir))
+            runs[name] = {"result": result, "seconds": seconds,
+                          "launches": total_launches(),
+                          "new": [p for p in bundles() if p not in before]}
+            print(f"aot-cv-eeg-kfold-T{T_SERVE} {name}: {seconds:.2f} s, "
+                  f"launches {runs[name]['launches']}, bundles written "
+                  f"{[p.name for p in runs[name]['new']]} {card}")
+        if len(runs["miss"]["new"]) != 1 or runs["hit"]["new"]:
+            fail(f"the miss wrote {len(runs['miss']['new'])} bundles (1 "
+                 f"wanted), the hit {len(runs['hit']['new'])} (0 wanted)")
+        if len(clock["export"]) != 1 or len(clock["load"]) != 1:
+            fail(f"{len(clock['export'])} exports and {len(clock['load'])} "
+                 "loads, one of each wanted")
+        eager = runs["eager"]["result"]
+        held = {}
+        for name in ("miss", "hit"):
+            res = runs[name]["result"]
+            for k, v in eager.fold_metrics.items():
+                if not np.array_equal(res.fold_metrics[k], v):
+                    fail(f"the {name} run's {k} differ from the eager run's: "
+                         f"{res.fold_metrics[k]} vs {v}")
+            gap = float(np.abs(res.test_probs - eager.test_probs).max())
+            limit = AOT_RTOL * float(np.abs(eager.test_probs).max())
+            held[name] = "bit for bit" if gap == 0 else (
+                f"within {AOT_RTOL:g} of the largest" if gap <= limit
+                else None)
+            print(f"{name} vs eager: fold metrics equal; test probabilities "
+                  f"max|d| {gap:.3e} ({held[name] or 'FAILED'}; limit "
+                  f"{limit:.3e})")
+            if held[name] is None:
+                fail(f"the {name} run's probabilities differ from the eager "
+                     "run's")
+            if runs[name]["launches"] != runs["eager"]["launches"]:
+                fail(f"the {name} run launched {runs[name]['launches']}, the "
+                     f"eager run {runs['eager']['launches']}")
+        print(f"export {clock['export'][0]:.2f} s (the miss), load "
+              f"{clock['load'][0]:.2f} s (the hit) {card}")
+
+        # a fresh process: the bundle and fold 0's arguments, no model
+        stacks = build_fold_arrays(data, splits, "scalar", EEG_KEYS)
+        test = split_batch({k: torch.as_tensor(v[0], device=dev)
+                            for k, v in stacks[1]["test"].items()})
+        hit = runs["hit"]["result"]
+        tensors = state_tensors(model, {
+            k: v[0].to(dev) for k, v in {**hit.params,
+                                         **hit.batch_stats}.items()})
+        path = runs["miss"]["new"][0]
+        size = path.stat().st_size
+        with torch.no_grad():
+            want = aot.load_bundle(path)(tensors, test).logits.cpu()
+        args = Path(tmp) / "args.pt"
+        out = Path(tmp) / "out.pt"
+        torch.save(({k: v.cpu() for k, v in tensors.items()},
+                    {k: v.cpu() for k, v in test.items()}), args)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", FRESH_PROCESS, str(path), str(args),
+             str(out), str(dev)], capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(Path(__file__).parent)})
+        fresh_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"the fresh process failed:\n{proc.stderr}")
+        got = torch.load(out)
+    gap = (got["logits"] - want).abs().max().item()
+    print(f"fresh process: fold 0's test logits {tuple(want.shape)} max|d| "
+          f"{gap:.3e} from the parent's loaded program (limit 0); K1 "
+          f"{got['launches']['flash_fwd']}; {fresh_s:.2f} s in all, "
+          f"{got['start_s']:.2f} s to import, load {got['load_s']:.3f} s; "
+          f"cuDNN TF32 {got['tf32']}; the JAX package imported: "
+          f"{got['jax'] or 'no'} {card}")
+    if gap != 0 or got["jax"] or got["launches"]["flash_fwd"]["f32"] < 1:
+        fail("the fresh process did not reproduce the parent's outputs "
+             "through K1 without the JAX package")
+    return {"seconds": {k: v["seconds"] for k, v in runs.items()},
+            "launches": {k: v["launches"] for k, v in runs.items()},
+            "export_s": clock["export"][0], "load_s": clock["load"][0],
+            "held": held, "fresh_s": fresh_s, "fresh_load_s": got["load_s"],
+            "fresh_launches": {k: sum(n.values()) for k, n in
+                               got["launches"].items()},
+            "bundle_bytes": size}
+
+
+def train_program_phase(dev, card: str) -> dict:
+    """aot-train-e2e-T512: ``export_jitted`` of MultimodalEndToEnd(
+    dropout=0.0)'s train-mode loss (weighted CE, weights and buffers as
+    inputs, the fusion gate's dropout drawn from the card's generator) at
+    train-e2e-T512's shapes, loaded and run backward: its K2 and K3 launch
+    through the operator's registered gradient, and the loss and gradients
+    are held to the live module's under the step gate. Then the flat AdamW
+    (``ops/optim.py``) over those parameters and gradients."""
+    from torch.func import functional_call
+
+    from multimodal_eeg_fmri_tpu_torch import MultimodalEndToEnd, init_weights
+    from multimodal_eeg_fmri_tpu_torch.core import aot
+    from multimodal_eeg_fmri_tpu_torch.core.rng import device_generator
+    from multimodal_eeg_fmri_tpu_torch.ops.losses import (
+        weighted_cross_entropy,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.fit import split_batch
+
+    model = init_weights(MultimodalEndToEnd(dropout=0.0, device=dev),
+                         torch.Generator().manual_seed(3)).train()
+    batch = labelled(BATCH, T_SERVE, seed=90, dev=dev)
+    inputs = {**split_batch(batch), **zscore(batch)}
+    cw = torch.tensor([1.0, 1.5], device=dev)
+
+    def loss(params, buffers, inputs, label, weight):
+        out = functional_call(model, {**params, **buffers}, (), inputs)
+        return weighted_cross_entropy(out.logits, label, cw, weight)
+
+    params = {k: p.detach().clone().requires_grad_()
+              for k, p in model.named_parameters()}
+    buffers = {k: b.clone() for k, b in model.named_buffers()}
+    args = (params, buffers, inputs, batch["label"], batch["weight"])
+    with tempfile.TemporaryDirectory(prefix="mmef_aot_") as tmp:
+        path = Path(tmp) / "train_e2e.pt2"
+        _, export_s = timed(lambda: aot.export_jitted(loss, args, path))
+        program, load_s = timed(lambda: aot.load_bundle(path))
+        size = path.stat().st_size
+
+    def run(fn):
+        device_generator(dev).manual_seed(11)   # the gate's dropout draws
+        reset_all_launches()
+        value = fn(params, {k: b.clone() for k, b in buffers.items()},
+                   *args[2:])
+        grads = torch.autograd.grad(value, list(params.values()),
+                                    materialize_grads=True)
+        torch.cuda.synchronize()
+        return value.item(), dict(zip(params, grads)), total_launches()
+
+    live_loss, live_grads, live_n = run(loss)
+    got_loss, got_grads, got_n = run(program)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"aot-train-e2e-T{T_SERVE}: {n_params:,} parameters; export "
+          f"{export_s:.2f} s, load {load_s:.3f} s, {size:,} bytes; launches "
+          f"loaded {got_n}, live {live_n} {card}")
+    layers = 4
+    if got_n != live_n or got_n != dict.fromkeys(got_n, layers):
+        fail(f"the loaded training program launched {got_n}, the live "
+             f"module {live_n}; {layers} of each wanted")
+    step_gate(f"aot-train-e2e-T{T_SERVE}, the loaded program ('kernel') "
+              "against the live module: ",
+              {"kernel": got_loss, "live": live_loss},
+              {"kernel": got_grads, "live": live_grads},
+              cancelled_biases(model))
+    bit = got_loss == live_loss and all(torch.equal(got_grads[k], v)
+                                        for k, v in live_grads.items())
+    print(f"loaded program vs live module: loss and gradients "
+          f"{'bit for bit' if bit else 'within the step gate'}")
+    adamw = adamw_phase(params, live_grads, card)
+    return {"export_s": export_s, "load_s": load_s, "bytes": size,
+            "launches": got_n, "n_params": n_params, "bit_for_bit": bit,
+            "adamw": adamw}
+
+
+def adamw_phase(params: dict, grads: dict, card: str) -> dict:
+    """The flat AdamW, ``ADAMW_STEPS`` steps on the card (the gradients
+    scaled 1, 0.5, 2 and clipped at 1.0), against ``torch.optim.AdamW`` on
+    the same parameters with the train step's clip; ms a step of each."""
+    from multimodal_eeg_fmri_tpu_torch.ops.optim import (
+        fused_adamw_step,
+        init_fused_adamw,
+    )
+    from multimodal_eeg_fmri_tpu_torch.train.fit import clip_by_global_norm_
+
+    lr, wd, clip = 5e-5, 1e-5, 1.0
+    flat = {k: p.detach().clone() for k, p in params.items()}
+    state = init_fused_adamw(flat)
+    ref = [torch.nn.Parameter(p.detach().clone()) for p in params.values()]
+    opt = torch.optim.AdamW(ref, lr=lr, weight_decay=wd, betas=(0.9, 0.999),
+                            eps=1e-8)
+    for scale in (1.0, 0.5, 2.0)[:ADAMW_STEPS]:
+        g = {k: scale * v for k, v in grads.items()}
+        flat, state = fused_adamw_step(flat, g, state, lr, wd, clip)
+        for p, v in zip(ref, g.values()):
+            p.grad = v.clone()
+        clip_by_global_norm_([p.grad for p in ref], clip)
+        opt.step()
+    torch.cuda.synchronize()
+    worst = max(rel_gap(flat[k], p.detach()) for k, p in zip(flat, ref))
+    flat_ms = cuda_ms(lambda: fused_adamw_step(flat, grads, state, lr, wd,
+                                               clip), iters=20, warmup=3)
+    torch_ms = cuda_ms(opt.step, iters=20, warmup=3)
+    print(f"flat AdamW, {ADAMW_STEPS} steps over {state.mu.numel():,} "
+          f"parameters: max|d|/max|p| per tensor against torch.optim.AdamW "
+          f"{worst:.3e} (limit {ADAMW_RTOL:g}); {flat_ms:.4f} ms a step "
+          f"(clip on), torch.optim.AdamW {torch_ms:.4f} ms {card}")
+    if not worst <= ADAMW_RTOL:
+        fail("the flat AdamW disagrees with torch.optim.AdamW")
+    return {"max_rel_err": worst, "ms": flat_ms, "torch_adamw_ms": torch_ms,
+            "n_params": state.mu.numel()}
+
+
+def head_dim_phase(dev, card: str) -> dict:
+    """K1, K2 and K3 at ``HEAD_DIM_CASE``, past the old limit of 12,448, on
+    the deep kernels against their plain versions (K1 2e-5, K2 and K3
+    2e-4), each launch counted at its entry point; their times (CUDA
+    events) beside the bound, the plain versions and SDPA."""
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dkv_plain,
+        flash_bwd_dq_cuda,
+        flash_bwd_dq_plain,
+        flash_delta,
+        flash_forward_cuda,
+        flash_forward_plain,
+        kernel_launches_by_instance,
+        reset_kernel_launches,
+    )
+
+    B, H, T, d = HEAD_DIM_CASE
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, g = (torch.randn(B, H, T, d, device=dev, generator=gen)
+                  for _ in range(4))
+    reset_kernel_launches()
+    out_k, lse_k = flash_forward_cuda(q, k, v)
+    out_p, lse_p = flash_forward_plain(q, k, v)
+    delta = flash_delta(out_p, g)
+    dk_k, dv_k = flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta)
+    dq_k = flash_bwd_dq_cuda(q, k, v, g, lse_p, delta)
+    dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, g, lse_p, delta)
+    dq_p = flash_bwd_dq_plain(q, k, v, g, lse_p, delta)
+    torch.cuda.synchronize()
+    instances = kernel_launches_by_instance()
+    err = {"flash_fwd": max((out_k - out_p).abs().max().item(),
+                            (lse_k - lse_p).abs().max().item()),
+           "flash_bwd_dkv": max((dk_k - dk_p).abs().max().item(),
+                                (dv_k - dv_p).abs().max().item()),
+           "flash_bwd_dq": (dq_k - dq_p).abs().max().item()}
+    want = {name: {f"mmef_{name}_deep D={d}": 1} for name in err}
+    print(f"(B,H,T,D)={HEAD_DIM_CASE}: max|d(O, lse)| "
+          f"{err['flash_fwd']:.3e} (limit {KERNEL_ATOL:g}), max|d(dK, dV)| "
+          f"{err['flash_bwd_dkv']:.3e}, max|d(dQ)| {err['flash_bwd_dq']:.3e} "
+          f"(limit {GRAD_ATOL:g}); launches {instances} {card}")
+    if instances != want:
+        fail(f"head dim {d} launched {instances}, wanted {want}")
+    if not (err["flash_fwd"] <= KERNEL_ATOL
+            and max(err["flash_bwd_dkv"], err["flash_bwd_dq"]) <= GRAD_ATOL):
+        fail(f"the kernels disagree with their plain versions at head dim "
+             f"{d}")
+    # events only: the profiler's traces this late in a run hold no device
+    # time (PERF.md §7)
+    times = kernel_call_times(q, k, v, g, "f32", card, iters=50, n=0)
+    return {"max_abs_err": err, "times": times,
+            "launches": {name: instances[name][f"mmef_{name}_deep D={d}"]
+                         for name in err}}
+
+
+def vmap_references(dev, cv: dict) -> dict:
+    """ensemble-vmap-T512's single-device references: cv-eeg-kfold-T512's
+    first ``VMAP_FOLDS`` folds (its deterministic run) as fold-stacked
+    weights of the V4 member forward, on 8 request rows at T = 512, through
+    ``torch.func.vmap`` over all the folds at once and over each fold
+    alone (the block a rank of the 4-rank world takes)."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import EEGConfig
+
+    det = cv["deterministic_run"]
+    params = {k: v[:VMAP_FOLDS].cpu() for k, v in det.params.items()}
+    buffers = {k: v[:VMAP_FOLDS].cpu() for k, v in det.batch_stats.items()}
+    rows = {k: v for k, v in request(BATCH, T_SERVE, seed=70).items()
+            if k in EEG_KEYS}
+    model = eeg_model(EEGConfig(), 0.0, dev).eval()
+    vfn = torch.func.vmap(vmap_member(model), in_dims=(0, None))
+    stacked = {k: v.to(dev) for k, v in {**params, **buffers}.items()}
+    x = {k: torch.as_tensor(v, device=dev) for k, v in rows.items()}
+    with torch.no_grad(), deterministic():
+        whole = vfn(stacked, x).cpu()
+        blocks = torch.cat([vfn({k: v[i:i + 1] for k, v in stacked.items()},
+                                x).cpu() for i in range(VMAP_FOLDS)])
+    return {"tensors": {**params, **buffers}, "rows": rows, "whole": whole,
+            "blocks": blocks}
+
+
+def vmap_member(model):
+    """The V4 member forward: eval-mode logits with ``tensors`` standing in
+    for the module's parameters and buffers."""
+    from torch.func import functional_call
+
+    def member(tensors, inputs):
+        return functional_call(model, tensors, (), inputs).logits
+
+    return member
+
+
+def ensemble_vmap_case(rank: int, world: int, dev, refs: dict) -> dict:
+    """ensemble-vmap-T512 on this rank: ``parallel.ensemble_vmap`` of the
+    V4 member forward over the fold-stacked weights on an (ensemble 4)
+    mesh of the world, the rows shared; the rank's K1 launches."""
+    from multimodal_eeg_fmri_tpu_torch.core.config import EEGConfig
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        build_mesh,
+        ensemble_vmap,
+    )
+
+    plan = build_mesh(ensemble=world)
+    model = eeg_model(EEGConfig(), 0.0, dev).eval()
+    stacked = {k: v.to(dev) for k, v in refs["tensors"].items()}
+    x = {k: torch.as_tensor(v, device=dev) for k, v in refs["rows"].items()}
+    fn = ensemble_vmap(vmap_member(model), plan, in_axes=(0, None))
+    torch.cuda.synchronize()
+    reset_all_launches()
+    with torch.no_grad(), deterministic():
+        out = fn(stacked, x)
+    torch.cuda.synchronize()
+    return {"logits": out.cpu(), "launches": total_launches()}
+
+
+def vmap_gates(ranks: list, refs: dict, card: str) -> dict:
+    """Every rank's whole fold axis bit for bit the single-device vmap of
+    the rank's block of folds (one fold each), and within VMAP_WHOLE_RTOL
+    of the largest logit of the vmap of all the folds at once (cuBLAS
+    picks its batched GEMMs by the count of folds); K1 folded to one
+    launch a layer a rank."""
+    blocks, whole = refs["blocks"], refs["whole"]
+    largest = blocks.abs().max().item()
+    spread = (whole - blocks).abs().max().item() / largest
+    for r, res in enumerate(ranks):
+        got = res["logits"]
+        if got.shape != blocks.shape or not torch.equal(got, blocks):
+            fail(f"ensemble-vmap-T{T_SERVE}: rank {r}'s logits differ from "
+                 f"the single-device vmap by "
+                 f"{(got - blocks).abs().max().item():.3e}")
+        if res["launches"] != {"flash_fwd": 4, "flash_bwd_dkv": 0,
+                               "flash_bwd_dq": 0}:
+            fail(f"ensemble-vmap-T{T_SERVE}: rank {r} launched "
+                 f"{res['launches']}, 4 K1 wanted")
+    print(f"ensemble-vmap-T{T_SERVE}: {VMAP_FOLDS} folds on an ensemble "
+          f"axis of {len(ranks)}, {tuple(blocks.shape)} logits on every rank "
+          f"bit for bit the single-device vmap of each rank's block; the "
+          f"vmap of all {VMAP_FOLDS} folds at once differs by {spread:.3e} "
+          f"of the largest logit {largest:.4f} (limit {VMAP_WHOLE_RTOL:g}; "
+          f"batched GEMMs); K1 4 a rank {card}")
+    if spread > VMAP_WHOLE_RTOL:
+        fail(f"the vmap of all folds at once differs from the blocks' by "
+             f"more than {VMAP_WHOLE_RTOL:g} of the largest logit")
+    return {"launches": ranks[0]["launches"], "whole_gap": spread}
 
 
 def main() -> None:
@@ -6672,7 +7130,28 @@ def main() -> None:
         "hpo_flash_fwd_by_head_dim": pipes["hpo"]["flash_fwd_by_head_dim"],
         "phase_s": pipes["phase_s"], "device": smi}}))
 
+    phase(f"aot: run_cv(aot_dir=...) of cv-eeg-kfold-T{T_SERVE}'s "
+          f"configuration, without a bundle, a miss and a hit, and a fresh "
+          f"process that loads the bundle {card}")
+    aot = aot_phase(dev, card)
+    phase(f"aot-train-e2e-T{T_SERVE}: a loaded training program's backward "
+          f"through the operator's registered gradient, and the flat AdamW "
+          f"over its parameters {card}")
+    train_prog = train_program_phase(dev, card)
+    phase(f"head dim {HEAD_DIM_CASE[3]:,} (past the old limit of 12,448): "
+          f"K1, K2 and K3 at {HEAD_DIM_CASE} on the deep kernels {card}")
+    head_dim = head_dim_phase(dev, card)
+    print(json.dumps({"aot": {
+        "cv_seconds": aot["seconds"], "export_s": aot["export_s"],
+        "load_s": aot["load_s"], "bundle_bytes": aot["bundle_bytes"],
+        "probs_held": aot["held"], "fresh_process_s": aot["fresh_s"],
+        "fresh_load_s": aot["fresh_load_s"],
+        "train_program": {k: train_prog[k] for k in (
+            "export_s", "load_s", "bytes", "n_params", "bit_for_bit")},
+        "flat_adamw": train_prog["adamw"], "device": smi}}))
+
     ens_refs = ensemble_references(dev, card, cv, pipes["hpo"], serving)
+    ens_refs["vmap"] = vmap_references(dev, cv)
     del serving["mesh_members"]
     phase(f"ring: parallel/, ops/ring_attention.py and LongContextClassifier"
           f"(attn_impl='ring') on torch.distributed {card}")
@@ -6734,7 +7213,17 @@ def main() -> None:
                              **{path: n[name] for path, n in
                                 ring["ensemble"]["launches"].items()},
                              "vmap-grad (4, 8, 4, 512, 32)":
-                                 vmap_grad["launches"][name]},
+                                 vmap_grad["launches"][name],
+                             # the program bundles: run_cv's hit (its
+                             # evaluations through the loaded program), a
+                             # fresh process's evaluation, a loaded
+                             # training program's forward and backward
+                             f"aot-cv-eeg-kfold-T{T_SERVE} hit":
+                                 aot["launches"]["hit"][name],
+                             "aot-fresh-process eval forward":
+                                 aot["fresh_launches"][name],
+                             f"aot-train-e2e-T{T_SERVE} loaded program":
+                                 train_prog["launches"][name]},
         "max_abs_err": worst[name],
         **timings(per_step[name, "f32"]),
         # the mixed-precision fit's launches by storage, and the
@@ -6790,9 +7279,12 @@ def main() -> None:
         "replaces": replaces[name],
         "launches": lc_deep["launches"][name],
         "launches_by_path": {f"lc-d512-T{LC_T} step":
-                             lc_deep["launches"][name]},
+                             lc_deep["launches"][name],
+                             f"head-dim-D{HEAD_DIM_CASE[3]}":
+                             head_dim["launches"][name]},
         "max_abs_err": max(wide["max_abs_err"][wide_route(name, 512)],
-                           lc_deep["kernels"][name]["max_abs_err"]),
+                           lc_deep["kernels"][name]["max_abs_err"],
+                           head_dim["max_abs_err"][name]),
         "shape": list(LC_DEEP_SHAPE),
         **timings({**lc_deep["kernels"][name], "ops": (
             lc_deep["kernels"][name]["bound_by"] == "operations")}),
@@ -6800,6 +7292,11 @@ def main() -> None:
            for k in ("bf16_operands_ms", "bf16_storage_ms")},
         # each call at (8, 4, 512, d)
         **{f"D{d}": wide_timings(d, name) for d in DEEP_DIMS},
+        # each call past the old limit of 12,448
+        f"D{HEAD_DIM_CASE[3]}": {
+            "shape": list(HEAD_DIM_CASE),
+            **timings({**head_dim["times"][name], "ops": (
+                head_dim["times"][name]["bound_by"] == "operations")})},
     } for name in names] + [{
         "name": "sosfilt",
         "route": "cuda",

@@ -36,14 +36,12 @@ def main(argv=None) -> int:
     p.add_argument("--epochs", type=int, help="override epoch count")
     p.add_argument("--no-export", action="store_true")
     p.add_argument("--aot-dir", default=None, metavar="DIR",
-                   help="not ported: the JAX package's AOT bundle cache")
+                   help="AOT bundle cache directory (eeg/fmri pipelines): "
+                        "each model's evaluation program is exported there "
+                        "once and loaded by later runs without tracing")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the GPU")
     args = p.parse_args(argv)
-
-    if args.aot_dir is not None:
-        p.error("--aot-dir is not ported: core/aot.py (jax.export bundles) "
-                "is dropped (ROADMAP.md, queue A item 8)")
 
     import dataclasses
 
@@ -71,10 +69,12 @@ def main(argv=None) -> int:
         summary = {}
         out = {}
         out["eeg"] = pipelines.run_eeg_experiment(cfg, export=export,
+                                                  aot_dir=args.aot_dir,
                                                   device=device)
         summary["eeg"] = {m: r.summary
                           for m, r in out["eeg"]["kfold"].items()}
         out["fmri"] = pipelines.run_fmri_experiment(cfg, export=export,
+                                                    aot_dir=args.aot_dir,
                                                     device=device)
         summary["fmri"] = {m: r.summary
                            for m, r in out["fmri"]["classification"].items()}
@@ -85,10 +85,12 @@ def main(argv=None) -> int:
                                                   device=device)
         summary["lite"] = out["lite"]["lite"].summary
     elif args.pipeline == "eeg":
-        out = pipelines.run_eeg_experiment(cfg, export=export, device=device)
+        out = pipelines.run_eeg_experiment(cfg, export=export,
+                                           aot_dir=args.aot_dir, device=device)
         summary = {m: r.summary for m, r in out["kfold"].items()}
     elif args.pipeline == "fmri":
         out = pipelines.run_fmri_experiment(cfg, export=export,
+                                            aot_dir=args.aot_dir,
                                             device=device)
         summary = {m: r.summary for m, r in out["classification"].items()}
     elif args.pipeline == "bridge":

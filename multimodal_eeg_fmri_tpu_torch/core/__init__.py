@@ -1,5 +1,9 @@
 """Configuration, seeds, logging, checkpoints, quantized payloads,
-profiling and the determinism harness of the port."""
+profiling, the determinism harness, the kernel cache and the program
+bundles of the port."""
+
+from multimodal_eeg_fmri_tpu_torch.core.aot import export_jitted, load_bundle
+from multimodal_eeg_fmri_tpu_torch.core.cache import enable_compilation_cache
 
 from multimodal_eeg_fmri_tpu_torch.core.checkpoint import (
     export_frozen_encoder,
@@ -37,12 +41,14 @@ from multimodal_eeg_fmri_tpu_torch.core.rng import (
     RngStream,
     fold_in,
     seed_everything,
+    training_key,
 )
 
 __all__ = ["BridgeConfig", "EEGConfig", "ExperimentConfig", "FMRIConfig",
            "MeshConfig", "MetricsLogger", "RngStream", "StepTimer",
-           "TrainConfig", "annotate", "export_frozen_encoder",
-           "find_best_checkpoint", "fold_in", "get_logger", "load_checkpoint",
+           "TrainConfig", "annotate", "enable_compilation_cache",
+           "export_frozen_encoder", "export_jitted", "find_best_checkpoint",
+           "fold_in", "get_logger", "load_bundle", "load_checkpoint",
            "load_config", "load_quantized", "run_twice_and_compare",
            "save_checkpoint", "save_config", "save_quantized",
-           "seed_everything", "trace"]
+           "seed_everything", "trace", "training_key"]

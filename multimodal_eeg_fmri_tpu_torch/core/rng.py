@@ -8,8 +8,8 @@ fixes a generator's stream on one device type; the CPU's generator and the
 card's draw different numbers from the same seed, so what must agree across
 devices (initial weights) is drawn on the CPU.
 
-``training_key`` (XLA's ``rbg`` generator, a TPU speed trick) is not ported
-(ROADMAP.md, queue A item 8).
+``training_key`` is the root of a run's training randomness: a generator on
+the card, where PyTorch's generator is Philox already.
 """
 
 from __future__ import annotations
@@ -59,6 +59,24 @@ def seed_everything(seed: int) -> torch.Generator:
     np.random.seed(seed)
     torch.manual_seed(seed)
     return generator(seed)
+
+
+def training_key(seed: int, device="cuda") -> torch.Generator:
+    """The root generator for TRAINING randomness (shuffles, augmentation;
+    ``fit`` takes it as its generator) on ``device``, the card unless the
+    caller asks for the CPU: seeded with ``fold_in(seed,
+    _stable_hash("training"))``, a stream apart from ``generator(seed)``'s,
+    as the JAX package's ``rbg`` key is apart from ``key(seed)``.
+
+    The JAX package swaps XLA's default threefry for its ``rbg`` generator
+    here, a speed trick for the TPU; that generator has no counterpart, and
+    none is needed: the card's generator is counter-based Philox, fast
+    whatever the shape. Deterministic per (seed, device type); its numbers
+    are not the JAX package's (another generator)."""
+    from multimodal_eeg_fmri_tpu_torch.data.arrays import model_device
+
+    return generator(fold_in(seed, _stable_hash("training")),
+                     model_device(device))
 
 
 class RngStream:

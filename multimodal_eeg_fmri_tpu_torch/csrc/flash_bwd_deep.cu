@@ -27,7 +27,9 @@
 //   of width D stays resident) through a ring of STAGES buffers filled by
 //   16-byte cp.async, STAGES - 1 chunks in flight while one is multiplied.
 //   Each warp sums one 16 x 8 fragment of S and of dP (m16n8k8 3xTF32, or
-//   m16n8k16 bf16) in two chains of alternate depth steps, forms P and dS
+//   m16n8k16 bf16), each chunk in two chains of alternate depth steps
+//   started at zero, the chunks' sums added in f32 (the mma accumulator
+//   truncates, and carried across D its error grew with D), forms P and dS
 //   in its registers after the last chunk, and writes them once to shared
 //   memory in fragment order, from where every warp reads them back as the
 //   A operand of the D-wide products (flash_mma.cuh, a_from_frags).
@@ -128,8 +130,10 @@ __device__ __forceinline__ void bwd_deep(const Params& p) {
     // the block's column slice: chunks [first, first + n_mine) of the D / CK
     // (at most NO: the host takes n_slices = ceil(D / CK / NO))
     const int n_chunks = p.D / CK;
-    const int first = (int)blockIdx.z * n_chunks / p.n_slices;
-    const int n_mine = ((int)blockIdx.z + 1) * n_chunks / p.n_slices - first;
+    // in 64 bits: z · n_chunks passes 2^31 past D = 2^23
+    const int first = (int)((int64_t)blockIdx.z * n_chunks / p.n_slices);
+    const int n_mine =
+        (int)(((int64_t)blockIdx.z + 1) * n_chunks / p.n_slices) - first;
     // ring stages a streamed tile: its score chunks, then its slice chunks,
     // PER to a ring buffer
     const int per_tile = n_chunks + (n_mine + PER - 1) / PER;
@@ -235,11 +239,16 @@ __device__ __forceinline__ void bwd_deep(const Params& p) {
             }
         }
 
-        // X1 and X2 of the warp's fragment, summed over the score chunks in
-        // two chains of alternate depth steps (a chain of 3xTF32 products
-        // is three dependent mma a step)
-        float y1[2][4] = {}, y2[2][4] = {};
+        // X1 and X2 of the warp's fragment: each score chunk's sum in two
+        // chains of alternate depth steps (a chain of 3xTF32 products is
+        // three dependent mma a step), started at zero, then added to the
+        // running sums in plain f32 adds. The mma accumulator does not round
+        // to nearest: carried over all of D, its error grew with D (at
+        // 12,800, 3e-4 in dK and dQ against 7e-6 at 320); a chunk's 12
+        // accumulations a chain keep it at a short sum's
+        float x1s[4] = {}, x2s[4] = {};
         for (int c = 0; c < n_chunks; ++c) {
+            float y1[2][4] = {}, y2[2][4] = {};
             const T* buf = advance();
             const T* cO1 = buf + m * 16 * LD;
             const T* cO2 = buf + SLOT + m * 16 * LD;
@@ -260,6 +269,11 @@ __device__ __forceinline__ void bwd_deep(const Params& p) {
                     return to_f32(cS2[n * LD + kc * CH + kk]);
                 }));
             }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                x1s[e] += y1[0][e] + y1[1][e];
+                x2s[e] += y2[0][e] + y2[1][e];
+            }
         }
 
         // P = exp(S scale - lse) and dS = P (dP - Delta), written once in
@@ -268,7 +282,7 @@ __device__ __forceinline__ void bwd_deep(const Params& p) {
         float pv[4], dsv[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const float x1 = y1[0][e] + y1[1][e], x2 = y2[0][e] + y2[1][e];
+            const float x1 = x1s[e], x2 = x2s[e];
             float pe, dl;
             if constexpr (DKV) {       // lse and Delta by query (column)
                 pe = owned_ok[e >> 1] ? expf(x1 * p.scale - lse_c[e & 1]) : 0.f;

@@ -32,7 +32,9 @@
 //   STAGES - 1 buffers in flight while one is multiplied, one barrier a
 //   buffer. Each warp sums two 16 x 8 fragments of one column block
 //   (m16n8k8 3xTF32, or m16n8k16 bf16), the K operand loaded once for both,
-//   each in two chains of alternate depth steps.
+//   each chunk in two chains of alternate depth steps started at zero, the
+//   chunks' sums added in f32 (the mma accumulator truncates, and carried
+//   across D its error grew with D).
 // - Row statistics, as flash_fwd_split.cu forms them: a row's 32 keys lie
 //   across 4 warps. Each warp writes its fragments' row maxima to shared
 //   memory; after a barrier every lane forms, for each row it accumulates,
@@ -139,8 +141,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_deep_kernel(const Params
     // the block's column slice: chunks [first, first + n_mine) of the D / CK
     // (at most NO: the host takes n_slices = ceil(D / CK / NO))
     const int n_chunks = p.D / CK;
-    const int first = (int)blockIdx.z * n_chunks / p.n_slices;
-    const int n_mine = ((int)blockIdx.z + 1) * n_chunks / p.n_slices - first;
+    // in 64 bits: z · n_chunks passes 2^31 past D = 2^23
+    const int first = (int)((int64_t)blockIdx.z * n_chunks / p.n_slices);
+    const int n_mine =
+        (int)(((int64_t)blockIdx.z + 1) * n_chunks / p.n_slices) - first;
     // ring stages a key tile: its score buffers, SC chunks each, then its
     // slice's V chunks, VPER to a buffer
     const int n_score = (n_chunks + SC - 1) / SC;
@@ -214,10 +218,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_deep_kernel(const Params
     }
 
     for (int it = 0; it < n_tiles; ++it) {
-        // S of the warp's fragments over the score chunks, each in two
-        // chains of alternate depth steps (a chain of 3xTF32 products is
-        // three dependent mma a step); f32 mode scales q before the dot
-        float y[FPW][2][4] = {};
+        // S of the warp's fragments: each chunk's sum in two chains of
+        // alternate depth steps (a chain of 3xTF32 products is three
+        // dependent mma a step), started at zero, then added to the running
+        // sum in plain f32 adds. The mma accumulator does not round to
+        // nearest: carried over all of D, its error grew with D (at 12,800,
+        // 8.9e-5 in O against 1.9e-6 at 320); a chunk's 12 accumulations a
+        // chain keep it at a short sum's. f32 mode scales q before the dot
+        float x_sum[FPW][4] = {};
         for (int cs = 0; cs < n_score; ++cs) {
             const T* buf = advance();
 #pragma unroll
@@ -225,6 +233,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_deep_kernel(const Params
                 if (cs * SC + i >= n_chunks) break;  // the same for the whole block
                 const T* cQ = buf + i * (QS + 1) * SLOT;
                 const T* cK = cQ + QS * SLOT + j * 8 * LD;
+                float y[FPW][2][4] = {};
 #pragma unroll
                 for (int kc = 0; kc < CK / CH; ++kc) {
                     const BFrag<BF16_OPS> bk = load_b<BF16_OPS>([&](int kk, int n) {
@@ -239,6 +248,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_deep_kernel(const Params
                         }), bk);
                     }
                 }
+#pragma unroll
+                for (int f = 0; f < FPW; ++f)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) x_sum[f][e] += y[f][0][e] + y[f][1][e];
             }
         }
         // the bf16 mode scales after the dot; keys past Tk get -inf
@@ -249,7 +262,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_deep_kernel(const Params
             float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const float x = y[f][0][e] + y[f][1][e];
+                const float x = x_sum[f][e];
                 s[f][e] = key0 + (e & 1) < p.Tk ? (BF16_OPS ? x * p.scale : x) : -INFINITY;
                 mx[e >> 1] = fmaxf(mx[e >> 1], s[f][e]);
             }

@@ -119,9 +119,12 @@ class BatchNorm(nn.BatchNorm1d):
                         axis, mesh) / count
             mean, sq = sums[0], sums[1]
         var = (sq - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(0.99).add_(0.01 * mean)
-            self.running_var.mul_(0.99).add_(0.01 * var)
+        # the running statistics take detached values, so autograd records
+        # nothing, and a program that torch.export traces holds the update
+        # as plain in-place ops (it cannot serialise a no_grad block that
+        # returns nothing)
+        self.running_mean.mul_(0.99).add_(0.01 * mean.detach())
+        self.running_var.mul_(0.99).add_(0.01 * var.detach())
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)

@@ -3,9 +3,15 @@
 The sources under ``csrc/`` are compiled by ``nvcc`` at first use, one
 process per source, all started together, and linked into one shared library
 with a plain C interface, loaded with ``ctypes``. The library
-goes to ``build/kernels/`` beside the package and its file name carries a hash
-of the sources and flags, so a changed source builds anew and an unchanged
-one is loaded as it is. Nothing here runs when the module is imported.
+goes to the build directory, ``build/kernels/`` beside the package unless
+``core.cache.enable_compilation_cache`` names another before the first
+use, and its file name carries a hash of the sources and the flags (the
+target among them), then one of the toolkit's ``nvcc --version``, so a
+changed source or another toolkit builds anew and an unchanged one is loaded
+as it is: a directory shared by processes, or by machines, never gives one a
+library that another toolkit built. A process with no nvcc (a runtime-only
+image) loads the one library there built from these sources by any toolkit.
+Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -21,6 +27,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+# the directory the library is built into and loaded from, and whether
+# ``use_build_dir`` has fixed it
+_build_dir = BUILD_DIR
+_build_dir_fixed = False
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -41,12 +51,60 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def build_dir() -> Path:
+    """The directory the library is built into and loaded from."""
+    return _build_dir
+
+
+def use_build_dir(path=None) -> Path:
+    """Idempotently fix the directory the library is built into and loaded
+    from, and return it: the first call fixes ``path`` (made if missing),
+    or the default where ``path`` is None; a later call, or any call once
+    the library is loaded, returns the directory in force."""
+    global _build_dir, _build_dir_fixed
+    if not _build_dir_fixed and library.cache_info().currsize == 0:
+        if path:
+            _build_dir = Path(path)
+            _build_dir.mkdir(parents=True, exist_ok=True)
+        _build_dir_fixed = True
+    return _build_dir
+
+
+@functools.cache
+def nvcc_version() -> str:
+    """What ``nvcc --version`` prints (it compiles nothing); "none" where
+    there is no nvcc, and nothing can be built."""
+    try:
+        nvcc = find_nvcc()
+    except RuntimeError:
+        return "none"
+    return subprocess.run([nvcc, "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def library_path() -> Path:
+    """The library for these sources: ``libmmef_kernels_<sources and
+    flags>_<toolkit>.so`` in the build directory. With no nvcc to ask, the
+    one library there built from these sources by any toolkit (several
+    raise: which toolkit is meant is unknown); with none, a name that
+    ``build`` cannot find, so it raises for the missing nvcc."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libmmef_kernels_{h.hexdigest()[:16]}.so"
+    stem = f"libmmef_kernels_{h.hexdigest()[:16]}"
+    version = nvcc_version()
+    if version == "none":
+        found = sorted(_build_dir.glob(f"{stem}_*.so"))
+        if len(found) > 1:
+            raise RuntimeError(
+                f"nvcc not found, and {len(found)} libraries in {_build_dir} "
+                f"were built from these sources by different toolkits: set "
+                f"CUDA_HOME or put the nvcc of the one to load on PATH")
+        if found:
+            return found[0]
+    toolkit = hashlib.sha256(version.encode()).hexdigest()[:8]
+    return _build_dir / f"{stem}_{toolkit}.so"
 
 
 def _run(cmds: list[list[str]]) -> None:
@@ -69,11 +127,11 @@ def build() -> Path:
     out = library_path()
     if out.is_file():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     # build under a private directory, then rename: concurrent builders
     # never load a half-written library
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         units = [src for src in _sources() if src.suffix == ".cu"]
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in units]
         _run([[nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(src)]

@@ -26,11 +26,13 @@ columns, and leave Δ = rowsum(dO∘O) as it is. The padding stays inside the
 true d. Past 128, K1, K2 and K3 pad d ≤ 256 the same way to the instances
 in ``SPLIT_HEAD_DIMS``, tensor-core kernels that split the D-wide sums over
 their warps (``csrc/flash_fwd_split.cu``, ``csrc/flash_bwd_split.cu``).
-Past 256 (up to ``WIDE_MAX_HEAD_DIM``) all three pad d to a multiple of
-``DEEP_CHUNK`` for tensor-core kernels that sum the scores over column
-chunks and split the D-wide outputs into column slices
+Past 256 (up to ``WIDE_MAX_HEAD_DIM``, the grid's bound) all three pad d
+to a multiple of ``DEEP_CHUNK`` for tensor-core kernels that sum the scores
+over column chunks and split the D-wide outputs into column slices
 (``csrc/flash_fwd_deep.cu``, ``csrc/flash_bwd_deep.cu``). All count as the
-launches of K1, K2 and K3.
+launches of K1, K2 and K3. ``mmef::flash_fwd`` carries its own gradient
+(``torch.library.register_autograd``), so a program that ``torch.export``
+traced and ``core/aot.py`` loaded reaches K2 and K3 in its backward.
 """
 
 from __future__ import annotations
@@ -51,9 +53,8 @@ DEEP_CHUNK = 64
 # the largest head dim the wrappers take. No kernel keeps a row of width D:
 # past 256 they stage 64-column chunks and give each block on the grid's z
 # axis a slice of 512 output columns, so only gridDim.z (65,535 slices)
-# bounds them. The value is a choice, kept as it was so that no head dim
-# changes routing; the JAX package takes any D (ROADMAP).
-WIDE_MAX_HEAD_DIM = 12448
+# bounds them
+WIDE_MAX_HEAD_DIM = 65535 * 512
 
 
 def kernel_head_dim(d: int) -> int:
@@ -72,8 +73,9 @@ def _launch(name: str, d: int) -> Tuple[str, int]:
     and, past it, up to 256 (``_split``); past that, the tensor-core kernel
     at d padded to a multiple of ``DEEP_CHUNK`` (``_deep``)."""
     if d > WIDE_MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} is past the flash kernels' limit "
-                         f"{WIDE_MAX_HEAD_DIM}")
+        raise ValueError(f"unsupported sizes: head dim {d} is past the grid's "
+                         f"limit of 65,535 column slices of 512 "
+                         f"({WIDE_MAX_HEAD_DIM})")
     if d <= KERNEL_HEAD_DIMS[-1]:
         return name, kernel_head_dim(d)
     if d <= SPLIT_HEAD_DIMS[-1]:
@@ -401,9 +403,9 @@ def _bf16_operands(compute_dtype) -> bool:
 # K1 as a PyTorch operator, so that torch.func.vmap and torch.export reach
 # it: ``mmef::flash_fwd`` runs the kernel on a CUDA tensor (or raises) and
 # the plain version on a CPU tensor; its fake gives the output shapes; its
-# vmap rule folds the vmapped axis into B for one launch. ``_FlashAttention``
-# differentiates it through ``mmef::flash_bwd`` (K2 and K3), whose vmap
-# rule folds alike. Registering
+# vmap rule folds the vmapped axis into B for one launch. Its gradient (its
+# own, and ``_FlashAttention``'s, the same formula) goes through
+# ``mmef::flash_bwd`` (K2 and K3), whose vmap rule folds alike. Registering
 # builds nothing: the library is built at the first CUDA call
 # (``ops/_kernels.py``).
 @torch.library.custom_op("mmef::flash_fwd", mutates_args=())
@@ -463,12 +465,47 @@ def _(info, in_dims, q, k, v, o, lse, g, g_lse, bf16_operands):
     return tuple(t.unflatten(0, (n, -1)) for t in grads), (0, 0, 0)
 
 
+def _save_residuals(ctx, inputs, output):
+    """What the backward of ``mmef::flash_fwd`` keeps: q, k, v and both
+    outputs, and the operand mode. An output that is not used gets None as
+    its cotangent, not a tensor of zeros."""
+    q, k, v, bf16_operands = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.bf16_operands = bf16_operands
+    ctx.set_materialize_grads(False)
+
+
+def _flash_grads(ctx, g, g_lse):
+    """(dq, dk, dv, None) of ``mmef::flash_fwd`` through ``mmef::flash_bwd``
+    (K2 and K3), the cotangent of lse folded into Δ; none for the operand
+    mode."""
+    q, k, v, o, lse = ctx.saved_tensors
+    if g is None:
+        g = torch.zeros_like(o)
+    elif g.stride(-1) != 1:
+        # autograd may hand over an expanded cotangent; the kernels read
+        # dO with its last dim contiguous
+        g = g.contiguous()
+    # the gradients are not differentiable again (no double backward)
+    with torch.no_grad():
+        grads = flash_bwd_op(q, k, v, o, lse, g, g_lse, ctx.bf16_operands)
+    return (*grads, None)
+
+
+# the operator's own gradient: a program that torch.export traces holds bare
+# ``mmef::flash_fwd`` nodes, and once loaded its backward reaches K2 and K3
+# through this formula, as ``_FlashAttention``'s does in eager code
+torch.library.register_autograd("mmef::flash_fwd", _flash_grads,
+                                setup_context=_save_residuals)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The forward op with the residuals (q, k, v, o, lse) saved for the
     backward op; differentiable in both outputs, and the cotangent of lse
     folds into Δ. Under torch.func.vmap both fold the vmapped axis into
     B: a gradient under vmap launches one K1, one K2 and one K3 over n·B
-    rows."""
+    rows. Its formula is the operator's (``_save_residuals``,
+    ``_flash_grads``)."""
 
     generate_vmap_rule = True
 
@@ -478,25 +515,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, bf16_operands = inputs
-        ctx.save_for_backward(q, k, v, *output)
-        ctx.bf16_operands = bf16_operands
-        # an output that is not used gets None, not a tensor of zeros
-        ctx.set_materialize_grads(False)
+        _save_residuals(ctx, inputs, output)
 
     @staticmethod
     def backward(ctx, g, g_lse):
-        q, k, v, o, lse = ctx.saved_tensors
-        if g is None:
-            g = torch.zeros_like(o)
-        elif g.stride(-1) != 1:
-            # autograd may hand over an expanded cotangent; the kernels read
-            # dO with its last dim contiguous
-            g = g.contiguous()
-        # the gradients are not differentiable again (no double backward)
-        with torch.no_grad():
-            grads = flash_bwd_op(q, k, v, o, lse, g, g_lse, ctx.bf16_operands)
-        return (*grads, None)
+        return _flash_grads(ctx, g, g_lse)
 
 
 def _flash(q, k, v, compute_dtype):

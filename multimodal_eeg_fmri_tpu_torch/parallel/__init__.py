@@ -11,9 +11,8 @@ parameter layouts (on ``layout``'s machinery). The ensemble axis's callers
 are ``train.cv.run_cv``, ``run_seed_sweep``, ``train.hpo.run_hpo`` (each
 with ``mesh_plan=``), ``serving.EnsemblePredictor(plan=...)`` and a
 ``serving.DynamicBatcher`` over it (``collectives.broadcast`` hands it each
-batch).
-``ensemble_vmap`` is dropped (ROADMAP.md, queue A item 8): the port's ranks
-are SPMD already."""
+batch); ``mesh.ensemble_vmap`` maps a function over each rank's block of a
+fold axis and gathers the blocks."""
 
 from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
     all_gather,
@@ -48,6 +47,7 @@ from multimodal_eeg_fmri_tpu_torch.parallel.mesh import (
     current_mesh,
     ensemble_batch_sharding,
     ensemble_sharding,
+    ensemble_vmap,
     replicated,
     shard_batch,
     shard_ensemble_tree,
@@ -94,6 +94,7 @@ __all__ = [
     "current_mesh",
     "ensemble_batch_sharding",
     "ensemble_sharding",
+    "ensemble_vmap",
     "ep_param_constraint",
     "ep_param_specs",
     "fsdp_param_constraint",

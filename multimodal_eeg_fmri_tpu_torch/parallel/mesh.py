@@ -277,3 +277,43 @@ def shard_ensemble_tree(plan: MeshPlan, tree: Any) -> Any:
     )
 
     return global_ensemble_tree(plan, tree)
+
+
+def ensemble_vmap(fn, plan: MeshPlan, in_axes=0):
+    """Fold-parallel execution, SPMD: ``torch.func.vmap(fn)`` of each
+    rank's block of the fold axis, the blocks gathered over the ensemble
+    axis. Counterpart of the JAX package's ``vmap(fn)`` inside a
+    ``shard_map`` over the ensemble axis.
+
+    Every argument whose ``in_axes`` entry is not None carries a leading
+    fold axis divisible by ``plan.n_ensemble``; each rank maps ``fn`` over
+    its contiguous block (``shard_ensemble_tree``), with no collective
+    inside, and every rank returns the whole fold axis of every result leaf
+    (``parallel.input.gather_ensemble_tree``, one all-gather per dtype and
+    device, no autograd through it). A fold's result does not depend on the
+    rank that computes it: the result is the unsharded ``vmap(fn)``'s, the
+    fold axis cut into blocks. The ``data`` axis is not mentioned: its
+    ranks repeat their row's folds, as inputs replicate across it in the
+    JAX package. Call it on every rank with the same arguments.
+
+    ``in_axes`` follows ``jax.vmap``: an entry of None marks an argument
+    SHARED across folds (every rank takes it whole), 0 one mapped over its
+    leading fold axis; one entry stands for every argument."""
+    import torch
+
+    from multimodal_eeg_fmri_tpu_torch.parallel.input import (
+        gather_ensemble_tree,
+    )
+
+    def call(*args):
+        axes = (tuple(in_axes) if isinstance(in_axes, (tuple, list))
+                else (in_axes,) * len(args))
+        if len(axes) != len(args) or any(a not in (0, None) for a in axes):
+            raise ValueError(f"in_axes must give 0 or None for each of the "
+                             f"{len(args)} arguments, got {in_axes!r}")
+        local = tuple(a if ax is None else shard_ensemble_tree(plan, a)
+                      for a, ax in zip(args, axes))
+        out = torch.func.vmap(fn, in_dims=axes)(*local)
+        return gather_ensemble_tree(plan, out)
+
+    return call

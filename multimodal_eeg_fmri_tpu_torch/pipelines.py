@@ -17,11 +17,12 @@ defaults, runs the same splits, normalization, augmentation, reports and
 exports, and returns the same result dict. The port's models take their
 input widths at construction (flax infers them), so each pipeline reads
 them from the data. Each runs on ``device``, the card unless the caller
-asks for the CPU; without a card the default raises. The JAX package's
-XLA compilation cache (``core/cache.py``) has no counterpart (ROADMAP.md,
-queue A item 8). ``mesh_plan`` and ``aot_dir`` go on to ``run_cv``: a plan
-shards the folds over the mesh's ensemble axis (every rank runs the
-pipeline; ``parallel.build_mesh``), and ``aot_dir`` raises.
+asks for the CPU; without a card the default raises. Each enables the
+kernel cache (``core.cache.enable_compilation_cache``) where the JAX
+package enables XLA's. ``mesh_plan`` and ``aot_dir`` go on to ``run_cv``:
+a plan shards the folds over the mesh's ensemble axis (every rank runs the
+pipeline; ``parallel.build_mesh``), and ``aot_dir`` keeps each model's
+evaluation program there as a ``core.aot`` bundle.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from multimodal_eeg_fmri_tpu_torch.core.cache import enable_compilation_cache
 from multimodal_eeg_fmri_tpu_torch.core.config import ExperimentConfig
 from multimodal_eeg_fmri_tpu_torch.core.logging import get_logger
 from multimodal_eeg_fmri_tpu_torch.core.rng import seed_everything
@@ -191,6 +193,7 @@ def run_eeg_experiment(
     """4-model EEG comparison over subject-grouped stratified 5-fold CV,
     plus LOSO subject voting, stats and late fusion, on ``device``."""
     cfg = cfg or ExperimentConfig()
+    enable_compilation_cache()
     dev = model_device(device)
     seed_everything(cfg.train.seed)
     data = data if data is not None else load_or_synthesize_eeg(cfg)
@@ -279,6 +282,7 @@ def run_fmri_experiment(
     leave-one-subject-out evaluation (reference
     ``run_fmri_loso_evaluation``, ``CrossModal_fmri_scr.ipynb §12``)."""
     cfg = cfg or ExperimentConfig()
+    enable_compilation_cache()
     dev = model_device(device)
     seed_everything(cfg.train.seed)
     data = data if data is not None else load_or_synthesize_fmri(cfg)
@@ -381,6 +385,7 @@ def run_bridge_experiment(
     from multimodal_eeg_fmri_tpu_torch.train.fit import make_fit_fn
 
     cfg = cfg or ExperimentConfig()
+    enable_compilation_cache()
     dev = model_device(device)
     seed_everything(cfg.train.seed)
     eeg_data = (eeg_data if eeg_data is not None
@@ -460,6 +465,7 @@ def run_lite_training(
     """The lite k-fold loop (BASELINE config #1): V4-Lite tri-modal,
     label-smoothing CE + warmup-cosine + early stopping, on ``device``."""
     cfg = cfg or ExperimentConfig()
+    enable_compilation_cache()
     dev = model_device(device)
     seed_everything(cfg.train.seed)
     data = data if data is not None else load_or_synthesize_eeg(cfg)

@@ -42,6 +42,14 @@ per fold. ``initial_variables`` hands each fold flax variables instead of
 fresh weights (what the JAX package's ``fit`` initialises from the fold's
 key), which makes a run comparable with the JAX package's number for
 number.
+
+``aot_dir`` (the JAX package's bundle of its vmapped fit) keeps the fold's
+evaluation program, the eval-mode forward that ``fit`` runs every epoch and
+``run_cv`` at the end, as a ``core.aot`` bundle keyed as the JAX package
+keys its fit (the model's and the config's reprs, the task, the eval sets,
+the epochs, the mesh and the augmentation): the first run exports it, and
+a later run, in any process, loads it for every fold, epoch and rank
+(``eval_program``). The result is the run's without it.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from typing import (Any, Callable, Dict, List, Mapping, NamedTuple, Optional,
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.utils import _pytree as pytree
 
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
@@ -278,6 +287,52 @@ def _unstack(stacked: Any, like: Any, n: int) -> List[Any]:
         for i in range(n)]
 
 
+def eval_program(model: nn.Module, aot_dir: str, tag: str) -> Callable:
+    """``model``'s eval-mode forward as ``program(tensors, inputs)``
+    (``train.fit.state_tensors`` by state-dict name, the model's inputs)
+    through ``core.aot.bundle_or_jit`` in ``aot_dir``: the weights and
+    BatchNorm statistics are inputs, the row count any in
+    ``core.aot.ROWS``, so one bundle serves the validation and test sets of
+    every fold, epoch and rank. The first call of an input signature
+    exports its bundle and runs the module for the rest of the process (as
+    the JAX package runs its live jit after a miss); one whose bundle is on
+    disk runs the loaded program, which launches K1 where the module does.
+    It is a counterpart, not a speed path: the loaded program runs no
+    faster than the module, and loading it costs seconds (PERF.md).
+
+    Only the evaluation is bundled: the training step's forward stays
+    eager. ``torch.export`` takes dropout's draws from the device's default
+    generator, but not the augmentation's from the ``torch.Generator`` that
+    ``fit`` passes (it bakes the generator in as a constant and cannot
+    serialise it), nor the aux losses that Mixture-of-Experts layers hand
+    to ``fit`` through a context variable."""
+    from multimodal_eeg_fmri_tpu_torch.core.aot import ROWS, bundle_or_jit
+
+    if getattr(model, "mesh", None) is not None:
+        raise ValueError("aot_dir bundles the evaluation of an unsharded "
+                         "model; a model laid out on a mesh runs collectives "
+                         "that torch.export does not trace")
+
+    def live(tensors, inputs):
+        return functional_call(model, tensors, (), inputs)
+
+    # the program of each input signature: the inputs' row count (or
+    # "rows" in ROWS), other dims and dtypes; the state is the model's own
+    programs: Dict[tuple, Callable] = {}
+
+    def program(tensors, inputs):
+        rows = next(iter(inputs.values())).shape[0]
+        sig = ("rows" if ROWS[0] <= rows <= ROWS[1] else rows,
+               tuple((k, tuple(v.shape[1:]), v.dtype)
+                     for k, v in inputs.items()))
+        if sig not in programs:
+            programs[sig] = bundle_or_jit(live, (tensors, inputs), aot_dir,
+                                          tag, batch_args=(1,))
+        return programs[sig](tensors, inputs)
+
+    return program
+
+
 def run_cv(
     model: nn.Module,
     cfg: TrainConfig,
@@ -301,12 +356,9 @@ def run_cv(
     ``rng`` (default ``cfg.seed``; a sequence gives one seed per padded
     fold), ``initial_variables`` (one flax variable dict per real fold;
     padded folds start from ``init_weights``) and ``mesh_plan`` are
-    described in the module's docstring. ``aot_dir`` is not ported and
-    raises."""
-    if aot_dir is not None:
-        raise NotImplementedError(
-            "aot_dir is not ported: core/aot.py (jax.export bundles) is "
-            "dropped (ROADMAP.md, queue A item 8)")
+    described in the module's docstring. ``aot_dir`` keeps the fold's
+    evaluation program there as a ``core.aot`` bundle (``eval_program``);
+    the result is the run's without it."""
     # 'subject' rides along in the stacks (split_batch keeps it out of the
     # model inputs) so LOSO votes and per-subject reports can use it.
     validate_dataset(data, require_label=task == "classification",
@@ -325,8 +377,19 @@ def run_cv(
     n_total = len(fold_mask)
     seeds = fold_seeds(cfg.seed if rng is None else rng, n_total)
     _check_initial(initial_variables, n_folds)
+    program = None
+    if aot_dir is not None:
+        mesh_tag = ("none" if mesh_plan is None else
+                    f"{mesh_plan.n_ensemble}x{mesh_plan.n_data}")
+        program = eval_program(
+            model, aot_dir,
+            f"run_cv::{model!r}::{cfg!r}::task={task}"
+            f"::evals={tuple(eval_stacks.keys())}::epochs={num_epochs}"
+            f"::mesh={mesh_tag}"
+            f"::aug={getattr(augment, '_aot_tag', repr(augment))}")
     fit_fn = make_fit_fn(model, cfg, num_epochs=num_epochs, task=task,
-                         eval_names=tuple(eval_stacks), augment=augment)
+                         eval_names=tuple(eval_stacks), augment=augment,
+                         eval_program=program)
     dev = next(model.parameters()).device
 
     fits, metrics, probs = [], [], []
@@ -340,7 +403,8 @@ def run_cv(
                          cw[i])
             # final test metrics from the selected (best) state
             m, out = evaluate_dataset(model, res.params, res.batch_stats,
-                                      _fold(eval_stacks["test"], i), task)
+                                      _fold(eval_stacks["test"], i), task,
+                                      program)
             fits.append(res)
             metrics.append(m)
             probs.append(out.logits if task == "regression"

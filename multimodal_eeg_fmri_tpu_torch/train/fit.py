@@ -204,12 +204,27 @@ def compute_dtype(cfg: TrainConfig) -> torch.dtype:
     return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
+def state_tensors(model: nn.Module,
+                  tensors: Optional[Tensors] = None) -> Tensors:
+    """Every parameter and buffer of ``model`` by state-dict name, detached,
+    with ``tensors`` (params, buffers or both) standing in for its own: the
+    first argument of an evaluation program
+    (``make_fit_fn(eval_program=...)``)."""
+    return {**{k: p.detach() for k, p in model.named_parameters()},
+            **dict(model.named_buffers()), **(tensors or {})}
+
+
 def _apply_eval(model: nn.Module, inputs: Tensors,
-               params: Optional[Tensors] = None):
-    """The eval-mode forward without autograd, in f32; ``params`` (by
-    parameter name) stand in for the module's own without touching them."""
+                params: Optional[Tensors] = None,
+                program: Optional[Callable] = None):
+    """The eval-mode forward without autograd, in f32; ``params``
+    (parameters, buffers or both, by name) stand in for the module's own
+    without touching them. ``program(tensors, inputs)`` (``state_tensors``
+    and the model's inputs) runs it in the module's place."""
     model.eval()
     with torch.no_grad():
+        if program is not None:
+            return program(state_tensors(model, params), inputs)
         if params is None:
             return model(**inputs)
         return functional_call(model, params, (), inputs)
@@ -520,7 +535,8 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
                 loss_kwargs: Optional[dict] = None,
                 augment: Optional[Callable] = None,
                 preprocess: Optional[Callable] = None,
-                param_sharding: Optional[Callable] = None
+                param_sharding: Optional[Callable] = None,
+                eval_program: Optional[Callable] = None
                 ) -> Callable[..., FitResult]:
     """Build ``fit(generator, train_data, eval_sets, class_weights=None,
     hyper=None, resume_carry=None)`` that trains ``model`` in place.
@@ -533,7 +549,10 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
     optimizer hyperparameters. ``num_epochs`` (default ``cfg.num_epochs``)
     is the epochs of this call; the cosine schedule reads the global epoch
     against ``cfg.num_epochs``. ``param_sharding`` (``model → model``)
-    lays the model out before its optimizer is built, on every call."""
+    lays the model out before its optimizer is built, on every call.
+    ``eval_program(tensors, inputs)`` (``state_tensors`` and the model's
+    inputs; a loaded ``core.aot`` bundle) computes the per-epoch evaluations
+    in the module's place: it must compute the module's eval-mode forward."""
     E = num_epochs or cfg.num_epochs
     if cfg.selection != "train_loss" and cfg.selection not in eval_names:
         raise ValueError(
@@ -627,7 +646,7 @@ def make_fit_fn(model: nn.Module, cfg: TrainConfig, *,
                 data = eval_sets[name]
                 with step.sharded_forward():
                     logits = _apply_eval(model, step.inputs(step.rows(data)),
-                                         ema).logits
+                                         ema, eval_program).logits
                 if step.data_axis is not None:
                     logits = all_gather(logits, step.data_axis, 0, step.mesh)
                 m = (regression_metrics if task == "regression"

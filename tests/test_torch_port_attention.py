@@ -142,6 +142,9 @@ def test_port_imports_no_jax():
             "multimodal_eeg_fmri_tpu_torch.core.quantize, "
             "multimodal_eeg_fmri_tpu_torch.core.profiling, "
             "multimodal_eeg_fmri_tpu_torch.core.determinism, "
+            "multimodal_eeg_fmri_tpu_torch.core.aot, "
+            "multimodal_eeg_fmri_tpu_torch.core.cache, "
+            "multimodal_eeg_fmri_tpu_torch.ops.optim, "
             "multimodal_eeg_fmri_tpu_torch.report.uncertainty, "
             "multimodal_eeg_fmri_tpu_torch.report.drift, "
             "multimodal_eeg_fmri_tpu_torch.models.eeg, "

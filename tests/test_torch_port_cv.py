@@ -18,7 +18,8 @@ as in ``test_fit_matches_jax``; cohorts, splits, fold arrays, best epochs,
 test labels, weights and subjects exactly equal. The clinical report of
 the port's run: finite, in range. The port's own rules: fold
 seeds fixed by (seed, fold), each fold started afresh, the caller's
-generator restored, ``aot_dir`` raising, a one-rank ``mesh_plan``,
+generator restored, ``aot_dir`` and a one-rank ``mesh_plan`` each equal
+to the plain run,
 ``RngStream``'s replay by (seed, name, index) and ``seed_everything``.
 """
 
@@ -298,24 +299,27 @@ def test_run_cv_folds_start_fresh_and_restore_the_generators():
 
 
 @pytest.mark.parametrize("what", ["mesh_plan", "aot_dir"])
-def test_unported_run_cv_options_raise(what):
-    """``aot_dir`` raises, naming queue A item 8; ``mesh_plan`` is ported:
-    a plan of one rank (a layout-only mesh, no process group) gives the
-    unsharded run bit for bit (the sharded runs:
-    ``test_torch_port_ensemble.py``)."""
+def test_unported_run_cv_options_raise(what, tmp_path):
+    """Both options are ported, and neither changes the result: a plan of
+    one rank (a layout-only mesh, no process group) and an ``aot_dir`` (its
+    evaluation program bundled, then loaded by a second run) each give the
+    plain run bit for bit (the sharded runs:
+    ``test_torch_port_ensemble.py``; the bundles against JAX's:
+    ``test_torch_port_aot.py``)."""
     from multimodal_eeg_fmri_tpu_torch.parallel import build_mesh
 
     data = t_synthetic.synthetic_fmri(n_subjects=8, with_regression=False)
     cfg = TrainConfig(batch_size=4, num_epochs=1, selection="train_loss")
     splits = t_cv.loso_splits(data, cfg)[:3]
-    if what == "aot_dir":
-        with pytest.raises(NotImplementedError, match="queue A item 8"):
-            t_cv.run_cv(TFMRI(**FMRI, device="cpu"), cfg, data, splits,
-                        aot_dir="x")
-        return
     plain = t_cv.run_cv(TFMRI(**FMRI, device="cpu"), cfg, data, splits)
-    planned = t_cv.run_cv(TFMRI(**FMRI, device="cpu"), cfg, data, splits,
-                          mesh_plan=build_mesh(world_size=1))
+    if what == "aot_dir":
+        for _ in range(2):   # a miss (exports), then a hit (loads)
+            planned = t_cv.run_cv(TFMRI(**FMRI, device="cpu"), cfg, data,
+                                  splits, aot_dir=str(tmp_path))
+            assert len(list(tmp_path.glob("*.pt2"))) == 1
+    else:
+        planned = t_cv.run_cv(TFMRI(**FMRI, device="cpu"), cfg, data,
+                              splits, mesh_plan=build_mesh(world_size=1))
     assert planned.n_folds == plain.n_folds == 3
     for k, v in plain.params.items():
         assert torch.equal(planned.params[k], v), k

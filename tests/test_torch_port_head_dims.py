@@ -17,7 +17,10 @@ the deep tensor-core kernels (``csrc/flash_fwd_deep.cu``,
 64, with the true scale: the routing, through a stand-in library that
 records the launch; the padded plain forward and backward at d = 129, 160
 and 224 on their instance and at d = 257, 300 and 320 padded to 320,
-against the plain versions at d (1e-6, as above); ``flash_attention`` and ``flash_attention_lse`` at
+against the plain versions at d (1e-6, as above); past the old limit of
+12,448, d = 12,449 routed to the deep kernels at 12,480, the grid's bound
+refused with ``unsupported sizes``, and ``flash_attention_lse`` at d =
+12,480 against JAX's interpret mode at a tiny T (2e-5); ``flash_attention`` and ``flash_attention_lse`` at
 d = 160, 256, 320 and 512 against JAX's interpret mode (which pads to a
 multiple of 128 lanes) within 2e-5 in f32, outputs, lse and the
 gradients with an lse cotangent; in the bf16-operand mode against JAX's
@@ -206,13 +209,19 @@ DEEP_FORWARD_DIMS = (257, 320)
 def test_wide_head_dim_goes_padded_to_the_deep_kernel(d):
     """Past 256 K1's wrapper launches through the ``_deep`` entry point at
     d padded to a multiple of 64, as K2 and K3 do
-    (``test_backward_routes_by_head_dim``); past ``WIDE_MAX_HEAD_DIM`` all
-    three raise."""
+    (``test_backward_routes_by_head_dim``), also past the old limit of
+    12,448: 12,449 goes to the deep kernels padded to 12,480. Past the
+    grid's bound, ``WIDE_MAX_HEAD_DIM`` (65,535 column slices of 512 on
+    the grid's z axis), all three raise ``unsupported sizes``."""
     assert port_attn._launch("mmef_flash_fwd", d) == ("mmef_flash_fwd_deep",
                                                       DEEP_PADDED[d])
     assert port_attn._launch("mmef_flash_fwd", 100) == ("mmef_flash_fwd", 128)
+    assert port_attn.WIDE_MAX_HEAD_DIM == 65535 * 512
     for name in ("mmef_flash_fwd", "mmef_flash_bwd_dkv", "mmef_flash_bwd_dq"):
-        with pytest.raises(ValueError, match="limit"):
+        assert port_attn._launch(name, 12449) == (f"{name}_deep", 12480)
+        assert port_attn._launch(name, port_attn.WIDE_MAX_HEAD_DIM) == (
+            f"{name}_deep", port_attn.WIDE_MAX_HEAD_DIM)
+        with pytest.raises(ValueError, match="unsupported sizes"):
             port_attn._launch(name, port_attn.WIDE_MAX_HEAD_DIM + 1)
 
 
@@ -260,6 +269,39 @@ def test_wide_head_dim_matches_jax_interpret(d, with_lse):
     np.testing.assert_allclose(out_p.detach().numpy(), np.asarray(out_j),
                                atol=JAX_ATOL, rtol=0)
     for name, t, gj in zip(("dq", "dk", "dv"), (tq, tk, tv), grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj),
+                                   atol=JAX_ATOL, rtol=0, err_msg=name)
+
+
+def test_head_dim_past_the_old_limit_matches_jax_interpret():
+    """At d = 12,480, past the old limit of 12,448 (the deep kernels at a
+    multiple of 64), ``flash_attention_lse`` against the JAX package's
+    interpret mode at a tiny T: output, lse and the gradients of
+    Σ out·g + Σ lse·g_lse within 2e-5."""
+    d = 12480
+    r = np.random.default_rng(d)
+    B, H, tq, tk = 1, 1, 6, 10
+    q, k, v, g = (r.standard_normal(s, dtype=np.float32) for s in
+                  ((B, H, tq, d), (B, H, tk, d), (B, H, tk, d),
+                   (B, H, tq, d)))
+    g_lse = r.standard_normal((B, H, tq), dtype=np.float32)
+
+    def loss_j(q, k, v):
+        out, lse = jax_attn.flash_attention_lse(q, k, v, interpret=True)
+        return jnp.sum(out * g) + jnp.sum(lse * g_lse), (out, lse)
+
+    (_, (out_j, lse_j)), grads_j = jax.value_and_grad(
+        loss_j, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq_, tk_, tv_ = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out_p, lse_p = port_attn.flash_attention_lse(tq_, tk_, tv_)
+    ((out_p * torch.from_numpy(g)).sum()
+     + (lse_p * torch.from_numpy(g_lse)).sum()).backward()
+    np.testing.assert_allclose(out_p.detach().numpy(), np.asarray(out_j),
+                               atol=JAX_ATOL, rtol=0)
+    np.testing.assert_allclose(lse_p.detach().numpy(), np.asarray(lse_j),
+                               atol=JAX_ATOL, rtol=0)
+    for name, t, gj in zip(("dq", "dk", "dv"), (tq_, tk_, tv_), grads_j):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj),
                                    atol=JAX_ATOL, rtol=0, err_msg=name)
 
@@ -455,10 +497,13 @@ def stand_in(monkeypatch):
 # it, at d padded to a multiple of 64
 SPLIT_ROUTES = [(129, "_split", 192), (160, "_split", 192),
                 (192, "_split", 192), (256, "_split", 256)]
+# (12,449 is past the old limit of 12,448)
 FORWARD_ROUTES = SPLIT_ROUTES + [(d, "_deep", kd) for d, kd in
-                                 sorted(DEEP_PADDED.items()) if d != 300]
+                                 sorted(DEEP_PADDED.items()) if d != 300] + [
+    (12449, "_deep", 12480)]
 BACKWARD_ROUTES = SPLIT_ROUTES + [(d, "_deep", kd) for d, kd in
-                                  sorted(DEEP_PADDED.items())]
+                                  sorted(DEEP_PADDED.items())] + [
+    (12449, "_deep", 12480)]
 
 
 @pytest.mark.parametrize("d,suffix,kd", BACKWARD_ROUTES)
@@ -546,12 +591,17 @@ def test_grid_rows_past_256(stand_in):
 
 
 def test_backward_past_the_limit_raises(stand_in):
-    q, k, v, g = _inputs(port_attn.WIDE_MAX_HEAD_DIM + 1, torch.float32,
-                         B=1, H=1, tq=2, tk=2)
+    """K1, K2 and K3 refuse a head dim past the grid's bound with
+    ``unsupported sizes`` before they launch (the inputs are broadcast
+    views, so nothing that wide is allocated)."""
+    d = port_attn.WIDE_MAX_HEAD_DIM + 1
+    q = torch.zeros(1, 1, 1, 1).expand(1, 1, 2, d)
     lse = torch.zeros(1, 1, 2)
+    with pytest.raises(ValueError, match="unsupported sizes"):
+        port_attn.flash_forward_cuda(q, q, q)
     for fn in (port_attn.flash_bwd_dkv_cuda, port_attn.flash_bwd_dq_cuda):
-        with pytest.raises(ValueError, match="limit"):
-            fn(q, k, v, g, lse, lse)
+        with pytest.raises(ValueError, match="unsupported sizes"):
+            fn(q, q, q, q, lse, lse)
     assert not stand_in.calls
 
 

@@ -21,7 +21,12 @@ gradient, as both sides round their f32 result to bf16 on their own.
 Past head dim 128 (K1, K2 and K3 on the split tensor-core kernels up to
 256, on the deep tensor-core kernels past it) at the same gates, each launch counted at its C entry point and
 launch head dim, and K1, K2 and K3 equal bit for bit on a second call
-(each block writes its rows once, its sums in a fixed order).
+(each block writes its rows once, its sums in a fixed order); at
+(1, 1, 64, 12800), past the old limit of 12,448, and (1, 1, 2, 8400000),
+past the 32-bit bound of the column slices, at the f32 gates. A
+train-mode loss bundled by ``core.aot`` and loaded again launches K1 in its
+forward and K2 and K3 in its backward, as many as the live module, with
+its loss within 1e-5 and its gradients within 1e-4 of their largest.
 S1 on either schedule within 2e-5 of its sequential plain version's largest
 |value| (on the sequential schedule it rounds each operation as the plain
 version does, so the two should agree exactly), and equal to
@@ -230,8 +235,9 @@ def test_kernel_wrapper_refuses(cuda_device, bad):
     err = {"mixed_dtype": TypeError, "dtype": TypeError}.get(bad, ValueError)
     if bad == "mixed_dtype":
         q = q.bfloat16()
-    elif bad == "head_dim":   # past the wrappers' limit
-        q, k, v = _qkv(cuda_device, 1, 1, 8, 8, WIDE_MAX_HEAD_DIM + 1)
+    elif bad == "head_dim":   # past the grid's bound: broadcast views
+        q = k = v = torch.zeros(1, 1, 1, 1, device=cuda_device).expand(
+            1, 1, 8, WIDE_MAX_HEAD_DIM + 1)
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     else:
@@ -303,6 +309,114 @@ def test_kernels_take_wide_head_dims(cuda_device, d, storage):
     64 on the deep tensor-core kernels (``csrc/flash_fwd_deep.cu``,
     ``csrc/flash_bwd_deep.cu``)."""
     _kernels_hold_at_head_dim(cuda_device, d, storage)
+
+
+@pytest.mark.cuda
+def test_kernels_past_the_old_head_dim_limit(cuda_device):
+    """K1, K2 and K3 at (B, H, T, D) = (1, 1, 64, 12800), past the old limit
+    of 12,448, on the deep kernels (25 column slices of 512) against their
+    plain versions: K1 within 2e-5, K2 and K3 within 2e-4 (f32)."""
+    _deep_kernels_hold(cuda_device, 64, 12800)
+
+
+@pytest.mark.cuda
+def test_kernels_past_the_32_bit_slice_bound(cuda_device):
+    """K1, K2 and K3 at (1, 1, 2, 8400000), past D = 2^23, where the column
+    slice bounds of the last blocks (their slice index times the D / 64
+    chunks) pass 2^31, against their plain versions at the f32 gates of
+    (1, 1, 64, 12800). (The grid's limit, 33,553,920, is not run: each
+    block there sums its scores over all 524,280 chunks, and a call takes
+    minutes.)"""
+    _deep_kernels_hold(cuda_device, 2, 8_400_000)
+
+
+def _deep_kernels_hold(device, t, d):
+    q, k, v = _qkv(device, 1, 1, t, t, d, seed=3)
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        q.shape, dtype=np.float32)).to(device)
+    before = [fn.launches_by_instance.get(f"{name}_deep D={d}", 0)
+              for fn, name in ((flash_forward_cuda, "mmef_flash_fwd"),
+                               (flash_bwd_dkv_cuda, "mmef_flash_bwd_dkv"),
+                               (flash_bwd_dq_cuda, "mmef_flash_bwd_dq"))]
+    out_k, lse_k = flash_forward_cuda(q, k, v)
+    out_p, lse_p = flash_forward_plain(q, k, v)
+    delta = flash_delta(out_p, g)
+    got = (*flash_bwd_dkv_cuda(q, k, v, g, lse_p, delta),
+           flash_bwd_dq_cuda(q, k, v, g, lse_p, delta))
+    want = (*flash_bwd_dkv_plain(q, k, v, g, lse_p, delta),
+            flash_bwd_dq_plain(q, k, v, g, lse_p, delta))
+    torch.cuda.synchronize()
+    after = [fn.launches_by_instance.get(f"{name}_deep D={d}", 0)
+             for fn, name in ((flash_forward_cuda, "mmef_flash_fwd"),
+                              (flash_bwd_dkv_cuda, "mmef_flash_bwd_dkv"),
+                              (flash_bwd_dq_cuda, "mmef_flash_bwd_dq"))]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    torch.testing.assert_close(out_k, out_p, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse_k, lse_p, atol=2e-5, rtol=0)
+    for a, b, name in zip(got, want, ("dk", "dv", "dq")):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=0,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_loaded_training_program_launches_k2_k3(cuda_device, tmp_path):
+    """A train-mode loss of a narrow ``TriModalFusionNetV4`` at T = 512
+    (its temporal attention on the flash route), bundled by
+    ``core.aot.export_jitted`` and loaded again: its forward launches K1
+    and its backward K2 and K3 through the operator's own gradient, as
+    many as the live module's, with the same loss and gradients (1e-5,
+    1e-4 of each tensor's largest)."""
+    from torch.func import functional_call
+
+    from multimodal_eeg_fmri_tpu_torch.convert import init_weights
+    from multimodal_eeg_fmri_tpu_torch.core.aot import (
+        export_jitted,
+        load_bundle,
+    )
+    from multimodal_eeg_fmri_tpu_torch.models import TriModalFusionNetV4
+    from multimodal_eeg_fmri_tpu_torch.ops.attention import kernel_launches
+
+    model = init_weights(
+        TriModalFusionNetV4(hidden_dim=32, num_transformer_layers=1,
+                            num_heads=2, dropout=0.0, device=cuda_device),
+        torch.Generator().manual_seed(0))
+    model.fusion.gate_dropout = 0.0
+    model.train()
+    r = np.random.default_rng(5)
+    inputs = {k: torch.from_numpy(r.standard_normal(s, dtype=np.float32))
+              .to(cuda_device) for k, s in (("erp", (4, 512, 18)),
+                                            ("pw", (4, 512, 75)),
+                                            ("conn", (4, 459)))}
+    label = torch.tensor([0, 1, 1, 0], device=cuda_device)
+
+    def loss(params, buffers, inputs, label):
+        out = functional_call(model, {**params, **buffers}, (), inputs)
+        return torch.nn.functional.cross_entropy(out.logits, label)
+
+    params = {k: p.detach().clone().requires_grad_()
+              for k, p in model.named_parameters()}
+    buffers = {k: b.clone() for k, b in model.named_buffers()}
+    export_jitted(loss, (params, buffers, inputs, label),
+                  tmp_path / "loss.pt2")
+    loaded = load_bundle(tmp_path / "loss.pt2")
+
+    def run(fn):
+        before = kernel_launches()
+        value = fn(params, {k: b.clone() for k, b in buffers.items()},
+                   inputs, label)
+        grads = torch.autograd.grad(value, list(params.values()))
+        torch.cuda.synchronize()
+        after = kernel_launches()
+        return value, grads, {k: after[k]["f32"] - before[k]["f32"]
+                              for k in after}
+
+    live_loss, live_grads, live_n = run(loss)
+    got_loss, got_grads, got_n = run(loaded)
+    assert got_n == live_n and min(got_n.values()) > 0, (got_n, live_n)
+    torch.testing.assert_close(got_loss, live_loss, atol=1e-5, rtol=0)
+    for (name, _), a, b in zip(params.items(), got_grads, live_grads):
+        limit = 1e-4 * max(b.abs().max().item(), 1e-30)
+        assert (a - b).abs().max().item() <= limit, name
 
 
 @pytest.mark.cuda

@@ -19,8 +19,11 @@ package's.
   module, its state dict and nested arrays, against the JAX package's over
   the same variables.
 - The package's names cover the JAX package's ``__all__`` and no message
-  names queue A item 7c; a rank that fails fails its world.
+  names queue A item 7c, 7d or 8 (``ensemble_vmap`` is among the names);
+  a rank that fails fails its world.
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -260,24 +263,29 @@ def test_tree_helpers_match_jax():
 
 
 def test_unported_parts_name_their_queue_item():
-    """Queue A items 7a-7d are ported: the package exports the JAX
-    package's ``__all__`` (``ensemble_vmap`` is dropped, item 8, and not
-    in it), no message of the port names item 7c or 7d any more, and a seed
-    sweep whose seeds do not divide the ensemble axis raises the JAX
-    package's error, word for word."""
+    """Queue A items 7a-7d and 8 are ported: the package exports the JAX
+    package's ``__all__`` and ``ensemble_vmap`` (``parallel/mesh.py``, as
+    the JAX package's), no message of the port names item 7c, 7d or 8 any
+    more, and a seed sweep whose seeds do not divide the ensemble axis
+    raises the JAX package's error, word for word."""
     from pathlib import Path
 
     from multimodal_eeg_fmri_tpu import parallel as j_par
     from multimodal_eeg_fmri_tpu_torch import TrainConfig
     from multimodal_eeg_fmri_tpu_torch.train import cv as t_cv
 
+    from multimodal_eeg_fmri_tpu.parallel import mesh as j_mesh
+
     assert set(j_par.__all__) <= set(t_par.__all__)
     for name in t_par.__all__:
         assert hasattr(t_par, name), name
+    assert "ensemble_vmap" in t_par.__all__
+    assert (list(inspect.signature(t_par.ensemble_vmap).parameters)
+            == list(inspect.signature(j_mesh.ensemble_vmap).parameters))
     root = Path(t_par.__file__).parents[1]
     for path in root.rglob("*.py"):
         text = path.read_text()
-        assert "item 7c" not in text and "item 7d" not in text, path
+        assert not any(f"item {i}" in text for i in ("7c", "7d", "8")), path
     plan = t_par.build_mesh(ensemble=2, world_size=2, rank=0)
     with pytest.raises(ValueError) as err:
         t_cv.run_seed_sweep(None, TrainConfig(),

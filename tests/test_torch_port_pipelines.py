@@ -415,12 +415,30 @@ def test_cli_all_on_reference_files(tmp_path):
                      "lite_detailed.csv", "lite_summary.csv"]
 
 
-def test_cli_refuses(tmp_path, capsys):
+def test_cli_refuses(tmp_path, monkeypatch):
+    """The CLI refuses a run without ``--pipeline`` and, without a card, a
+    run on the card; ``--aot-dir`` is no longer refused: it reaches the
+    EEG and fMRI pipelines, as the JAX package's CLI passes it."""
     with pytest.raises(SystemExit):
         t_main.main([])
-    with pytest.raises(SystemExit):
-        t_main.main(["--pipeline", "eeg", "--aot-dir", str(tmp_path)])
-    assert "queue A item 8" in capsys.readouterr().err
+    seen = {}
+
+    def fake(name, out):
+        def run(cfg, export=True, aot_dir=None, device="cuda"):
+            seen[name] = (aot_dir, device)
+            return out
+        return run
+
+    with monkeypatch.context() as mp:
+        mp.setattr(t_pipelines, "run_eeg_experiment",
+                   fake("eeg", {"kfold": {}}))
+        mp.setattr(t_pipelines, "run_fmri_experiment",
+                   fake("fmri", {"classification": {}}))
+        for pipe in ("eeg", "fmri"):
+            assert t_main.main(["--pipeline", pipe, "--aot-dir",
+                                str(tmp_path), "--cpu", "--no-export"]) == 0
+    assert seen == {"eeg": (str(tmp_path), "cpu"),
+                    "fmri": (str(tmp_path), "cpu")}
     if not torch.cuda.is_available():
         cfg_path = tmp_path / "cfg.json"
         t_config.save_config(tiny_cfg(t_config, tmp_path), cfg_path)

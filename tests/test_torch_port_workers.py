@@ -882,3 +882,31 @@ def batcher_world_of_one(rank, world):
         got = [b(x=x[lo:hi]) for lo, hi in ((0, 3), (3, 5))]
     return (got, (b.batches, b.rows), b._group is not None, stub.seen,
             "jax" in sys.modules)
+
+
+def ensemble_vmap_cases(rank, world, kw, stacked, data, data_k):
+    """``parallel.ensemble_vmap`` of a flash-routed narrow V4's eval-mode
+    logits over the fold-stacked ``stacked`` weights: shared inputs on an
+    (ensemble 2) mesh and on a (data 2) mesh, whose ranks repeat every
+    fold; and every argument mapped (``data_k``, each member its rows)."""
+    from torch.func import functional_call
+
+    from multimodal_eeg_fmri_tpu_torch.parallel import (
+        build_mesh,
+        ensemble_vmap,
+    )
+
+    model = _narrow_v4(kw, flash=True).eval()
+
+    def member(tensors, inputs):
+        return functional_call(model, tensors, (), inputs).logits
+
+    out = {}
+    with torch.no_grad():
+        for name, (e, d) in (("ensemble", (2, 1)), ("data", (1, 2))):
+            plan = build_mesh(ensemble=e, data=d)
+            out[name] = ensemble_vmap(member, plan, in_axes=(0, None))(
+                stacked, data)
+        out["mapped"] = ensemble_vmap(member, build_mesh(ensemble=2))(
+            stacked, data_k)
+    return out, "jax" in sys.modules
