@@ -10,7 +10,11 @@
   logging it to a metrics logger.
 - ``compiled_memory_stats``: the caching allocator's peak around one call
   whose arguments lie on a card (``None`` on the CPU).
-- ``annotate``: ``torch.profiler.record_function``, to label a region.
+- ``annotate``: the port's span. While a profiler records it opens a
+  ``RecordFunction``, so the span lies in the profiler's trace beside the
+  device activity it launches, on the same clock; with no profiler it is
+  one shared no-op context and calls nothing in PyTorch. The port names
+  its spans ``mmef/<layer>/<part>``.
 """
 
 from __future__ import annotations
@@ -23,8 +27,28 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
-annotate = torch.profiler.record_function
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """A span over the enclosed block, decided at entry: while a profiler
+    records (the process-wide flag, which a profiler started on another
+    thread sets too) a ``RecordFunction`` named ``name``, else the shared
+    no-op context. It closes only what it opened, so a profiler that starts
+    or stops inside the block leaves no half span.
+
+    The span is ``torch._C._profiler._RecordFunctionFast``, as PyTorch's
+    own compiled programs mark their regions, not ``record_function``:
+    that one enters the dispatcher through ``torch.ops``, which lets go of
+    the interpreter lock, and a thread among many busy ones (a batcher
+    among its clients) then waits for the lock at every span's edge. In
+    the profiler's trace the span is a CPU operation of its name, not a
+    user annotation."""
+    if _profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def _cuda_devices(x: Any) -> set:

@@ -40,6 +40,7 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 from torch import nn
 
+from multimodal_eeg_fmri_tpu_torch.core.profiling import annotate
 from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
     all_gather,
     psum,
@@ -293,7 +294,8 @@ class MoEFFN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, D = x.shape
-        dispatch, combine, aux = self.routing(x)
+        with annotate("mmef/moe/route"):
+            dispatch, combine, aux = self.routing(x)
         if self.training:
             add_aux_loss(self.aux_weight * aux)
         dt = x.dtype
@@ -302,13 +304,17 @@ class MoEFFN(nn.Module):
             dispatch = dispatch[:, e0:e0 + held]
             combine = combine[:, e0:e0 + held]
         xs = x.reshape(B * T, D)
-        xe = torch.einsum("sec,sd->ecd", dispatch.to(dt), xs)   # (E, C, D)
-        h = gelu(torch.einsum("ecd,edf->ecf", xe, self.w1)
-                  + self.b1[:, None, :])
-        ye = torch.einsum("ecf,efd->ecd", h, self.w2) + self.b2[:, None, :]
-        # combine rounds its gates to the compute dtype, as the JAX
-        # package's does
-        y = torch.einsum("sec,ecd->sd", combine.to(dt), ye)
-        if held < self.num_experts:
-            y = psum(y, self.expert_axis, self.mesh)
+        with annotate("mmef/moe/dispatch"):
+            xe = torch.einsum("sec,sd->ecd", dispatch.to(dt), xs)  # (E, C, D)
+        with annotate("mmef/moe/experts"):
+            h = gelu(torch.einsum("ecd,edf->ecf", xe, self.w1)
+                      + self.b1[:, None, :])
+            ye = (torch.einsum("ecf,efd->ecd", h, self.w2)
+                  + self.b2[:, None, :])
+        with annotate("mmef/moe/combine"):
+            # combine rounds its gates to the compute dtype, as the JAX
+            # package's does
+            y = torch.einsum("sec,ecd->sd", combine.to(dt), ye)
+            if held < self.num_experts:
+                y = psum(y, self.expert_axis, self.mesh)
         return y.reshape(B, T, D)

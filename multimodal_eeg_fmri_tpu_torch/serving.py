@@ -38,6 +38,7 @@ from torch import nn
 
 from multimodal_eeg_fmri_tpu_torch.convert import load_flax_variables
 from multimodal_eeg_fmri_tpu_torch.core.checkpoint import load_checkpoint
+from multimodal_eeg_fmri_tpu_torch.core.profiling import annotate
 from multimodal_eeg_fmri_tpu_torch.core.quantize import load_quantized
 from multimodal_eeg_fmri_tpu_torch.data.arrays import as_tensor
 # registers mmef::flash_fwd, which the programs of load_artifact call
@@ -55,21 +56,21 @@ from multimodal_eeg_fmri_tpu_torch.parallel.mesh import (
 from multimodal_eeg_fmri_tpu_torch.train.fit import RESERVED_KEYS
 
 
-def _pad(inputs: Dict[str, np.ndarray], batch_size: int):
-    """(chunk of ``batch_size`` rows, real rows) pairs; a short last chunk
+def _rows(inputs: Dict[str, np.ndarray]) -> int:
+    return len(next(iter(inputs.values())))
+
+
+def _pad_chunk(inputs: Dict[str, np.ndarray], start: int, batch_size: int):
+    """(the ``batch_size`` rows from ``start``, real rows); a short chunk
     repeats its row 0."""
-    n = len(next(iter(inputs.values())))
-    chunks = []
-    for start in range(0, n, batch_size):
-        chunk = {k: np.asarray(v)[start:start + batch_size]
-                 for k, v in inputs.items()}
-        m = len(next(iter(chunk.values())))
-        if m < batch_size:
-            chunk = {k: np.concatenate(
-                [v, np.repeat(v[:1], batch_size - m, axis=0)])
-                for k, v in chunk.items()}
-        chunks.append((chunk, m))
-    return chunks
+    chunk = {k: np.asarray(v)[start:start + batch_size]
+             for k, v in inputs.items()}
+    m = _rows(chunk)
+    if m < batch_size:
+        chunk = {k: np.concatenate(
+            [v, np.repeat(v[:1], batch_size - m, axis=0)])
+            for k, v in chunk.items()}
+    return chunk, m
 
 
 def _served(inputs: dict) -> dict:
@@ -122,12 +123,23 @@ class _Serving:
         JAX package's ``jnp.asarray`` makes it."""
         return {k: as_tensor(v, self.device) for k, v in chunk.items()}
 
-    def _pad(self, inputs: Dict[str, np.ndarray]):
-        return _pad(inputs, self.batch_size)
-
     def _forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         with torch.inference_mode():
             return self.net(**inputs)
+
+    def _outputs(self, inputs: Dict[str, np.ndarray]):
+        """(the served output of a chunk of ``batch_size`` rows on the host,
+        its real rows), chunk by chunk, each part in its span."""
+        inputs = _served(inputs)
+        for start in range(0, _rows(inputs), self.batch_size):
+            with annotate("mmef/predict/h2d"):
+                chunk, m = _pad_chunk(inputs, start, self.batch_size)
+                dev = self._to_device(chunk)
+            with annotate("mmef/predict/forward"):
+                out = self._forward(dev)
+            with annotate("mmef/predict/d2h"):
+                host = out.cpu().numpy()
+            yield host, m
 
     def export_artifact(self, example: Dict[str, np.ndarray],
                         path: str | Path) -> bytes:
@@ -138,7 +150,8 @@ class _Serving:
         dtypes, on this predictor's device, and runs there: an artifact
         exported on the card launches the flash kernel as ``mmef::flash_fwd``
         wherever the live predictor would."""
-        chunk = self._to_device(self._pad(_served(example))[0][0])
+        chunk = self._to_device(
+            _pad_chunk(_served(example), 0, self.batch_size)[0])
         with torch.no_grad():
             # lowered to ATen ops: vmap resolves into batched ops and the
             # folded ``mmef::flash_fwd`` call, with none of its own
@@ -154,7 +167,8 @@ class _Serving:
                   iters: int = 30) -> Dict[str, float]:
         """Latency percentiles of one batch, host clock around a forward
         that ends in ``torch.cuda.synchronize()`` on a CUDA device."""
-        dev = self._to_device(self._pad(_served(example))[0][0])
+        dev = self._to_device(
+            _pad_chunk(_served(example), 0, self.batch_size)[0])
         cuda = self.device.type == "cuda"
 
         def run():
@@ -218,7 +232,9 @@ class Predictor(_Serving):
         """The model's raw logits for any number of rows, on the device."""
         out = []
         with torch.inference_mode():
-            for chunk, m in self._pad(_served(inputs)):
+            inputs = _served(inputs)
+            for start in range(0, _rows(inputs), self.batch_size):
+                chunk, m = _pad_chunk(inputs, start, self.batch_size)
                 dev = self._to_device(chunk)
                 if self._preprocess is not None:
                     dev = {**dev, **self._preprocess(dev)}
@@ -245,9 +261,9 @@ class Predictor(_Serving):
 
     def __call__(self, **inputs) -> np.ndarray:
         """Predict for any number of rows, in batches of ``batch_size``."""
-        outs = [self._forward(self._to_device(chunk)).cpu().numpy()[:m]
-                for chunk, m in self._pad(_served(inputs))]
-        return np.concatenate(outs, axis=0)
+        with annotate("mmef/predict"):
+            return np.concatenate([out[:m] for out, m in
+                                   self._outputs(inputs)], axis=0)
 
 
 def _load_state(model: nn.Module, restored: dict) -> nn.Module:
@@ -467,7 +483,9 @@ class EnsemblePredictor(_Serving):
         (all K members' on every rank with a plan: collective)."""
         out = []
         with torch.inference_mode():
-            for chunk, m in self._pad(_served(inputs)):
+            inputs = _served(inputs)
+            for start in range(0, _rows(inputs), self.batch_size):
+                chunk, m = _pad_chunk(inputs, start, self.batch_size)
                 dev = self._to_device(chunk)
                 if self._preprocess is not None:
                     dev = {**dev, **self._preprocess(dev)}
@@ -511,11 +529,11 @@ class EnsemblePredictor(_Serving):
             temperature=self.temperature).export_artifact(example, path)
 
     def __call__(self, **inputs) -> np.ndarray:
-        outs = []
-        for chunk, m in self._pad(_served(inputs)):
-            probs = self._forward(self._to_device(chunk)).cpu().numpy()
-            outs.append(probs[:, :m] if self.reduce == "none" else probs[:m])
-        return np.concatenate(outs, axis=1 if self.reduce == "none" else 0)
+        with annotate("mmef/predict"):
+            outs = [probs[:, :m] if self.reduce == "none" else probs[:m]
+                    for probs, m in self._outputs(inputs)]
+            return np.concatenate(outs,
+                                  axis=1 if self.reduce == "none" else 0)
 
 
 def _check_batch_stats(paths: Sequence, restored: List[dict]) -> None:
@@ -675,7 +693,7 @@ class DynamicBatcher:
     def _run(self):
         self._on_device()
         while True:
-            with self._cv:
+            with annotate("mmef/batcher/wait"), self._cv:
                 while not self._queue and not self._closed:
                     self._cv.wait()
                 if not self._queue and self._closed:
@@ -688,9 +706,10 @@ class DynamicBatcher:
                         break
                     self._cv.wait(timeout=remaining)
                 batch, self._queue = self._queue, []
-            groups: Dict[frozenset, list] = {}
-            for _, r in batch:
-                groups.setdefault(frozenset(r.inputs), []).append(r)
+            with annotate("mmef/batcher/join"):
+                groups: Dict[frozenset, list] = {}
+                for _, r in batch:
+                    groups.setdefault(frozenset(r.inputs), []).append(r)
             for reqs in groups.values():
                 self._serve(reqs)
         if self._group is not None and self._error is None:
@@ -704,26 +723,29 @@ class DynamicBatcher:
         try:
             if self._error is not None:
                 raise RuntimeError("DynamicBatcher is closed") from self._error
-            joined = {
-                k: (np.concatenate([r.inputs[k] for r in reqs])
-                    if len(reqs) > 1 else reqs[0].inputs[k])
-                for k in reqs[0].inputs
-            }
-            if self._group is not None:
-                joined = self._send(joined)
+            with annotate("mmef/batcher/join"):
+                joined = {
+                    k: (np.concatenate([r.inputs[k] for r in reqs])
+                        if len(reqs) > 1 else reqs[0].inputs[k])
+                    for k in reqs[0].inputs
+                }
+                if self._group is not None:
+                    joined = self._send(joined)
             out = np.asarray(self.predictor(**joined))
             self.batches += 1
             self.rows += sum(r.n for r in reqs)
-            off = 0
-            for r in reqs:
-                r.result = out[off:off + r.n]
-                off += r.n
+            with annotate("mmef/batcher/deliver"):
+                off = 0
+                for r in reqs:
+                    r.result = out[off:off + r.n]
+                    off += r.n
         except Exception as e:  # deliver it; the worker goes on
             for r in reqs:
                 r.error = e
         finally:
-            for r in reqs:
-                r.event.set()
+            with annotate("mmef/batcher/deliver"):
+                for r in reqs:
+                    r.event.set()
 
     def _send(self, joined: Optional[dict]) -> Optional[dict]:
         """Broadcast a batch (None: the stop) from the front. A broadcast

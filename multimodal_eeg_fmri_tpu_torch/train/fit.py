@@ -80,6 +80,7 @@ from torch import nn
 from torch.func import functional_call
 
 from multimodal_eeg_fmri_tpu_torch.core.config import TrainConfig
+from multimodal_eeg_fmri_tpu_torch.core.profiling import annotate
 from multimodal_eeg_fmri_tpu_torch.data.arrays import as_tensor
 from multimodal_eeg_fmri_tpu_torch.ops.losses import make_loss_fn
 from multimodal_eeg_fmri_tpu_torch.ops.moe import (
@@ -314,17 +315,18 @@ class TrainStep:
         ``batch``, in f32: the aux losses the MoE layers leave
         (``ops.moe``), None without one. Over a data axis each rank runs its
         rows, and the task loss is Σ w·l / Σ w over the whole batch."""
-        local = self.rows(batch)
-        with collect_aux_losses() as sink, self.sharded_forward():
-            out = self.forward(self.inputs(local))
-        task = self.loss_fn(out.logits, local["label"], class_weights,
-                            local.get("weight"))
-        if self.data_axis is not None:
-            w = self._eff_weight(local, class_weights).sum()
-            total = psum(torch.stack([task * w.clamp_min(1e-8), w]),
-                         self.data_axis, self.mesh)
-            task = total[0] / total[1].clamp_min(1e-8)
-        return task, total_aux_loss(sink)
+        with annotate("mmef/step/forward"):
+            local = self.rows(batch)
+            with collect_aux_losses() as sink, self.sharded_forward():
+                out = self.forward(self.inputs(local))
+            task = self.loss_fn(out.logits, local["label"], class_weights,
+                                local.get("weight"))
+            if self.data_axis is not None:
+                w = self._eff_weight(local, class_weights).sum()
+                total = psum(torch.stack([task * w.clamp_min(1e-8), w]),
+                             self.data_axis, self.mesh)
+                task = total[0] / total[1].clamp_min(1e-8)
+            return task, total_aux_loss(sink)
 
     def loss(self, batch: Tensors, class_weights=None) -> torch.Tensor:
         """The forward in train mode and the loss, task + Σ aux."""
@@ -354,7 +356,8 @@ class TrainStep:
         if self.accum == 1:
             loss = self.loss(batch, class_weights)
             if backward:
-                loss.backward()
+                with annotate("mmef/step/backward"):
+                    loss.backward()
             return loss.detach()
         k = self.accum
         micro = batch["label"].shape[0] // k
@@ -370,7 +373,8 @@ class TrainStep:
             if aux is not None:
                 loss = loss + aux / k
             if backward:
-                loss.backward()
+                with annotate("mmef/step/backward"):
+                    loss.backward()
             total = total + loss.detach()
         return total
 
@@ -395,15 +399,19 @@ class TrainStep:
                  lr: Optional[float] = None,
                  wd: Optional[float] = None) -> torch.Tensor:
         if self.augment is not None:
-            batch = self.augment(generator, batch)
+            with annotate("mmef/step/augment"):
+                batch = self.augment(generator, batch)
         loss = self.backward(batch, class_weights)
         if self.cfg.grad_clip and self.cfg.grad_clip > 0:
-            clip_by_global_norm_([p.grad for p in self.params],
-                                 self.cfg.grad_clip, self.grad_norm())
-        group = self.optimizer.param_groups[0]
-        group["lr"] = self.cfg.learning_rate if lr is None else lr
-        group["weight_decay"] = self.cfg.weight_decay if wd is None else wd
-        self.optimizer.step()
+            with annotate("mmef/step/clip"):
+                clip_by_global_norm_([p.grad for p in self.params],
+                                     self.cfg.grad_clip, self.grad_norm())
+        with annotate("mmef/step/optimizer"):
+            group = self.optimizer.param_groups[0]
+            group["lr"] = self.cfg.learning_rate if lr is None else lr
+            group["weight_decay"] = (self.cfg.weight_decay if wd is None
+                                     else wd)
+            self.optimizer.step()
         return loss
 
     @torch.no_grad()

@@ -18,7 +18,7 @@ from multimodal_eeg_fmri_tpu_torch import (
     init_weights,
     load_flax_variables,
 )
-from multimodal_eeg_fmri_tpu_torch.serving import RESERVED_KEYS
+from multimodal_eeg_fmri_tpu_torch.serving import RESERVED_KEYS, _pad_chunk
 
 NARROW = dict(eeg_hidden_dim=32, fmri_hidden_dim=16, bridge_dim=32,
               num_transformer_layers=1, num_heads=2)
@@ -100,9 +100,9 @@ def test_float64_inputs_serve_as_float32(models):
     assert 0 < stats["p50_ms"] <= stats["p95_ms"]
 
 
-def test_pad_repeats_row_zero(models):
-    pred = Predictor(models[2], batch_size=4)
-    chunks = pred._pad({"a": np.arange(6)[:, None]})
+def test_pad_repeats_row_zero():
+    a = {"a": np.arange(6)[:, None]}
+    chunks = [_pad_chunk(a, start, 4) for start in (0, 4)]
     assert [m for _, m in chunks] == [4, 2]
     np.testing.assert_array_equal(chunks[1][0]["a"][:, 0], [4, 5, 4, 4])
 
