@@ -2396,24 +2396,24 @@ def lc_fit(model, cfg, cohort: dict, val: dict, dev) -> tuple:
 
 def lc_aux_gate(model, batch: dict, cfg, cw) -> dict:
     """Gate f: a train-mode loss minus its task loss is 0.01 · Σ aux over
-    the blocks (each block's aux as ``top_k_routing`` returned it); an
+    the blocks (each block's aux as ``index_routing`` returned it); an
     eval forward leaves no aux loss."""
     from multimodal_eeg_fmri_tpu_torch.ops import moe
     from multimodal_eeg_fmri_tpu_torch.train.fit import TrainStep
 
     step = TrainStep(model, cfg)
-    raw, real = [], moe.top_k_routing
+    raw, real = [], moe.index_routing
 
     def recorded(*a):
         out = real(*a)
-        raw.append(out[2].item())
+        raw.append(out.aux.item())
         return out
 
-    moe.top_k_routing = recorded
+    moe.index_routing = recorded
     try:
         task, aux = step.losses(batch, cw)
     finally:
-        moe.top_k_routing = real
+        moe.index_routing = real
     loss = (task + aux).item()
     with torch.no_grad(), moe.collect_aux_losses() as sink:
         model.eval()(erp=batch["erp"])

@@ -26,7 +26,11 @@ from multimodal_eeg_fmri_tpu_torch.ops.losses import (
     mse_loss,
     weighted_cross_entropy,
 )
-from multimodal_eeg_fmri_tpu_torch.ops.moe import MoEFFN, top_k_routing
+from multimodal_eeg_fmri_tpu_torch.ops.moe import (
+    MoEFFN,
+    index_routing,
+    top_k_routing,
+)
 from multimodal_eeg_fmri_tpu_torch.ops.ring_attention import (
     ring_attention,
     ring_attention_local,
@@ -47,6 +51,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_lse",
     "focal_loss",
+    "index_routing",
     "kernel_launches",
     "label_smoothing_cross_entropy",
     "make_eeg_augment",

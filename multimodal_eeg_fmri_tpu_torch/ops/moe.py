@@ -1,12 +1,22 @@
-"""Mixture-of-Experts FFN (PyTorch), the dense GShard formulation.
+"""Mixture-of-Experts FFN (PyTorch): GShard's routing, moved by index.
 
 Counterpart of ``multimodal_eeg_fmri_tpu/ops/moe.py``: top-k routing with a
-static per-expert capacity, expressed as ``(tokens, experts, capacity)``
-dispatch and combine tensors, so that the layer is plain products: the
-dispatch, the two expert GEMMs and the combine, with no gather, no scatter
-and no data-dependent shape. The router runs in f32 whatever the compute
-dtype (its weight is upcast, as flax promotes a bf16 kernel against f32
-inputs); the expert products run in the input's dtype.
+static per-expert capacity. The JAX package expresses the routing as
+``(tokens, experts, capacity)`` one-hot dispatch and combine tensors and
+contracts them; the port computes the same function by index, in
+O(S·k·D) instead of O(S·E·C·D). ``index_routing`` gives each (token,
+choice) its expert, its place in that expert's queue, whether it is kept
+and its gate; the dispatch gathers the kept tokens' rows into the (E, C, D)
+expert buffer (an empty slot a row of zeros), the two expert GEMMs run on
+that buffer, and the combine gathers each (token, choice)'s output row and
+sums its k rows weighted by the gates. Each gather's gradient is the gather
+by the inverse map followed by the sum over k (``gather_rows``): nothing
+accumulates through atomics, so forward and backward are the same bits
+when repeated. ``top_k_routing`` still returns the dense tensors, built
+from ``index_routing``, for its callers and the parity tests; the layer
+builds none. The router runs in f32 whatever the compute dtype (its weight
+is upcast, as flax promotes a bf16 kernel against f32 inputs); the expert
+products run in the input's dtype.
 
 The Switch load-balance loss ``E · Σ_e f_e · p_e`` of each layer in
 training mode goes, scaled by ``aux_weight``, to the innermost open
@@ -25,8 +35,9 @@ in the queues from the counts before them, in the global (B, T) row-major
 order (on a ring the seq ranks interleave row by row). With ``expert_axis``
 each rank holds E/n experts (``parallel.expert`` shards ``w1``, ``b1``,
 ``w2``, ``b2``), computes its experts' outputs for its own tokens (which
-the expert axis replicates) and sums the outputs over the axis. E that does
-not divide the axis stays replicated, with one warning per shape.
+the expert axis replicates; the pairs routed to other ranks' experts take
+no slot here) and sums the outputs over the axis. E that does not divide
+the axis stays replicated, with one warning per shape.
 """
 
 from __future__ import annotations
@@ -35,10 +46,11 @@ import contextlib
 import contextvars
 import logging
 import math
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch._C import _functorch
 
 from multimodal_eeg_fmri_tpu_torch.core.profiling import annotate
 from multimodal_eeg_fmri_tpu_torch.parallel.collectives import (
@@ -144,19 +156,30 @@ def _queue_positions(choice: torch.Tensor, rows: int,
     return (local + offset[:, None]).view(S, k, E)
 
 
-def top_k_routing(router_logits: torch.Tensor, k: int, capacity: int,
-                  shards: Optional[Tuple[int, list]] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Top-k token→expert assignment with a static per-expert capacity.
+class Route(NamedTuple):
+    """``index_routing``'s result: per (token, choice), each (S, k), best
+    choice first, and the layer's aux loss."""
 
-    ``router_logits`` (S, E) f32. Returns ``(dispatch, combine, aux)``:
-    ``dispatch`` (S, E, C) 0/1, token s in slot c of expert e, first
-    choices placed before any second choice and tokens past an expert's
-    capacity dropped; ``combine`` the dispatch weighted by the gate (k = 1:
-    the raw router probability, the Switch gate; k ≥ 2: the top-k
-    probabilities renormalised); ``aux`` the Switch loss on the first
-    choices before capacity. Ties go to the lowest expert index, as
-    ``jax.lax.top_k`` breaks them.
+    expert: torch.Tensor    # int64, the chosen expert
+    pos: torch.Tensor       # int64, its place in that expert's queue
+    keep: torch.Tensor      # bool, pos < capacity
+    gate: torch.Tensor      # f32, the gate (dropped pairs' too)
+    aux: torch.Tensor       # (), the Switch loss on the first choices
+
+
+def index_routing(router_logits: torch.Tensor, k: int, capacity: int,
+                  shards: Optional[Tuple[int, list]] = None) -> Route:
+    """Top-k token→expert assignment with a static per-expert capacity,
+    by index.
+
+    ``router_logits`` (S, E) f32. Each token's k best experts (ties to the
+    lowest index, as ``jax.lax.top_k`` breaks them) queue choice-major:
+    every first choice before any second choice, tokens in order within a
+    choice, so that first choices win capacity over second choices; a
+    (token, choice) at a place ≥ ``capacity`` is dropped. The gate is the
+    raw router probability for k = 1 (the Switch gate), the top-k
+    probabilities renormalised for k ≥ 2; ``aux`` the Switch loss on the
+    first choices before capacity.
 
     ``shards`` = (rows, [(mesh, axis, "rows" | "time"), ...]): the logits
     are this rank's tokens of a batch sharded over those axes (rows rows of
@@ -169,36 +192,113 @@ def top_k_routing(router_logits: torch.Tensor, k: int, capacity: int,
     top_p, top_i = top_k_choices(probs, k)                  # (S, k)
     gates = top_p if k == 1 else top_p / top_p.sum(-1, keepdim=True)
 
-    choice = _one_hot(top_i, E)                              # (S, k, E)
     if shards is None:
-        # each (token, choice)'s place in its expert's queue, choice-major,
-        # so that first choices win capacity over second choices
-        flat = choice.transpose(0, 1).reshape(k * S, E)
-        pos_flat = torch.cumsum(flat, dim=0) - flat          # (k·S, E)
-        pos_e = pos_flat.reshape(k, S, E).transpose(0, 1)
-    else:
-        pos_e = _queue_positions(choice, *shards)
-    pos = (pos_e * choice).sum(-1).long()                    # (S, k)
-    keep = (pos < capacity).float()                          # (S, k)
-    slot = _one_hot(pos, capacity)                           # (S, k, C)
-    # Σ_k choice·slot·w with the weight folded into ``choice``: no
-    # (S, k, E, C) tensor; at most one k is nonzero for each (s, e, c)
-    dispatch = torch.einsum("ske,skc->sec", choice * keep[..., None], slot)
-    combine = torch.einsum("ske,skc->sec",
-                           choice * (keep * gates)[..., None], slot)
-
-    if shards is None:
-        f = choice[:, 0, :].mean(0)                          # (E,)
+        # (E, k·S) one-hot, choice-major along its contiguous axis: the
+        # exclusive scan runs along rows of k·S (whole numbers, exact in
+        # f32), not down 4 columns of a (k·S, E) tensor
+        order = top_i.t().reshape(1, k * S)
+        flat = (order == torch.arange(E, device=order.device)[:, None]
+                ).float()
+        queue = torch.cumsum(flat, dim=1) - flat             # (E, k·S)
+        pos = queue.gather(0, order).view(k, S).t().long()   # (S, k)
+        f = flat[:, :S].mean(1)                              # (E,)
         p = probs.mean(0)                                    # (E,)
     else:
-        sums = torch.stack([choice[:, 0, :].sum(0), probs.sum(0)])
+        choice = _one_hot(top_i, E)                          # (S, k, E)
+        pos = (_queue_positions(choice, *shards) * choice).sum(-1).long()
+        sums = torch.stack([choice[:, 0].sum(0), probs.sum(0)])
         n = S
         for mesh, a, _ in shards[1]:
             sums = psum(sums, a, mesh)
             n *= mesh.shape[a]
         f, p = sums[0] / n, sums[1] / n
     aux = E * (f * p).sum()
-    return dispatch, combine, aux
+    return Route(top_i, pos, pos < capacity, gates, aux)
+
+
+def top_k_routing(router_logits: torch.Tensor, k: int, capacity: int,
+                  shards: Optional[Tuple[int, list]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``index_routing`` as the JAX package's dense tensors.
+
+    Returns ``(dispatch, combine, aux)``: ``dispatch`` (S, E, C) 0/1,
+    token s in slot c of expert e; ``combine`` the dispatch weighted by the
+    gate; ``aux`` the Switch loss. ``MoEFFN`` moves its rows by index and
+    builds neither."""
+    route = index_routing(router_logits, k, capacity, shards)
+    choice = _one_hot(route.expert, router_logits.shape[1])  # (S, k, E)
+    slot = _one_hot(route.pos, capacity)                     # (S, k, C)
+    keep = route.keep.float()
+    # Σ_k choice·slot·w with the weight folded into ``choice``: no
+    # (S, k, E, C) tensor; at most one k is nonzero for each (s, e, c)
+    dispatch = torch.einsum("ske,skc->sec", choice * keep[..., None], slot)
+    combine = torch.einsum("ske,skc->sec",
+                           choice * (keep * route.gate)[..., None], slot)
+    return dispatch, combine, route.aux
+
+
+def slot_maps(route: Route, capacity: int, e0: int, held: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two maps between (token, choice) pairs and the slots of this
+    rank's experts [e0, e0 + held), C = ``capacity`` slots each:
+    ``slot`` (S·k,), the flat slot (e − e0)·C + pos of each pair, held·C
+    (the sentinel) where the pair is dropped or its expert is another
+    rank's; ``pair`` (held·C,), the pair s·k + j in each slot, S·k (the
+    sentinel) where the slot is empty. Each kept pair has a slot of its
+    own, so the map is built by assignment, not accumulation."""
+    S, k = route.expert.shape
+    n = held * capacity
+    local = route.expert - e0
+    mine = route.keep & (local >= 0) & (local < held)
+    slot = torch.where(mine, local * capacity + route.pos, n).reshape(S * k)
+    pairs = torch.arange(S * k, device=slot.device)
+    # the sentinel's extra entry takes every unplaced pair and is cut off
+    pair = torch.full((n + 1,), S * k, dtype=slot.dtype,
+                      device=slot.device).scatter(0, slot, pairs)[:n]
+    return slot, pair
+
+
+def _gather_rows_plain(src: torch.Tensor, index: torch.Tensor
+                       ) -> torch.Tensor:
+    """Rows ``index`` of ``src`` (N, D), a row of zeros for index N."""
+    return torch.nn.functional.pad(src, (0, 0, 0, 1)).index_select(0, index)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``gather_rows`` with its gradient by the inverse map: no
+    ``index_add_``, so no atomics."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(src, index, inverse):
+        return _gather_rows_plain(src, index)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[2])
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse, = ctx.saved_tensors
+        rows = _gather_rows_plain(grad, inverse.reshape(-1))
+        # Σ over the g readers of each row, in a fixed order
+        return rows.view(*inverse.shape, -1).sum(1), None, None
+
+
+def gather_rows(src: torch.Tensor, index: torch.Tensor,
+                inverse: torch.Tensor) -> torch.Tensor:
+    """(M, D) rows ``index`` (M,) of ``src`` (N, D), zeros where the index
+    is N. ``inverse`` (N, g) lists the g output rows that read each row of
+    ``src`` (M where fewer do): the gradient of ``src`` is the output's
+    gradient gathered by it and summed over g in a fixed order, so it is
+    the same bits on every run. Where no gradient is wanted it is the plain
+    gather (so that ``torch.export`` traces plain ATen ops)."""
+    # a vmapped tensor does not show whether the tensor it wraps needs grad
+    if torch.is_grad_enabled() and (
+            src.requires_grad or _functorch.is_functorch_wrapped_tensor(src)):
+        return _GatherRows.apply(src, index, inverse)
+    return _gather_rows_plain(src, index)
 
 
 class MoEFFN(nn.Module):
@@ -260,17 +360,22 @@ class MoEFFN(nn.Module):
             axes.append((self.mesh, self.seq_axis, "time"))
         return (rows, axes) if axes else None
 
-    def routing(self, x: torch.Tensor):
-        """``top_k_routing`` of the tokens of ``x`` (B, T, D), on the f32
-        router, over the whole batch where the tokens are sharded."""
-        S = x.shape[0] * x.shape[1]
+    def _routed_tokens(self, x: torch.Tensor):
+        """(shards, tokens of the whole batch) of ``x`` (B, T, D)."""
         shards = self._shards(x.shape[0])
-        total = S
+        total = x.shape[0] * x.shape[1]
         for mesh, a, _ in (shards[1] if shards else ()):
             total *= mesh.shape[a]
+        return shards, total
+
+    def routing(self, x: torch.Tensor) -> Route:
+        """``index_routing`` of the tokens of ``x`` (B, T, D), on the f32
+        router, over the whole batch where the tokens are sharded."""
+        S = x.shape[0] * x.shape[1]
+        shards, total = self._routed_tokens(x)
         logits = torch.nn.functional.linear(
             x.reshape(S, -1).float(), self.router.weight.float())
-        return top_k_routing(logits, min(self.top_k, self.num_experts),
+        return index_routing(logits, min(self.top_k, self.num_experts),
                              self.capacity(total), shards)
 
     def _local_experts(self) -> Tuple[int, int]:
@@ -293,28 +398,41 @@ class MoEFFN(nn.Module):
         return self.mesh.axis_index(self.expert_axis) * held, held
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._forward_held(x, *self._local_experts())
+
+    def _forward_held(self, x: torch.Tensor, e0: int, held: int
+                      ) -> torch.Tensor:
+        """The layer on ``x`` (B, T, D) where this rank's ``w1`` … ``b2``
+        hold experts [e0, e0 + held): route every token, move the pairs
+        routed to those experts by index, and with held < E sum the
+        outputs over the expert axis."""
         B, T, D = x.shape
+        S = B * T
         with annotate("mmef/moe/route"):
-            dispatch, combine, aux = self.routing(x)
+            route = self.routing(x)
         if self.training:
-            add_aux_loss(self.aux_weight * aux)
+            add_aux_loss(self.aux_weight * route.aux)
         dt = x.dtype
-        e0, held = self._local_experts()
-        if held < self.num_experts:
-            dispatch = dispatch[:, e0:e0 + held]
-            combine = combine[:, e0:e0 + held]
-        xs = x.reshape(B * T, D)
+        k = route.expert.shape[1]
+        C = self.capacity(self._routed_tokens(x)[1])
         with annotate("mmef/moe/dispatch"):
-            xe = torch.einsum("sec,sd->ecd", dispatch.to(dt), xs)  # (E, C, D)
+            slot, pair = slot_maps(route, C, e0, held)
+            # each slot's token (an empty slot's S·k → S, a row of zeros);
+            # each token's rows are its k pairs' slots
+            xe = gather_rows(x.reshape(S, D), pair // k,
+                             slot.view(S, k)).view(held, C, D)
         with annotate("mmef/moe/experts"):
             h = gelu(torch.einsum("ecd,edf->ecf", xe, self.w1)
                       + self.b1[:, None, :])
             ye = (torch.einsum("ecf,efd->ecd", h, self.w2)
                   + self.b2[:, None, :])
         with annotate("mmef/moe/combine"):
-            # combine rounds its gates to the compute dtype, as the JAX
-            # package's does
-            y = torch.einsum("sec,ecd->sd", combine.to(dt), ye)
+            yk = gather_rows(ye.reshape(held * C, D), slot,
+                             pair.view(held * C, 1)).view(S, k, D)
+            # the gates rounded to the compute dtype, as the JAX package's
+            # combine rounds them; the k products summed in f32
+            w = (route.keep * route.gate).to(dt)
+            y = (w.float()[..., None] * yk.float()).sum(1).to(dt)
             if held < self.num_experts:
                 y = psum(y, self.expert_axis, self.mesh)
         return y.reshape(B, T, D)

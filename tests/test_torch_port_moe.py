@@ -6,8 +6,12 @@ oracles; ``MoEFFN``, ``TransformerBlock(num_experts=4)`` and
 ``TriModalFusionNetV4(num_experts=4, moe_top_k=2)`` with the same seeded
 flax variables (``load_flax_variables``): the eval forward within 1e-5, and
 in training mode the loss with the sown aux losses and every gradient
-within 1e-4 of the largest; ``init_weights``' expert fan-in. Widths are
-narrow: D = 16-32, 4 experts, ff 32-64, T ≤ 32, one layer.
+within 1e-4 of the largest; ``init_weights``' expert fan-in. The layer's
+index route against the dense (S, E, C) products built from
+``top_k_routing`` (the dispatched rows bit for bit, the rest within 1e-6
+of the largest), with no dense tensor and no accumulation by index on its
+path, and under vmap, export and checkpoint. Widths are narrow: D =
+16-32, 4 experts, ff 32-64, T ≤ 32, one layer.
 """
 
 import copy
@@ -31,6 +35,7 @@ from multimodal_eeg_fmri_tpu_torch.models import eeg as t_eeg
 from multimodal_eeg_fmri_tpu_torch.models import layers as t_layers
 from multimodal_eeg_fmri_tpu_torch.ops import losses as t_losses
 from multimodal_eeg_fmri_tpu_torch.ops import moe as t_moe
+from multimodal_eeg_fmri_tpu_torch.parallel import Mesh
 
 # one torch thread per pytest-xdist worker: see test_torch_port_train.py
 torch.set_num_threads(1)
@@ -152,6 +157,177 @@ def test_capacity_is_the_jax_formula():
         moe = t_moe.MoEFFN(8, E, capacity_factor=cf, device="cpu")
         want = min(max(1, int(-(-S * cf // E))), S)
         assert moe.capacity(S) == want, (S, E, cf)
+
+
+# capacity factor, tied logits, (e0, held): the experts this rank holds
+INDEX_CASES = {
+    "roomy": (4.0, False, (0, 4)),
+    "tight": (0.5, False, (0, 4)),
+    "tied": (1.0, True, (0, 4)),
+    "slice": (1.0, False, (1, 2)),
+}
+INDEX_ATOL = 1e-6         # of the largest
+
+
+def _dense_route(layer, params, x, e0, held):
+    """The layer's output and aux loss on the dense route: the (S, E, C)
+    tensors of ``top_k_routing`` cut to experts [e0, e0 + held) and
+    contracted, then the expert stage as the layer runs it."""
+    B, T, D = x.shape
+    xs = x.reshape(B * T, D)
+    logits = torch.nn.functional.linear(xs, params["router.weight"])
+    dispatch, combine, aux = t_moe.top_k_routing(
+        logits, layer.top_k, layer.capacity(B * T))
+    dispatch = dispatch[:, e0:e0 + held]
+    combine = combine[:, e0:e0 + held]
+    xe = torch.einsum("sec,sd->ecd", dispatch, xs)
+    h = t_moe.gelu(torch.einsum("ecd,edf->ecf", xe, params["w1"])
+                   + params["b1"][:, None, :])
+    ye = (torch.einsum("ecf,efd->ecd", h, params["w2"])
+          + params["b2"][:, None, :])
+    y = torch.einsum("sec,ecd->sd", combine, ye)
+    return xe, y.reshape(B, T, D), layer.aux_weight * aux
+
+
+@pytest.mark.parametrize("case", sorted(INDEX_CASES))
+@pytest.mark.parametrize("k", [1, 2])
+def test_index_route_matches_the_dense_route(case, k, monkeypatch):
+    """``MoEFFN``'s index route against the dense (S, E, C) products built
+    here from ``top_k_routing``: 48 tokens over 4 experts, a roomy
+    capacity, a tight one that drops pairs, tied logits (experts 0 and 1,
+    2 and 3 score alike), and a rank holding experts 1-2 of 4 as expert
+    parallelism lays them out. The dispatched (E, C, D) rows bit for bit;
+    y, the aux loss and the gradients of x, the router, w1, b1, w2 and b2
+    within 1e-6 of their largest."""
+    cf, tied, (e0, held) = INDEX_CASES[case]
+    E, D = 4, 16
+    torch.manual_seed(k)
+    # a one-rank expert axis: its psum is the identity
+    one = Mesh(np.zeros((1,), np.int64), ("expert",))
+    layer = t_moe.MoEFFN(D, E, 32, top_k=k, capacity_factor=cf, mesh=one,
+                         expert_axis="expert", device="cpu").train()
+    with torch.no_grad():
+        layer.b1.normal_(0, 0.1)
+        layer.b2.normal_(0, 0.1)
+        if tied:
+            layer.router.weight[1] = layer.router.weight[0]
+            layer.router.weight[3] = layer.router.weight[2]
+        # this rank's experts, as ``parallel.expert`` shards them
+        for name in ("w1", "b1", "w2", "b2"):
+            setattr(layer, name, torch.nn.Parameter(
+                getattr(layer, name)[e0:e0 + held].clone()))
+    x = torch.from_numpy(_x(2, 24, D, seed=3)).requires_grad_()
+    g = torch.from_numpy(_x(2, 24, D, seed=4))
+    names = ("router.weight", "w1", "b1", "w2", "b2")
+
+    route = layer.routing(x.detach())
+    pairs = 48 * k
+    dropped = pairs - int(route.keep.sum())
+    assert dropped == 0 if case == "roomy" else dropped > 0, dropped
+    if tied:
+        logits = x.detach().reshape(48, D) @ layer.router.weight.T
+        assert torch.equal(logits[:, 0], logits[:, 1])
+        # the lower of two tied experts first, then its twin
+        assert (route.expert[:, 0] % 2 == 0).all()
+        if k == 2:
+            assert torch.equal(route.expert[:, 1], route.expert[:, 0] + 1)
+    if case == "slice":
+        mine = ((route.expert >= e0) & (route.expert < e0 + held)).sum()
+        assert 0 < int(mine) < pairs
+
+    rows = []
+
+    def recorded(*args):
+        rows.append(t_moe._gather_rows_plain(*args[:2]))
+        return real(*args)
+
+    real = t_moe.gather_rows
+    monkeypatch.setattr(t_moe, "gather_rows", recorded)
+    with t_moe.collect_aux_losses() as sink:
+        y = layer._forward_held(x, e0, held)
+    params = dict(layer.named_parameters())
+    got = torch.autograd.grad((y * g).sum() + sink[0],
+                              [x] + [params[n] for n in names])
+
+    xd = x.detach().clone().requires_grad_()
+    dense = {n: params[n].detach().clone().requires_grad_() for n in names}
+    xe, yd, aux = _dense_route(layer, dense, xd, e0, held)
+    want = torch.autograd.grad((yd * g).sum() + aux,
+                               [xd] + [dense[n] for n in names])
+
+    assert torch.equal(rows[0].view(held, -1, D), xe)
+    for name, a, b in [("y", y, yd), ("aux", sink[0], aux),
+                       *zip(("x",) + names, got, want)]:
+        limit = INDEX_ATOL * b.abs().max().item()
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   atol=limit, rtol=0, err_msg=name)
+
+
+def test_layer_builds_no_dense_routing(monkeypatch):
+    """A forward and backward of ``MoEFFN`` in training mode never calls
+    ``top_k_routing``, contracts no (S, E, C) tensor and accumulates
+    nothing by index (no ``index_add``, ``scatter_add`` or accumulating
+    ``index_put``: on a card these are atomics)."""
+    def refused(*args, **kwargs):
+        raise AssertionError("the layer built the dense routing")
+
+    monkeypatch.setattr(t_moe, "top_k_routing", refused)
+    seen, einsum = [], torch.einsum
+    monkeypatch.setattr(torch, "einsum",
+                        lambda eq, *ops: seen.append(eq) or einsum(eq, *ops))
+    layer = t_moe.MoEFFN(16, 4, 32, top_k=2, capacity_factor=1.0,
+                         device="cpu").train()
+    x = torch.from_numpy(_x(2, 24, 16, seed=5)).requires_grad_()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with t_moe.collect_aux_losses() as sink:
+            y = layer(x)
+        (y.square().sum() + sink[0]).backward()
+    assert sorted(set(seen)) == ["ecd,edf->ecf", "ecf,efd->ecd"]
+    ops = {e.key for e in prof.key_averages()}
+    assert "aten::index_select" in ops
+    assert not {o for o in ops if o.startswith(
+        ("aten::index_add", "aten::scatter_add", "aten::index_put",
+         "aten::_index_put"))}, ops
+    assert x.grad is not None and layer.w1.grad is not None
+
+
+def test_layer_runs_under_vmap_export_and_checkpoint():
+    """The index route's gradient (an ``autograd.Function``) under
+    ``torch.func.vmap`` over three members' stacked weights within 1e-6 of
+    a loop over the members; a ``torch.export`` program of an eval forward
+    and a ``torch.utils.checkpoint`` recomputation give the eager values."""
+    from torch.func import functional_call, grad, stack_module_state, vmap
+
+    torch.manual_seed(0)
+    members = [t_moe.MoEFFN(16, 4, 32, top_k=2, capacity_factor=1.0,
+                            device="cpu") for _ in range(3)]
+    x = torch.from_numpy(_x(2, 12, 16, seed=6))
+
+    def loss(params, x):
+        return functional_call(members[0], params, (x,)).square().sum()
+
+    params, _ = stack_module_state(members)
+    batched = vmap(grad(loss), in_dims=(0, None))(params, x)
+    for i in range(len(members)):
+        one = grad(loss)({n: t[i] for n, t in params.items()}, x)
+        for n in one:
+            # vmap batches the members' matmuls: 1e-6 of the largest
+            limit = 1e-6 * one[n].abs().max().item()
+            torch.testing.assert_close(batched[n][i], one[n], atol=limit,
+                                       rtol=0)
+
+    layer = members[0].eval()
+    with torch.no_grad():
+        program = torch.export.export(layer, (x,)).run_decompositions({})
+        torch.testing.assert_close(program.module()(x), layer(x), atol=0,
+                                   rtol=0)
+    layer.train()
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    torch.utils.checkpoint.checkpoint(layer, xs[0], use_reentrant=False
+                                      ).square().sum().backward()
+    layer(xs[1]).square().sum().backward()
+    torch.testing.assert_close(xs[0].grad, xs[1].grad, atol=0, rtol=0)
 
 
 def _grads_close(got: dict, want: dict):

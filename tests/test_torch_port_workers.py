@@ -428,13 +428,13 @@ def expert_cases(rank, world, fits, ring, capacity):
     gl = torch.from_numpy(global_batch_tree(plan, g))
     with batch_sharded(mesh, "data"):
         y = holder.moe(xl)
-        dispatch, _, _ = holder.moe.routing(xl.detach())
+        route = holder.moe.routing(xl.detach())
     loss = psum((y * gl).sum(), "data", mesh)
     loss.backward()
     grads = {"x": xl.grad, **{k: p.grad for k, p in
                               holder.named_parameters()}}
     reduce_grads_(grads, {**param_axes(holder), "x": ("data",)}, mesh)
-    kept = int(dispatch.sum().item())
+    kept = int(route.keep.sum().item())
     out["capacity"] = (y.detach(), grads, kept)
     return out, "jax" in sys.modules
 
